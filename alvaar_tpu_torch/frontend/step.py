@@ -1,0 +1,298 @@
+"""The per-frame SLAM step.
+
+Port of alvaar_tpu/frontend/step.py (the single-stream path):
+preprocess → motion prior → two-stage forward-backward KLT → [bootstrap |
+PnP] → keyframe decision → [keyframe pipeline] → status and reset.
+Where the JAX package compiles ``lax.cond``/``lax.switch`` branches into
+one program, the port runs eager torch and branches in Python on device
+scalars, each read through ``host_bool`` so a run can count its host
+syncs.  The bootstrap is the 8-point essential RANSAC only
+(``use_five_point`` and ``use_homography_init`` are not ported yet).
+
+Status codes: 1 = tracking, 2 = reset performed, 3 = initializing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from alvaar_tpu_torch.config import SlamConfig
+from alvaar_tpu_torch.geom.camera import Camera
+from alvaar_tpu_torch.geom.lie import SE3
+from alvaar_tpu_torch.ops.image import build_pyramid
+from alvaar_tpu_torch.ops.klt import fb_klt_track
+from alvaar_tpu_torch.ops.topk import top_k
+from alvaar_tpu_torch.solvers.absolute import p3p_lmeds
+from alvaar_tpu_torch.solvers.essential import essential_ransac
+from alvaar_tpu_torch.solvers.pnp import pnp_refine
+from alvaar_tpu_torch.worldmap.keyframe import create_keyframe, host_bool
+from alvaar_tpu_torch.worldmap.state import MapState, reset_map_state
+
+
+@dataclasses.dataclass
+class StepOutput:
+    status: torch.Tensor        # int: 1 tracking / 2 reset / 3 initializing
+    pose_wc: torch.Tensor       # [4, 4] T_wc
+    points: torch.Tensor        # [K, 2] tracked keypoint pixels
+    points_valid: torch.Tensor  # [K]
+    num_tracked: torch.Tensor
+    num_3d: torch.Tensor
+    is_keyframe: torch.Tensor
+
+
+def preprocess(gray, cfg: SlamConfig):
+    """Float32 pyramid of the gray frame (CLAHE is not ported yet)."""
+    return build_pyramid(gray.to(torch.float32), cfg.pyramid_levels)
+
+
+# ---------------------------------------------------------------------------
+# Tracking
+# ---------------------------------------------------------------------------
+
+def _track_keypoints(state: MapState, pyr_cur, pose_prior: SE3, cam: Camera,
+                     cfg: SlamConfig) -> MapState:
+    """Two-stage forward-backward KLT: 3D keypoints tracked at one level
+    from their motion-prior projections; failures and 2D keypoints retried
+    on the full pyramid from their previous positions."""
+    is3d = (state.kp_valid & state.lm_valid[state.kp_lm]
+            & state.lm_is3d[state.kp_lm])
+    proj = cam.project_dist(pose_prior.apply(state.lm_pos[state.kp_lm]))
+    prior_ok = is3d & cam.in_roi(proj, cfg.width, cfg.height, border=1)
+
+    klt_args = dict(win=cfg.klt_window, iters=cfg.klt_iters, eps=cfg.klt_eps,
+                    err_max=cfg.klt_err_max, fb_dist=cfg.klt_fb_dist)
+    L = cfg.track_base_level
+    sc = float(2 ** L)
+    pyr_p, pyr_c = state.prev_pyr[L:], pyr_cur[L:]
+    pts_t, proj_t = state.kp_px / sc, proj / sc
+    s1 = fb_klt_track(pyr_p, pyr_c, pts_t, proj_t, prior_ok,
+                      levels=cfg.klt_prior_levels, search_r=4, **klt_args)
+    stage2_mask = state.kp_valid & (~prior_ok | (prior_ok & ~s1.status))
+    s2_levels = max(1, cfg.pyramid_levels - L)
+    K = state.kp_px.shape[0]
+    cap = cfg.klt_stage2_slots
+    if cap is not None and cap < K and host_bool(torch.sum(stage2_mask) <= cap):
+        # compact the stage-2 candidates into [cap] slots; only the
+        # selected set matters (points are independent), and the stable
+        # sort takes the same set as the JAX package's top_k
+        _, idx = top_k(stage2_mask.to(torch.float32), cap)
+        sel_valid = stage2_mask[idx]
+        s2c = fb_klt_track(pyr_p, pyr_c, pts_t[idx], pts_t[idx], sel_valid,
+                           levels=s2_levels, **klt_args)
+        s2_xy = pts_t.clone()                 # in-place scatter on a copy
+        s2_xy[idx] = s2c.xy
+        s2_status = torch.zeros(K, dtype=torch.bool, device=pts_t.device)
+        s2_status[idx] = s2c.status & sel_valid
+    else:
+        s2 = fb_klt_track(pyr_p, pyr_c, pts_t, pts_t, stage2_mask,
+                          levels=s2_levels, **klt_args)
+        s2_xy, s2_status = s2.xy, s2.status
+
+    ok1 = prior_ok & s1.status
+    ok2 = stage2_mask & s2_status
+    kp_px = torch.where(ok1[:, None], s1.xy * sc,
+                        torch.where(ok2[:, None], s2_xy * sc, state.kp_px))
+    n_priors = torch.sum(prior_ok)
+    p3p_req = (n_priors > 0) & (torch.sum(ok1).to(torch.float32)
+                                < 0.33 * n_priors.to(torch.float32))
+    return state.replace(kp_px=kp_px, kp_und=cam.undistort(kp_px),
+                         kp_valid=ok1 | ok2, p3p_req=state.p3p_req | p3p_req)
+
+
+# ---------------------------------------------------------------------------
+# Pose estimation
+# ---------------------------------------------------------------------------
+
+def _compute_pose(state: MapState, cam: Camera, cfg: SlamConfig):
+    """P3P-LMedS recovery when requested, then motion-only PnP.
+    Returns (state, success)."""
+    is3d = (state.kp_valid & state.lm_valid[state.kp_lm]
+            & state.lm_is3d[state.kp_lm])
+    n3d = torch.sum(is3d)
+    pts_w = state.lm_pos[state.kp_lm]
+    do_p3p = state.p3p_req | (state.pose_failures > 0) if cfg.use_p3p else state.p3p_req
+
+    pose_init, pnp_mask = state.pose, is3d
+    p3p_ok = torch.ones((), dtype=torch.bool, device=is3d.device)
+    if host_bool(do_p3p):
+        r = p3p_lmeds(state.rng, cam.bearing(state.kp_und), pts_w, is3d,
+                      focal=cam.focal, iters=cfg.ransac_iters,
+                      err_px=cfg.ransac_err_px, min_inliers=cfg.p3p_min_inliers)
+        pose_init = SE3.where(r.success, r.pose, state.pose)
+        pnp_mask = torch.where(r.success, r.inliers, is3d)
+        p3p_ok = r.success
+
+    res = pnp_refine(pose_init, cam, pts_w, state.kp_und, pnp_mask,
+                     iters=cfg.pnp_iters, huber_delta=cfg.huber_thresh)
+    n_in = res.num_inliers
+    success = ((n3d >= 4) & p3p_ok & (n_in >= 5)
+               & (n_in.to(torch.float32) >= 0.5 * torch.sum(pnp_mask).to(torch.float32))
+               & torch.all(torch.isfinite(res.pose.t)))
+    failures = torch.where(success, 0, state.pose_failures + 1)
+    return state.replace(
+        pose=SE3.where(success, res.pose, state.pose),
+        kp_valid=torch.where(success, state.kp_valid & (res.inliers | ~is3d),
+                             state.kp_valid),
+        p3p_req=~success, pose_failures=failures,
+        reset_requested=state.reset_requested | (failures > cfg.max_pose_failures),
+    ), success
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+# ---------------------------------------------------------------------------
+
+def _parallax_vs_kf(state: MapState, cam: Camera, rotation_compensated: bool,
+                    median: bool):
+    """Parallax of the current keypoints vs the latest keyframe's
+    observations (by the stable-slot invariant).  Returns (value, count)."""
+    slot = state.cur_kf_slot
+    K = state.kp_lm.shape[0]
+    same = (state.kf_obs_lm[slot] == state.kp_lm) & state.kf_obs_valid[slot] & state.kp_valid
+    kf_px = state.kf_obs_px[slot]
+    cur_px = state.kp_und
+    if rotation_compensated:
+        T_kf = state.kf_pose[slot]
+        zero = torch.zeros_like(T_kf.t)
+        R_rel = SE3(T_kf.q, zero).compose(SE3(state.pose.q, zero).inverse())
+        cur_px = cam.project(R_rel.rotate(cam.bearing(cur_px)))
+    d = torch.linalg.norm(cur_px - kf_px, dim=-1)
+    n = torch.sum(same)
+    if median:
+        srt = torch.sort(torch.where(same, d, torch.inf)).values
+        val = srt[torch.clamp(n // 2, 0, K - 1)]
+        return torch.where(n > 0, val, 0.0), n
+    avg = torch.sum(torch.where(same, d, 0.0)) / torch.clamp_min(n, 1)
+    return torch.where(n > 0, avg, 0.0), n
+
+
+def _init_gate(state: MapState, cam: Camera, cfg: SlamConfig):
+    """Bootstrap readiness: enough rotation-compensated parallax."""
+    par, n_common = _parallax_vs_kf(state, cam, rotation_compensated=True,
+                                    median=False)
+    return (par >= cfg.init_parallax_px) & (n_common >= 8)
+
+
+def _try_essential(state: MapState, cam: Camera, cfg: SlamConfig):
+    """8-point essential bootstrap against the latest keyframe.
+    Returns (state, became_ready)."""
+    slot = state.cur_kf_slot
+    same = (state.kf_obs_lm[slot] == state.kp_lm) & state.kf_obs_valid[slot] & state.kp_valid
+    r = essential_ransac(state.rng, cam.bearing(state.kf_obs_px[slot]),
+                         cam.bearing(state.kp_und), same, focal=cam.focal,
+                         iters=cfg.ransac_iters, err_px=cfg.ransac_err_px,
+                         min_inliers=cfg.init_min_inliers)
+    # r.pose is T_kf_cur = T_wc of the current frame (kf0 at identity)
+    return state.replace(
+        pose=SE3.where(r.success, r.pose.inverse(), state.pose),
+        kp_valid=torch.where(r.success, state.kp_valid & (r.inliers | ~same),
+                             state.kp_valid),
+        ready_for_init=state.ready_for_init | r.success), r.success
+
+
+def _attempt_init(state: MapState, cam: Camera, cfg: SlamConfig):
+    """Gate, then the essential bootstrap when it passes."""
+    if host_bool(_init_gate(state, cam, cfg)):
+        return _try_essential(state, cam, cfg)
+    return state, torch.zeros((), dtype=torch.bool, device=state.kp_px.device)
+
+
+# ---------------------------------------------------------------------------
+# Keyframe policy
+# ---------------------------------------------------------------------------
+
+def _keyframe_required(state: MapState, cam: Camera, cfg: SlamConfig):
+    slot = state.cur_kf_slot
+    med_rot_par, _ = _parallax_vs_kf(state, cam, rotation_compensated=True,
+                                     median=True)
+    id_diff = state.frame_id - state.last_kf_frame_id
+    n_occupied = torch.sum(state.kp_valid)
+    n3d = torch.sum(state.kp_valid & state.lm_is3d[state.kp_lm]
+                    & state.lm_valid[state.kp_lm])
+    kf_lm = state.kf_obs_lm[slot]
+    kf_n3d = torch.sum(state.kf_obs_valid[slot] & state.lm_is3d[kf_lm]
+                       & state.lm_valid[kf_lm])
+    max_kps = cfg.max_keypoints
+    c_occ = (id_diff >= 5) & (n_occupied < 0.33 * max_kps)
+    c_low3d = (id_diff >= 2) & (n3d < 20)
+    c_fresh = (id_diff < 2) & (n3d > 0.5 * max_kps)
+    kf_par = cfg.kf_parallax_px if cfg.kf_parallax_px is not None else cfg.init_parallax_px
+    cx = med_rot_par >= kf_par / 2.0
+    c0 = med_rot_par >= kf_par
+    c1 = n3d < 0.75 * kf_n3d
+    c2 = (n_occupied < 0.5 * max_kps) & (n3d < 0.85 * kf_n3d)
+    return c_occ | c_low3d | (~c_fresh & ((c0 | c1 | c2) & cx))
+
+
+# ---------------------------------------------------------------------------
+# The step
+# ---------------------------------------------------------------------------
+
+def track_phase(state: MapState, gray, cam: Camera, cfg: SlamConfig, dt=1.0):
+    """Per-frame work without the keyframe pipeline.  Returns (state,
+    keyframe required).  The current pyramid is left in ``prev_pyr``."""
+    pyr_cur = preprocess(gray, cfg)
+    dt = max(float(dt), 1e-6)
+    dev = state.kp_px.device
+
+    is_first = host_bool(state.frame_id == 0)
+    in_tracking = (not is_first) and host_bool(state.ready_for_init)
+    prev_pose = state.pose
+    if in_tracking:
+        # constant-velocity prior: T_cw_prior = Exp(-vel·dt) ∘ T_cw
+        pose_prior = SE3.exp(-state.vel * dt).compose(state.pose)
+    else:
+        pose_prior = state.pose
+    state = _track_keypoints(state, pyr_cur, pose_prior, cam, cfg)
+
+    if is_first:
+        state = state.replace(pose=SE3.identity(dtype=state.kp_px.dtype, device=dev))
+        kf_required = torch.ones((), dtype=torch.bool, device=dev)
+    elif not in_tracking:
+        n2d = torch.sum(state.kp_valid)
+        state = state.replace(reset_requested=state.reset_requested
+                              | (n2d < cfg.min_init_keypoints))
+        state, kf_required = _attempt_init(state, cam, cfg)
+    else:
+        state = state.replace(pose=pose_prior)
+        state, success = _compute_pose(state, cam, cfg)
+        new_vel = prev_pose.compose(state.pose.inverse()).log() / dt
+        state = state.replace(vel=torch.where(success, new_vel, state.vel))
+        kf_required = _keyframe_required(state, cam, cfg) & success
+    state = state.replace(prev_pyr=pyr_cur)
+    return state, kf_required & ~state.reset_requested
+
+
+def keyframe_phase(state: MapState, cam: Camera, cfg: SlamConfig) -> MapState:
+    """The keyframe pipeline on the frame held in ``state.prev_pyr``."""
+    return create_keyframe(state, state.prev_pyr, cam, cfg)
+
+
+def finalize_phase(state: MapState, kf_created, cfg: SlamConfig):
+    """Status, output marshalling and the reset."""
+    status = torch.where(state.reset_requested, 2,
+                         torch.where(state.ready_for_init, 1, 3))
+    n3d = torch.sum(state.kp_valid & state.lm_is3d[state.kp_lm]
+                    & state.lm_valid[state.kp_lm])
+    out = StepOutput(status=status, pose_wc=state.pose.inverse().matrix(),
+                     points=state.kp_und, points_valid=state.kp_valid,
+                     num_tracked=torch.sum(state.kp_valid), num_3d=n3d,
+                     is_keyframe=kf_created & ~state.reset_requested)
+    reset = host_bool(state.reset_requested)
+    if reset:
+        state = reset_map_state(state, cfg)
+    return state.replace(frame_id=torch.zeros_like(state.frame_id) if reset
+                         else state.frame_id + 1), out
+
+
+def slam_step(state: MapState, gray, cam: Camera, cfg: SlamConfig,
+              dt=1.0) -> tuple[MapState, StepOutput]:
+    """Process one grayscale frame; returns the new state and outputs.
+    ``dt`` is the time since the previous frame (1.0 per frame when the
+    caller has no timestamps)."""
+    state, kf_req = track_phase(state, gray, cam, cfg, dt)
+    if host_bool(kf_req):
+        state = keyframe_phase(state, cam, cfg)
+    return finalize_phase(state, kf_req, cfg)

@@ -1,0 +1,238 @@
+"""The SLAM map as one fixed-shape set of device tensors.
+
+Port of alvaar_tpu/worldmap/state.py.  The current frame's keypoints are
+[K] slots bound to landmark pool ids, the keyframe window is a [W] ring
+with [W, K] observation tables, and the landmark pool is [L] slots with
+validity masks and an [L, W] observation incidence.  Nothing is
+allocated or freed while tracking: removal flips masks, creation claims
+free slots.
+
+Differences from the JAX package:
+
+* ``MapState`` is a dataclass; ``replace`` returns a shallow copy with
+  some fields swapped (the JAX ``_replace``).
+* Descriptors (``lm_desc``, ``lm_desc_bag``) are int32 tensors holding the
+  uint32 bits (torch's uint32 supports few operations).
+* The JAX PRNG key becomes ``rng``, a ``torch.Generator`` on the state's
+  device seeded from ``cfg.seed``; its draws differ from threefry's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from alvaar_tpu_torch.config import SlamConfig
+from alvaar_tpu_torch.geom.lie import SE3
+
+
+@dataclasses.dataclass
+class MapState:
+    # ---- current frame ----
+    pose: SE3                  # T_cw of the current frame
+    kp_px: torch.Tensor        # [K, 2] raw (distorted) pixels
+    kp_und: torch.Tensor       # [K, 2] undistorted pixels
+    kp_lm: torch.Tensor        # [K] int64 landmark slot per keypoint
+    kp_valid: torch.Tensor     # [K] bool
+    prev_pyr: Tuple[torch.Tensor, ...]  # previous frame pyramid
+    # ---- keyframe ring [W] ----
+    kf_pose: SE3               # [W] T_cw
+    kf_valid: torch.Tensor     # [W] bool
+    kf_id: torch.Tensor        # [W] int64 (-1 empty)
+    kf_obs_lm: torch.Tensor    # [W, K] int64
+    kf_obs_px: torch.Tensor    # [W, K, 2] undistorted
+    kf_obs_valid: torch.Tensor  # [W, K] bool
+    # ---- landmark pool [L] ----
+    lm_pos: torch.Tensor       # [L, 3]
+    lm_anchor: torch.Tensor    # [L] int64 anchor ring slot
+    lm_mxy: torch.Tensor       # [L, 2]
+    lm_invd: torch.Tensor      # [L]
+    lm_valid: torch.Tensor     # [L] bool
+    lm_is3d: torch.Tensor      # [L] bool
+    lm_obs: torch.Tensor       # [L, W] bool
+    lm_desc: torch.Tensor      # [L, 8] int32 (uint32 bits)
+    lm_desc_bag: torch.Tensor  # [L, G, 8] int32 (uint32 bits)
+    lm_desc_cnt: torch.Tensor  # [L] int64
+    lm_color: torch.Tensor     # [L] float32
+    # ---- motion model ----
+    vel: torch.Tensor          # [6]
+    # ---- bookkeeping scalars (0-d tensors on the device) ----
+    frame_id: torch.Tensor
+    next_kf_id: torch.Tensor
+    cur_kf_slot: torch.Tensor
+    last_kf_frame_id: torch.Tensor
+    ready_for_init: torch.Tensor
+    pose_failures: torch.Tensor
+    reset_requested: torch.Tensor
+    p3p_req: torch.Tensor
+    kf_pending: torch.Tensor
+    detect_quality: torch.Tensor
+    rng: torch.Generator
+
+    def replace(self, **changes) -> "MapState":
+        return dataclasses.replace(self, **changes)
+
+    def tensors(self):
+        """(name, tensor) for every tensor field, SE3 and pyramid included."""
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, SE3):
+                yield f.name + ".q", v.q
+                yield f.name + ".t", v.t
+            elif isinstance(v, tuple):
+                for i, level in enumerate(v):
+                    yield f"{f.name}.{i}", level
+            elif isinstance(v, torch.Tensor):
+                yield f.name, v
+
+
+_INT = torch.int64
+
+
+def _new_generator(device, seed: int) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen
+
+
+def init_map_state(cfg: SlamConfig, device="cpu", dtype=torch.float32,
+                   rng: torch.Generator | None = None) -> MapState:
+    K, W, L = cfg.max_keypoints, cfg.window_size, cfg.max_landmarks
+    dev = torch.device(device)
+    z = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=dev)
+    s = lambda v, dt: torch.tensor(v, dtype=dt, device=dev)
+    return MapState(
+        pose=SE3.identity(dtype=dtype, device=dev),
+        kp_px=z(K, 2), kp_und=z(K, 2), kp_lm=z(K, dt=_INT),
+        kp_valid=z(K, dt=torch.bool),
+        prev_pyr=tuple(z(*shape) for shape in cfg.pyr_shapes),
+        kf_pose=SE3.identity((W,), dtype, dev),
+        kf_valid=z(W, dt=torch.bool),
+        kf_id=torch.full((W,), -1, dtype=_INT, device=dev),
+        kf_obs_lm=z(W, K, dt=_INT), kf_obs_px=z(W, K, 2),
+        kf_obs_valid=z(W, K, dt=torch.bool),
+        lm_pos=z(L, 3), lm_anchor=z(L, dt=_INT), lm_mxy=z(L, 2),
+        lm_invd=torch.ones(L, dtype=dtype, device=dev),
+        lm_valid=z(L, dt=torch.bool), lm_is3d=z(L, dt=torch.bool),
+        lm_obs=z(L, W, dt=torch.bool),
+        lm_desc=z(L, 8, dt=torch.int32),
+        lm_desc_bag=z(L, cfg.desc_bag_size, 8, dt=torch.int32),
+        lm_desc_cnt=z(L, dt=_INT), lm_color=z(L),
+        vel=z(6),
+        frame_id=s(0, _INT), next_kf_id=s(0, _INT), cur_kf_slot=s(0, _INT),
+        last_kf_frame_id=s(0, _INT), ready_for_init=s(False, torch.bool),
+        pose_failures=s(0, _INT), reset_requested=s(False, torch.bool),
+        p3p_req=s(False, torch.bool), kf_pending=s(False, torch.bool),
+        detect_quality=s(cfg.detector_quality, torch.float32),
+        rng=rng if rng is not None else _new_generator(dev, cfg.seed),
+    )
+
+
+def reset_map_state(state: MapState, cfg: SlamConfig) -> MapState:
+    """Full reset keeping only the random stream and the adapted detector
+    threshold."""
+    fresh = init_map_state(cfg, state.kp_px.device, state.kp_px.dtype, state.rng)
+    return fresh.replace(detect_quality=state.detect_quality)
+
+
+# ---------------------------------------------------------------------------
+# Carried state: numpy dict <-> MapState
+# ---------------------------------------------------------------------------
+
+_DESC_FIELDS = ("lm_desc", "lm_desc_bag")
+
+
+def map_state_to_numpy(state: MapState) -> dict:
+    """MapState → {name: ndarray}.  Keys are the field names, ``pose.q``/
+    ``pose.t`` and ``kf_pose.q``/``kf_pose.t`` for the poses, and
+    ``prev_pyr.<level>`` for the pyramid.  Descriptors come back as uint32
+    and integer fields as int32, as in the JAX package's state; the random
+    stream is saved as ``rng_state`` (the generator's own state bytes)."""
+    out = {}
+    for name, t in state.tensors():
+        a = t.detach().cpu().numpy()
+        if name in _DESC_FIELDS:
+            a = a.view(np.uint32)
+        elif a.dtype == np.int64:
+            a = a.astype(np.int32)
+        out[name] = a
+    out["rng_state"] = state.rng.get_state().numpy()
+    return out
+
+
+def map_state_from_numpy(d: dict, cfg: SlamConfig, device="cpu") -> MapState:
+    """{name: ndarray} (as written by :func:`map_state_to_numpy`, or built
+    from a JAX MapState with ``np.asarray``) → MapState on ``device``.
+
+    The random stream: ``rng_state`` restores a port generator exactly; a
+    JAX ``rng_key`` [2] uint32 becomes the seed ``key[0] << 32 | key[1]`` of
+    a fresh generator (the JAX key cannot be carried over bit for bit)."""
+    state = init_map_state(cfg, device)
+    dev = torch.device(device)
+    changes = {}
+    for name, ref in state.tensors():
+        a = np.asarray(d[name])
+        if name in _DESC_FIELDS:
+            a = np.ascontiguousarray(a).view(np.int32)
+        t = torch.as_tensor(np.array(a), device=dev).to(ref.dtype)
+        if tuple(t.shape) != tuple(ref.shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(ref.shape)}")
+        changes[name] = t
+    for se3 in ("pose", "kf_pose"):
+        changes[se3] = SE3(changes.pop(se3 + ".q"), changes.pop(se3 + ".t"))
+    n_lvl = len(state.prev_pyr)
+    changes["prev_pyr"] = tuple(changes.pop(f"prev_pyr.{i}") for i in range(n_lvl))
+    if "rng_state" in d:
+        state.rng.set_state(torch.as_tensor(np.asarray(d["rng_state"], np.uint8)))
+    else:
+        key = np.asarray(d["rng_key"]).astype(np.uint64)
+        state.rng.manual_seed(int(key[0]) << 32 | int(key[1]))
+    return state.replace(**changes)
+
+
+# ---------------------------------------------------------------------------
+# Derived quantities
+# ---------------------------------------------------------------------------
+
+def covisibility(state: MapState):
+    """[W, W] shared-3D-observation counts (one matmul over the incidence)."""
+    f = (state.lm_obs & (state.lm_valid & state.lm_is3d)[:, None]).to(torch.float32)
+    return (f.T @ f).to(_INT)
+
+
+def landmark_world_positions(kf_pose: SE3, lm_anchor, lm_mxy, lm_invd):
+    """[L, 3] world positions from the anchored inverse-depth parameters."""
+    T_a = kf_pose[lm_anchor]
+    invd_safe = torch.where(torch.abs(lm_invd) < 1e-9, 1e-9, lm_invd)
+    X_a = torch.cat([lm_mxy, torch.ones_like(lm_invd)[:, None]], dim=-1) / invd_safe[:, None]
+    return T_a.inverse().apply(X_a)
+
+
+def masked_scatter_set(arr, idx, values, mask):
+    """``arr[idx[i]] = values[i]`` only where ``mask[i]``; returns a new
+    tensor.  Masked-out rows go to a padded dummy row, so stale indices
+    never collide with live writes (``index_put_`` with colliding indices
+    is nondeterministic on CUDA)."""
+    n = arr.shape[0]
+    pad = torch.cat([arr, torch.zeros_like(arr[:1])], dim=0)
+    safe_idx = torch.where(mask, idx, n)
+    pad[safe_idx] = values.to(arr.dtype)
+    return pad[:n]
+
+
+def allocate_slots(valid_mask, want_mask):
+    """Claim distinct free slots in a fixed pool for the wanted requests.
+    Returns (slot_idx [N], granted [N])."""
+    n = want_mask.shape[0]
+    L = valid_mask.shape[0]
+    free_score = torch.where(valid_mask, -torch.inf,
+                             -torch.arange(L, dtype=torch.float32,
+                                           device=valid_mask.device))
+    free_slots = torch.topk(free_score, n).indices     # scores are distinct
+    num_free = torch.sum(~valid_mask)
+    rank = torch.cumsum(want_mask.to(_INT), dim=0) - 1
+    granted = want_mask & (rank < num_free) & (rank < n)
+    return free_slots[rank.clamp(0, n - 1)], granted
