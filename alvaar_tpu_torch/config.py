@@ -5,11 +5,9 @@ Same fields, same defaults, same presets as the JAX package's frozen
 thing on both sides.  It is duplicated rather than imported because
 importing anything under ``alvaar_tpu`` pulls in JAX.
 
-Fields that the port does not run yet (``use_five_point``,
-``use_homography_init``, ``use_clahe``) are kept for parity; ``AlvaAR``
-refuses a configuration that turns them on.  ``use_pallas`` is kept for
-field parity only: in the port the KLT path follows the tensor's device
-alone (the CUDA kernel for CUDA tensors, the plain twin for CPU tensors).
+``use_pallas`` is kept for field parity only: in the port the KLT path
+follows the tensor's device alone (the CUDA kernel for CUDA tensors, the
+plain twin for CPU tensors).
 """
 
 from __future__ import annotations

@@ -6,8 +6,9 @@ PnP] → keyframe decision → [keyframe pipeline] → status and reset.
 Where the JAX package compiles ``lax.cond``/``lax.switch`` branches into
 one program, the port runs eager torch and branches in Python on device
 scalars, each read through ``host_bool`` so a run can count its host
-syncs.  The bootstrap is the 8-point essential RANSAC only
-(``use_five_point`` and ``use_homography_init`` are not ported yet).
+syncs.  The bootstrap runs the 5-point (or 8-point) essential RANSAC and,
+with ``use_homography_init``, the homography RANSAC, and keeps the model
+with more inliers by a select, not a branch.
 
 Status codes: 1 = tracking, 2 = reset performed, 3 = initializing.
 """
@@ -21,11 +22,13 @@ import torch
 from alvaar_tpu_torch.config import SlamConfig
 from alvaar_tpu_torch.geom.camera import Camera
 from alvaar_tpu_torch.geom.lie import SE3
-from alvaar_tpu_torch.ops.image import build_pyramid
+from alvaar_tpu_torch.ops.image import build_pyramid, clahe
 from alvaar_tpu_torch.ops.klt import fb_klt_track
 from alvaar_tpu_torch.ops.topk import top_k
 from alvaar_tpu_torch.solvers.absolute import p3p_lmeds
-from alvaar_tpu_torch.solvers.essential import essential_ransac
+from alvaar_tpu_torch.solvers.essential import RelativePoseResult, essential_ransac
+from alvaar_tpu_torch.solvers.fivept import essential_ransac_5pt
+from alvaar_tpu_torch.solvers.homography import homography_ransac
 from alvaar_tpu_torch.solvers.pnp import pnp_refine
 from alvaar_tpu_torch.worldmap.keyframe import create_keyframe, host_bool
 from alvaar_tpu_torch.worldmap.state import MapState, reset_map_state
@@ -43,8 +46,11 @@ class StepOutput:
 
 
 def preprocess(gray, cfg: SlamConfig):
-    """Float32 pyramid of the gray frame (CLAHE is not ported yet)."""
-    return build_pyramid(gray.to(torch.float32), cfg.pyramid_levels)
+    """Optional CLAHE, then the float32 pyramid of the gray frame."""
+    img = gray.to(torch.float32)
+    if cfg.use_clahe:
+        img = clahe(img, clip=cfg.clahe_clip)
+    return build_pyramid(img, cfg.pyramid_levels)
 
 
 # ---------------------------------------------------------------------------
@@ -175,21 +181,36 @@ def _init_gate(state: MapState, cam: Camera, cfg: SlamConfig):
     return (par >= cfg.init_parallax_px) & (n_common >= 8)
 
 
-def _try_essential(state: MapState, cam: Camera, cfg: SlamConfig):
-    """8-point essential bootstrap against the latest keyframe.
+def _try_essential(state: MapState, cam: Camera, cfg: SlamConfig, samples=None):
+    """Bootstrap against the latest keyframe: the 5-point (or 8-point)
+    essential RANSAC, then with ``use_homography_init`` the homography
+    RANSAC, keeping the homography where it succeeds with more inliers.
+    Both draw from ``state.rng``; ``samples`` = (essential draw,
+    homography draw) replaces them.  ``_try_essential.last_use_h`` holds
+    the latest choice (a device bool) for diagnostics.
     Returns (state, became_ready)."""
     slot = state.cur_kf_slot
     same = (state.kf_obs_lm[slot] == state.kp_lm) & state.kf_obs_valid[slot] & state.kp_valid
-    r = essential_ransac(state.rng, cam.bearing(state.kf_obs_px[slot]),
-                         cam.bearing(state.kp_und), same, focal=cam.focal,
-                         iters=cfg.ransac_iters, err_px=cfg.ransac_err_px,
-                         min_inliers=cfg.init_min_inliers)
+    f_kf, f_cur = cam.bearing(state.kf_obs_px[slot]), cam.bearing(state.kp_und)
+    s_e, s_h = samples if samples is not None else (None, None)
+    solver = essential_ransac_5pt if cfg.use_five_point else essential_ransac
+    args = dict(focal=cam.focal, iters=cfg.ransac_iters, err_px=cfg.ransac_err_px,
+                min_inliers=cfg.init_min_inliers)
+    r = solver(state.rng, f_kf, f_cur, same, samples=s_e, **args)
+    if cfg.use_homography_init:
+        rh, _ = homography_ransac(state.rng, f_kf, f_cur, same, samples=s_h, **args)
+        use_h = rh.success & (rh.num_inliers > r.num_inliers)
+        r = RelativePoseResult.where(use_h, rh, r)
+        _try_essential.last_use_h = use_h
     # r.pose is T_kf_cur = T_wc of the current frame (kf0 at identity)
     return state.replace(
         pose=SE3.where(r.success, r.pose.inverse(), state.pose),
         kp_valid=torch.where(r.success, state.kp_valid & (r.inliers | ~same),
                              state.kp_valid),
         ready_for_init=state.ready_for_init | r.success), r.success
+
+
+_try_essential.last_use_h = None
 
 
 def _attempt_init(state: MapState, cam: Camera, cfg: SlamConfig):

@@ -4,6 +4,11 @@ Port of alvaar_tpu/ops/hamming.py (``hamming_matrix_popcount``,
 ``hamming_rowwise``, ``hamming_min_crossbag``, ``best_two``).  Torch has
 no popcount op, so XOR words are viewed as bytes and counted through a
 256-entry table.  Descriptor words are int32 tensors holding uint32 bits.
+
+The table widens every byte to int64; for the loop database's
+[queries × tens of thousands] passes, ``hamming_matrix_chunked`` counts
+bits by SWAR arithmetic in int32 and takes the database axis a chunk at a
+time, so its temporaries stay a few tens of MB.
 """
 
 from __future__ import annotations
@@ -26,6 +31,25 @@ def popcount_words(x):
 def hamming_matrix(a, b):
     """[N, 8] x [M, 8] → [N, M] int32 Hamming distances."""
     return popcount_words(a[:, None, :] ^ b[None, :, :])
+
+
+def popcount_swar(x):
+    """[..., 8] int32 words → [...] int32 count of set bits, by SWAR on
+    each word's two 16-bit halves: every intermediate stays non-negative,
+    so int32 arithmetic shifts behave as logical ones."""
+    h = torch.stack([x & 0xFFFF, (x >> 16) & 0xFFFF], dim=-1)
+    h = h - ((h >> 1) & 0x5555)
+    h = (h & 0x3333) + ((h >> 2) & 0x3333)
+    h = (h + (h >> 4)) & 0x0F0F
+    h = (h + (h >> 8)) & 0x001F
+    return h.sum(dim=(-2, -1), dtype=torch.int32)
+
+
+def hamming_matrix_chunked(a, b, chunk: int = 2048):
+    """[N, 8] x [M, 8] → [N, M] int32, equal to ``hamming_matrix``; the M
+    axis is taken ``chunk`` rows at a time."""
+    return torch.cat([popcount_swar(a[:, None, :] ^ b[None, lo:lo + chunk, :])
+                      for lo in range(0, b.shape[0], chunk)], dim=1)
 
 
 def hamming_rowwise(a, b):

@@ -1,11 +1,14 @@
-"""Image preprocessing ops: grayscale, separable stencils, pyramid, patches.
+"""Image preprocessing ops: grayscale, separable stencils, pyramid, CLAHE,
+patches.
 
 Port of alvaar_tpu/ops/image.py.  Images are float32 ``[H, W]`` in the
 0..255 range.  The stencils are shift-adds in the same tap order as the
 JAX package's ``_sep_conv``, not cuDNN convolutions (which would run in
 TF32 on the card by default).  Patch extraction is a direct gather: the
 JAX package's one-hot matmul is exact, so the gather returns the same
-values.
+values.  CLAHE counts its per-tile histograms with ``scatter_add_``
+where the JAX package sums a one-hot tensor; the counts are exact
+integers either way.
 """
 
 from __future__ import annotations
@@ -70,6 +73,43 @@ def sobel_gradients(img):
     e = xp[2:h + 2] - xp[0:h]                                    # [h, w+2]
     dy = e[:, 0:w] + 2.0 * e[:, 1:w + 1] + e[:, 2:w + 2]
     return dx, dy
+
+
+def clahe(img, clip: float = 3.0, tiles: int = 8):
+    """Contrast-limited adaptive histogram equalization of [H, W] float32
+    0..255: per-tile 256-bin histograms, clip and redistribute, per-tile
+    CDF lookup tables, then bilinear interpolation between the four
+    nearest tiles' tables.  H and W must be divisible by ``tiles``."""
+    h, w = img.shape
+    th, tw = h // tiles, w // tiles
+    dev = img.device
+    x = img.reshape(tiles, th, tiles, tw).permute(0, 2, 1, 3).reshape(tiles * tiles, th * tw)
+    q = torch.clamp(torch.round(x), 0, 255).to(torch.int64)          # [T, P]
+    hist = torch.zeros(tiles * tiles, 256, dtype=torch.float32, device=dev)
+    hist.scatter_add_(1, q, torch.ones_like(x, dtype=torch.float32))
+
+    clip_limit = max(clip * (th * tw) / 256.0, 1.0)
+    excess = torch.clamp_min(hist - clip_limit, 0.0).sum(dim=-1, keepdim=True)
+    hist = torch.clamp_max(hist, clip_limit) + excess / 256.0
+    cdf = torch.cumsum(hist, dim=-1)
+    cdf = (cdf - cdf[..., :1]) / (cdf[..., -1:] - cdf[..., :1]).clamp_min(1.0) * 255.0
+    lut = cdf.reshape(tiles, tiles, 256)
+
+    yy = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / th - 0.5
+    xx = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / tw - 0.5
+    y0 = torch.clamp(torch.floor(yy), 0, tiles - 1).to(torch.int64)
+    x0 = torch.clamp(torch.floor(xx), 0, tiles - 1).to(torch.int64)
+    y1 = torch.clamp(y0 + 1, 0, tiles - 1)
+    x1 = torch.clamp(x0 + 1, 0, tiles - 1)
+    fy = torch.clamp(yy - y0, 0.0, 1.0)[:, None]
+    fx = torch.clamp(xx - x0, 0.0, 1.0)[None, :]
+    qimg = torch.clamp(torch.round(img), 0, 255).to(torch.int64)
+
+    def sample(ty, tx):
+        return lut[ty[:, None], tx[None, :], qimg]
+
+    return (sample(y0, x0) * (1 - fy) * (1 - fx) + sample(y0, x1) * (1 - fy) * fx
+            + sample(y1, x0) * fy * (1 - fx) + sample(y1, x1) * fy * fx)
 
 
 def gather_patches(img, base_xy, size: int, lo: int):

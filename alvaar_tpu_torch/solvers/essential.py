@@ -1,10 +1,11 @@
 """Two-view relative pose: batched 8-point essential matrix + RANSAC.
 
-Port of alvaar_tpu/solvers/essential.py (the 8-point path; the Nister
-5-point solver of solvers/fivept.py is not ported yet).  All hypotheses
-are solved as one batched SVD, decomposed into four (R, t) candidates
-each, and scored by triangulation, cheirality and the two-view angular
-error; the winner gets a least-squares refit on its inlier set.
+Port of alvaar_tpu/solvers/essential.py.  All hypotheses are solved as
+one batched SVD, decomposed into four (R, t) candidates each, and scored
+by triangulation, cheirality and the two-view angular error; the winner
+gets a least-squares refit on its inlier set.  The 5-point solver
+(solvers/fivept.py) and the homography (solvers/homography.py) share the
+scoring and the result type.
 """
 
 from __future__ import annotations
@@ -24,6 +25,23 @@ class RelativePoseResult:
     inliers: torch.Tensor      # [N] bool
     num_inliers: torch.Tensor
     success: torch.Tensor
+
+    @staticmethod
+    def where(cond, a: "RelativePoseResult", b: "RelativePoseResult"
+              ) -> "RelativePoseResult":
+        """Select ``a`` where the 0-d ``cond`` holds, else ``b`` (no host
+        sync)."""
+        return RelativePoseResult(SE3.where(cond, a.pose, b.pose),
+                                  torch.where(cond, a.inliers, b.inliers),
+                                  torch.where(cond, a.num_inliers, b.num_inliers),
+                                  torch.where(cond, a.success, b.success))
+
+
+def essential_thresh(err_px: float, focal, like):
+    """Angular inlier threshold of the two-view error: twice 1 − cos of
+    the angle that ``err_px`` subtends at ``focal``."""
+    tan = torch.tensor(err_px, dtype=like.dtype, device=like.device) / focal
+    return 2.0 * (1.0 - torch.cos(torch.atan(tan)))
 
 
 def essential_from_8pt(f0, f1):
@@ -105,8 +123,7 @@ def essential_ransac(gen, f0, f1, valid, *, focal, iters: int = 100,
     C = iters * 4
     pose_01 = SE3(matrix_to_quat(R4.reshape(C, 3, 3)), t4.reshape(C, 3)).inverse()
 
-    tan = torch.tensor(err_px, dtype=f0.dtype, device=f0.device) / focal
-    thresh = 2.0 * (1.0 - torch.cos(torch.atan(tan)))
+    thresh = essential_thresh(err_px, focal, f0)
     err, posdepth = _score_candidates(pose_01, f0, f1)
     inl = (err < thresh) & posdepth & valid[None]
     counts = torch.where(samp_ok.repeat_interleave(4), torch.sum(inl, dim=-1), -1)

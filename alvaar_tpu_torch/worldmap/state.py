@@ -149,8 +149,11 @@ def map_state_to_numpy(state: MapState) -> dict:
     """MapState → {name: ndarray}.  Keys are the field names, ``pose.q``/
     ``pose.t`` and ``kf_pose.q``/``kf_pose.t`` for the poses, and
     ``prev_pyr.<level>`` for the pyramid.  Descriptors come back as uint32
-    and integer fields as int32, as in the JAX package's state; the random
-    stream is saved as ``rng_state`` (the generator's own state bytes)."""
+    and integer fields as int32, as in the JAX package's state.  The random
+    stream is saved twice: as ``rng_key``, the uint32[2] key ``(seed >> 32,
+    seed & 0xffffffff)`` of the generator's initial seed (a JAX key read by
+    :func:`map_state_from_numpy` comes back unchanged), and as
+    ``rng_state``, the generator's own state bytes."""
     out = {}
     for name, t in state.tensors():
         a = t.detach().cpu().numpy()
@@ -159,6 +162,8 @@ def map_state_to_numpy(state: MapState) -> dict:
         elif a.dtype == np.int64:
             a = a.astype(np.int32)
         out[name] = a
+    seed = state.rng.initial_seed()
+    out["rng_key"] = np.array([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
     out["rng_state"] = state.rng.get_state().numpy()
     return out
 
@@ -167,9 +172,10 @@ def map_state_from_numpy(d: dict, cfg: SlamConfig, device="cpu") -> MapState:
     """{name: ndarray} (as written by :func:`map_state_to_numpy`, or built
     from a JAX MapState with ``np.asarray``) → MapState on ``device``.
 
-    The random stream: ``rng_state`` restores a port generator exactly; a
-    JAX ``rng_key`` [2] uint32 becomes the seed ``key[0] << 32 | key[1]`` of
-    a fresh generator (the JAX key cannot be carried over bit for bit)."""
+    The random stream: ``rng_state`` restores a port generator of the same
+    device type exactly; otherwise a JAX ``rng_key`` [2] uint32 becomes the
+    seed ``key[0] << 32 | key[1]`` of a fresh generator (the JAX key cannot
+    be carried over bit for bit)."""
     state = init_map_state(cfg, device)
     dev = torch.device(device)
     changes = {}
@@ -185,8 +191,9 @@ def map_state_from_numpy(d: dict, cfg: SlamConfig, device="cpu") -> MapState:
         changes[se3] = SE3(changes.pop(se3 + ".q"), changes.pop(se3 + ".t"))
     n_lvl = len(state.prev_pyr)
     changes["prev_pyr"] = tuple(changes.pop(f"prev_pyr.{i}") for i in range(n_lvl))
-    if "rng_state" in d:
-        state.rng.set_state(torch.as_tensor(np.asarray(d["rng_state"], np.uint8)))
+    rng_state = np.asarray(d.get("rng_state", ()), np.uint8)
+    if rng_state.size == state.rng.get_state().numel():
+        state.rng.set_state(torch.as_tensor(rng_state))
     else:
         key = np.asarray(d["rng_key"]).astype(np.uint64)
         state.rng.manual_seed(int(key[0]) << 32 | int(key[1]))
@@ -209,6 +216,26 @@ def landmark_world_positions(kf_pose: SE3, lm_anchor, lm_mxy, lm_invd):
     invd_safe = torch.where(torch.abs(lm_invd) < 1e-9, 1e-9, lm_invd)
     X_a = torch.cat([lm_mxy, torch.ones_like(lm_invd)[:, None]], dim=-1) / invd_safe[:, None]
     return T_a.inverse().apply(X_a)
+
+
+def apply_world_correction(state: MapState, dT: SE3, scale=None) -> MapState:
+    """Re-gauge the whole map rigidly by a world-frame transform
+    ``X_w' = s · dT · X_w`` (the loop-closure correction).  Landmarks are
+    anchored inverse depth relative to their anchor keyframe, so moving
+    every keyframe pose and world position together keeps them valid;
+    ``scale`` (sim3) rescales translations and depths about the origin."""
+    s = torch.as_tensor(1.0 if scale is None else scale, dtype=state.lm_pos.dtype,
+                        device=state.lm_pos.device)
+    dT_inv = dT.inverse()
+
+    def fix_pose(T_cw: SE3) -> SE3:
+        # T_cw' = T_cw ∘ (s·dT)⁻¹: rotation from dT, translation rescaled
+        out = T_cw.compose(dT_inv)
+        return SE3(out.q, s * T_cw.t + T_cw.rotate(dT_inv.t.expand(T_cw.t.shape)))
+
+    return state.replace(pose=fix_pose(state.pose), kf_pose=fix_pose(state.kf_pose),
+                         lm_pos=s * dT.rotate(state.lm_pos) + dT.t,
+                         lm_invd=state.lm_invd / s)
 
 
 def masked_scatter_set(arr, idx, values, mask):

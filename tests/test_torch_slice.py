@@ -9,7 +9,8 @@ homography), and its MapState is snapshotted before every frame.
   and its state is held against the JAX state after that frame — on a
   tracking frame and on a keyframe frame.
 * End to end: the port alone over the 40 frames, held to test_e2e's bars
-  and to the JAX trajectory.
+  and to the JAX trajectory; and the port alone under the default config
+  (5-point and homography bootstrap), held to the same bars.
 """
 
 import numpy as np
@@ -21,6 +22,10 @@ from alvaar_tpu_torch import AlvaAR, SlamConfig
 from alvaar_tpu_torch.frontend.step import slam_step
 from alvaar_tpu_torch.worldmap.state import map_state_from_numpy, map_state_to_numpy
 from tests.render_scene import TwoPlaneScene, ate_rmse, trajectory
+
+# one intra-op thread: the suite runs in several worker processes, and
+# threads that outnumber the cores slow small-tensor ops many times over
+torch.set_num_threads(1)
 
 CFG_ARGS = dict(width=320, height=240, cell_size=24, window_size=10,
                 max_landmarks=512, ransac_iters=50, ba_iters=4,
@@ -68,6 +73,18 @@ def jax_run(frames):
 def port_run(frames):
     imgs, _ = frames
     slam = AlvaAR(320, 240, fov=60.0, config=CFG, device="cpu")
+    poses, statuses = [], []
+    for img in imgs:
+        poses.append(slam.find_camera_pose(img))
+        statuses.append(slam.last_status)
+    return slam, poses, statuses
+
+
+@pytest.fixture(scope="module")
+def port_run_default(frames):
+    imgs, _ = frames
+    cfg = SlamConfig(**{**CFG_ARGS, "use_five_point": True, "use_homography_init": True})
+    slam = AlvaAR(320, 240, fov=60.0, config=cfg, device="cpu")
     poses, statuses = [], []
     for img in imgs:
         poses.append(slam.find_camera_pose(img))
@@ -132,9 +149,7 @@ def test_step_parity_keyframe_frame(jax_run, frames):
     np.testing.assert_allclose(a["lm_pos"][both3d], b["lm_pos"][both3d], atol=1e-3, rtol=0)
 
 
-def test_port_end_to_end(port_run, frames):
-    _, gt = frames
-    _, poses, statuses = port_run
+def _assert_e2e_bars(poses, statuses, gt):
     assert 1 in statuses and statuses.index(1) < 25, statuses
     assert 2 not in statuses, statuses
     idx = [i for i, s in enumerate(statuses) if s == 1]
@@ -143,6 +158,16 @@ def test_port_end_to_end(port_run, frames):
     gt_t = gt[idx][:, :3, 3]
     track_len = np.linalg.norm(gt_t[-1] - gt_t[0])
     assert ate_rmse(est, gt_t) < 0.01 * track_len
+
+
+def test_port_end_to_end(port_run, frames):
+    _, poses, statuses = port_run
+    _assert_e2e_bars(poses, statuses, frames[1])
+
+
+def test_port_end_to_end_default_config(port_run_default, frames):
+    _, poses, statuses = port_run_default
+    _assert_e2e_bars(poses, statuses, frames[1])
 
 
 def test_port_trajectory_matches_jax(port_run, jax_run, frames):
