@@ -43,6 +43,8 @@ class SlamConfig:
     klt_fb_dist: float = 0.5
     klt_prior_levels: int = 1
     track_base_level: int = 0
+    # stage-2 compaction slots, on the CPU only: on CUDA stage 2 runs at
+    # full width and this has no effect (frontend/step.py track_phase)
     klt_stage2_slots: int | None = 48
 
     # ---- robust estimation -------------------------------------------------

@@ -58,10 +58,15 @@ def preprocess(gray, cfg: SlamConfig):
 # ---------------------------------------------------------------------------
 
 def _track_keypoints(state: MapState, pyr_cur, pose_prior: SE3, cam: Camera,
-                     cfg: SlamConfig) -> MapState:
+                     cfg: SlamConfig, allow_cond: bool = True) -> MapState:
     """Two-stage forward-backward KLT: 3D keypoints tracked at one level
     from their motion-prior projections; failures and 2D keypoints retried
-    on the full pyramid from their previous positions."""
+    on the full pyramid from their previous positions.
+
+    ``allow_cond``: permit the stage-2 compaction into
+    ``klt_stage2_slots`` slots, a branch on a device scalar (one host
+    sync), as the JAX package's ``allow_cond``.  Points are independent, so
+    both branches give the same result."""
     is3d = (state.kp_valid & state.lm_valid[state.kp_lm]
             & state.lm_is3d[state.kp_lm])
     proj = cam.project_dist(pose_prior.apply(state.lm_pos[state.kp_lm]))
@@ -79,7 +84,7 @@ def _track_keypoints(state: MapState, pyr_cur, pose_prior: SE3, cam: Camera,
     s2_levels = max(1, cfg.pyramid_levels - L)
     K = state.kp_px.shape[0]
     cap = cfg.klt_stage2_slots
-    if cap is not None and cap < K and host_bool(torch.sum(stage2_mask) <= cap):
+    if allow_cond and cap is not None and cap < K and host_bool(torch.sum(stage2_mask) <= cap):
         # compact the stage-2 candidates into [cap] slots; only the
         # selected set matters (points are independent), and the stable
         # sort takes the same set as the JAX package's top_k
@@ -266,7 +271,11 @@ def track_phase(state: MapState, gray, cam: Camera, cfg: SlamConfig, dt=1.0):
         pose_prior = SE3.exp(-state.vel * dt).compose(state.pose)
     else:
         pose_prior = state.pose
-    state = _track_keypoints(state, pyr_cur, pose_prior, cam, cfg)
+    # on the card stage 2 runs at full width: one kernel launch over all
+    # keypoints costs about what 48 slots do, and saves the host sync, the
+    # top_k and the scatters of the compaction
+    state = _track_keypoints(state, pyr_cur, pose_prior, cam, cfg,
+                             allow_cond=not pyr_cur[0].is_cuda)
 
     if is_first:
         state = state.replace(pose=SE3.identity(dtype=state.kp_px.dtype, device=dev))

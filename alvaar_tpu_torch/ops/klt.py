@@ -2,9 +2,13 @@
 
 Port of alvaar_tpu/ops/klt.py: the correlation-volume LK level pass
 (``_lk_level`` → ``ops/lk_level.py``), the coarse-to-fine pyramid loop and
-the forward-backward round-trip gate.  The level pass is the CUDA kernel
-for CUDA tensors and its plain twin for CPU tensors; ``level_fn`` lets a
-caller force the plain twin on the card to compare the two.
+the forward-backward round-trip gate.  On CUDA tensors ``fb_klt_track`` and
+``klt_pyramidal`` are each one launch of the kernel in ``csrc/klt_track.cu``,
+which runs the whole schedule of level passes per point; on CPU tensors
+they are the plain composition below (over ``lk_level_plain``), which is
+the kernel's plain version.  ``level_fn`` runs the composition over another
+level pass on any device (``chip_smoke.py`` uses it to compare the kernel
+with the plain version on the card).
 """
 
 from __future__ import annotations
@@ -14,7 +18,18 @@ from typing import Sequence
 
 import torch
 
-from alvaar_tpu_torch.ops.lk_level import BACKWARD_R, SEARCH_R, lk_level
+from alvaar_tpu_torch.ops.lk_level import (BACKWARD_ITERS_MAX, BACKWARD_R, SEARCH_R,
+                                           klt_schedule, launch_klt_track, lk_level_plain)
+
+
+def _launches_kernel(pts, level_fn, name: str) -> bool:
+    """True for CUDA tensors and no ``level_fn``; False for CPU tensors or
+    an explicit ``level_fn``; any other device raises."""
+    if level_fn is not None or pts.device.type == "cpu":
+        return False
+    if pts.device.type == "cuda":
+        return True
+    raise ValueError(f"{name} runs on CPU or CUDA tensors, got {pts.device}")
 
 
 @dataclasses.dataclass
@@ -24,21 +39,22 @@ class TrackResult:
     err: torch.Tensor      # [N] mean |residual| over the window
 
 
-def _lk_level(img_prev, img_cur, pts_prev, guess, valid, *, win: int,
-              iters: int, eps: float, search_r: int = SEARCH_R,
-              min_eig: float = 1e-4, level_fn=lk_level):
-    """One pyramid level for all points (alvaar_tpu/ops/klt.py ``_lk_level``)."""
-    return level_fn(img_prev, img_cur, pts_prev.contiguous(),
-                    guess.contiguous(), valid.contiguous(), win=win,
-                    iters=iters, eps=eps, search_r=search_r, min_eig=min_eig)
-
-
 def klt_pyramidal(pyr_prev: Sequence[torch.Tensor],
                   pyr_cur: Sequence[torch.Tensor], pts, prior, valid, *,
                   levels: int, win: int = 9, iters: int = 30,
                   eps: float = 0.01, err_max: float = 30.0,
-                  search_r: int = SEARCH_R, level_fn=lk_level) -> TrackResult:
-    """Forward pyramidal LK from the coarsest of ``levels`` to level 0."""
+                  search_r: int = SEARCH_R, level_fn=None) -> TrackResult:
+    """Forward pyramidal LK from the coarsest of ``levels`` to level 0.
+    One kernel launch for CUDA tensors, the plain composition for CPU
+    tensors, the composition over ``level_fn`` when one is given."""
+    if _launches_kernel(pts, level_fn, "klt_pyramidal"):
+        xy, status, err = launch_klt_track(
+            pyr_prev, pyr_cur, pts.contiguous(), prior.contiguous(), valid.contiguous(),
+            klt_schedule(levels, search_r, iters, backward=False), gated=True, win=win,
+            eps=eps, err_max=err_max)
+        klt_pyramidal.launches += 1
+        return TrackResult(xy=xy, status=status, err=err)
+    level_fn = level_fn or lk_level_plain
     scale = 2.0 ** (levels - 1)
     guess = prior / scale
     ok = valid
@@ -47,9 +63,9 @@ def klt_pyramidal(pyr_prev: Sequence[torch.Tensor],
         s = 2.0 ** lvl
         guess_lvl = guess if lvl == levels - 1 else guess * 2.0
         r_lvl = search_r if lvl == levels - 1 else min(search_r, 4)
-        xy, ok_lvl, err = _lk_level(
-            pyr_prev[lvl], pyr_cur[lvl], pts / s, guess_lvl, valid,
-            win=win, iters=iters, eps=eps, search_r=r_lvl, level_fn=level_fn)
+        xy, ok_lvl, err = level_fn(
+            pyr_prev[lvl], pyr_cur[lvl], (pts / s).contiguous(), guess_lvl.contiguous(),
+            valid.contiguous(), win=win, iters=iters, eps=eps, search_r=r_lvl)
         ok = ok & ok_lvl
         guess = xy
     status = ok & (err <= err_max)
@@ -59,15 +75,32 @@ def klt_pyramidal(pyr_prev: Sequence[torch.Tensor],
 def fb_klt_track(pyr_prev, pyr_cur, pts, prior, valid, *, levels: int,
                  win: int = 9, iters: int = 30, eps: float = 0.01,
                  err_max: float = 30.0, fb_dist: float = 0.5,
-                 search_r: int = SEARCH_R, level_fn=lk_level) -> TrackResult:
+                 search_r: int = SEARCH_R, level_fn=None) -> TrackResult:
     """Forward over ``levels``, backward on level 0 only, round-trip gate
-    at ``fb_dist`` pixels."""
+    at ``fb_dist`` pixels.  One kernel launch for CUDA tensors, the plain
+    composition for CPU tensors, the composition over ``level_fn`` when one
+    is given."""
+    if _launches_kernel(pts, level_fn, "fb_klt_track"):
+        xy, status, err = launch_klt_track(
+            pyr_prev, pyr_cur, pts.contiguous(), prior.contiguous(), valid.contiguous(),
+            klt_schedule(levels, search_r, iters), gated=True, win=win, eps=eps,
+            err_max=err_max, fb_dist=fb_dist)
+        fb_klt_track.launches += 1
+        return TrackResult(xy=xy, status=status, err=err)
+    level_fn = level_fn or lk_level_plain
     fwd = klt_pyramidal(pyr_prev, pyr_cur, pts, prior, valid,
                         levels=levels, win=win, iters=iters, eps=eps,
                         err_max=err_max, search_r=search_r, level_fn=level_fn)
     bwd = klt_pyramidal(pyr_cur, pyr_prev, fwd.xy, pts, fwd.status,
-                        levels=1, win=win, iters=min(iters, 12), eps=eps,
+                        levels=1, win=win, iters=min(iters, BACKWARD_ITERS_MAX), eps=eps,
                         err_max=err_max, search_r=BACKWARD_R, level_fn=level_fn)
-    rt = torch.linalg.norm(bwd.xy - pts, dim=-1)
+    # sqrt(dx² + dy²) as two products and a sum, as the kernel computes it
+    # (torch.linalg.norm's reduction may contract them into FMAs on the card)
+    d = bwd.xy - pts
+    rt = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
     status = fwd.status & bwd.status & (rt <= fb_dist)
     return TrackResult(xy=fwd.xy, status=status, err=fwd.err)
+
+
+klt_pyramidal.launches = 0
+fb_klt_track.launches = 0

@@ -1,21 +1,24 @@
-"""One KLT pyramid-level pass: the CUDA kernel, its plain twin, and the
-dispatching wrapper.
+"""The KLT kernel: its build, its launch, the plain level pass, and the
+one-pass wrapper ``lk_level``.
 
-``lk_level`` is the port of the JAX package's ``_lk_level``
-(alvaar_tpu/ops/klt.py) with its Pallas kernel ``lk_level_pallas``
-(alvaar_tpu/ops/pallas/lk_kernel.py).  For CUDA tensors it launches the
-hand-written kernel in ``csrc/lk_level.cu``; for CPU tensors it runs
-``lk_level_plain``, a plain torch port of the XLA body.  There is no
-fallback between the two: a CUDA tensor either launches the kernel or
-raises.
+The CUDA kernel in ``csrc/klt_track.cu`` runs a whole forward-backward
+pyramidal ``fb_klt_track`` call (ops/klt.py) in one launch: for each point a
+schedule of level passes (``klt_schedule``).  ``lk_level`` is the port of the
+JAX package's ``_lk_level`` (alvaar_tpu/ops/klt.py) with its Pallas kernel
+``lk_level_pallas`` (alvaar_tpu/ops/pallas/lk_kernel.py): for CUDA tensors it
+launches the same kernel with a one-pass schedule and no gates; for CPU
+tensors it runs ``lk_level_plain``, a plain torch port of the XLA body.
+There is no fallback between the two: a CUDA tensor either launches the
+kernel or raises.
 
 The kernel is compiled with ``nvcc`` at first use into ``build/`` at the
 repository root (one shared library with a plain C entry point, loaded
 with ``ctypes``), and rebuilt when the source's hash changes.
 
-The plain twin sums the 81-tap window terms in the kernel's (sequential)
-order and takes every other product and sum as its own torch op, so that
-the kernel, built with ``--fmad=false``, agrees with it bit for bit.
+The plain level pass sums the 81-tap window terms in the kernel's
+(sequential) order and takes every other product and sum as its own torch
+op, so that the kernel, built with ``--fmad=false``, agrees with it (and
+with the composition of it in ops/klt.py) bit for bit.
 """
 
 from __future__ import annotations
@@ -33,8 +36,15 @@ from alvaar_tpu_torch.ops.image import gather_patches
 
 SEARCH_R = 8
 BACKWARD_R = 2
+BACKWARD_ITERS_MAX = 12
+MIN_EIG = 1e-4
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "lk_level.cu"
+# what the kernel takes (csrc/klt_track.cu kWinMax, kRMax, kLevelsMax)
+WIN_MAX = 15
+R_MAX = 12
+LEVELS_MAX = 4
+
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "klt_track.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
@@ -49,17 +59,18 @@ def _nvcc() -> str:
     return path
 
 
-def build_kernel(verbose: bool = False) -> Path:
-    """Compile ``csrc/lk_level.cu`` into ``build/`` unless a library built
-    from the same source and flags is already there.  Returns its path."""
-    digest = hashlib.sha256(_SRC.read_bytes()
+def build_kernel(verbose: bool = False, src: Path = _SRC) -> Path:
+    """Compile ``src`` (the KLT kernel by default) into ``build/`` unless a
+    library built from the same source and flags is already there.
+    Returns its path."""
+    digest = hashlib.sha256(src.read_bytes()
                             + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"liblk_level_{digest}.so"
+    out = _BUILD_DIR / f"lib{src.stem}_{digest}.so"
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(src)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
@@ -70,29 +81,30 @@ def build_kernel(verbose: bool = False) -> Path:
 
 
 def _load():
-    """The built library's launch function and its (win, R) limits."""
+    """The built library's launch function, after checking that its limits
+    are the ones this module checks against."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build_kernel()))
-        fn = lib.lk_level_launch
+        fn = lib.klt_track_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p]
-        lim = lib.lk_level_limits
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, i32, i32, i32, f32, f32, f32,
+                       f32, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr]
+        lim = lib.klt_track_limits
         lim.restype = ctypes.c_int
-        lim.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-        win_max, r_max = ctypes.c_int(), ctypes.c_int()
-        lim(ctypes.byref(win_max), ctypes.byref(r_max))
-        _lib = (lib, fn, win_max.value, r_max.value)   # keep lib alive
-    return _lib[1:]
+        lim.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+        got = [ctypes.c_int() for _ in range(3)]
+        lim(*(ctypes.byref(v) for v in got))
+        if [v.value for v in got] != [WIN_MAX, R_MAX, LEVELS_MAX]:
+            raise RuntimeError(f"kernel limits {[v.value for v in got]} differ from "
+                               f"{[WIN_MAX, R_MAX, LEVELS_MAX]}")
+        _lib = (lib, fn)   # keep lib alive
+    return _lib[1]
 
 
 # ---------------------------------------------------------------------------
-# Plain twin
+# Plain level pass
 # ---------------------------------------------------------------------------
 
 def _seq_sum(x):
@@ -103,27 +115,28 @@ def _seq_sum(x):
     return acc
 
 
+def _true_div(x, c: float):
+    """x / c as one IEEE division, as the kernel divides.  A CUDA tensor
+    divided by a Python number is multiplied by the number's float
+    reciprocal instead, one rounding more."""
+    return x / torch.full_like(x, c)
+
+
 def _tent(d, size: int):
     """Bilinear ("tent") weights w[n, i] = max(0, 1 - |i - d_n|)."""
     i = torch.arange(size, device=d.device, dtype=d.dtype)
     return torch.clamp_min(1.0 - torch.abs(i[None, :] - d[:, None]), 0.0)
 
 
-def lk_level_plain(img_prev, img_cur, pts_prev, guess, valid, *, win: int,
-                   iters: int, eps: float, search_r: int = SEARCH_R,
-                   min_eig: float = 1e-4):
-    """Plain torch port of the correlation-volume LK level pass
-    (alvaar_tpu/ops/klt.py ``_lk_level``, XLA body).  Point-first layout:
-    patches are [N, s, s].  Returns (xy [N, 2], ok [N], err [N])."""
-    h, w = img_cur.shape
-    R = search_r
-    cr = 2 * R + 1
+def template_terms(img_prev, pts_prev, win: int, min_eig: float = MIN_EIG):
+    """The template half of a level pass: the window T and its gradients
+    gx, gy [N, win, win] from the previous image, the five window sums
+    (gxx, gxy, gyy, Σ T·gx, Σ T·gy), the structure tensor's determinant and
+    the min-eigenvalue gate ``trackable`` [N]."""
+    h, w = img_prev.shape
     r = win // 2
     tpl_size = win + 3
-    j_size = cr + win - 1
     n = pts_prev.shape[0]
-
-    # ---- template window + gradients from the previous image ----
     base_t = torch.floor(pts_prev).to(torch.int64)
     base_t = torch.stack([base_t[:, 0].clamp(r + 2, w - r - 4),
                           base_t[:, 1].clamp(r + 2, h - r - 4)], dim=1)
@@ -143,11 +156,31 @@ def lk_level_plain(img_prev, img_cur, pts_prev, guess, valid, *, win: int,
     flat = lambda a: a.reshape(n, win * win)
     sums = _seq_sum(torch.stack([flat(gx * gx), flat(gx * gy), flat(gy * gy),
                                  flat(T * gx), flat(T * gy)]))
-    gxx, gxy, gyy, cx0, cy0 = sums.unbind(0)
+    gxx, gxy, gyy = sums[0], sums[1], sums[2]
     det = gxx * gyy - gxy * gxy
     tr = gxx + gyy
     eig_min = 0.5 * (tr - torch.sqrt(torch.clamp_min(tr * tr - 4 * det, 0.0)))
-    trackable = eig_min / float(win * win) > min_eig
+    trackable = _true_div(eig_min, float(win * win)) > min_eig
+    return T, gx, gy, sums, det, trackable
+
+
+def lk_level_plain(img_prev, img_cur, pts_prev, guess, valid, *, win: int,
+                   iters: int, eps: float, search_r: int = SEARCH_R,
+                   min_eig: float = MIN_EIG):
+    """Plain torch port of the correlation-volume LK level pass
+    (alvaar_tpu/ops/klt.py ``_lk_level``, XLA body).  Point-first layout:
+    patches are [N, s, s].  Returns (xy [N, 2], ok [N], err [N])."""
+    h, w = img_cur.shape
+    R = search_r
+    cr = 2 * R + 1
+    r = win // 2
+    j_size = cr + win - 1
+    n = pts_prev.shape[0]
+
+    # ---- template window + gradients from the previous image ----
+    T, gx, gy, sums, det, trackable = template_terms(img_prev, pts_prev, win, min_eig)
+    gxx, gxy, gyy, cx0, cy0 = sums.unbind(0)
+    flat = lambda a: a.reshape(n, win * win)
     det_safe = torch.where(torch.abs(det) < 1e-9, 1e-9, det)
     i00 = gyy / det_safe
     i01 = -gxy / det_safe
@@ -201,7 +234,7 @@ def lk_level_plain(img_prev, img_cur, pts_prev, guess, valid, *, win: int,
     # t1[n, ri, s] = Σ_p Jp[n, p, s] wyr[n, ri, p]; w_val[n, ri, ci] = Σ_s t1 wxc
     t1 = torch.sum(Jp[:, None, :, :] * wyr[:, :, :, None], dim=2)   # [N, win, S]
     w_val = torch.sum(t1[:, :, None, :] * wxc[:, None, :, :], dim=3)  # [N, win, win]
-    err = _seq_sum(flat(torch.abs(w_val - T))) / float(win * win)
+    err = _true_div(_seq_sum(flat(torch.abs(w_val - T))), float(win * win))
     at_edge = (torch.abs(dx) >= lim - 1e-3) | (torch.abs(dy) >= lim - 1e-3)
 
     xy = base_j.to(dx.dtype) + torch.stack([dx, dy], dim=-1)
@@ -214,8 +247,21 @@ def lk_level_plain(img_prev, img_cur, pts_prev, guess, valid, *, win: int,
 
 
 # ---------------------------------------------------------------------------
-# The wrapper
+# The kernel's schedule, checks and launch
 # ---------------------------------------------------------------------------
+
+def klt_schedule(levels: int, search_r: int, iters: int,
+                 backward: bool = True) -> list[tuple[int, int, int, bool]]:
+    """The level passes of one ``fb_klt_track`` call as the kernel runs
+    them, (level, radius, iterations, backward) each: forward from the
+    coarsest of ``levels`` (radius ``search_r``, ``min(search_r, 4)`` below
+    it) to level 0, then the backward pass at level 0."""
+    passes = [(lvl, search_r if lvl == levels - 1 else min(search_r, 4), iters, False)
+              for lvl in range(levels - 1, -1, -1)]
+    if backward:
+        passes.append((0, BACKWARD_R, min(iters, BACKWARD_ITERS_MAX), True))
+    return passes
+
 
 def _check(name, t, dtype, shape, device):
     if t.device != device:
@@ -228,11 +274,74 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_track_args(pyr_prev, pyr_cur, pts, prior, valid, schedule, win: int):
+    """Raise unless the kernel takes these inputs: float32 contiguous
+    levels of equal shapes on the points' device, [N, 2] float32 points and
+    priors, a [N] bool mask, and a schedule within the kernel's limits on
+    levels big enough for its window and radii."""
+    dev = pts.device
+    n = pts.shape[0]
+    levels = schedule[0][0] + 1
+    if not 1 <= levels <= LEVELS_MAX:
+        raise ValueError(f"the kernel takes 1 to {LEVELS_MAX} levels, got {levels}")
+    if min(len(pyr_prev), len(pyr_cur)) < levels:
+        raise ValueError(f"{levels} levels asked of pyramids with "
+                         f"{len(pyr_prev)} and {len(pyr_cur)}")
+    if not (3 <= win <= WIN_MAX and win % 2 == 1):
+        raise ValueError(f"the kernel takes an odd win from 3 to {WIN_MAX}, got {win}")
+    for lvl in range(levels):
+        shape = tuple(pyr_cur[lvl].shape)
+        if len(shape) != 2:
+            raise ValueError(f"level {lvl} has shape {shape}, expected [H, W]")
+        _check(f"pyr_prev[{lvl}]", pyr_prev[lvl], torch.float32, shape, dev)
+        _check(f"pyr_cur[{lvl}]", pyr_cur[lvl], torch.float32, shape, dev)
+    _check("pts", pts, torch.float32, (n, 2), dev)
+    _check("prior", prior, torch.float32, (n, 2), dev)
+    _check("valid", valid, torch.bool, (n,), dev)
+    r = win // 2
+    for lvl, radius, _, _ in schedule:
+        if not 1 <= radius <= R_MAX:
+            raise ValueError(f"the kernel takes radii 1 to {R_MAX}, got {radius}")
+        h, w = pyr_cur[lvl].shape
+        if min(h, w) < max(2 * r + 6, 2 * (radius + r + 1) + 1):
+            raise ValueError(f"level {lvl} ({h}x{w}) too small for win {win}, R {radius}")
+
+
+def launch_klt_track(pyr_prev, pyr_cur, pts, prior, valid, schedule, *, gated: bool,
+                     win: int, eps: float, err_max: float = 0.0, fb_dist: float = 0.0,
+                     min_eig: float = MIN_EIG):
+    """Launch the kernel on CUDA tensors for ``schedule``
+    (``klt_schedule``); returns (xy [N, 2], status [N], err [N])."""
+    if pts.device.type != "cuda":
+        raise ValueError(f"the KLT kernel runs on CUDA tensors, got {pts.device}")
+    check_track_args(pyr_prev, pyr_cur, pts, prior, valid, schedule, win)
+    fn = _load()
+    dev, n = pts.device, pts.shape[0]
+    levels = schedule[0][0] + 1
+    xy = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    status = torch.empty((n,), dtype=torch.bool, device=dev)
+    err = torch.empty((n,), dtype=torch.float32, device=dev)
+    ptrs = lambda ts: (ctypes.c_void_p * LEVELS_MAX)(*[t.data_ptr() for t in ts[:levels]])
+    ints = lambda xs: (ctypes.c_int * len(xs))(*xs)
+    flat = [int(v) for ps in schedule for v in ps]
+    rc = fn(ptrs(pyr_prev), ptrs(pyr_cur),
+            ints([t.shape[0] for t in pyr_cur[:levels]]),
+            ints([t.shape[1] for t in pyr_cur[:levels]]), levels, ints(flat),
+            len(schedule), int(gated), win, float(eps * eps), float(min_eig),
+            float(err_max), float(fb_dist), pts.data_ptr(), prior.data_ptr(),
+            valid.data_ptr(), n, xy.data_ptr(), status.data_ptr(), err.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"KLT kernel launch failed: cudaError_t {rc}")
+    return xy, status, err
+
+
 def lk_level(img_prev, img_cur, pts_prev, guess, valid, *, win: int,
              iters: int, eps: float, search_r: int = SEARCH_R,
-             min_eig: float = 1e-4):
+             min_eig: float = MIN_EIG):
     """One LK level pass for all points, dispatched on the tensors' device:
-    the CUDA kernel for CUDA tensors, ``lk_level_plain`` for CPU tensors.
+    the kernel with a one-pass schedule and no gates for CUDA tensors,
+    ``lk_level_plain`` for CPU tensors.
 
     img_prev/img_cur: float32 [H, W] (one pyramid level); pts_prev, guess:
     float32 [N, 2] in this level's pixels; valid: bool [N].
@@ -244,38 +353,11 @@ def lk_level(img_prev, img_cur, pts_prev, guess, valid, *, win: int,
                               search_r=search_r, min_eig=min_eig)
     if dev.type != "cuda":
         raise ValueError(f"lk_level runs on CPU or CUDA tensors, got {dev}")
-
-    h, w = img_cur.shape
-    n = pts_prev.shape[0]
-    _check("img_prev", img_prev, torch.float32, (h, w), dev)
-    _check("img_cur", img_cur, torch.float32, (h, w), dev)
-    _check("pts_prev", pts_prev, torch.float32, (n, 2), dev)
-    _check("guess", guess, torch.float32, (n, 2), dev)
-    _check("valid", valid, torch.bool, (n,), dev)
-    launch, win_max, r_max = _load()
-    if not (1 <= win <= win_max and 1 <= search_r <= r_max):
-        raise ValueError(f"kernel takes win <= {win_max} and "
-                         f"search_r <= {r_max}, got {win}, {search_r}")
-    r = win // 2
-    margin = search_r + r + 1
-    if min(h, w) < max(2 * r + 6, 2 * margin + 1):
-        raise ValueError(f"level {h}x{w} too small for win {win}, R {search_r}")
-
-    xy = torch.empty((n, 2), dtype=torch.float32, device=dev)
-    ok = torch.empty((n,), dtype=torch.bool, device=dev)
-    err = torch.empty((n,), dtype=torch.float32, device=dev)
-    if n == 0:
-        return xy, ok, err
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = launch(
-        img_prev.data_ptr(), img_cur.data_ptr(), h, w, pts_prev.data_ptr(),
-        guess.data_ptr(), valid.data_ptr(), n, win, search_r, iters,
-        float(eps * eps), float(min_eig), xy.data_ptr(), ok.data_ptr(),
-        err.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"lk_level kernel launch failed: cudaError_t {rc}")
+    out = launch_klt_track([img_prev], [img_cur], pts_prev, guess, valid,
+                           [(0, search_r, iters, False)], gated=False, win=win,
+                           eps=eps, min_eig=min_eig)
     lk_level.launches += 1
-    return xy, ok, err
+    return out
 
 
 lk_level.launches = 0

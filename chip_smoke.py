@@ -7,23 +7,33 @@ Phases, each printed on its own lines:
 
 1. environment: Python, torch and CUDA versions, the card's name and
    power limit;
-2. the KLT level kernel (csrc/lk_level.cu): built from the checkout, then
-   run through ``fb_klt_track`` at 640x480 on golden frames 0 and 1 for
-   stage 1 (1 level, R=4), stage 2 (3 levels, R=8) and the 48-slot stage-2
-   compaction, once through the kernel and once through its plain torch
-   twin on the same CUDA tensors; statuses must be identical, positions
-   within 1e-3 px, errors within 1e-3, and more than 50 points tracked.
-   Then the time of one level call (N=192, R=4, 16 iterations), kernel
-   and plain, from CUDA events, and the kernel's device time alone from
-   ``torch.profiler``;
+2. the KLT kernel (csrc/klt_track.cu), built from the checkout: one launch
+   per ``fb_klt_track`` call, against the plain composition (ops/klt.py
+   over ``lk_level_plain``) on the same CUDA tensors, on golden frames 0
+   and 1 at 640x480: stage 1 (N=192, 1 level, R=4), stage 2 (N=192, 3
+   levels, R=8), N=48, and N=3072 (the 192 detected points at 16 sub-pixel
+   offsets).  Statuses identical, positions and errors within 1e-5, more
+   than 50 points tracked (20 at N=48); whether they are bit-equal is
+   printed.  At each shape: ms per call from CUDA events around
+   back-to-back calls (kernel and plain), device time per call from
+   ``torch.profiler``, and the bound (the bytes and float32 operations this
+   run's points need, over the H100's rates).  With
+   build/lk_level_6b890e1.cu present (the per-level kernel of commit
+   6b890e1, written there by ``git show``), the per-level design's device
+   time at the same shapes.  Then ``klt_pyramidal`` (the kernel's
+   forward-only schedule) against its plain composition, and ``lk_level``
+   (the one-pass schedule) against ``lk_level_plain``;
 3. the main path under the default config (5-point and homography
    bootstrap): ``AlvaAR.find_camera_pose`` over the 120-frame 640x480
    golden sequence on the card, held to the native reference's bars
    (tests/golden/ref_synthetic_640.npz): first status 1 by frame 25, no
    reset, at least 102 frames tracked, sim3-aligned ATE to ground truth at
    most 1.176 cm (the worst of the reference's 10 runs); the 5-point and
-   the homography RANSAC must each have run.  Then the bootstrap solvers'
-   and CLAHE's times at their main-path shapes;
+   the homography RANSAC must each have run; every frame at status 1
+   launched the KLT kernel exactly twice through ``fb_klt_track`` and
+   none through ``klt_pyramidal`` or ``lk_level``; at most 6 host syncs per
+   frame at the median.  Then the bootstrap solvers' and CLAHE's times at
+   their main-path shapes;
 3b. the 8-point bootstrap (``use_five_point=False``,
    ``use_homography_init=False``) over the first 40 golden frames: first
    status 1 by frame 25, no reset, at least 25 frames tracked;
@@ -99,9 +109,11 @@ def _time_ms(fn, reps: int = 20, rounds: int = 5, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, kernel_name: str, reps: int = 20) -> float:
+def _device_ms(fn, kernel_name: str, launches_per_call: int = 1, reps: int = 20):
     """Device time per call of the kernels whose name holds
-    ``kernel_name``, from ``torch.profiler`` (nan if it recorded none)."""
+    ``kernel_name``, from ``torch.profiler``: their mean time per launch
+    times ``launches_per_call`` (the profiler may drop an event or two),
+    and the launches it recorded per call (nan, 0 if it recorded none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -110,8 +122,11 @@ def _device_ms(fn, kernel_name: str, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages() if kernel_name in e.key)
-    return us / 1e3 / reps if us > 0 else float("nan")
+    hits = [e for e in prof.key_averages() if kernel_name in e.key]
+    us, count = sum(e.self_device_time_total for e in hits), sum(e.count for e in hits)
+    if us <= 0 or count == 0:
+        return float("nan"), 0.0
+    return us / 1e3 / count * launches_per_call, count / reps
 
 
 def phase_env():
@@ -124,13 +139,110 @@ def phase_env():
     return card
 
 
+H100_BYTES_PER_S = 3.35e12     # HBM3, the H100 SXM data sheet
+H100_F32_FLOP_PER_S = 67e12    # float32 outside the tensor cores, same sheet
+
+
+def _mark(mask, base, size: int, off: int) -> None:
+    """Mark in ``mask`` [H, W] the size x size patches whose corners are
+    ``base - off`` (base [M, 2] int64 as x, y)."""
+    import torch
+    a = torch.arange(size, device=mask.device)
+    ys = (base[:, 1] - off)[:, None] + a
+    xs = (base[:, 0] - off)[:, None] + a
+    mask.view(-1)[(ys[:, :, None] * mask.shape[1] + xs[:, None, :]).reshape(-1)] = True
+
+
+def _klt_bound(passes, schedule, win: int):
+    """The least time one ``fb_klt_track`` call could take on the card for
+    this run's data.  ``passes`` are the level calls of the plain
+    composition on the same inputs (images, template points, guesses and
+    valid masks as it ran them), ``schedule`` their (level, R, iters,
+    backward).  What each point needs: a forward pass at a coarser level
+    only if the point is valid; the forward pass at level 0 always (its
+    error is returned); the backward pass only if the forward status holds.
+    Within a needed pass the template (blend, gradients, five sums), then
+    the volumes (4 (2R+1)^2 win^2 operations) and the search patch only if
+    the point can iterate (valid for the pass and trackable), and the
+    window error where the search patch is needed.  Bytes: every pixel of
+    every level that a needed patch covers, read once (the union over
+    points and passes: the backward pass reads what level 0's forward pass
+    read, from the other image), the points in and the results out once.
+    Gauss-Newton steps are left out: their number depends on when each
+    point freezes, and they are at most 45 operations a step, under 3% of
+    a pass's volumes.  Returns (bytes, flops, bound_ms, bound_by)."""
+    import torch
+    from alvaar_tpu_torch.ops.lk_level import template_terms
+    r, nw, blend = win // 2, win * win, win + 2
+    n = passes[0][2].shape[0]
+    masks, flops = {}, 0
+    mask_of = lambda img: masks.setdefault(
+        img.data_ptr(), torch.zeros(img.shape, dtype=torch.bool, device=img.device))
+    n_forward = sum(1 for ps in schedule if not ps[3])
+    for i, ((img_prev, img_cur, tpts, guess, valid, R), (_, _, _, bwd)) in enumerate(
+            zip(passes, schedule)):
+        h, w = img_cur.shape
+        cr, margin = 2 * R + 1, R + r + 1
+        level0 = i == n_forward - 1
+        every = torch.ones_like(valid)
+        trackable = template_terms(img_prev, tpts, win)[-1]
+        need_tpl = every if level0 else valid
+        need_vol = valid & trackable
+        need_search = every if level0 else need_vol
+        base_t = torch.floor(tpts).to(torch.int64)
+        base_t = torch.stack([base_t[:, 0].clamp(r + 2, w - r - 4),
+                              base_t[:, 1].clamp(r + 2, h - r - 4)], dim=1)
+        base_j = torch.floor(guess + 0.5).to(torch.int64)
+        base_j = torch.stack([base_j[:, 0].clamp(margin, w - margin - 1),
+                              base_j[:, 1].clamp(margin, h - margin - 1)], dim=1)
+        _mark(mask_of(img_prev), base_t[need_tpl], win + 3, r + 1)
+        _mark(mask_of(img_cur), base_j[need_search], 2 * R + win, margin - 1)
+        flops += (int(need_tpl.sum()) * (11 * blend * blend + 14 * nw + 20)
+                  + int(need_vol.sum()) * 4 * cr * cr * nw + int(need_search.sum()) * 24 * nw)
+    nbytes = 4 * sum(int(m.sum()) for m in masks.values()) + n * (8 + 8 + 1 + 8 + 1 + 4)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOP_PER_S
+    return nbytes, flops, 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _level_kernel_fn(src):
+    """The per-level kernel of the one-launch-per-level design
+    (``lk_level_launch`` in csrc/lk_level.cu of commit 6b890e1), built from
+    ``src``, as a ``level_fn`` for ``fb_klt_track``."""
+    import ctypes
+    from pathlib import Path
+    import torch
+    from alvaar_tpu_torch.ops import lk_level as lk
+    lib = ctypes.CDLL(str(lk.build_kernel(src=Path(src))))
+    fn = lib.lk_level_launch
+    fn.restype = ctypes.c_int
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [P, P, I, I, P, P, P, I, I, I, I, F, F, P, P, P, P]
+
+    def level(img_prev, img_cur, pts_prev, guess, valid, *, win, iters, eps, search_r):
+        (h, w), n, dev = img_cur.shape, pts_prev.shape[0], img_cur.device
+        xy = torch.empty((n, 2), dtype=torch.float32, device=dev)
+        ok = torch.empty((n,), dtype=torch.bool, device=dev)
+        err = torch.empty((n,), dtype=torch.float32, device=dev)
+        rc = fn(img_prev.data_ptr(), img_cur.data_ptr(), h, w, pts_prev.data_ptr(),
+                guess.data_ptr(), valid.data_ptr(), n, win, search_r, iters, float(eps * eps),
+                float(lk.MIN_EIG), xy.data_ptr(), ok.data_ptr(), err.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _check(rc == 0, f"per-level kernel launch failed: cudaError_t {rc}")
+        return xy, ok, err
+
+    level.lib = lib          # keep the library loaded
+    return level
+
+
 def phase_kernel(frames, card):
+    """Phase 2: the fused KLT kernel against its plain composition, its
+    one-pass use (lk_level), its times, bounds, and the per-level design."""
     import torch
     from alvaar_tpu_torch.config import SlamConfig
     from alvaar_tpu_torch.ops import lk_level as lk
     from alvaar_tpu_torch.ops.detect import detect_grid
     from alvaar_tpu_torch.ops.image import build_pyramid
-    from alvaar_tpu_torch.ops.klt import fb_klt_track
+    from alvaar_tpu_torch.ops.klt import fb_klt_track, klt_pyramidal
 
     t0 = time.time()
     lib = lk.build_kernel(verbose=True)
@@ -145,60 +257,132 @@ def phase_kernel(frames, card):
                       cell=cfg.cell_size, border=cfg.image_border)
     pyr0 = build_pyramid(f0, cfg.pyramid_levels)
     pyr1 = build_pyramid(f1, cfg.pyramid_levels)
-    args = dict(win=cfg.klt_window, iters=cfg.klt_iters, eps=cfg.klt_eps,
+    win = cfg.klt_window
+    args = dict(win=win, iters=cfg.klt_iters, eps=cfg.klt_eps,
                 err_max=cfg.klt_err_max, fb_dist=cfg.klt_fb_dist)
     n48 = cfg.klt_stage2_slots
+    sub = torch.stack(torch.meshgrid(torch.arange(4.0), torch.arange(4.0), indexing="xy"),
+                      -1).reshape(16, 1, 2).to(dev) / 4.0
+    wide = (det.xy[None] + sub).reshape(-1, 2).contiguous()          # 3072 points
     cases = {
         "stage1 N=192 levels=1 R=4": (det.xy, det.valid, 1, 4),
         "stage2 N=192 levels=3 R=8": (det.xy, det.valid, 3, 8),
         "stage2 N=48 levels=3 R=8": (det.xy[:n48].contiguous(), det.valid[:n48], 3, 8),
+        "stage2 N=3072 levels=3 R=8": (wide, det.valid.repeat(16), 3, 8),
     }
-    max_err = 0.0
+    old_src = os.path.join(ROOT, "build", "lk_level_6b890e1.cu")
+    old = _level_kernel_fn(old_src) if os.path.exists(old_src) else None
+    if old is None:
+        print(f"[kernel] per-level design: not measured ({os.path.relpath(old_src, ROOT)} "
+              f"absent; `git show 6b890e1:alvaar_tpu_torch/csrc/lk_level.cu` writes it)")
+
+    max_err, shapes = 0.0, []
     for name, (pts, valid, levels, R) in cases.items():
-        run = lambda level_fn: fb_klt_track(pyr0, pyr1, pts, pts, valid, levels=levels,
-                                            search_r=R, level_fn=level_fn, **args)
-        rk, rp = run(lk.lk_level), run(lk.lk_level_plain)
+        run = lambda level_fn=None: fb_klt_track(pyr0, pyr1, pts, pts, valid, levels=levels,
+                                                 search_r=R, level_fn=level_fn, **args)
+        passes = []       # the plain composition's level calls, for the bound
+
+        def record(img_prev, img_cur, pts_prev, guess, valid_p, **kw):
+            passes.append((img_prev, img_cur, pts_prev, guess, valid_p, kw["search_r"]))
+            return lk.lk_level_plain(img_prev, img_cur, pts_prev, guess, valid_p, **kw)
+
+        rk, rp = run(), run(record)
         torch.cuda.synchronize()
         sk, sp = rk.status.cpu().numpy(), rp.status.cpu().numpy()
-        both = sk & sp
-        dxy = float((rk.xy - rp.xy).abs().cpu().numpy()[both].max()) if both.any() else 0.0
-        derr = float((rk.err - rp.err).abs().cpu().numpy()[both].max()) if both.any() else 0.0
+        dxy = float((rk.xy - rp.xy).abs().max())
+        derr = float((rk.err - rp.err).abs().max())
+        bit_equal = (torch.equal(rk.xy, rp.xy) and torch.equal(rk.err, rp.err)
+                     and torch.equal(rk.status, rp.status))
         print(f"[kernel] {name}: tracked kernel {int(sk.sum())} plain {int(sp.sum())} "
               f"of {int(valid.sum())}, status mismatches {int((sk != sp).sum())}, "
-              f"max|dxy| {dxy:.3e} px, max|derr| {derr:.3e}")
+              f"max|dxy| {dxy:.3e} px, max|derr| {derr:.3e}, bit-equal {bit_equal}")
         _check((sk == sp).all(), f"{name}: kernel and plain statuses differ")
-        _check(dxy < 1e-3, f"{name}: |dxy| {dxy} >= 1e-3 px")
-        _check(derr < 1e-3, f"{name}: |derr| {derr} >= 1e-3")
+        _check(dxy <= 1e-5, f"{name}: |dxy| {dxy} > 1e-5 px")
+        _check(derr <= 1e-5, f"{name}: |derr| {derr} > 1e-5")
         _check(int(sk.sum()) > (50 if len(sk) > n48 else 20),
                f"{name}: only {int(sk.sum())} tracked")
         max_err = max(max_err, dxy, derr)
 
-    # one level call at the main path's stage-1 shape
+        schedule = lk.klt_schedule(levels, R, cfg.klt_iters)
+        nbytes, flops, bound_ms, bound_by = _klt_bound(passes, schedule, win)
+        reps = 5 if len(pts) > 192 else 20
+        ms_plain_a = _time_ms(lambda: run(lk.lk_level_plain), reps=reps, rounds=3)
+        ms_a = _time_ms(run)
+        ms_b = _time_ms(run)
+        ms_plain_b = _time_ms(lambda: run(lk.lk_level_plain), reps=reps, rounds=3)
+        dev_a, n_a = _device_ms(run, "klt_track_kernel")
+        row = dict(shape=name, n=len(pts), bytes=nbytes, flops=flops, bound_ms=bound_ms,
+                   bound_by=bound_by, ms=statistics.median([ms_a, ms_b]),
+                   plain_ms=statistics.median([ms_plain_a, ms_plain_b]),
+                   launches_per_call=n_a, bit_equal=bit_equal, max_abs_err=max(dxy, derr))
+        line = (f"[kernel] {name}: fused {row['ms']:.4f} ms per call ({ms_a:.4f}, {ms_b:.4f}; "
+                f"CUDA events around back-to-back calls), plain composition "
+                f"{row['plain_ms']:.4f} ms ({ms_plain_a:.4f}, {ms_plain_b:.4f})")
+        if old is not None:
+            ro = run(old)
+            _check(torch.equal(ro.status, rp.status), f"{name}: per-level design's statuses differ")
+            old_a, old_n = _device_ms(lambda: run(old), "lk_level_kernel", len(schedule))
+            old_b, _ = _device_ms(lambda: run(old), "lk_level_kernel", len(schedule))
+            dev_b, _ = _device_ms(run, "klt_track_kernel")
+            row["device_ms"] = statistics.median([dev_a, dev_b])
+            row["old_device_ms"] = statistics.median([old_a, old_b])
+            row["old_launches_per_call"] = old_n
+            row["old_ms"] = _time_ms(lambda: run(old))
+            line += (f"; device time fused {row['device_ms']:.5f} ms ({dev_a:.5f}, {dev_b:.5f}) "
+                     f"in {n_a} launch, per-level design {row['old_device_ms']:.5f} ms "
+                     f"({old_a:.5f}, {old_b:.5f}) in {old_n} launches, "
+                     f"{row['old_ms']:.4f} ms per call by events")
+        else:
+            row["device_ms"] = dev_a
+            line += f"; device time fused {dev_a:.5f} ms in {n_a} launch"
+        print(line + f" (torch.profiler); bound {bound_ms * 1e3:.4f} us by {bound_by} "
+              f"({nbytes / 1e3:.1f} KB, {flops / 1e6:.2f} MFLOP) [{card}]")
+        _check(0 < n_a <= 1, f"{name}: {n_a} kernel launches per fb_klt_track call")
+        shapes.append(row)
+
+    # klt_pyramidal: the same kernel with the forward passes only
+    klt_pyramidal.launches = 0
+    fwd = lambda level_fn=None: klt_pyramidal(
+        pyr0, pyr1, det.xy, det.xy, det.valid, levels=3, win=win, iters=cfg.klt_iters,
+        eps=cfg.klt_eps, err_max=cfg.klt_err_max, search_r=8, level_fn=level_fn)
+    a, b = fwd(), fwd(lk.lk_level_plain)
+    _check(klt_pyramidal.launches == 1, "klt_pyramidal did not launch the kernel once")
+    dxy, derr = float((a.xy - b.xy).abs().max()), float((a.err - b.err).abs().max())
+    equal = torch.equal(a.xy, b.xy) and torch.equal(a.err, b.err) and torch.equal(a.status, b.status)
+    print(f"[kernel] klt_pyramidal (forward only, N=192, 3 levels, R=8): tracked "
+          f"{int(a.status.sum())}, bit-equal to the plain composition {equal}, "
+          f"max|dxy| {dxy:.3e} px, max|derr| {derr:.3e}")
+    _check(torch.equal(a.status, b.status), "klt_pyramidal: kernel and plain statuses differ")
+    _check(max(dxy, derr) <= 1e-5, f"klt_pyramidal: |dxy| {dxy}, |derr| {derr} > 1e-5")
+    _check(int(a.status.sum()) > 50, "klt_pyramidal: too few tracked")
+    max_err = max(max_err, dxy, derr)
+
+    # lk_level: the same kernel with a one-pass schedule, no gates
     guess = det.xy + torch.tensor([1.5, 0.5], device=dev)
-    call = lambda fn: fn(pyr0[0], pyr1[0], det.xy, guess, det.valid, win=cfg.klt_window,
+    call = lambda fn: fn(pyr0[0], pyr1[0], det.xy, guess, det.valid, win=win,
                          iters=cfg.klt_iters, eps=cfg.klt_eps, search_r=4)
-    ms_plain_a = _time_ms(lambda: call(lk.lk_level_plain))
-    ms_kernel_a = _time_ms(lambda: call(lk.lk_level))
-    ms_kernel_b = _time_ms(lambda: call(lk.lk_level))
-    ms_plain_b = _time_ms(lambda: call(lk.lk_level_plain))
-    ms_kernel = statistics.median([ms_kernel_a, ms_kernel_b])
-    ms_plain = statistics.median([ms_plain_a, ms_plain_b])
-    ms_device = _device_ms(lambda: call(lk.lk_level), "lk_level_kernel")
-    print(f"[kernel] lk_level N={det.xy.shape[0]} R=4 iters={cfg.klt_iters}: "
-          f"kernel {ms_kernel:.4f} ms ({ms_kernel_a:.4f}, {ms_kernel_b:.4f}), plain "
-          f"{ms_plain:.4f} ms ({ms_plain_a:.4f}, {ms_plain_b:.4f}) per call, CUDA events "
-          f"around back-to-back calls; kernel device time {ms_device:.4f} ms per call "
-          f"(torch.profiler) [{card}]")
-    return max_err, ms_kernel, ms_plain
+    lk.lk_level.launches = 0
+    a, b = call(lk.lk_level), call(lk.lk_level_plain)
+    _check(lk.lk_level.launches == 1, "lk_level did not launch the kernel")
+    equal = all(torch.equal(x, y) for x, y in zip(a, b))
+    print(f"[kernel] lk_level (one pass, N=192, R=4): bit-equal to lk_level_plain {equal}, "
+          f"max|dxy| {float((a[0] - b[0]).abs().max()):.3e}")
+    _check(torch.equal(a[1], b[1]), "lk_level: kernel and plain statuses differ")
+    _check(float((a[0] - b[0]).abs().max()) <= 1e-5, "lk_level: |dxy| > 1e-5")
+    return max_err, shapes
 
 
 def _drive(slam, frames, tag):
     """``find_camera_pose`` over ``frames``, synchronised around each
-    frame.  Returns per-frame lists: statuses, poses, ms, K1 launches,
-    host syncs, keyframe flags, and the bootstrap's kept model (None, or
-    True where the homography won)."""
+    frame.  Returns per-frame lists: statuses, poses, ms, KLT kernel
+    launches, host syncs, keyframe flags, and the bootstrap's kept model
+    (None, or True where the homography won).  Every frame at status 1
+    must have launched the fused KLT kernel exactly twice (stage 1 and the
+    full-width stage 2), and no frame launched it through ``klt_pyramidal``
+    or the one-pass ``lk_level``."""
     import torch
     from alvaar_tpu_torch.frontend.step import _try_essential
+    from alvaar_tpu_torch.ops.klt import fb_klt_track, klt_pyramidal
     from alvaar_tpu_torch.ops.lk_level import lk_level
     from alvaar_tpu_torch.solvers.homography import homography_ransac
     from alvaar_tpu_torch.worldmap.keyframe import host_bool
@@ -207,11 +391,14 @@ def _drive(slam, frames, tag):
     for frame in frames:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        l0, s0, h0 = lk_level.launches, host_bool.syncs, homography_ransac.calls
+        l0, s0, h0 = fb_klt_track.launches, host_bool.syncs, homography_ransac.calls
+        p0 = lk_level.launches + klt_pyramidal.launches
         T = slam.find_camera_pose(frame)
         torch.cuda.synchronize()
         run["ms"].append((time.perf_counter() - t0) * 1e3)
-        run["launches"].append(lk_level.launches - l0)
+        run["launches"].append(fb_klt_track.launches - l0)
+        _check(lk_level.launches + klt_pyramidal.launches == p0,
+               f"[{tag}] a KLT launch outside fb_klt_track on the main path")
         run["syncs"].append(host_bool.syncs - s0 + 1)     # + the packed readback
         run["status"].append(slam.last_status)
         run["kf"].append(slam.last_is_keyframe)
@@ -220,12 +407,14 @@ def _drive(slam, frames, tag):
                             if homography_ransac.calls > h0 else None)
     st = run["status"]
     tracked = [i for i, x in enumerate(st) if x == 1]
-    _check(all(run["launches"][i] > 0 for i in tracked),
-           f"[{tag}] a frame at status 1 launched no LK kernel")
+    _check(all(run["launches"][i] == 2 for i in tracked),
+           f"[{tag}] a frame at status 1 did not launch the KLT kernel exactly twice")
     print(f"[{tag}] statuses {''.join(str(x) for x in st)}")
     print(f"[{tag}] first status 1 at frame {tracked[0] if tracked else None}, "
-          f"{len(tracked)}/{len(st)} at status 1, {st.count(2)} resets, LK launches "
-          f"{sum(run['launches'])} ({statistics.median(run['launches'])} per frame)")
+          f"{len(tracked)}/{len(st)} at status 1, {st.count(2)} resets, KLT launches "
+          f"{sum(run['launches'])} ({statistics.median(run['launches'])} per frame; "
+          f"{statistics.median([run['launches'][i] for i in tracked]) if tracked else 0} per "
+          f"tracking frame), host syncs per frame median {statistics.median(run['syncs'])}")
     return run
 
 
@@ -243,6 +432,7 @@ def phase_main_path(frames, gt, card):
     """Phase 3: the default config over the golden sequence."""
     import torch
     from alvaar_tpu_torch import AlvaAR, SlamConfig
+    from alvaar_tpu_torch.ops.klt import fb_klt_track, klt_pyramidal
     from alvaar_tpu_torch.ops.lk_level import lk_level
     from alvaar_tpu_torch.solvers.fivept import essential_ransac_5pt
     from alvaar_tpu_torch.solvers.homography import homography_ransac
@@ -251,10 +441,12 @@ def phase_main_path(frames, gt, card):
 
     h, w = frames[0].shape
     slam = AlvaAR(w, h, fov=60.0, config=SlamConfig(), device="cuda")
-    lk_level.launches = essential_ransac_5pt.calls = homography_ransac.calls = 0
-    host_bool.syncs = 0
+    fb_klt_track.launches = klt_pyramidal.launches = lk_level.launches = 0
+    essential_ransac_5pt.calls = homography_ransac.calls = host_bool.syncs = 0
     run = _drive(slam, frames, "main")
-    launches, n5, nh = lk_level.launches, essential_ransac_5pt.calls, homography_ransac.calls
+    launches, n5, nh = fb_klt_track.launches, essential_ransac_5pt.calls, homography_ransac.calls
+    _check(lk_level.launches == 0 and klt_pyramidal.launches == 0,
+           "the main path launched the kernel outside fb_klt_track")
     choices = [c for c in run["use_h"] if c is not None]
 
     for name, t in slam.state.tensors():
@@ -281,6 +473,8 @@ def phase_main_path(frames, gt, card):
           f"{statistics.median(kf_ms) if kf_ms else float('nan'):.3f} ms [{card}]")
     _check_bars(run, "main", 25, REF_TRACKED)
     _check(ate_cm <= REF_ATE_WORST_CM, f"ATE {ate_cm:.4f} cm > {REF_ATE_WORST_CM} cm")
+    _check(statistics.median(run["syncs"]) <= 6,
+           f"host syncs per frame median {statistics.median(run['syncs'])} > 6")
     _check(n5 > 0, "the 5-point RANSAC never ran on the card")
     _check(nh > 0, "the homography RANSAC never ran on the card")
 
@@ -310,15 +504,15 @@ def phase_main_path(frames, gt, card):
 def phase_eight_point(frames, card):
     """Phase 3b: the first slice's 8-point bootstrap, at a cut depth."""
     from alvaar_tpu_torch import AlvaAR, SlamConfig
-    from alvaar_tpu_torch.ops.lk_level import lk_level
+    from alvaar_tpu_torch.ops.klt import fb_klt_track
     from alvaar_tpu_torch.solvers.fivept import essential_ransac_5pt
 
     cfg = SlamConfig(use_five_point=False, use_homography_init=False)
     h, w = frames[0].shape
     slam = AlvaAR(w, h, fov=60.0, config=cfg, device="cuda")
-    lk_level.launches = essential_ransac_5pt.calls = 0
+    fb_klt_track.launches = essential_ransac_5pt.calls = 0
     run = _drive(slam, frames[:40], "8pt")
-    _check(lk_level.launches > 0, "[8pt] no LK launch")
+    _check(fb_klt_track.launches > 0, "[8pt] no KLT launch")
     _check(essential_ransac_5pt.calls == 0, "[8pt] the 5-point solver ran")
     _check_bars(run, "8pt", 25, 25)
     print(f"[8pt] frames 20-39 median {statistics.median(run['ms'][20:]):.3f} ms/frame [{card}]")
@@ -328,7 +522,7 @@ def phase_facade(slam, more_frames, card, tmp):
     """Phase 4: the rest of the facade on the phase-3 map."""
     import torch
     from alvaar_tpu_torch import AlvaAR
-    from alvaar_tpu_torch.ops.lk_level import lk_level
+    from alvaar_tpu_torch.ops.klt import fb_klt_track
     from alvaar_tpu_torch.solvers.plane import find_plane_ransac
     from alvaar_tpu_torch.system import PendingResult
     from alvaar_tpu_torch.worldmap.state import map_state_to_numpy
@@ -356,21 +550,21 @@ def phase_facade(slam, more_frames, card, tmp):
                f"load_map: leaf {k} differs")
     print(f"[facade] save_map -> load_map: {len(ref)} arrays equal bit for bit "
           f"({os.path.getsize(path) / 2**20:.2f} MiB on disk)")
-    lk_level.launches = 0
+    fb_klt_track.launches = 0
     sync_st, sync_T = [], []
     for f in more_frames:
         sync_T.append(sync.find_camera_pose(f))
         sync_st.append(sync.last_status)
     print(f"[facade] resumed after load_map on golden frames 120-{119 + len(more_frames)}: "
-          f"statuses {''.join(map(str, sync_st))}, LK launches {lk_level.launches}")
+          f"statuses {''.join(map(str, sync_st))}, KLT launches {fb_klt_track.launches}")
     _check(sync_st[:10] == [1] * 10, "tracking did not resume at status 1 after load_map")
 
     # async + drain against the synchronous path, from the same checkpoint
-    lk_level.launches = 0
+    fb_klt_track.launches = 0
     inst = loaded()
     pending = [inst.find_camera_pose_async(f) for f in more_frames]
     PendingResult.drain(pending)
-    _check(lk_level.launches > 0, "async path launched no LK kernel")
+    _check(fb_klt_track.launches > 0, "async path launched no KLT kernel")
     _check([r.status for r in pending] == sync_st, "async statuses differ from the sync path")
     dmax = max((float(np.abs(r.pose - T).max()) for r, T in zip(pending, sync_T)
                 if T is not None), default=0.0)
@@ -379,7 +573,7 @@ def phase_facade(slam, more_frames, card, tmp):
     _check(dmax <= 1e-4, f"async poses differ from the sync path by {dmax}")
 
     # IMU: rotation from the mirrored, inverted quaternion
-    lk_level.launches = 0
+    fb_klt_track.launches = 0
     inst = loaded()
     rng = np.random.default_rng(7)
     worst = 0.0
@@ -393,9 +587,9 @@ def phase_facade(slam, more_frames, card, tmp):
                       [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
         worst = max(worst, float(np.abs(T[:3, :3] - R).max()))
     print(f"[facade] find_camera_pose_with_imu over 10 frames: max |R - R(q)| {worst:.2e}, "
-          f"accumulated translation {np.round(T[:3, 3], 4).tolist()}, LK launches {lk_level.launches}")
+          f"accumulated translation {np.round(T[:3, 3], 4).tolist()}, KLT launches {fb_klt_track.launches}")
     _check(worst <= 1e-6, f"IMU rotation off by {worst}")
-    _check(lk_level.launches > 0, "IMU path launched no LK kernel")
+    _check(fb_klt_track.launches > 0, "IMU path launched no KLT kernel")
 
     T_plane = slam.find_plane()
     print(f"[facade] find_plane on the golden map: "
@@ -428,7 +622,7 @@ def phase_loop_closure(card):
     from alvaar_tpu_torch import AlvaAR, SlamConfig
     from alvaar_tpu_torch.geom.lie import SE3
     from alvaar_tpu_torch.loopclosure import detector as det
-    from alvaar_tpu_torch.ops.lk_level import lk_level
+    from alvaar_tpu_torch.ops.klt import fb_klt_track
     from render_scene_np import TwoPlaneScene, trajectory
 
     # (a) bench.py's shape: 256 keyframes x 192 descriptors, seed 3
@@ -480,7 +674,7 @@ def phase_loop_closure(card):
     scene = TwoPlaneScene(np.random.default_rng(11), width=320, height=240, fov=60.0)
     slam = AlvaAR(320, 240, fov=60.0, config=cfg, device="cuda", enable_loop_closure=True,
                   loop_delay=4)
-    lk_level.launches = 0
+    fb_klt_track.launches = 0
     loops, statuses = [], []
     t0 = time.perf_counter()
     for i in range(len(gt)):
@@ -491,8 +685,8 @@ def phase_loop_closure(card):
     wall = time.perf_counter() - t0
     print(f"[loop] out-and-back 320x240, {len(gt)} frames: statuses {''.join(map(str, statuses))}")
     print(f"[loop] {statuses.count(1)} at status 1, loops (frame, matched kf, corrected) {loops}, "
-          f"LK launches {lk_level.launches}, {wall:.1f} s [{card}]")
-    _check(lk_level.launches > 0, "[loop] no LK launch")
+          f"KLT launches {fb_klt_track.launches}, {wall:.1f} s [{card}]")
+    _check(fb_klt_track.launches > 0, "[loop] no KLT launch")
     _check(statuses.count(1) > 40, "[loop] tracking broke")
     _check(any(i >= len(gt) // 2 for i, _, _ in loops), "[loop] no loop in the return half")
     _check(any(c for _, _, c in loops), "[loop] no correction applied")
@@ -520,7 +714,7 @@ def main() -> int:
                           height=480, fov=60.0, tex_scale=120.0)
     frames = [scene.render(gt[i]).astype(np.float32) for i in range(n)]
 
-    max_err, ms_kernel, ms_plain = phase_kernel(frames, card)
+    max_err, shapes = phase_kernel(frames, card)
     slam, launches = phase_main_path(frames, gt, card)
     phase_eight_point(frames, card)
     gt_more = trajectory(n + 45, step=0.04)[n:n + 20]
@@ -530,12 +724,16 @@ def main() -> int:
         phase_facade(slam, more, card, tmp)
     phase_loop_closure(card)
 
+    # the top-level numbers are at the heavier main-path call, stage 2 at N=192
+    main = shapes[1]
     print(json.dumps({"kernels": [{
-        "name": "lk_level", "route": "cuda",
-        "source": "alvaar_tpu_torch/csrc/lk_level.cu",
+        "name": "klt_track", "route": "cuda",
+        "source": "alvaar_tpu_torch/csrc/klt_track.cu",
         "replaces": "alvaar_tpu/ops/pallas/lk_kernel.py:173",
         "launches": launches, "max_abs_err": max_err,
-        "ms": ms_kernel, "plain_ms": ms_plain}]}))
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None, "device_ms": main["device_ms"],
+        "shape": main["shape"], "card": card, "shapes": shapes}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

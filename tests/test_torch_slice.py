@@ -8,6 +8,9 @@ homography), and its MapState is snapshotted before every frame.
   (map_state_from_numpy), the port runs one slam_step on the same frame,
   and its state is held against the JAX state after that frame — on a
   tracking frame and on a keyframe frame.
+* Stage 2 of the KLT, compacted into 48 slots (the CPU's branch, as the
+  JAX package's default) and at full width (the card's branch), from the
+  same carried state: the same keypoints, validity and P3P request.
 * End to end: the port alone over the 40 frames, held to test_e2e's bars
   and to the JAX trajectory; and the port alone under the default config
   (5-point and homography bootstrap), held to the same bars.
@@ -19,7 +22,9 @@ import torch
 
 from alvaar_tpu import AlvaAR as JAlvaAR, SlamConfig as JSlamConfig
 from alvaar_tpu_torch import AlvaAR, SlamConfig
+from alvaar_tpu_torch.frontend import step as tstep
 from alvaar_tpu_torch.frontend.step import slam_step
+from alvaar_tpu_torch.geom.lie import SE3
 from alvaar_tpu_torch.worldmap.state import map_state_from_numpy, map_state_to_numpy
 from tests.render_scene import TwoPlaneScene, ate_rmse, trajectory
 
@@ -147,6 +152,24 @@ def test_step_parity_keyframe_frame(jax_run, frames):
     both3d = a["lm_valid"] & a["lm_is3d"] & b["lm_valid"] & b["lm_is3d"]
     assert both3d.sum() > 50
     np.testing.assert_allclose(a["lm_pos"][both3d], b["lm_pos"][both3d], atol=1e-3, rtol=0)
+
+
+def test_stage2_full_width_equals_compaction(jax_run, frames, monkeypatch):
+    snaps, outs, _ = jax_run
+    i = _tracking_frame(outs)
+    cam = AlvaAR(320, 240, fov=60.0, config=CFG, device="cpu").camera
+    state = map_state_from_numpy(snaps[i], CFG)
+    pyr_cur = tstep.preprocess(torch.from_numpy(frames[0][i]), CFG)
+    prior = SE3.exp(-state.vel).compose(state.pose)
+    compactions = []
+    top_k = tstep.top_k
+    monkeypatch.setattr(tstep, "top_k", lambda *a: compactions.append(1) or top_k(*a))
+    a = tstep._track_keypoints(state, pyr_cur, prior, cam, CFG, allow_cond=True)
+    b = tstep._track_keypoints(state, pyr_cur, prior, cam, CFG, allow_cond=False)
+    assert compactions == [1]             # only the first call compacted
+    assert torch.equal(a.kp_valid, b.kp_valid) and int(a.kp_valid.sum()) > 20
+    assert torch.equal(a.kp_px, b.kp_px)
+    assert torch.equal(a.p3p_req, b.p3p_req)
 
 
 def _assert_e2e_bars(poses, statuses, gt):
