@@ -65,6 +65,11 @@
 // tap by tap); this file is built with --fmad=false, and the power-of-two
 // scalings are exact, so kernel and plain version agree bit for bit.
 //
+// Streams: one launch serves B streams (multi-stream serving).  Point n
+// belongs to stream n / per_image and reads that stream's images, which
+// lie `stride` floats apart in each level ([B, H, W] stacks, no copy).
+// With B = 1 the offset is zero and the launch is the single-stream one.
+//
 // Plain C entry point, built with nvcc into a shared library and loaded
 // with ctypes (ops/lk_level.py).
 
@@ -78,11 +83,15 @@ constexpr int kLevelsMax = 4;
 constexpr int kPassMax = kLevelsMax + 1;
 constexpr int kThreads = 128;  // per point, and per block
 
+// Level l of stream s starts at prev[l] + s * stride[l] (and cur[l] + ...);
+// points come grouped by stream, per_image of them each.
 struct Pyramids {
   const float* prev[kLevelsMax];
   const float* cur[kLevelsMax];
+  long long stride[kLevelsMax];
   int h[kLevelsMax];
   int w[kLevelsMax];
+  int per_image;
 };
 
 struct Pass {
@@ -274,6 +283,10 @@ __global__ void __launch_bounds__(kThreads) klt_track_kernel(
 
   const float px = pts[2 * n], py = pts[2 * n + 1];
   const bool valid_n = valid[n];
+  // this point's stream: its images are `sid` strides into each level
+  const long long sid = n / pyr.per_image;
+  const auto prev = [&](int l) { return pyr.prev[l] + sid * pyr.stride[l]; };
+  const auto cur = [&](int l) { return pyr.cur[l] + sid * pyr.stride[l]; };
 
   // The guess of the coarsest pass: the prior scaled to its level.
   const int l0 = sch.pass[0].level;
@@ -287,13 +300,13 @@ __global__ void __launch_bounds__(kThreads) klt_track_kernel(
     const float inv = 1.0f / static_cast<float>(1 << l);
     int btx, bty;
     template_base(px * inv, py * inv, pyr.h[l], pyr.w[l], r, &btx, &bty);
-    gather_async(tp0 + p * kTpl, pyr.prev[l], pyr.w[l], bty - (r + 1), btx - (r + 1), tpl, tpl,
+    gather_async(tp0 + p * kTpl, prev(l), pyr.w[l], bty - (r + 1), btx - (r + 1), tpl, tpl,
                  lane);
     if (p == 0) {
       const int margin = sch.pass[0].radius + r + 1;
       const int bjx = clampi(static_cast<int>(floorf(gux + 0.5f)), margin, pyr.w[l0] - margin - 1);
       const int bjy = clampi(static_cast<int>(floorf(guy + 0.5f)), margin, pyr.h[l0] - margin - 1);
-      gather_async(base + L.jp, pyr.cur[l0], pyr.w[l0], bjy - (margin - 1), bjx - (margin - 1),
+      gather_async(base + L.jp, cur(l0), pyr.w[l0], bjy - (margin - 1), bjx - (margin - 1),
                    2 * sch.pass[0].radius + win, patch_pitch(win, sch.pass[0].radius), lane);
       cp_async_commit();
     }
@@ -427,7 +440,7 @@ __global__ void __launch_bounds__(kThreads) klt_track_kernel(
         guy = py;
         int nbx, nby;
         template_base(x, y, nH, nW, r, &nbx, &nby);
-        gather_async(tp0 + (p + 1) * kTpl, pyr.cur[0], nW, nby - (r + 1), nbx - (r + 1), tpl,
+        gather_async(tp0 + (p + 1) * kTpl, cur(0), nW, nby - (r + 1), nbx - (r + 1), tpl,
                      tpl, lane);
       } else {
         const float up = static_cast<float>(1 << (l - nl));
@@ -437,7 +450,7 @@ __global__ void __launch_bounds__(kThreads) klt_track_kernel(
       const int nbjx = clampi(static_cast<int>(floorf(gux + 0.5f)), nmargin, nW - nmargin - 1);
       const int nbjy = clampi(static_cast<int>(floorf(guy + 0.5f)), nmargin, nH - nmargin - 1);
       gather_async(base + L.jp + ((p + 1) & 1) * L.jp_size,
-                   nx.backward ? pyr.prev[0] : pyr.cur[nl], nW, nbjy - (nmargin - 1),
+                   nx.backward ? prev(0) : cur(nl), nW, nbjy - (nmargin - 1),
                    nbjx - (nmargin - 1), 2 * nx.radius + win, patch_pitch(win, nx.radius), lane);
       cp_async_commit();
     }
@@ -531,12 +544,15 @@ cudaError_t launch_any(int win, const Pyramids& pyr, const Schedule& sch, const 
 
 }  // namespace
 
+// prev, cur: level l of B streams' images, stream s at prev[l] + s *
+// stride[l]; the N points come grouped by stream, per_image = N / B each.
 // win: odd, 3 to kWinMax.  passes: n_pass rows of (level, radius, iters,
 // backward).  Forward passes run from level levels-1 down to 0, one level
 // each; a backward pass, if any, is the last and runs at level 0.  Returns
 // a cudaError_t.
 extern "C" int klt_track_launch(const float* const* prev, const float* const* cur,
-                                const int* h, const int* w, int levels, const int* passes,
+                                const long long* stride, const int* h, const int* w,
+                                int levels, int per_image, const int* passes,
                                 int n_pass, int gated, int win, float eps_sq, float min_eig,
                                 float err_max, float fb_dist, const float* pts,
                                 const float* prior, const bool* valid, int N, float* xy,
@@ -550,9 +566,11 @@ extern "C" int klt_track_launch(const float* const* prev, const float* const* cu
   for (int l = 0; l < levels; ++l) {
     pyr.prev[l] = prev[l];
     pyr.cur[l] = cur[l];
+    pyr.stride[l] = stride[l];
     pyr.h[l] = h[l];
     pyr.w[l] = w[l];
   }
+  pyr.per_image = per_image;
   Schedule sch{};
   sch.n_pass = n_pass;
   sch.gated = gated;
@@ -571,6 +589,7 @@ extern "C" int klt_track_launch(const float* const* prev, const float* const* cu
   }
   if (sch.pass[sch.n_forward - 1].level != 0) return bad;
   if (N <= 0) return static_cast<int>(cudaSuccess);
+  if (per_image < 1 || N % per_image != 0) return bad;
   const Params prm{eps_sq, min_eig, err_max, fb_dist};
   return launch_any(win, pyr, sch, prm, pts, prior, valid, N, xy, status, err,
                     static_cast<cudaStream_t>(stream));

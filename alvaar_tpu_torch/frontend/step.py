@@ -10,6 +10,16 @@ syncs.  The bootstrap runs the 5-point (or 8-point) essential RANSAC and,
 with ``use_homography_init``, the homography RANSAC, and keeps the model
 with more inliers by a select, not a branch.
 
+Multi-stream serving (parallel/multistream.py) recomposes the phases as
+the JAX package does: ``track_phase_batched`` runs the per-frame work of B
+streams at once with the heavy RANSAC solves deferred (``defer_heavy``);
+its three branches (first frame, initialization, tracking) are computed
+for every stream and selected per stream, as under the JAX ``vmap``, with
+no host sync, and its two KLT stages are one kernel launch each for all
+streams.  ``recovery_phase``, ``init_essential_phase``, ``keyframe_phase``
+and the reset then run on the streams that the scheduler elects, through
+the single-stream code.
+
 Status codes: 1 = tracking, 2 = reset performed, 3 = initializing.
 """
 
@@ -18,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.func import vmap
 
 from alvaar_tpu_torch.config import SlamConfig
 from alvaar_tpu_torch.geom.camera import Camera
@@ -31,7 +42,8 @@ from alvaar_tpu_torch.solvers.fivept import essential_ransac_5pt
 from alvaar_tpu_torch.solvers.homography import homography_ransac
 from alvaar_tpu_torch.solvers.pnp import pnp_refine
 from alvaar_tpu_torch.worldmap.keyframe import create_keyframe, host_bool
-from alvaar_tpu_torch.worldmap.state import MapState, reset_map_state
+from alvaar_tpu_torch.worldmap.state import (MapState, from_tensors, reset_map_state,
+                                             stack_states, state_row)
 
 
 @dataclasses.dataclass
@@ -45,11 +57,22 @@ class StepOutput:
     is_keyframe: torch.Tensor
 
 
+@dataclasses.dataclass
+class TrackFlags:
+    """Per-frame outcomes the serving layer schedules on (0-d, or [B]
+    for a batched track phase)."""
+    kf_req: torch.Tensor     # keyframe required (already reset-gated)
+    p3p_need: torch.Tensor   # pose failed and P3P recovery was deferred
+    init_gate: torch.Tensor  # bootstrap gate passed, essential solve deferred
+
+
 def preprocess(gray, cfg: SlamConfig):
-    """Optional CLAHE, then the float32 pyramid of the gray frame."""
+    """Optional CLAHE, then the float32 pyramid of the gray frame ([H, W],
+    or a stack [B, H, W] of B streams' frames)."""
     img = gray.to(torch.float32)
     if cfg.use_clahe:
-        img = clahe(img, clip=cfg.clahe_clip)
+        img = (clahe(img, clip=cfg.clahe_clip) if img.dim() == 2
+               else torch.stack([clahe(x, clip=cfg.clahe_clip) for x in img]))
     return build_pyramid(img, cfg.pyramid_levels)
 
 
@@ -67,13 +90,8 @@ def _track_keypoints(state: MapState, pyr_cur, pose_prior: SE3, cam: Camera,
     ``klt_stage2_slots`` slots, a branch on a device scalar (one host
     sync), as the JAX package's ``allow_cond``.  Points are independent, so
     both branches give the same result."""
-    is3d = (state.kp_valid & state.lm_valid[state.kp_lm]
-            & state.lm_is3d[state.kp_lm])
-    proj = cam.project_dist(pose_prior.apply(state.lm_pos[state.kp_lm]))
-    prior_ok = is3d & cam.in_roi(proj, cfg.width, cfg.height, border=1)
-
-    klt_args = dict(win=cfg.klt_window, iters=cfg.klt_iters, eps=cfg.klt_eps,
-                    err_max=cfg.klt_err_max, fb_dist=cfg.klt_fb_dist)
+    proj, prior_ok = _motion_priors(state, pose_prior, cam, cfg)
+    klt_args = _klt_args(cfg)
     L = cfg.track_base_level
     sc = float(2 ** L)
     pyr_p, pyr_c = state.prev_pyr[L:], pyr_cur[L:]
@@ -101,12 +119,35 @@ def _track_keypoints(state: MapState, pyr_cur, pose_prior: SE3, cam: Camera,
                           levels=s2_levels, **klt_args)
         s2_xy, s2_status = s2.xy, s2.status
 
-    ok1 = prior_ok & s1.status
+    return _merge_tracks(state, cam, sc, prior_ok, s1.xy, s1.status, stage2_mask,
+                         s2_xy, s2_status)
+
+
+def _klt_args(cfg: SlamConfig) -> dict:
+    return dict(win=cfg.klt_window, iters=cfg.klt_iters, eps=cfg.klt_eps,
+                err_max=cfg.klt_err_max, fb_dist=cfg.klt_fb_dist)
+
+
+def _motion_priors(state: MapState, pose_prior: SE3, cam: Camera, cfg: SlamConfig):
+    """Motion-prior projections (distorted pixels) of the keypoints' 3D
+    landmarks and which of them stage 1 tracks.  Returns (proj, prior_ok)."""
+    is3d = (state.kp_valid & state.lm_valid[state.kp_lm]
+            & state.lm_is3d[state.kp_lm])
+    proj = cam.project_dist(pose_prior.apply(state.lm_pos[state.kp_lm]))
+    return proj, is3d & cam.in_roi(proj, cfg.width, cfg.height, border=1)
+
+
+def _merge_tracks(state: MapState, cam: Camera, sc: float, prior_ok, s1_xy, s1_status,
+                  stage2_mask, s2_xy, s2_status) -> MapState:
+    """The keypoints after both stages (stage 1 first), and the P3P request
+    when stage 1 tracked under a third of its priors.  Elementwise over
+    [..., K]: one stream or a stack of streams."""
+    ok1 = prior_ok & s1_status
     ok2 = stage2_mask & s2_status
-    kp_px = torch.where(ok1[:, None], s1.xy * sc,
-                        torch.where(ok2[:, None], s2_xy * sc, state.kp_px))
-    n_priors = torch.sum(prior_ok)
-    p3p_req = (n_priors > 0) & (torch.sum(ok1).to(torch.float32)
+    kp_px = torch.where(ok1[..., None], s1_xy * sc,
+                        torch.where(ok2[..., None], s2_xy * sc, state.kp_px))
+    n_priors = torch.sum(prior_ok, dim=-1)
+    p3p_req = (n_priors > 0) & (torch.sum(ok1, dim=-1).to(torch.float32)
                                 < 0.33 * n_priors.to(torch.float32))
     return state.replace(kp_px=kp_px, kp_und=cam.undistort(kp_px),
                          kp_valid=ok1 | ok2, p3p_req=state.p3p_req | p3p_req)
@@ -116,9 +157,12 @@ def _track_keypoints(state: MapState, pyr_cur, pose_prior: SE3, cam: Camera,
 # Pose estimation
 # ---------------------------------------------------------------------------
 
-def _compute_pose(state: MapState, cam: Camera, cfg: SlamConfig):
+def _compute_pose(state: MapState, cam: Camera, cfg: SlamConfig, p3p=None, samples=None):
     """P3P-LMedS recovery when requested, then motion-only PnP.
-    Returns (state, success)."""
+    ``p3p``: None runs P3P when the state requests it (a branch on a device
+    scalar), False never (the deferred, batched track phase), True always
+    (the recovery phase).  ``samples`` replaces P3P's draw.
+    Returns (state, success, P3P requested)."""
     is3d = (state.kp_valid & state.lm_valid[state.kp_lm]
             & state.lm_is3d[state.kp_lm])
     n3d = torch.sum(is3d)
@@ -127,10 +171,11 @@ def _compute_pose(state: MapState, cam: Camera, cfg: SlamConfig):
 
     pose_init, pnp_mask = state.pose, is3d
     p3p_ok = torch.ones((), dtype=torch.bool, device=is3d.device)
-    if host_bool(do_p3p):
+    if p3p or (p3p is None and host_bool(do_p3p)):
         r = p3p_lmeds(state.rng, cam.bearing(state.kp_und), pts_w, is3d,
                       focal=cam.focal, iters=cfg.ransac_iters,
-                      err_px=cfg.ransac_err_px, min_inliers=cfg.p3p_min_inliers)
+                      err_px=cfg.ransac_err_px, min_inliers=cfg.p3p_min_inliers,
+                      samples=samples)
         pose_init = SE3.where(r.success, r.pose, state.pose)
         pnp_mask = torch.where(r.success, r.inliers, is3d)
         p3p_ok = r.success
@@ -148,7 +193,7 @@ def _compute_pose(state: MapState, cam: Camera, cfg: SlamConfig):
                              state.kp_valid),
         p3p_req=~success, pose_failures=failures,
         reset_requested=state.reset_requested | (failures > cfg.max_pose_failures),
-    ), success
+    ), success, do_p3p
 
 
 # ---------------------------------------------------------------------------
@@ -256,9 +301,18 @@ def _keyframe_required(state: MapState, cam: Camera, cfg: SlamConfig):
 # The step
 # ---------------------------------------------------------------------------
 
-def track_phase(state: MapState, gray, cam: Camera, cfg: SlamConfig, dt=1.0):
+def track_phase(state: MapState, gray, cam: Camera, cfg: SlamConfig, dt=1.0, *,
+                defer_heavy: bool = False):
     """Per-frame work without the keyframe pipeline.  Returns (state,
-    keyframe required).  The current pyramid is left in ``prev_pyr``."""
+    TrackFlags).  The current pyramid is left in ``prev_pyr``.
+
+    ``defer_heavy``: leave out the P3P recovery and the essential bootstrap
+    and report them as ``p3p_need`` and ``init_gate`` instead: the batched
+    phase (``track_phase_batched``) on a one-stream stack."""
+    if defer_heavy:
+        states, fl = track_phase_batched(stack_states([state]), gray[None], cam, cfg, [dt])
+        return state_row(states, 0), TrackFlags(kf_req=fl.kf_req[0], p3p_need=fl.p3p_need[0],
+                                                init_gate=fl.init_gate[0])
     pyr_cur = preprocess(gray, cfg)
     dt = max(float(dt), 1e-6)
     dev = state.kp_px.device
@@ -287,12 +341,125 @@ def track_phase(state: MapState, gray, cam: Camera, cfg: SlamConfig, dt=1.0):
         state, kf_required = _attempt_init(state, cam, cfg)
     else:
         state = state.replace(pose=pose_prior)
-        state, success = _compute_pose(state, cam, cfg)
+        state, success, _ = _compute_pose(state, cam, cfg)
         new_vel = prev_pose.compose(state.pose.inverse()).log() / dt
         state = state.replace(vel=torch.where(success, new_vel, state.vel))
         kf_required = _keyframe_required(state, cam, cfg) & success
     state = state.replace(prev_pyr=pyr_cur)
-    return state, kf_required & ~state.reset_requested
+    false = torch.zeros((), dtype=torch.bool, device=dev)
+    return state, TrackFlags(kf_req=kf_required & ~state.reset_requested, p3p_need=false,
+                             init_gate=false)
+
+
+def _branches(state: MapState, pose_prior_q, pose_prior_t, dt, cam: Camera,
+              cfg: SlamConfig) -> dict:
+    """One stream's three branches of the track phase after the KLT, all
+    computed and selected by the stream's own phase (first frame,
+    initializing, tracking), with the heavy solves deferred: the body of
+    the JAX package's ``track_phase(defer_heavy=True)`` as its ``vmap``
+    runs it.  Returns the fields it changes and the flags."""
+    pose_prior = SE3(pose_prior_q, pose_prior_t)
+    is_first = state.frame_id == 0
+    tracking = ~is_first & state.ready_for_init
+    initializing = ~is_first & ~state.ready_for_init
+
+    # tracking: PnP from the motion prior, velocity, keyframe decision
+    tr, success, do_p3p = _compute_pose(state.replace(pose=pose_prior), cam, cfg, p3p=False)
+    new_vel = state.pose.compose(tr.pose.inverse()).log() / dt
+    kf_tracking = _keyframe_required(tr, cam, cfg) & success
+    # initializing: the reset on too few tracks, the bootstrap gate
+    init_reset = state.reset_requested | (torch.sum(state.kp_valid) < cfg.min_init_keypoints)
+    gate = _init_gate(state, cam, cfg)
+
+    ident = SE3.identity(dtype=state.kp_px.dtype, device=state.kp_px.device)
+    pose = SE3.where(is_first, ident, SE3.where(tracking, tr.pose, state.pose))
+    reset = torch.where(tracking, tr.reset_requested,
+                        torch.where(initializing, init_reset, state.reset_requested))
+    ok = ~reset
+    return {
+        "pose.q": pose.q, "pose.t": pose.t,
+        "kp_valid": torch.where(tracking, tr.kp_valid, state.kp_valid),
+        "p3p_req": torch.where(tracking, tr.p3p_req, state.p3p_req),
+        "pose_failures": torch.where(tracking, tr.pose_failures, state.pose_failures),
+        "vel": torch.where(tracking & success, new_vel, state.vel),
+        "reset_requested": reset,
+        "kf_req": (is_first | (tracking & kf_tracking)) & ok,
+        "p3p_need": tracking & do_p3p & ~success & ok,
+        "init_gate": initializing & gate & ok,
+    }
+
+
+def _stream_tensors(states: MapState) -> dict:
+    """The per-stream tensors of a stacked state that the batched track
+    phase reads, by name (the pyramid is left out)."""
+    return {k: v for k, v in states.tensors() if not k.startswith("prev_pyr.")}
+
+
+def track_phase_batched(states: MapState, grays, cam: Camera, cfg: SlamConfig, dts):
+    """``track_phase(defer_heavy=True)`` for a stacked state of B streams:
+    grays [B, H, W], dts [B].  Returns (states, TrackFlags of [B] bools).
+
+    Preprocess and the two KLT stages run on the stack (each stage one
+    ``fb_klt_track`` call, so one kernel launch for all B streams on the
+    card), stage 2 at full width; the per-stream logic between and after
+    them is the single-stream code under ``torch.func.vmap``, every branch
+    computed and selected per stream.  No host sync."""
+    B, K = states.kp_px.shape[:2]
+    dev = states.kp_px.device
+    pyr_cur = preprocess(grays.contiguous(), cfg)     # the kernel reads levels densely
+    dts = torch.as_tensor(dts, dtype=torch.float32, device=dev).clamp_min(1e-6)
+
+    def priors(d, dt):
+        st = from_tensors(d)
+        in_tracking = st.ready_for_init & (st.frame_id != 0)
+        prior = SE3.where(in_tracking, SE3.exp(-st.vel * dt).compose(st.pose), st.pose)
+        proj, prior_ok = _motion_priors(st, prior, cam, cfg)
+        return prior.q, prior.t, proj, prior_ok
+
+    prior_q, prior_t, proj, prior_ok = vmap(priors)(_stream_tensors(states), dts)
+
+    L = cfg.track_base_level
+    sc = float(2 ** L)
+    pyr_p, pyr_c = states.prev_pyr[L:], pyr_cur[L:]
+    pts_t = (states.kp_px / sc).reshape(B * K, 2)
+    s1 = fb_klt_track(pyr_p, pyr_c, pts_t, (proj / sc).reshape(B * K, 2),
+                      prior_ok.reshape(B * K), levels=cfg.klt_prior_levels, search_r=4,
+                      **_klt_args(cfg))
+    s1_status = s1.status.reshape(B, K)
+    stage2_mask = states.kp_valid & (~prior_ok | (prior_ok & ~s1_status))
+    s2 = fb_klt_track(pyr_p, pyr_c, pts_t, pts_t, stage2_mask.reshape(B * K),
+                      levels=max(1, cfg.pyramid_levels - L), **_klt_args(cfg))
+    states = _merge_tracks(states, cam, sc, prior_ok, s1.xy.reshape(B, K, 2), s1_status,
+                           stage2_mask, s2.xy.reshape(B, K, 2), s2.status.reshape(B, K))
+
+    out = vmap(lambda d, q, t, dt: _branches(from_tensors(d), q, t, dt, cam, cfg))(
+        _stream_tensors(states), prior_q, prior_t, dts)
+    states = states.replace(
+        pose=SE3(out["pose.q"], out["pose.t"]), kp_valid=out["kp_valid"],
+        p3p_req=out["p3p_req"], pose_failures=out["pose_failures"], vel=out["vel"],
+        reset_requested=out["reset_requested"], prev_pyr=pyr_cur)
+    return states, TrackFlags(kf_req=out["kf_req"], p3p_need=out["p3p_need"],
+                              init_gate=out["init_gate"])
+
+
+def recovery_phase(state: MapState, cam: Camera, cfg: SlamConfig, samples=None) -> MapState:
+    """The deferred P3P + PnP redo on the current frame, from the frame's
+    KLT results in the state, drawing from the stream's generator
+    (``samples`` replaces the draw).  The track phase already counted this
+    frame's failure, so a failure here leaves ``pose_failures`` as it was."""
+    pre_fail, pre_reset = state.pose_failures, state.reset_requested
+    st, success, _ = _compute_pose(state.replace(p3p_req=torch.ones_like(state.p3p_req)),
+                                   cam, cfg, p3p=True, samples=samples)
+    return st.replace(pose_failures=torch.where(success, 0, pre_fail),
+                      reset_requested=torch.where(success, pre_reset, st.reset_requested))
+
+
+def init_essential_phase(state: MapState, cam: Camera, cfg: SlamConfig,
+                         samples=None) -> MapState:
+    """The deferred essential bootstrap (``_try_essential``), drawing from
+    the stream's generator; ``samples`` = (essential draw, homography
+    draw) replaces the draws."""
+    return _try_essential(state, cam, cfg, samples=samples)[0]
 
 
 def keyframe_phase(state: MapState, cam: Camera, cfg: SlamConfig) -> MapState:
@@ -300,16 +467,21 @@ def keyframe_phase(state: MapState, cam: Camera, cfg: SlamConfig) -> MapState:
     return create_keyframe(state, state.prev_pyr, cam, cfg)
 
 
-def finalize_phase(state: MapState, kf_created, cfg: SlamConfig):
-    """Status, output marshalling and the reset."""
+def finalize_phase(state: MapState, kf_created, cfg: SlamConfig, defer_reset: bool = False):
+    """Status, output marshalling and the reset, for one stream or (with
+    ``defer_reset``) a stacked state of B streams.  ``defer_reset`` leaves
+    the reset to the caller (``reset_requested`` stays set) and needs no
+    host sync."""
     status = torch.where(state.reset_requested, 2,
                          torch.where(state.ready_for_init, 1, 3))
-    n3d = torch.sum(state.kp_valid & state.lm_is3d[state.kp_lm]
-                    & state.lm_valid[state.kp_lm])
+    at_kp = lambda field: torch.gather(field, -1, state.kp_lm)
+    n3d = torch.sum(state.kp_valid & at_kp(state.lm_is3d) & at_kp(state.lm_valid), dim=-1)
     out = StepOutput(status=status, pose_wc=state.pose.inverse().matrix(),
                      points=state.kp_und, points_valid=state.kp_valid,
-                     num_tracked=torch.sum(state.kp_valid), num_3d=n3d,
+                     num_tracked=torch.sum(state.kp_valid, dim=-1), num_3d=n3d,
                      is_keyframe=kf_created & ~state.reset_requested)
+    if defer_reset:
+        return state.replace(frame_id=torch.where(status == 2, 0, state.frame_id + 1)), out
     reset = host_bool(state.reset_requested)
     if reset:
         state = reset_map_state(state, cfg)
@@ -322,7 +494,7 @@ def slam_step(state: MapState, gray, cam: Camera, cfg: SlamConfig,
     """Process one grayscale frame; returns the new state and outputs.
     ``dt`` is the time since the previous frame (1.0 per frame when the
     caller has no timestamps)."""
-    state, kf_req = track_phase(state, gray, cam, cfg, dt)
-    if host_bool(kf_req):
+    state, flags = track_phase(state, gray, cam, cfg, dt)
+    if host_bool(flags.kf_req):
         state = keyframe_phase(state, cam, cfg)
-    return finalize_phase(state, kf_req, cfg)
+    return finalize_phase(state, flags.kf_req, cfg)

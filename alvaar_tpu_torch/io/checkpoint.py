@@ -50,7 +50,7 @@ def _config_fingerprint(cfg: SlamConfig) -> dict:
 
 def _leaf_names(cfg: SlamConfig) -> list:
     """Leaf names in the JAX pytree's order."""
-    return [name for name, _ in init_map_state(cfg).tensors()] + ["rng_key"]
+    return [name for name, _ in init_map_state(cfg, "cpu").tensors()] + ["rng_key"]
 
 
 def save_map(path: str, state: MapState, cfg: SlamConfig) -> None:
@@ -74,7 +74,7 @@ def _read_header(data) -> dict:
     return json.loads(bytes(data[_HEADER_KEY]).decode("utf-8"))
 
 
-def load_map(path: str, cfg: SlamConfig, device="cpu") -> MapState:
+def load_map(path: str, cfg: SlamConfig, device="cuda") -> MapState:
     """Read a map written by either package's ``save_map`` onto ``device``.
     Raises ValueError on a format-version or shape-fingerprint mismatch."""
     with np.load(path) as data:

@@ -58,7 +58,7 @@ class LoopResult:
     score: torch.Tensor       # island score
 
 
-def db_init(capacity: int, max_kps: int, device="cpu", dtype=torch.float32) -> LoopDB:
+def db_init(capacity: int, max_kps: int, device="cuda", dtype=torch.float32) -> LoopDB:
     dev = torch.device(device)
     pose_q = torch.zeros((capacity, 4), dtype=dtype, device=dev)
     pose_q[:, 0] = 1.0
@@ -272,7 +272,7 @@ def loop_db_to_numpy(db: LoopDB) -> dict:
     return out
 
 
-def loop_db_from_numpy(d: dict, device="cpu") -> LoopDB:
+def loop_db_from_numpy(d: dict, device="cuda") -> LoopDB:
     """{field: ndarray} (from :func:`loop_db_to_numpy`, or a JAX LoopDB
     through ``np.asarray``; its ``desc_pm`` is not used) → LoopDB."""
     dev = torch.device(device)

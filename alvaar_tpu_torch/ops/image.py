@@ -29,15 +29,16 @@ def _edge_index(n: int, r: int, device):
 
 
 def _sep_conv(img, kernel_1d):
-    """Separable 2D convolution with edge padding, [H, W] float32 — one
-    shifted multiply-add per tap, rows first, then columns."""
+    """Separable 2D convolution with edge padding over the last two axes of
+    [..., H, W] float32 — one shifted multiply-add per tap, rows first,
+    then columns."""
     k = [float(v) for v in kernel_1d]
     r = len(k) // 2
-    h, w = img.shape
-    xp = img.index_select(0, _edge_index(h, r, img.device))
-    x = sum(kk * xp[i:i + h, :] for i, kk in enumerate(k))
-    xp = x.index_select(1, _edge_index(w, r, img.device))
-    return sum(kk * xp[:, i:i + w] for i, kk in enumerate(k))
+    h, w = img.shape[-2:]
+    xp = img.index_select(-2, _edge_index(h, r, img.device))
+    x = sum(kk * xp[..., i:i + h, :] for i, kk in enumerate(k))
+    xp = x.index_select(-1, _edge_index(w, r, img.device))
+    return sum(kk * xp[..., i:i + w] for i, kk in enumerate(k))
 
 
 def gaussian_blur3(img):
@@ -46,13 +47,15 @@ def gaussian_blur3(img):
 
 
 def pyr_down(img):
-    """5-tap binomial blur [1, 4, 6, 4, 1] / 16 + 2x decimation."""
+    """5-tap binomial blur [1, 4, 6, 4, 1] / 16 + 2x decimation of
+    [..., H, W]."""
     blurred = _sep_conv(img, [0.0625, 0.25, 0.375, 0.25, 0.0625])
-    return blurred[::2, ::2].contiguous()   # the KLT kernel reads it densely
+    return blurred[..., ::2, ::2].contiguous()   # the KLT kernel reads it densely
 
 
 def build_pyramid(img, levels: int) -> Tuple[torch.Tensor, ...]:
-    """Image pyramid, level 0 = full resolution."""
+    """Image pyramid of [H, W] or a stack [B, H, W], level 0 = full
+    resolution."""
     pyr = [img]
     for _ in range(levels - 1):
         pyr.append(pyr_down(pyr[-1]))

@@ -9,6 +9,11 @@ they are the plain composition below (over ``lk_level_plain``), which is
 the kernel's plain version.  ``level_fn`` runs the composition over another
 level pass on any device (``chip_smoke.py`` uses it to compare the kernel
 with the plain version on the card).
+
+Both take one stream (pyramid levels [H, W], points [N, 2]) or B streams
+at once (levels [B, H, W], points [B·K, 2] grouped by stream, K per
+stream): on CUDA still one launch, whose blocks read their own stream's
+images; the plain version runs the composition stream by stream.
 """
 
 from __future__ import annotations
@@ -32,6 +37,20 @@ def _launches_kernel(pts, level_fn, name: str) -> bool:
     raise ValueError(f"{name} runs on CPU or CUDA tensors, got {pts.device}")
 
 
+def _per_stream(fn, pyr_prev, pyr_cur, pts, prior, valid, **kw):
+    """``fn`` (the plain composition) over B streams: [B, H, W] levels and
+    [B·K, 2] points grouped by stream, one stream at a time."""
+    b = pyr_cur[0].shape[0]
+    if pts.shape[0] % b:
+        raise ValueError(f"{pts.shape[0]} points do not split evenly over {b} streams")
+    k = pts.shape[0] // b
+    outs = [fn([lv[i] for lv in pyr_prev], [lv[i] for lv in pyr_cur], pts[i * k:(i + 1) * k],
+               prior[i * k:(i + 1) * k], valid[i * k:(i + 1) * k], **kw) for i in range(b)]
+    return TrackResult(xy=torch.cat([o.xy for o in outs]),
+                       status=torch.cat([o.status for o in outs]),
+                       err=torch.cat([o.err for o in outs]))
+
+
 @dataclasses.dataclass
 class TrackResult:
     xy: torch.Tensor       # [N, 2] tracked positions
@@ -47,6 +66,10 @@ def klt_pyramidal(pyr_prev: Sequence[torch.Tensor],
     """Forward pyramidal LK from the coarsest of ``levels`` to level 0.
     One kernel launch for CUDA tensors, the plain composition for CPU
     tensors, the composition over ``level_fn`` when one is given."""
+    if pyr_cur[0].dim() == 3 and not _launches_kernel(pts, level_fn, "klt_pyramidal"):
+        return _per_stream(klt_pyramidal, pyr_prev, pyr_cur, pts, prior, valid,
+                           levels=levels, win=win, iters=iters, eps=eps, err_max=err_max,
+                           search_r=search_r, level_fn=level_fn)
     if _launches_kernel(pts, level_fn, "klt_pyramidal"):
         xy, status, err = launch_klt_track(
             pyr_prev, pyr_cur, pts.contiguous(), prior.contiguous(), valid.contiguous(),
@@ -80,6 +103,10 @@ def fb_klt_track(pyr_prev, pyr_cur, pts, prior, valid, *, levels: int,
     at ``fb_dist`` pixels.  One kernel launch for CUDA tensors, the plain
     composition for CPU tensors, the composition over ``level_fn`` when one
     is given."""
+    if pyr_cur[0].dim() == 3 and not _launches_kernel(pts, level_fn, "fb_klt_track"):
+        return _per_stream(fb_klt_track, pyr_prev, pyr_cur, pts, prior, valid,
+                           levels=levels, win=win, iters=iters, eps=eps, err_max=err_max,
+                           fb_dist=fb_dist, search_r=search_r, level_fn=level_fn)
     if _launches_kernel(pts, level_fn, "fb_klt_track"):
         xy, status, err = launch_klt_track(
             pyr_prev, pyr_cur, pts.contiguous(), prior.contiguous(), valid.contiguous(),

@@ -89,8 +89,8 @@ def _load():
         fn = lib.klt_track_launch
         fn.restype = ctypes.c_int
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, i32, i32, i32, f32, f32, f32,
-                       f32, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr]
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, ptr, i32, i32, i32, f32, f32,
+                       f32, f32, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr]
         lim = lib.klt_track_limits
         lim.restype = ctypes.c_int
         lim.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
@@ -274,11 +274,13 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def check_track_args(pyr_prev, pyr_cur, pts, prior, valid, schedule, win: int):
+def check_track_args(pyr_prev, pyr_cur, pts, prior, valid, schedule, win: int) -> int:
     """Raise unless the kernel takes these inputs: float32 contiguous
-    levels of equal shapes on the points' device, [N, 2] float32 points and
-    priors, a [N] bool mask, and a schedule within the kernel's limits on
-    levels big enough for its window and radii."""
+    levels of equal shapes on the points' device, either [H, W] (one
+    stream) or [B, H, W] (B streams, the same B at every level), [N, 2]
+    float32 points and priors grouped by stream (N % B == 0), a [N] bool
+    mask, and a schedule within the kernel's limits on levels big enough
+    for its window and radii.  Returns B."""
     dev = pts.device
     n = pts.shape[0]
     levels = schedule[0][0] + 1
@@ -289,12 +291,17 @@ def check_track_args(pyr_prev, pyr_cur, pts, prior, valid, schedule, win: int):
                          f"{len(pyr_prev)} and {len(pyr_cur)}")
     if not (3 <= win <= WIN_MAX and win % 2 == 1):
         raise ValueError(f"the kernel takes an odd win from 3 to {WIN_MAX}, got {win}")
+    ndim = pyr_cur[0].dim()
+    streams = pyr_cur[0].shape[0] if ndim == 3 else 1
     for lvl in range(levels):
         shape = tuple(pyr_cur[lvl].shape)
-        if len(shape) != 2:
-            raise ValueError(f"level {lvl} has shape {shape}, expected [H, W]")
+        if ndim not in (2, 3) or len(shape) != ndim or (ndim == 3 and shape[0] != streams):
+            raise ValueError(f"level {lvl} has shape {shape}, expected [H, W], or "
+                             f"[B, H, W] with level 0's B")
         _check(f"pyr_prev[{lvl}]", pyr_prev[lvl], torch.float32, shape, dev)
         _check(f"pyr_cur[{lvl}]", pyr_cur[lvl], torch.float32, shape, dev)
+    if n % streams != 0:
+        raise ValueError(f"{n} points do not split evenly over {streams} streams")
     _check("pts", pts, torch.float32, (n, 2), dev)
     _check("prior", prior, torch.float32, (n, 2), dev)
     _check("valid", valid, torch.bool, (n,), dev)
@@ -302,19 +309,22 @@ def check_track_args(pyr_prev, pyr_cur, pts, prior, valid, schedule, win: int):
     for lvl, radius, _, _ in schedule:
         if not 1 <= radius <= R_MAX:
             raise ValueError(f"the kernel takes radii 1 to {R_MAX}, got {radius}")
-        h, w = pyr_cur[lvl].shape
+        h, w = pyr_cur[lvl].shape[-2:]
         if min(h, w) < max(2 * r + 6, 2 * (radius + r + 1) + 1):
             raise ValueError(f"level {lvl} ({h}x{w}) too small for win {win}, R {radius}")
+    return streams
 
 
 def launch_klt_track(pyr_prev, pyr_cur, pts, prior, valid, schedule, *, gated: bool,
                      win: int, eps: float, err_max: float = 0.0, fb_dist: float = 0.0,
                      min_eig: float = MIN_EIG):
     """Launch the kernel on CUDA tensors for ``schedule``
-    (``klt_schedule``); returns (xy [N, 2], status [N], err [N])."""
+    (``klt_schedule``) over one stream ([H, W] levels) or B streams ([B, H,
+    W] levels, points grouped by stream); returns (xy [N, 2], status [N],
+    err [N])."""
     if pts.device.type != "cuda":
         raise ValueError(f"the KLT kernel runs on CUDA tensors, got {pts.device}")
-    check_track_args(pyr_prev, pyr_cur, pts, prior, valid, schedule, win)
+    streams = check_track_args(pyr_prev, pyr_cur, pts, prior, valid, schedule, win)
     fn = _load()
     dev, n = pts.device, pts.shape[0]
     levels = schedule[0][0] + 1
@@ -324,9 +334,11 @@ def launch_klt_track(pyr_prev, pyr_cur, pts, prior, valid, schedule, *, gated: b
     ptrs = lambda ts: (ctypes.c_void_p * LEVELS_MAX)(*[t.data_ptr() for t in ts[:levels]])
     ints = lambda xs: (ctypes.c_int * len(xs))(*xs)
     flat = [int(v) for ps in schedule for v in ps]
+    hw = [t.shape[-2:] for t in pyr_cur[:levels]]
     rc = fn(ptrs(pyr_prev), ptrs(pyr_cur),
-            ints([t.shape[0] for t in pyr_cur[:levels]]),
-            ints([t.shape[1] for t in pyr_cur[:levels]]), levels, ints(flat),
+            (ctypes.c_longlong * LEVELS_MAX)(*[h * w for h, w in hw]),
+            ints([h for h, _ in hw]), ints([w for _, w in hw]), levels,
+            max(1, n // streams), ints(flat),
             len(schedule), int(gated), win, float(eps * eps), float(min_eig),
             float(err_max), float(fb_dist), pts.data_ptr(), prior.data_ptr(),
             valid.data_ptr(), n, xy.data_ptr(), status.data_ptr(), err.data_ptr(),

@@ -15,6 +15,12 @@ Differences from the JAX package:
   uint32 bits (torch's uint32 supports few operations).
 * The JAX PRNG key becomes ``rng``, a ``torch.Generator`` on the state's
   device seeded from ``cfg.seed``; its draws differ from threefry's.
+* Multi-stream serving stacks B states into one ``MapState`` whose tensors
+  have a leading [B] axis (pyramid levels [B, H, W]) and whose ``rng`` is
+  a tuple of B generators (``init_multistream_state``, the JAX package's
+  parallel/multistream.py version).  ``state_row`` gives one stream as a
+  single-stream state of views, ``stack_states`` stacks rows into a
+  sub-state, and ``write_rows`` writes a sub-state's rows back.
 """
 
 from __future__ import annotations
@@ -79,6 +85,8 @@ class MapState:
         """(name, tensor) for every tensor field, SE3 and pyramid included."""
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
+            if f.name == "rng":
+                continue
             if isinstance(v, SE3):
                 yield f.name + ".q", v.q
                 yield f.name + ".t", v.t
@@ -92,13 +100,30 @@ class MapState:
 _INT = torch.int64
 
 
+def from_tensors(d: dict, rng=None) -> MapState:
+    """A MapState from {name: tensor} named as :meth:`MapState.tensors`
+    names them; a pyramid left out of ``d`` becomes ``()``."""
+    fields = {}
+    for f in dataclasses.fields(MapState):
+        if f.name == "rng":
+            continue
+        if f.name in ("pose", "kf_pose"):
+            fields[f.name] = SE3(d[f.name + ".q"], d[f.name + ".t"])
+        elif f.name == "prev_pyr":
+            n = sum(1 for k in d if k.startswith("prev_pyr."))
+            fields[f.name] = tuple(d[f"prev_pyr.{i}"] for i in range(n))
+        else:
+            fields[f.name] = d[f.name]
+    return MapState(rng=rng, **fields)
+
+
 def _new_generator(device, seed: int) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     return gen
 
 
-def init_map_state(cfg: SlamConfig, device="cpu", dtype=torch.float32,
+def init_map_state(cfg: SlamConfig, device="cuda", dtype=torch.float32,
                    rng: torch.Generator | None = None) -> MapState:
     K, W, L = cfg.max_keypoints, cfg.window_size, cfg.max_landmarks
     dev = torch.device(device)
@@ -168,7 +193,7 @@ def map_state_to_numpy(state: MapState) -> dict:
     return out
 
 
-def map_state_from_numpy(d: dict, cfg: SlamConfig, device="cpu") -> MapState:
+def map_state_from_numpy(d: dict, cfg: SlamConfig, device="cuda") -> MapState:
     """{name: ndarray} (as written by :func:`map_state_to_numpy`, or built
     from a JAX MapState with ``np.asarray``) → MapState on ``device``.
 
@@ -198,6 +223,105 @@ def map_state_from_numpy(d: dict, cfg: SlamConfig, device="cpu") -> MapState:
         key = np.asarray(d["rng_key"]).astype(np.uint64)
         state.rng.manual_seed(int(key[0]) << 32 | int(key[1]))
     return state.replace(**changes)
+
+
+# ---------------------------------------------------------------------------
+# Stacked multi-stream state
+# ---------------------------------------------------------------------------
+
+def map_tensors(fn, state: MapState, *others: MapState) -> MapState:
+    """A state whose every tensor (SE3 parts and pyramid levels included)
+    is ``fn(tensor, *the same tensor of others)``; ``rng`` is ``state``'s."""
+    def apply(v, *ws):
+        if isinstance(v, SE3):
+            return SE3(fn(v.q, *(w.q for w in ws)), fn(v.t, *(w.t for w in ws)))
+        if isinstance(v, tuple):
+            return tuple(fn(*xs) for xs in zip(v, *ws))
+        return fn(v, *ws)
+
+    return state.replace(**{
+        f.name: apply(getattr(state, f.name), *(getattr(o, f.name) for o in others))
+        for f in dataclasses.fields(state) if f.name != "rng"})
+
+
+def stack_states(rows) -> MapState:
+    """B single-stream states → one stacked state ([B] leading axis, the
+    rows' generators as a tuple)."""
+    rows = list(rows)
+    stacked = map_tensors(lambda *ts: torch.stack(ts), *rows)
+    return stacked.replace(rng=tuple(r.rng for r in rows))
+
+
+def _stream_seeds(seed: int, num_streams: int) -> list:
+    """Distinct 63-bit generator seeds for ``num_streams`` streams, derived
+    from ``seed`` (the counterpart of splitting one JAX key)."""
+    words = np.random.SeedSequence(seed).generate_state(num_streams, np.uint64)
+    return [int(w) >> 1 for w in words]
+
+
+def init_multistream_state(cfg: SlamConfig, num_streams: int, seed: int = 0,
+                           device="cuda", dtype=torch.float32) -> MapState:
+    """Stacked fresh state of ``num_streams`` streams, each with its own
+    generator seeded distinctly from ``seed``."""
+    dev = torch.device(device)
+    return stack_states(init_map_state(cfg, dev, dtype, _new_generator(dev, s))
+                        for s in _stream_seeds(seed, num_streams))
+
+
+def num_streams(states: MapState) -> int:
+    return len(states.rng)
+
+
+def state_row(states: MapState, i: int) -> MapState:
+    """Stream ``i`` of a stacked state as a single-stream state: views of
+    the stacked tensors (the step never writes into its input) and the
+    stream's own generator."""
+    return map_tensors(lambda t: t[i], states).replace(rng=states.rng[i])
+
+
+def write_rows(states: MapState, idx, sub: MapState, mask=None) -> MapState:
+    """``states`` with row ``idx[j]`` replaced by row j of the stacked
+    sub-state ``sub`` where ``mask[j]`` (a list of bools, all by default);
+    returns a new state, ``states`` is not written."""
+    keep = [j for j in range(len(idx)) if mask is None or mask[j]]
+    if not keep:
+        return states
+    dev = states.kp_px.device
+    dst = torch.tensor([idx[j] for j in keep], dtype=_INT, device=dev)
+    src = torch.tensor(keep, dtype=_INT, device=dev)
+    rng = list(states.rng)
+    for j in keep:
+        rng[idx[j]] = sub.rng[j]
+    return map_tensors(lambda full, part: full.index_copy(0, dst, part.index_select(0, src)),
+                       states, sub).replace(rng=tuple(rng))
+
+
+def select_rows(mask, new: MapState, old: MapState) -> MapState:
+    """Per stream: ``new``'s row where ``mask`` [B] holds, else ``old``'s
+    (the JAX package's ``_row_select``).  Generators are ``new``'s: a
+    caller masks only rows that drew nothing."""
+    def sel(a, b):
+        return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
+
+    return map_tensors(sel, new, old)
+
+
+def multistream_state_to_numpy(states: MapState) -> dict:
+    """Stacked state → {name: ndarray with a leading [B] axis}, each row as
+    :func:`map_state_to_numpy` writes it (``rng_key`` [B, 2], ``rng_state``
+    [B, n])."""
+    rows = [map_state_to_numpy(state_row(states, i)) for i in range(num_streams(states))]
+    return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def multistream_state_from_numpy(d: dict, cfg: SlamConfig, device="cuda") -> MapState:
+    """{name: ndarray with a leading [B] axis} (from
+    :func:`multistream_state_to_numpy`, or a stacked JAX MapState through
+    ``np.asarray``) → stacked state on ``device``; rows as
+    :func:`map_state_from_numpy` reads them."""
+    b = np.asarray(d["frame_id"]).shape[0]
+    return stack_states(map_state_from_numpy({k: np.asarray(v)[i] for k, v in d.items()},
+                                             cfg, device) for i in range(b))
 
 
 # ---------------------------------------------------------------------------

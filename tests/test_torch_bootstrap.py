@@ -322,7 +322,7 @@ def test_try_essential_from_snapshot(init_snapshot, five_point, homography):
     sh = jsample(k_h, jnp.asarray(same), 4, cfg.ransac_iters)
     jout, jok = jax.jit(jstep._try_essential, static_argnames=("cfg",))(jst, jcam, jcfg, key)
 
-    tst = map_state_from_numpy(d, cfg)
+    tst = map_state_from_numpy(d, cfg, "cpu")
     inject = lambda s: (_t(s[0]).long(), _t(s[1]))
     tout, tok = tstep._try_essential(tst, cam, cfg, samples=(inject(se), inject(sh)))
     assert bool(tok) == bool(jok)

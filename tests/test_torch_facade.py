@@ -81,7 +81,7 @@ def _assert_leaves_equal(a: dict, b: dict, keys):
 def test_checkpoint_port_to_jax(port_run, tmp_path):
     snap = port_run[3]
     path = str(tmp_path / "port.npz")
-    tckpt.save_map(path, map_state_from_numpy(snap, CFG), CFG)
+    tckpt.save_map(path, map_state_from_numpy(snap, CFG, "cpu"), CFG)
     jst = jckpt.load_map(path, JCFG)
     names = tckpt._leaf_names(CFG)
     leaves = jax.tree.leaves(jst)
@@ -93,17 +93,17 @@ def test_checkpoint_jax_to_port(port_run, tmp_path):
     snap = port_run[3]
     path = str(tmp_path / "jax.npz")
     jckpt.save_map(path, jax_state_from_numpy(snap, JCFG), JCFG)
-    back = map_state_to_numpy(tckpt.load_map(path, CFG))
+    back = map_state_to_numpy(tckpt.load_map(path, CFG, "cpu"))
     _assert_leaves_equal(back, snap, tckpt._leaf_names(CFG))
     assert tckpt.saved_config(path) == CFG
 
 
 def test_checkpoint_shape_mismatch(port_run, tmp_path):
     path = str(tmp_path / "port.npz")
-    tckpt.save_map(path, map_state_from_numpy(port_run[3], CFG), CFG)
+    tckpt.save_map(path, map_state_from_numpy(port_run[3], CFG, "cpu"), CFG)
     other = dataclasses.replace(CFG, max_landmarks=256)
     with pytest.raises(ValueError, match="shape mismatch"):
-        tckpt.load_map(path, other)
+        tckpt.load_map(path, other, "cpu")
     with pytest.raises(ValueError, match="shape mismatch"):
         jckpt.load_map(path, JSlamConfig(**{**CFG_ARGS, "max_landmarks": 256}))
 
@@ -132,7 +132,7 @@ def test_apply_world_correction(port_run, rng):
     dT = random_pose(rng)
     for scale in (None, 1.3):
         j = japply(jax_state_from_numpy(snap, JCFG), dT, scale=scale)
-        t = apply_world_correction(map_state_from_numpy(snap, CFG),
+        t = apply_world_correction(map_state_from_numpy(snap, CFG, "cpu"),
                                    SE3(_t(dT.q), _t(dT.t)), scale=scale)
         _assert_pose(t.pose, j.pose, POSE_ATOL)
         _assert_pose(t.kf_pose, j.kf_pose, POSE_ATOL)
@@ -182,7 +182,7 @@ def test_get_map_points(port_run):
     jslam = JAlvaAR(320, 240, fov=60.0, config=JCFG)
     jslam.state = jax_state_from_numpy(snap, JCFG)
     tslam = AlvaAR(320, 240, fov=60.0, config=CFG, device="cpu")
-    tslam.state = map_state_from_numpy(snap, CFG)
+    tslam.state = map_state_from_numpy(snap, CFG, "cpu")
     (jp, jc), (tp, tc) = jslam.get_map_points(), tslam.get_map_points()
     assert tp.shape[0] > 50 and tc.dtype == np.uint8
     np.testing.assert_array_equal(tp, jp)

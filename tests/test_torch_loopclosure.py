@@ -41,7 +41,7 @@ def _desc_t(d):
 
 
 def _jdb_to_port(db):
-    return tdet.loop_db_from_numpy({k: np.asarray(v) for k, v in db._asdict().items()})
+    return tdet.loop_db_from_numpy({k: np.asarray(v) for k, v in db._asdict().items()}, "cpu")
 
 
 def test_swar_hamming_equals_table(rng):
@@ -57,7 +57,7 @@ def test_swar_hamming_equals_table(rng):
 def _build(rng, capacity, n_entries, with_geometry=False):
     """The same database in both packages: JAX db_add'ed, and the port's
     own db_add'ed from the same inputs."""
-    jdb, tdb = jdet.db_init(capacity, K), tdet.db_init(capacity, K)
+    jdb, tdb = jdet.db_init(capacity, K), tdet.db_init(capacity, K, "cpu")
     descs, pts_all, poses = [], [], []
     for i in range(n_entries):
         d = random_descs(rng)
@@ -79,7 +79,7 @@ def test_db_add_matches(rng):
         b = np.asarray(getattr(jdb, k))
         np.testing.assert_array_equal(v, b, err_msg=k)
         assert v.dtype == b.dtype, k
-    for back in (tdet.loop_db_to_numpy(tdet.loop_db_from_numpy(a)),
+    for back in (tdet.loop_db_to_numpy(tdet.loop_db_from_numpy(a, "cpu")),
                  tdet.loop_db_to_numpy(_jdb_to_port(jdb))):
         for k in a:
             np.testing.assert_array_equal(back[k], a[k], err_msg=k)

@@ -100,7 +100,7 @@ def port_run_default(frames):
 def _step_from_snapshot(jax_run, frames, i):
     snaps, _, _ = jax_run
     cam = AlvaAR(320, 240, fov=60.0, config=CFG, device="cpu").camera
-    state = map_state_from_numpy(snaps[i], CFG)
+    state = map_state_from_numpy(snaps[i], CFG, "cpu")
     state, out = slam_step(state, torch.from_numpy(frames[0][i]), cam, CFG)
     return map_state_to_numpy(state), out, snaps[i + 1]
 
@@ -129,7 +129,7 @@ def _assert_step(a, out, b, jout):
 
 def test_map_state_round_trip(jax_run):
     snap = jax_run[0][20]
-    back = map_state_to_numpy(map_state_from_numpy(snap, CFG))
+    back = map_state_to_numpy(map_state_from_numpy(snap, CFG, "cpu"))
     for k, v in snap.items():
         if k != "rng_key":
             np.testing.assert_array_equal(back[k], v, err_msg=k)
@@ -158,7 +158,7 @@ def test_stage2_full_width_equals_compaction(jax_run, frames, monkeypatch):
     snaps, outs, _ = jax_run
     i = _tracking_frame(outs)
     cam = AlvaAR(320, 240, fov=60.0, config=CFG, device="cpu").camera
-    state = map_state_from_numpy(snaps[i], CFG)
+    state = map_state_from_numpy(snaps[i], CFG, "cpu")
     pyr_cur = tstep.preprocess(torch.from_numpy(frames[0][i]), CFG)
     prior = SE3.exp(-state.vel).compose(state.pose)
     compactions = []
