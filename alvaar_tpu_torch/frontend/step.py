@@ -17,8 +17,10 @@ its three branches (first frame, initialization, tracking) are computed
 for every stream and selected per stream, as under the JAX ``vmap``, with
 no host sync, and its two KLT stages are one kernel launch each for all
 streams.  ``recovery_phase``, ``init_essential_phase``, ``keyframe_phase``
-and the reset then run on the streams that the scheduler elects, through
-the single-stream code.
+and the reset then run on the streams that the scheduler elects, each
+once on the stack of the elected rows (``*_phase_batched``): the
+single-stream code under ``vmap``, every branch selected per row, the
+RANSAC draws taken per row from each stream's own generator first.
 
 Status codes: 1 = tracking, 2 = reset performed, 3 = initializing.
 """
@@ -41,9 +43,10 @@ from alvaar_tpu_torch.solvers.essential import RelativePoseResult, essential_ran
 from alvaar_tpu_torch.solvers.fivept import essential_ransac_5pt
 from alvaar_tpu_torch.solvers.homography import homography_ransac
 from alvaar_tpu_torch.solvers.pnp import pnp_refine
+from alvaar_tpu_torch.solvers.ransac import uniform_draw
 from alvaar_tpu_torch.worldmap.keyframe import create_keyframe, host_bool
-from alvaar_tpu_torch.worldmap.state import (MapState, from_tensors, reset_map_state,
-                                             stack_states, state_row)
+from alvaar_tpu_torch.worldmap.state import (MapState, from_tensors, map_rows,
+                                             reset_map_state, stack_states, state_row)
 
 
 @dataclasses.dataclass
@@ -231,14 +234,14 @@ def _init_gate(state: MapState, cam: Camera, cfg: SlamConfig):
     return (par >= cfg.init_parallax_px) & (n_common >= 8)
 
 
-def _try_essential(state: MapState, cam: Camera, cfg: SlamConfig, samples=None):
+def _bootstrap(state: MapState, cam: Camera, cfg: SlamConfig, samples=None):
     """Bootstrap against the latest keyframe: the 5-point (or 8-point)
     essential RANSAC, then with ``use_homography_init`` the homography
     RANSAC, keeping the homography where it succeeds with more inliers.
     Both draw from ``state.rng``; ``samples`` = (essential draw,
-    homography draw) replaces them.  ``_try_essential.last_use_h`` holds
-    the latest choice (a device bool) for diagnostics.
-    Returns (state, became_ready)."""
+    homography draw) replaces them.  Returns (state, became_ready, the
+    choice: a device bool, True where the homography was kept, or None
+    without ``use_homography_init``)."""
     slot = state.cur_kf_slot
     same = (state.kf_obs_lm[slot] == state.kp_lm) & state.kf_obs_valid[slot] & state.kp_valid
     f_kf, f_cur = cam.bearing(state.kf_obs_px[slot]), cam.bearing(state.kp_und)
@@ -247,17 +250,25 @@ def _try_essential(state: MapState, cam: Camera, cfg: SlamConfig, samples=None):
     args = dict(focal=cam.focal, iters=cfg.ransac_iters, err_px=cfg.ransac_err_px,
                 min_inliers=cfg.init_min_inliers)
     r = solver(state.rng, f_kf, f_cur, same, samples=s_e, **args)
+    use_h = None
     if cfg.use_homography_init:
         rh, _ = homography_ransac(state.rng, f_kf, f_cur, same, samples=s_h, **args)
         use_h = rh.success & (rh.num_inliers > r.num_inliers)
         r = RelativePoseResult.where(use_h, rh, r)
-        _try_essential.last_use_h = use_h
     # r.pose is T_kf_cur = T_wc of the current frame (kf0 at identity)
     return state.replace(
         pose=SE3.where(r.success, r.pose.inverse(), state.pose),
         kp_valid=torch.where(r.success, state.kp_valid & (r.inliers | ~same),
                              state.kp_valid),
-        ready_for_init=state.ready_for_init | r.success), r.success
+        ready_for_init=state.ready_for_init | r.success), r.success, use_h
+
+
+def _try_essential(state: MapState, cam: Camera, cfg: SlamConfig, samples=None):
+    """``_bootstrap`` on one stream.  Returns (state, became_ready);
+    ``_try_essential.last_use_h`` holds the latest choice of model for
+    diagnostics."""
+    state, ok, _try_essential.last_use_h = _bootstrap(state, cam, cfg, samples)
+    return state, ok
 
 
 _try_essential.last_use_h = None
@@ -456,15 +467,55 @@ def recovery_phase(state: MapState, cam: Camera, cfg: SlamConfig, samples=None) 
 
 def init_essential_phase(state: MapState, cam: Camera, cfg: SlamConfig,
                          samples=None) -> MapState:
-    """The deferred essential bootstrap (``_try_essential``), drawing from
-    the stream's generator; ``samples`` = (essential draw, homography
-    draw) replaces the draws."""
-    return _try_essential(state, cam, cfg, samples=samples)[0]
+    """The deferred essential bootstrap (``_bootstrap``), drawing from the
+    stream's generator; ``samples`` = (essential draw, homography draw)
+    replaces the draws."""
+    return _bootstrap(state, cam, cfg, samples=samples)[0]
 
 
-def keyframe_phase(state: MapState, cam: Camera, cfg: SlamConfig) -> MapState:
-    """The keyframe pipeline on the frame held in ``state.prev_pyr``."""
-    return create_keyframe(state, state.prev_pyr, cam, cfg)
+def keyframe_phase(state: MapState, cam: Camera, cfg: SlamConfig,
+                   select: bool = False) -> MapState:
+    """The keyframe pipeline on the frame held in ``state.prev_pyr``;
+    ``select`` as in ``create_keyframe``."""
+    return create_keyframe(state, state.prev_pyr, cam, cfg, select=select)
+
+
+# ---------------------------------------------------------------------------
+# The gated phases on a stack of elected streams
+# ---------------------------------------------------------------------------
+
+def _row_draws(states: MapState, cfg: SlamConfig, n: int):
+    """``n`` uniform RANSAC draws [S, n, ransac_iters, K] for each row of a
+    stacked sub-state, each row's from its own generator and in the order
+    the single-stream phase takes them: a stream's generator advances as it
+    does there, whichever other streams share the stack."""
+    K, dev = states.kp_px.shape[1], states.kp_px.device
+    return torch.stack([torch.stack([uniform_draw(g, cfg.ransac_iters, K, dev)
+                                     for _ in range(n)]) for g in states.rng])
+
+
+def recovery_phase_batched(states: MapState, cam: Camera, cfg: SlamConfig) -> MapState:
+    """``recovery_phase`` on every row of a stacked sub-state in one pass
+    (``map_rows``): each row's P3P draw first, then the phase under
+    ``vmap``."""
+    return map_rows(lambda s, u: recovery_phase(s, cam, cfg, samples=u[0]), states,
+                    _row_draws(states, cfg, 1))
+
+
+def init_essential_phase_batched(states: MapState, cam: Camera, cfg: SlamConfig) -> MapState:
+    """``init_essential_phase`` on every row of a stacked sub-state in one
+    pass: each row's essential draw, then (with ``use_homography_init``)
+    its homography draw, then the phase under ``vmap``."""
+    n = 2 if cfg.use_homography_init else 1
+    return map_rows(lambda s, u: init_essential_phase(s, cam, cfg, samples=(u[0], u[n - 1])),
+                    states, _row_draws(states, cfg, n))
+
+
+def keyframe_phase_batched(states: MapState, cam: Camera, cfg: SlamConfig) -> MapState:
+    """``keyframe_phase`` on every row of a stacked sub-state in one pass,
+    under ``vmap`` with both sides of each branch selected per row: no
+    host sync, whatever the number of rows."""
+    return map_rows(lambda s: keyframe_phase(s, cam, cfg, select=True), states)
 
 
 def finalize_phase(state: MapState, kf_created, cfg: SlamConfig, defer_reset: bool = False):

@@ -153,7 +153,7 @@ def detect_loop(db: LoopDB, desc_q, valid_q, query_kf_id, *, nndr: float = 0.8,
 
     # kNN + NNDR, then one vote per surviving match
     match_ok = (best <= second * nndr) & (best < float(DESC_BITS))
-    votes = torch.zeros(D, dtype=torch.float32, device=dist.device).index_add_(
+    votes = torch.zeros(D, dtype=torch.float32, device=dist.device).index_add(
         0, match_img, match_ok.to(torch.float32))
 
     # min-max normalisation and cutoff

@@ -2,13 +2,14 @@
 
 Port of alvaar_tpu/ops/hamming.py (``hamming_matrix_popcount``,
 ``hamming_rowwise``, ``hamming_min_crossbag``, ``best_two``).  Torch has
-no popcount op, so XOR words are viewed as bytes and counted through a
-256-entry table.  Descriptor words are int32 tensors holding uint32 bits.
+no popcount op, so the XOR words are counted by SWAR arithmetic in int32
+on their two 16-bit halves: no byte view of the words (which
+``torch.func.vmap`` cannot batch) and no int64 widening.  Descriptor words
+are int32 tensors holding uint32 bits.
 
-The table widens every byte to int64; for the loop database's
-[queries × tens of thousands] passes, ``hamming_matrix_chunked`` counts
-bits by SWAR arithmetic in int32 and takes the database axis a chunk at a
-time, so its temporaries stay a few tens of MB.
+For the loop database's [queries × tens of thousands] passes,
+``hamming_matrix_chunked`` takes the database axis a chunk at a time, so
+its temporaries stay a few tens of MB.
 """
 
 from __future__ import annotations
@@ -18,22 +19,9 @@ import torch
 from alvaar_tpu_torch.ops.topk import top_k
 
 DESC_BITS = 256
-_POPCOUNT8 = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.uint8)
 
 
 def popcount_words(x):
-    """[..., 8] int32 words → [...] int32 count of set bits."""
-    table = _POPCOUNT8.to(x.device)
-    b = x.contiguous().view(torch.uint8).to(torch.int64)     # [..., 32]
-    return table[b].sum(-1, dtype=torch.int32)
-
-
-def hamming_matrix(a, b):
-    """[N, 8] x [M, 8] → [N, M] int32 Hamming distances."""
-    return popcount_words(a[:, None, :] ^ b[None, :, :])
-
-
-def popcount_swar(x):
     """[..., 8] int32 words → [...] int32 count of set bits, by SWAR on
     each word's two 16-bit halves: every intermediate stays non-negative,
     so int32 arithmetic shifts behave as logical ones."""
@@ -45,10 +33,15 @@ def popcount_swar(x):
     return h.sum(dim=(-2, -1), dtype=torch.int32)
 
 
+def hamming_matrix(a, b):
+    """[N, 8] x [M, 8] → [N, M] int32 Hamming distances."""
+    return popcount_words(a[:, None, :] ^ b[None, :, :])
+
+
 def hamming_matrix_chunked(a, b, chunk: int = 2048):
     """[N, 8] x [M, 8] → [N, M] int32, equal to ``hamming_matrix``; the M
     axis is taken ``chunk`` rows at a time."""
-    return torch.cat([popcount_swar(a[:, None, :] ^ b[None, lo:lo + chunk, :])
+    return torch.cat([popcount_words(a[:, None, :] ^ b[None, lo:lo + chunk, :])
                       for lo in range(0, b.shape[0], chunk)], dim=1)
 
 
@@ -61,8 +54,8 @@ def hamming_min_crossbag(bag_a, filled_a, bag_b, filled_b):
     """Minimum Hamming distance over all (desc_a, desc_b) pairs of two
     descriptor bags.  bag_a [N, G, 8], filled_a [N, G]; bag_b [M, G, 8],
     filled_b [M, G].  Returns [N, M] float32 (257 where either bag is
-    empty).  One [N, M] pass per bag-entry pair keeps the peak memory at
-    [N, M, 32] bytes."""
+    empty).  One [N, M] pass per bag-entry pair keeps the temporaries at
+    a few [N, M, 8] int32 tensors."""
     n, g, _ = bag_a.shape
     m, gb, _ = bag_b.shape
     big = float(DESC_BITS + 1)

@@ -20,15 +20,18 @@ one call of the step advances all of them by a frame:
     everything.  The election scores and sizes are the JAX package's.
 
 Where the JAX package runs a gated sub-batch as a vmapped phase under a
-``lax.cond``, the port reads the election on the host and runs the phase
-through the single-stream code on each elected stream's row, then writes
-the rows back: the same result as the vmapped sub-batch followed by
-``_row_select``.  The elections cost three host reads per step, whatever
-B (``multistream_step_local.syncs`` counts them): P3P recovery and the
-bootstrap together, the keyframe election, the reset.  Of the phases run
-on elected rows only the keyframe pipeline syncs inside, twice on each
-served row (its two branches), so a step makes at most 3 + 2 ``kf_slots``
-host syncs (``host_bool.syncs`` counts them all), whatever B.
+``lax.cond``, the port reads the election on the host, gathers the live
+elected rows into one stack (an ``index_select`` per tensor), runs the
+single-stream phase once on that stack under ``torch.func.vmap`` (every
+branch computed and selected per row, as ``lax.cond`` under ``jax.vmap``)
+and writes the rows back: the same result as running each row alone.
+RANSAC draws stay per stream: each elected row draws from its own
+generator outside ``vmap``, in the single-stream order, and the draws go
+in through the solvers' ``samples=``.  The elections cost three host reads
+per step, whatever B (``multistream_step_local.syncs`` counts them): P3P
+recovery and the bootstrap together, the keyframe election, the reset.
+No phase reads the host inside, so a step makes three host syncs
+(``host_bool.syncs`` counts them all), whatever B and ``kf_slots``.
 
 One device: the JAX package's mesh (``shard_map`` over a "streams" axis,
 ``Mesh``, ``shard_states``) has no counterpart here; a step serves the
@@ -41,19 +44,20 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.func import vmap
 
 from alvaar_tpu_torch.config import SlamConfig
-from alvaar_tpu_torch.frontend.step import (finalize_phase, init_essential_phase,
-                                            keyframe_phase, recovery_phase,
-                                            track_phase_batched)
+from alvaar_tpu_torch.frontend.step import (finalize_phase, init_essential_phase_batched,
+                                            keyframe_phase, keyframe_phase_batched,
+                                            recovery_phase_batched, track_phase_batched)
 from alvaar_tpu_torch.geom.camera import Camera
 from alvaar_tpu_torch.loopclosure import detector
 from alvaar_tpu_torch.loopclosure.detector import LoopDB
 from alvaar_tpu_torch.ops.topk import top_k
 from alvaar_tpu_torch.worldmap.keyframe import host_bool
-from alvaar_tpu_torch.worldmap.state import (MapState, apply_world_correction, map_tensors,
-                                             num_streams, reset_map_state, select_rows,
-                                             stack_states, state_row, write_rows)
+from alvaar_tpu_torch.worldmap.state import (MapState, apply_world_correction, from_tensors,
+                                             gather_rows, map_rows, map_tensors, num_streams,
+                                             reset_map_state, select_rows, write_rows)
 # the JAX package's multistream module exports the stacked state's constructor
 from alvaar_tpu_torch.worldmap.state import init_multistream_state  # noqa: F401
 
@@ -105,23 +109,28 @@ def _served_mask(b: int, rows, device):
     return served
 
 
-def _serve(states: MapState, election, phase_fn) -> tuple[MapState, list]:
-    """``phase_fn`` (single-stream state → state) on each live elected row,
-    the rows written back.  Returns (states, the rows served)."""
+def _live_rows(election) -> list:
     idx, live = election
-    rows = [i for i, a in zip(idx, live) if a]
+    return [i for i, a in zip(idx, live) if a]
+
+
+def _serve(states: MapState, election, batched_fn) -> tuple[MapState, list]:
+    """``batched_fn`` (stacked sub-state → stacked sub-state) once, on the
+    stack of the live elected rows (one ``index_select`` per tensor), the
+    rows written back.  Returns (states, the rows served)."""
+    rows = _live_rows(election)
     if rows:
-        states = write_rows(states, rows, stack_states(phase_fn(state_row(states, i))
-                                                       for i in rows))
+        states = write_rows(states, rows, batched_fn(gather_rows(states, rows)))
     return states, rows
 
 
 def _gated_subbatch(states: MapState, flags, phase_fn, slots: int):
     """Run ``phase_fn`` (a single-stream state transform) on the top-k
-    flagged streams only: election (one host read), the phase on each
-    elected row, write-back.  Returns (states, served [B] bool)."""
+    flagged streams only: election (one host read), the phase under
+    ``vmap`` on the stack of the elected rows, write-back.  Returns
+    (states, served [B] bool)."""
     election, = _read_elections(_elect(flags.to(torch.float32), slots))
-    states, rows = _serve(states, election, phase_fn)
+    states, rows = _serve(states, election, lambda sub: map_rows(phase_fn, sub))
     return states, _served_mask(flags.shape[0], rows, flags.device)
 
 
@@ -184,6 +193,25 @@ def loopclosure_phase(state: MapState, db: LoopDB, cam: Camera, cfg: SlamConfig,
     return state, db, confirm
 
 
+def _db_tensors(db: LoopDB) -> dict:
+    return {f.name: getattr(db, f.name) for f in dataclasses.fields(LoopDB)}
+
+
+def keyframe_loop_phase_batched(states: MapState, dbs: LoopDB, cam: Camera, cfg: SlamConfig,
+                                delay: int = 50):
+    """The keyframe pipeline then ``loopclosure_phase`` on every row of a
+    stacked sub-state and its stacked databases in one pass, under
+    ``vmap`` (the JAX package's two vmapped phases on the sub-batch).
+    Returns (states, dbs)."""
+    def one(d, db):
+        st = keyframe_phase(from_tensors(d), cam, cfg, select=True)
+        st, db, _ = loopclosure_phase(st, LoopDB(**db), cam, cfg, delay=delay)
+        return dict(st.tensors()), _db_tensors(db)
+
+    out, db = vmap(one)(dict(states.tensors()), _db_tensors(dbs))
+    return from_tensors(out, rng=states.rng), LoopDB(**db)
+
+
 # ---------------------------------------------------------------------------
 # The step
 # ---------------------------------------------------------------------------
@@ -215,9 +243,9 @@ def multistream_step_local(states: MapState, frames, dts, cam: Camera, cfg: Slam
     # (their flags come from the track phase; the two sets are disjoint) ----
     e_p3p, e_init = _read_elections(_elect(fl.p3p_need.to(torch.float32), small),
                                     _elect(fl.init_gate.to(torch.float32), small))
-    states, _ = _serve(states, e_p3p, lambda s: recovery_phase(s, cam, cfg))
+    states, _ = _serve(states, e_p3p, lambda sub: recovery_phase_batched(sub, cam, cfg))
     pre_ready = states.ready_for_init
-    states, _ = _serve(states, e_init, lambda s: init_essential_phase(s, cam, cfg))
+    states, _ = _serve(states, e_init, lambda sub: init_essential_phase_batched(sub, cam, cfg))
     became_ready = states.ready_for_init & ~pre_ready
 
     # ---- keyframe election: age-prioritized top-k sub-batch ----
@@ -225,17 +253,16 @@ def multistream_step_local(states: MapState, frames, dts, cam: Camera, cfg: Slam
                              states.reset_requested, states.next_kf_id, active)
     e_kf, = _read_elections(_elect(score, kf_slots))
     if dbs is None:
-        states, rows = _serve(states, e_kf, lambda s: keyframe_phase(s, cam, cfg))
+        states, rows = _serve(states, e_kf, lambda sub: keyframe_phase_batched(sub, cam, cfg))
     else:
-        rows = [i for i, a in zip(*e_kf) if a]
-        done = [loopclosure_phase(keyframe_phase(state_row(states, i), cam, cfg),
-                                  _map_db(lambda t: t[i], dbs), cam, cfg, delay=loop_delay)
-                for i in rows]
+        rows = _live_rows(e_kf)
         if rows:
-            states = write_rows(states, rows, stack_states(s for s, _, _ in done))
             index = torch.tensor(rows, device=dbs.kf_id.device)
-            dbs = _map_db(lambda full, *new: full.index_copy(0, index, torch.stack(new)),
-                          dbs, *(d for _, d, _ in done))
+            sub, sub_dbs = keyframe_loop_phase_batched(
+                gather_rows(states, rows), _map_db(lambda t: t.index_select(0, index), dbs),
+                cam, cfg, delay=loop_delay)
+            states = write_rows(states, rows, sub)
+            dbs = _map_db(lambda full, new: full.index_copy(0, index, new), dbs, sub_dbs)
     served = _served_mask(b, rows, req.device)
     states = states.replace(kf_pending=req & ~served)
 

@@ -12,7 +12,7 @@ from alvaar_tpu_torch.geom.lie import SE3
 from alvaar_tpu_torch.solvers.p3p import p3p_grunert
 from alvaar_tpu_torch.solvers.ransac import (
     masked_quantile,
-    sample_minimal,
+    minimal_samples,
     select_best_by_median,
 )
 
@@ -35,10 +35,9 @@ def angular_error(pose_cw: SE3, bearings, points_w):
 def p3p_lmeds(gen, bearings, points_w, valid, *, focal, iters: int = 100,
               err_px: float = 3.0, min_inliers: int = 5,
               samples=None) -> AbsolutePoseResult:
-    """LMedS over P3P.  ``samples`` = (idx [iters, 3], ok [iters])
-    replaces the generator's draw."""
-    idx, samp_ok = samples if samples is not None else sample_minimal(
-        gen, valid, 3, iters)
+    """LMedS over P3P.  ``samples`` = (idx [iters, 3], ok [iters]), or a
+    uniform draw [iters, N], replaces the generator's draw."""
+    idx, samp_ok = minimal_samples(gen, valid, 3, iters, samples)
     pose_c, cand_ok = p3p_grunert(bearings[idx], points_w[idx])   # [H, 4]
     cand_ok = (cand_ok & samp_ok[:, None]).reshape(-1)
     C = iters * 4

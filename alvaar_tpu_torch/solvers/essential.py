@@ -16,7 +16,7 @@ import torch
 
 from alvaar_tpu_torch.geom.lie import SE3, matrix_to_quat
 from alvaar_tpu_torch.geom.triangulation import triangulate_midpoint
-from alvaar_tpu_torch.solvers.ransac import sample_minimal
+from alvaar_tpu_torch.solvers.ransac import minimal_samples
 
 
 @dataclasses.dataclass
@@ -115,10 +115,10 @@ def essential_ransac(gen, f0, f1, valid, *, focal, iters: int = 100,
                      err_px: float = 3.0, min_inliers: int = 10,
                      samples=None) -> RelativePoseResult:
     """RANSAC relative pose from bearings f0 (older frame) and f1 (current),
-    both [N, 3].  ``samples`` = (idx [iters, 8], ok [iters]) replaces the
-    generator's draw (the parity tests inject the JAX package's draw)."""
-    idx, samp_ok = samples if samples is not None else sample_minimal(
-        gen, valid, 8, iters)
+    both [N, 3].  ``samples`` = (idx [iters, 8], ok [iters]), or a uniform
+    draw [iters, N], replaces the generator's draw (the parity tests
+    inject the JAX package's draw)."""
+    idx, samp_ok = minimal_samples(gen, valid, 8, iters, samples)
     R4, t4 = decompose_essential(essential_from_8pt(f0[idx], f1[idx]))
     C = iters * 4
     pose_01 = SE3(matrix_to_quat(R4.reshape(C, 3, 3)), t4.reshape(C, 3)).inverse()

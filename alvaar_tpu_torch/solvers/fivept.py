@@ -30,7 +30,7 @@ from alvaar_tpu_torch.solvers.essential import (
     essential_thresh,
     refine_relative_pose,
 )
-from alvaar_tpu_torch.solvers.ransac import sample_minimal
+from alvaar_tpu_torch.solvers.ransac import minimal_samples
 
 # ---------------------------------------------------------------------------
 # Static monomial algebra tables (numpy, built at import as in JAX)
@@ -300,11 +300,11 @@ def essential_ransac_5pt(gen, f0, f1, valid, *, focal, iters: int = 100,
                          n_grid: int = 64, samples=None) -> RelativePoseResult:
     """RANSAC relative pose with the Nister solver: 5-point samples, ≤ 10
     essential candidates each, scored like the 8-point path.
-    ``samples`` = (idx [iters, 5], ok [iters]) replaces the generator's
-    draw.  ``essential_ransac_5pt.calls`` counts the calls."""
+    ``samples`` = (idx [iters, 5], ok [iters]), or a uniform draw [iters,
+    N], replaces the generator's draw.  ``essential_ransac_5pt.calls``
+    counts the calls."""
     essential_ransac_5pt.calls += 1
-    idx, samp_ok = samples if samples is not None else sample_minimal(
-        gen, valid, 5, iters)
+    idx, samp_ok = minimal_samples(gen, valid, 5, iters, samples)
     E, emask = essential_from_5pt(f0[idx], f1[idx], n_grid=n_grid)  # [H, 10, ...]
     H, R = emask.shape
     cand_ok = (emask & samp_ok[:, None]).reshape(H * R)

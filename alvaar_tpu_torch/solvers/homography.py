@@ -18,7 +18,7 @@ from alvaar_tpu_torch.solvers.essential import (
     _score_candidates,
     essential_thresh,
 )
-from alvaar_tpu_torch.solvers.ransac import sample_minimal
+from alvaar_tpu_torch.solvers.ransac import minimal_samples
 
 
 def _to_norm(f):
@@ -122,12 +122,12 @@ def homography_ransac(gen, f0, f1, valid, *, focal, iters: int = 100,
     """RANSAC planar relative pose from bearings f0 (older frame) and f1
     (current), both [N, 3].  Returns (RelativePoseResult with T_c0_c1,
     the best homography's inlier count).  ``samples`` = (idx [iters, 4],
-    ok [iters]) replaces the generator's draw.
+    ok [iters]), or a uniform draw [iters, N], replaces the generator's
+    draw.
     ``homography_ransac.calls`` counts the calls."""
     homography_ransac.calls += 1
     x0, x1 = _to_norm(f0), _to_norm(f1)
-    idx, samp_ok = samples if samples is not None else sample_minimal(
-        gen, valid, 4, iters)
+    idx, samp_ok = minimal_samples(gen, valid, 4, iters, samples)
     H = homography_from_4pt(x0[idx], x1[idx])             # [Hyp, 3, 3]
 
     # symmetric transfer error, pixels

@@ -4,8 +4,11 @@ Port of alvaar_tpu/worldmap/keyframe.py.  Every step is a masked tensor
 transformation of the fixed-shape MapState.  The stable-slot invariant
 carries over: a landmark keeps its keypoint slot k from detection until
 track loss, so its pixel in keyframe w is ``kf_obs_px[w, k]``.  Where the
-JAX package branches with ``lax.cond``, the port branches in Python on a
-device scalar, which costs one host sync (``host_bool``).
+JAX package branches with ``lax.cond``, the single-stream port branches in
+Python on a device scalar, which costs one host sync (``host_bool``);
+``create_keyframe(select=True)`` computes both sides and selects, as
+``lax.cond`` does under ``jax.vmap``, so the batched keyframe phase runs
+the pipeline under ``torch.func.vmap`` with no host sync.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from alvaar_tpu_torch.worldmap.state import (
     allocate_slots,
     covisibility,
     landmark_world_positions,
+    map_tensors,
     masked_scatter_set,
 )
 
@@ -164,9 +168,8 @@ def describe_and_detect(state: MapState, pyr, cam: Camera,
     h, w = gray.shape
     yi = torch.round(det.xy[:, 1]).to(torch.int64).clamp(0, h - 1)
     xi = torch.round(det.xy[:, 0]).to(torch.int64).clamp(0, w - 1)
-    fresh_rows = torch.zeros((ok.shape[0],) + state.lm_obs.shape[1:],
-                             dtype=torch.bool, device=ok.device)
-    fresh_rows[:, slot] = True
+    W = state.lm_obs.shape[1]
+    fresh_rows = (torch.arange(W, device=ok.device) == slot)[None, :].expand(ok.shape[0], W)
 
     kf_obs_lm = state.kf_obs_lm.clone()
     kf_obs_lm[slot] = masked_scatter_set(state.kf_obs_lm[slot], kp_slot, lm_slot, ok)
@@ -360,14 +363,30 @@ def filter_redundant_keyframes(state: MapState, cfg: SlamConfig) -> MapState:
         lm_valid=state.lm_valid & ~(state.lm_is3d & (n_obs < 2) & ~bound))
 
 
-def create_keyframe(state: MapState, pyr, cam: Camera, cfg: SlamConfig) -> MapState:
-    """The full keyframe pipeline on the pyramid ``pyr`` (level 0 first)."""
+def _cond(pred, fn, state: MapState, select: bool) -> MapState:
+    """``fn(state)`` where the 0-d ``pred`` holds, else ``state``: a branch
+    on the host (one sync), or with ``select`` both computed and selected
+    on the device, which is what ``lax.cond`` becomes under ``vmap``."""
+    if not select:
+        return fn(state) if host_bool(pred) else state
+    return map_tensors(lambda a, b: a if a is b else torch.where(pred, a, b), fn(state), state)
+
+
+def _later_keyframe(state: MapState, cam: Camera, cfg: SlamConfig) -> MapState:
+    state = triangulate_temporal(state, cam, cfg)
+    state = match_to_local_map(state, cam, cfg)
+    return refine_landmark_depths(state, cam, cfg)
+
+
+def create_keyframe(state: MapState, pyr, cam: Camera, cfg: SlamConfig,
+                    select: bool = False) -> MapState:
+    """The full keyframe pipeline on the pyramid ``pyr`` (level 0 first).
+    ``select``: compute both sides of its two branches and select, with no
+    host sync (the batched keyframe phase runs it so under ``vmap``)."""
     state = evict_and_write_keyframe(state, cfg)
     state = describe_and_detect(state, pyr, cam, cfg)
-    if host_bool(state.next_kf_id > 1):      # next_kf_id already incremented
-        state = triangulate_temporal(state, cam, cfg)
-        state = match_to_local_map(state, cam, cfg)
-        state = refine_landmark_depths(state, cam, cfg)
+    # next_kf_id is already incremented
+    state = _cond(state.next_kf_id > 1, lambda s: _later_keyframe(s, cam, cfg), state, select)
     state = reanchor_landmarks(state, cfg)
 
     n3d_now = torch.sum(state.kp_valid & state.lm_is3d[state.kp_lm]
@@ -376,7 +395,7 @@ def create_keyframe(state: MapState, pyr, cam: Camera, cfg: SlamConfig) -> MapSt
     bad_boot = state.ready_for_init & (
         ((kf_idx == 1) & (n3d_now < 30))
         | ((kf_idx < 10) & (kf_idx >= 2) & (n3d_now < 3)))
-    if host_bool((kf_idx >= 1) & (n3d_now > 0) & ~bad_boot):
-        state = run_local_ba(state, cam, cfg)
+    state = _cond((kf_idx >= 1) & (n3d_now > 0) & ~bad_boot,
+                  lambda s: run_local_ba(s, cam, cfg), state, select)
     state = filter_redundant_keyframes(state, cfg)
     return state.replace(reset_requested=state.reset_requested | bad_boot)

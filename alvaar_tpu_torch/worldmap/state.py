@@ -20,7 +20,9 @@ Differences from the JAX package:
   a tuple of B generators (``init_multistream_state``, the JAX package's
   parallel/multistream.py version).  ``state_row`` gives one stream as a
   single-stream state of views, ``stack_states`` stacks rows into a
-  sub-state, and ``write_rows`` writes a sub-state's rows back.
+  sub-state, ``gather_rows`` gathers rows of a stacked state into one,
+  ``map_rows`` runs a single-stream phase on every row of a stack under
+  ``torch.func.vmap``, and ``write_rows`` writes a sub-state's rows back.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from torch.func import vmap
 
 from alvaar_tpu_torch.config import SlamConfig
 from alvaar_tpu_torch.geom.lie import SE3
@@ -294,6 +297,25 @@ def write_rows(states: MapState, idx, sub: MapState, mask=None) -> MapState:
         rng[idx[j]] = sub.rng[j]
     return map_tensors(lambda full, part: full.index_copy(0, dst, part.index_select(0, src)),
                        states, sub).replace(rng=tuple(rng))
+
+
+def gather_rows(states: MapState, rows) -> MapState:
+    """Rows ``rows`` (stream indices) of a stacked state as a stacked
+    sub-state: one ``index_select`` per tensor, the rows' generators."""
+    index = torch.tensor(rows, dtype=_INT, device=states.kp_px.device)
+    return map_tensors(lambda t: t.index_select(0, index), states).replace(
+        rng=tuple(states.rng[i] for i in rows))
+
+
+def map_rows(fn, states: MapState, *args) -> MapState:
+    """``fn`` (a single-stream state and one row of each of ``args`` → a
+    state) on every row of the stacked ``states`` at once, under
+    ``torch.func.vmap``, as the JAX package's ``jax.vmap`` of a phase.
+    ``fn`` draws nothing (random numbers come in through ``args``), so
+    the generators pass through untouched."""
+    out = vmap(lambda d, *a: dict(fn(from_tensors(d), *a).tensors()))(
+        dict(states.tensors()), *args)
+    return from_tensors(out, rng=states.rng)
 
 
 def select_rows(mask, new: MapState, old: MapState) -> MapState:

@@ -20,11 +20,12 @@ Phases, each printed on its own lines:
    run's points need, over the H100's rates).  With
    build/lk_level_6b890e1.cu present (the per-level kernel of commit
    6b890e1, written there by ``git show``), the per-level design's device
-   time at the same shapes.  The stream-batched call: one launch over 16
+   time at the same shapes.  The stream-batched calls: one launch over 16
    streams x 192 points (stream b: golden frames 3b -> 3b+1, the points
-   detected on frame 3b; stage 2's schedule) against the per-stream plain
-   composition and 16 single-stream launches, its device time beside
-   theirs, and the bound summed over the streams.  Then ``klt_pyramidal``
+   detected on frame 3b; stage 2's schedule), and one over 48 x 192 (frames
+   b -> b+1), each against the per-stream plain composition and as many
+   single-stream launches, its device time beside theirs, and the bound
+   summed over the streams.  Then ``klt_pyramidal``
    (the kernel's forward-only schedule) against its plain composition, and
    ``lk_level`` (the one-pass schedule) against ``lk_level_plain``;
 3. the main path under the default config (5-point and homography
@@ -54,6 +55,16 @@ Phases, each printed on its own lines:
    times and peak device memory; (b) the 89-frame 320x240 out-and-back of
    tests/test_loop_e2e.py with loop closure on: a loop detected in the
    return half, a correction applied, more than 40 frames tracked;
+6a. the sub-batch probe: the keyframe phase on S = 1, 2, 3 and 8
+   keyframe-requesting rows of the single stream's 640x480 golden run (a
+   steady keyframe with local BA, the first keyframe, the bootstrap pair's
+   second, later keyframes, repeated), one batched pass
+   (``keyframe_phase_batched``) against the composition of rows
+   (``keyframe_phase`` per row, then ``write_rows``), timed in turns
+   (rows, batched, batched, rows) and held to tests/test_torch_subbatch.py's
+   bars; at S = 3 both under ``torch.profiler`` (kernels launched, device
+   time, host stream syncs); the ops, if any, that fell back to a per-row
+   loop under ``vmap``;
 6. multi-stream serving (parallel/multistream.py): 16 streams at 640x480
    under the default config with 3 keyframe slots, stream b on golden
    frames 3b .. 3b+59, staged on the card: every stream tracks and keeps
@@ -63,10 +74,19 @@ Phases, each printed on its own lines:
    that of the B = 1, one-slot run of its frames through the same step
    from the same fresh row, which never resets; exactly 2 KLT
    launches per step after the first, 3 election reads per step, and at
-   most 4 + 2 kf_slots host syncs in a step, at B = 16 and B = 1.
-   Printed: aggregate frames/s over steps 10-59, the step split into the
-   track phase and the rest, keyframes served per step, host syncs, peak
+   most 4 host syncs in a step (the election reads and the output read:
+   every gated phase runs once on the stack of its elected rows), at
+   B = 16 and B = 1.  Printed: aggregate frames/s over steps 10-59, the
+   step split into the track phase and the rest, step ms grouped by
+   keyframes served (with the keyframe pass's own ms), host syncs, peak
    device memory;
+6d. 48 streams at 640x480, 8 keyframe slots (the JAX bench's
+   max(3, ceil(B / 6))), stream b on golden frames b .. b+39 staged on the
+   card (cut from 60 frames to keep the smoke's time): every stream
+   tracks with at least 2 keyframes, at most 8 keyframes and 4 host syncs
+   per step, 2 KLT launches per step, stream 0's ATE at most 1.5x its
+   B = 1 run of phase 6 over the same frames; aggregate frames/s, step ms
+   by keyframes served, the track / gated split, peak device memory;
 6b. loop closure inside the keyframe sub-batch: 4 streams, 2 slots, on
    phase 5b's out-and-back: every stream tracks, every database holds at
    least 2 entries, some stream registered a loop;
@@ -92,6 +112,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -365,8 +386,9 @@ def phase_kernel(frames, card):
         _check(0 < n_a <= 1, f"{name}: {n_a} kernel launches per fb_klt_track call")
         shapes.append(row)
 
-    shapes.append(_batched_shape(frames, cfg, args, card))
-    max_err = max(max_err, shapes[-1]["max_abs_err"])
+    for b, stagger in ((BATCH_STREAMS, 3), (WIDE_STREAMS, 1)):
+        shapes.append(_batched_shape(frames, cfg, args, card, b, stagger))
+        max_err = max(max_err, shapes[-1]["max_abs_err"])
 
     # klt_pyramidal: the same kernel with the forward passes only
     klt_pyramidal.launches = 0
@@ -401,23 +423,25 @@ def phase_kernel(frames, card):
 
 
 BATCH_STREAMS = 16         # the multi-stream path's width (phase 6)
+WIDE_STREAMS = 48          # phase 6d's width
 
 
-def _batched_shape(frames, cfg, args, card):
-    """Phase 2, the stream-batched call: one ``fb_klt_track`` launch over
-    16 streams x 192 points (stream b: golden frames 3b -> 3b+1, the points
-    detected on frame 3b; stage 2's schedule) against the per-stream plain
-    composition; its device time beside 16 single-stream calls in the same
-    process, and the bound summed over the streams' points."""
+def _batched_shape(frames, cfg, args, card, B=BATCH_STREAMS, stagger=3):
+    """Phase 2, a stream-batched call: one ``fb_klt_track`` launch over
+    B streams x 192 points (stream b: golden frames stagger*b ->
+    stagger*b+1, the points detected on the first; stage 2's schedule)
+    against the per-stream plain composition; its device time beside B
+    single-stream calls in the same process, and the bound summed over
+    the streams' points."""
     import torch
     from alvaar_tpu_torch.ops import lk_level as lk
     from alvaar_tpu_torch.ops.detect import detect_grid
     from alvaar_tpu_torch.ops.image import build_pyramid
     from alvaar_tpu_torch.ops.klt import fb_klt_track
 
-    dev, B, levels, R = torch.device("cuda"), BATCH_STREAMS, 3, 8
-    f_prev = torch.as_tensor(np.stack([frames[3 * b] for b in range(B)]), device=dev)
-    f_cur = torch.as_tensor(np.stack([frames[3 * b + 1] for b in range(B)]), device=dev)
+    dev, levels, R = torch.device("cuda"), 3, 8
+    f_prev = torch.as_tensor(np.stack([frames[stagger * b] for b in range(B)]), device=dev)
+    f_cur = torch.as_tensor(np.stack([frames[stagger * b + 1] for b in range(B)]), device=dev)
     dets = [detect_grid(f, torch.zeros((0, 2), device=dev),
                         torch.zeros(0, dtype=torch.bool, device=dev),
                         cell=cfg.cell_size, border=cfg.image_border) for f in f_prev]
@@ -479,8 +503,8 @@ def _batched_shape(frames, cfg, args, card):
                device_ms=statistics.median([dev_a, dev_b]), singles_device_ms=dev_1,
                singles_ms=ms_singles, bit_equal=bit_equal, max_abs_err=max(dxy, derr))
     print(f"[kernel] {name}: device time {row['device_ms']:.5f} ms per call ({dev_a:.5f}, "
-          f"{dev_b:.5f}) in {n_a} launch, 16 single-stream calls {dev_1:.5f} ms in {n_1:.0f} "
-          f"launches (torch.profiler); by events {ms:.4f} ms per call, 16 single-stream calls "
+          f"{dev_b:.5f}) in {n_a} launch, {B} single-stream calls {dev_1:.5f} ms in {n_1:.0f} "
+          f"launches (torch.profiler); by events {ms:.4f} ms per call, {B} single-stream calls "
           f"{ms_singles:.4f} ms, per-stream plain composition {plain_ms:.1f} ms; bound "
           f"{bound_ms * 1e3:.4f} us by {bound_by} ({nbytes / 1e3:.1f} KB, {flops / 1e6:.2f} "
           f"MFLOP) [{card}]")
@@ -815,16 +839,196 @@ def phase_loop_closure(card):
 
 
 MS_FRAMES = 60             # frames per stream in phase 6
+WIDE_FRAMES = 40           # in phase 6d (cut from 60 to keep the smoke near 6 minutes)
 MS_KF_SLOTS = 3            # max(3, ceil(16 / 6)), the JAX bench's rule
+WIDE_KF_SLOTS = 8          # max(3, ceil(48 / 6)), phase 6d
 MS_GATE_SYNCS = 3          # election reads per batched step, whatever B
-# all host syncs of a batched step: the election reads, the caller's output
-# read, and the keyframe pipeline's two branches on each served row (at most
-# kf_slots rows): 1 + MS_GATE_SYNCS + 2 * kf_slots, whatever B
+# all host syncs of a batched step: the election reads and the caller's
+# output read, whatever B and kf_slots (no gated phase reads the host)
+MS_MAX_SYNCS = 1 + MS_GATE_SYNCS
+PROBE_SIZES = (1, 2, 3, 8)     # phase 6a's sub-batch sizes
+POSE_Q_TOL, POSE_T_TOL, LM_POS_TOL = 1e-5, 1e-4, 1e-3   # tests/test_torch_subbatch.py's bars
+LM_VALID_SLACK = 2
+
+
+def _wall_ms(fn, reps: int) -> float:
+    """Median host-clock ms of ``reps`` synchronised calls."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _row_diffs(a, b):
+    """Two single-stream states at the sub-batch tests' bars: landmarks
+    whose ``lm_valid`` differs, integer and bool entries that differ
+    outside them, and the largest float differences (pose and keyframe
+    poses, q up to sign; ``lm_pos`` on landmarks 3D in both)."""
+    import torch
+    odd = a.lm_valid != b.lm_valid
+    odd_ids = torch.nonzero(odd)[:, 0]
+    L = odd.shape[0]
+    mismatch = 0
+    for (name, x), (_, y) in zip(a.tensors(), b.tensors()):
+        if x.dtype.is_floating_point:
+            continue
+        if x.dim() and x.shape[0] == L:
+            x, y = x[~odd], y[~odd]
+        elif name in ("kp_lm", "kf_obs_lm"):
+            x = torch.where(torch.isin(x, odd_ids), -1, x)
+            y = torch.where(torch.isin(y, odd_ids), -1, y)
+        mismatch += int((x != y).sum())
+
+    def q_diff(p, r):
+        sign = torch.sign(torch.sum(p * r, dim=-1, keepdim=True))
+        return float((p * sign - r).abs().max())
+
+    both3d = a.lm_valid & a.lm_is3d & b.lm_valid & b.lm_is3d
+    return dict(lm_valid=int(odd.sum()), ints=mismatch,
+                q=max(q_diff(a.pose.q, b.pose.q), q_diff(a.kf_pose.q, b.kf_pose.q)),
+                t=max(float((a.pose.t - b.pose.t).abs().max()),
+                      float((a.kf_pose.t - b.kf_pose.t).abs().max())),
+                lm_pos=float((a.lm_pos[both3d] - b.lm_pos[both3d]).abs().max())
+                if bool(both3d.any()) else 0.0, n3d=int(both3d.sum()))
+
+
+def _profile_counts(fn):
+    """One call under ``torch.profiler``: device kernels launched, their
+    summed device ms, host stream synchronisations, and the call's wall
+    ms (the profiler on)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = device_us = syncs = 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += e.count
+            device_us += e.self_device_time_total
+        elif e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+            syncs += e.count
+    return kernels, device_us / 1e3, syncs, wall
+
+
+def phase_subbatch_probe(frames, card):
+    """Phase 6a: the keyframe phase on S keyframe-requesting rows at
+    640x480, one batched pass (``keyframe_phase_batched``) against the
+    composition of rows (``keyframe_phase`` on each row, then
+    ``write_rows``), at S = 1, 2, 3 and 8 in turns (rows, batched,
+    batched, rows); results held to the CPU tests' bars.  Rows are the
+    single stream's track-phase states on golden frames that asked for a
+    keyframe: a steady-state keyframe (local BA) first, then the first
+    keyframe, the bootstrap pair's second and later ones, repeated to 8."""
+    import torch
+    from alvaar_tpu_torch import AlvaAR, SlamConfig
+    from alvaar_tpu_torch.frontend.step import (keyframe_phase, keyframe_phase_batched,
+                                                track_phase)
+    from alvaar_tpu_torch.ops.klt import fb_klt_track
+    from alvaar_tpu_torch.worldmap.keyframe import host_bool
+    from alvaar_tpu_torch.worldmap.state import stack_states, state_row, write_rows
+
+    cfg = SlamConfig()
+    h, w = frames[0].shape
+    slam = AlvaAR(w, h, fov=60.0, config=cfg, device="cuda")
+    cam = slam.camera
+    fb_klt_track.launches = 0
+    kf_frames, before = [], []
+    for i, f in enumerate(frames):
+        before.append(slam.state)          # the step never writes into its input
+        slam.find_camera_pose(f)
+        if slam.last_is_keyframe:
+            kf_frames.append(i)
+        if slam.last_status == 1 and len(kf_frames) >= 5:
+            break
+    launches = fb_klt_track.launches
+    _check(len(kf_frames) >= 5, f"[probe] keyframes at frames {kf_frames}")
+
+    def tracked(i):
+        st, fl = track_phase(before[i], torch.as_tensor(frames[i], device="cuda"), cam, cfg)
+        _check(bool(fl.kf_req), f"[probe] frame {i} asked for no keyframe")
+        return st
+
+    first, pair, later = kf_frames[0], kf_frames[1], kf_frames[2:]
+    pool = [tracked(i) for i in [later[-1], first, pair] + later[:-1]]
+    pool = (pool * 3)[:max(PROBE_SIZES)]
+    print(f"[probe] rows from golden frames: steady keyframe {later[-1]} (next_kf_id "
+          f"{int(pool[0].next_kf_id)}), first keyframe {first}, bootstrap pair {pair}, later "
+          f"{later[:-1]}; repeated to {max(PROBE_SIZES)}")
+
+    def rows_fn(rows):
+        stack = stack_states(rows)
+        return lambda: write_rows(stack, list(range(len(rows))),
+                                  stack_states(keyframe_phase(r, cam, cfg) for r in rows))
+
+    def batched_fn(rows):
+        stack = stack_states(rows)
+        return lambda: keyframe_phase_batched(stack, cam, cfg)
+
+    rows_fn(pool[:1])()                      # warm-up: the row path's first BA
+    # torch runs an op without a batching rule row by row under vmap (and
+    # warns, once enabled): list any such op of the keyframe phase
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        batched_fn(pool[:3])()
+    torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+    fallbacks = sorted({str(c.message).split(" for ")[-1].split(".")[0] for c in caught
+                        if "batching rule" in str(c.message)})
+    print(f"[probe] ops that fell back to a per-row loop under vmap: {fallbacks or 'none'}")
+    out, worst = {}, dict(lm_valid=0, ints=0, q=0.0, t=0.0, lm_pos=0.0)
+    for S in PROBE_SIZES:
+        rows = pool[:S]
+        r_fn, b_fn = rows_fn(rows), batched_fn(rows)
+        s0 = host_bool.syncs
+        got = b_fn()
+        _check(host_bool.syncs == s0, "[probe] a host read in the batched pass")
+        ref = r_fn()
+        for j in range(S):
+            d = _row_diffs(state_row(got, j), state_row(ref, j))
+            worst = {k: max(worst[k], d[k]) for k in worst}
+        ms_r1, ms_b1, ms_b2, ms_r2 = (_wall_ms(r_fn, 1), _wall_ms(b_fn, 1), _wall_ms(b_fn, 1),
+                                      _wall_ms(r_fn, 1))
+        out[S] = dict(rows=statistics.mean([ms_r1, ms_r2]), batched=statistics.mean([ms_b1, ms_b2]),
+                      spread=(ms_r1, ms_r2, ms_b1, ms_b2))
+    print("[probe] keyframe phase ms (host clock, synchronised; rows, batched, batched, rows in "
+          "turns): " + "; ".join(
+              f"S={S}: rows {o['rows']:.1f} batched {o['batched']:.1f} ("
+              + ", ".join(f"{x:.1f}" for x in o["spread"]) + ")" for S, o in out.items())
+          + f" [{card}]")
+    b1, r1 = out[1]["batched"], out[1]["rows"]
+    print(f"[probe] batched(S)/batched(1) " + ", ".join(
+        f"{out[S]['batched'] / b1:.3f}" for S in PROBE_SIZES) + "; rows(S)/rows(1) " + ", ".join(
+        f"{out[S]['rows'] / r1:.3f}" for S in PROBE_SIZES) + f"; batched(1)/rows(1) {b1 / r1:.3f}")
+    print(f"[probe] batched against rows, largest over all S: lm_valid differs on {worst['lm_valid']} "
+          f"landmarks, {worst['ints']} int/bool entries differ outside them, pose q {worst['q']:.3e}, "
+          f"pose t {worst['t']:.3e}, lm_pos {worst['lm_pos']:.3e} (bars {LM_VALID_SLACK}, 0, "
+          f"{POSE_Q_TOL}, {POSE_T_TOL}, {LM_POS_TOL})")
+    prof = {}
+    for tag, fn in (("rows", rows_fn(pool[:3])), ("batched", batched_fn(pool[:3]))):
+        prof[tag] = _profile_counts(fn)
+    print("[probe] S=3 under torch.profiler: " + "; ".join(
+        f"{tag} {k} kernels, {dev:.1f} ms device time in {wall:.1f} ms (busy {dev / wall:.3f}), "
+        f"{syncs} host stream syncs" for tag, (k, dev, syncs, wall) in prof.items()) + f" [{card}]")
+    _check(worst["lm_valid"] <= LM_VALID_SLACK and worst["ints"] == 0,
+           "[probe] batched and row integer fields differ")
+    _check(worst["q"] <= POSE_Q_TOL and worst["t"] <= POSE_T_TOL and worst["lm_pos"] <= LM_POS_TOL,
+           "[probe] batched and row poses or landmarks differ beyond the bars")
+    return launches
 
 
 def _multistream_run(frames_dev, cfg, cam, kf_slots, tag, card, row=None):
     """The batched step over staged frames [N, B, H, W] on the card, each
-    step synchronised and timed, its track phase timed apart.  With ``row``
+    step synchronised and timed, its track phase and its keyframe pass
+    timed apart (the rows each pass served recorded).  With ``row``
     (B = 1), the stream starts from row ``row`` of a fresh
     ``BATCH_STREAMS``-stream state, its generator included.  Returns
     per-step lists and the final states."""
@@ -833,35 +1037,42 @@ def _multistream_run(frames_dev, cfg, cam, kf_slots, tag, card, row=None):
     from alvaar_tpu_torch.ops.lk_level import lk_level
     from alvaar_tpu_torch.parallel import multistream as ms
     from alvaar_tpu_torch.worldmap.keyframe import host_bool
+    from alvaar_tpu_torch.worldmap.state import stack_states, state_row
 
     n, b = frames_dev.shape[:2]
     step = ms.make_multistream_step(cfg, cam, kf_slots=kf_slots)
     if row is None:
         states = ms.init_multistream_state(cfg, b, device="cuda")
     else:
-        states = ms.stack_states([ms.state_row(
+        states = stack_states([state_row(
             ms.init_multistream_state(cfg, BATCH_STREAMS, device="cuda"), row)])
-    track_ms = []
-    batched = ms.track_phase_batched
+    track_ms, kf_passes = [], []
+    batched, kf_batched = ms.track_phase_batched, ms.keyframe_phase_batched
 
-    def timed_track(*a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = batched(*a, **kw)
-        torch.cuda.synchronize()
-        track_ms.append((time.perf_counter() - t0) * 1e3)
-        return out
+    def timed(fn, log, rows=False):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            ms_ = (time.perf_counter() - t0) * 1e3
+            log.append((ms_, ms.num_streams(a[0])) if rows else ms_)
+            return out
+        return call
 
-    run = {k: [] for k in ("ms", "launches", "gate_syncs", "syncs", "kf", "status", "pose")}
+    run = {k: [] for k in ("ms", "launches", "gate_syncs", "syncs", "kf", "served", "kf_ms",
+                           "status", "pose")}
     dts = torch.ones(b, device="cuda")
     fb_klt_track.launches = klt_pyramidal.launches = lk_level.launches = 0
     ms.multistream_step_local.syncs = host_bool.syncs = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ms.track_phase_batched = timed_track
+    ms.track_phase_batched = timed(batched, track_ms)
+    ms.keyframe_phase_batched = timed(kf_batched, kf_passes, rows=True)
     try:
         for i in range(n):
             l0, g0, h0 = fb_klt_track.launches, ms.multistream_step_local.syncs, host_bool.syncs
+            p0 = len(kf_passes)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             states, out = step(states, frames_dev[i], dts)
@@ -872,10 +1083,13 @@ def _multistream_run(frames_dev, cfg, cam, kf_slots, tag, card, row=None):
             run["gate_syncs"].append(ms.multistream_step_local.syncs - g0)
             run["syncs"].append(host_bool.syncs - h0 + 1)
             run["kf"].append(int(out.is_keyframe.sum()))
+            run["served"].append(sum(r for _, r in kf_passes[p0:]))
+            run["kf_ms"].append(sum(t for t, _ in kf_passes[p0:]))
+            _check(len(kf_passes) - p0 <= 1, f"[{tag}] more than one keyframe pass in a step")
             run["status"].append(status.numpy())
             run["pose"].append(out.pose_wc.cpu().numpy())
     finally:
-        ms.track_phase_batched = batched
+        ms.track_phase_batched, ms.keyframe_phase_batched = batched, kf_batched
     run["track_ms"] = track_ms
     run["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
     run["other_launches"] = lk_level.launches + klt_pyramidal.launches
@@ -886,16 +1100,53 @@ def _multistream_run(frames_dev, cfg, cam, kf_slots, tag, card, row=None):
     return states, run
 
 
+def _ate_cm(r, k, offset, gt):
+    """Stream k's sim3-aligned ATE (cm) over its frames at status 1, and
+    their count; golden frame ``offset + i`` at step i."""
+    from render_scene_np import ate_rmse
+    col = min(k, r["status"].shape[1] - 1)
+    idx = np.where(r["status"][:, col] == 1)[0]
+    if len(idx) < 3:
+        return float("inf"), len(idx)
+    return 100.0 * ate_rmse(r["pose"][idx, col, :3, 3], gt[offset + idx][:, :3, 3]), len(idx)
+
+
+def _by_served(run, tag, card, kf_slots):
+    """Step ms over steps 10 on, grouped by keyframes served in the step,
+    with the gated keyframe pass's own ms.  Returns {served: median ms}."""
+    groups = {}
+    for t, k, kt in list(zip(run["ms"], run["served"], run["kf_ms"]))[10:]:
+        groups.setdefault(k, []).append((t, kt))
+    med = {k: statistics.median(t for t, _ in v) for k, v in sorted(groups.items())}
+    print(f"[{tag}] steps 10-{len(run['ms']) - 1} by keyframes served (of {kf_slots} slots): "
+          + "; ".join(f"{k}: {len(v)} steps, median {med[k]:.1f} ms (keyframe pass "
+                      f"{statistics.median(x for _, x in v):.1f} ms), max {max(t for t, _ in v):.1f} ms"
+                      for k, v in sorted(groups.items()))
+          + f"; slowest step {max(run['ms']):.1f} ms (step {run['ms'].index(max(run['ms']))}, "
+          f"{run['served'][run['ms'].index(max(run['ms']))]} served) [{card}]")
+    return med
+
+
+def _check_steps(r, tag, kf_slots):
+    _check(all(x == 2 for x in r["launches"][1:]),
+           f"[{tag}] a step after the first did not launch the KLT kernel twice")
+    _check(r["other_launches"] == 0, f"[{tag}] a KLT launch outside fb_klt_track")
+    _check(max(r["gate_syncs"]) == MS_GATE_SYNCS,
+           f"[{tag}] election reads {max(r['gate_syncs'])} != {MS_GATE_SYNCS}")
+    _check(max(r["syncs"]) <= MS_MAX_SYNCS,
+           f"[{tag}] {max(r['syncs'])} host syncs in a step > {MS_MAX_SYNCS}")
+    _check(max(r["served"]) <= kf_slots, f"[{tag}] more than {kf_slots} keyframes in a step")
+
+
 def phase_multistream(frames, gt, card):
     """Phase 6: 16 streams at 640x480, default config, 3 keyframe slots;
     stream b sees golden frames 3b .. 3b + 59.  Then, for every stream, the
     B = 1, one-slot run of its frames through the same step, from the
     same fresh row (its generator included): the ATE bars and the host
-    syncs at B = 1."""
+    syncs at B = 1.  Returns (launches, stream 0's B = 1 run)."""
     import torch
     from alvaar_tpu_torch import SlamConfig
     from alvaar_tpu_torch.geom.camera import Camera
-    from render_scene_np import ate_rmse
 
     cfg = SlamConfig()
     cam = Camera.from_fov(cfg.width, cfg.height, 60.0)
@@ -910,23 +1161,15 @@ def phase_multistream(frames, gt, card):
     del frames_dev
     one = ones[0]
 
-    def ate(r, k, offset):
-        col = min(k, r["status"].shape[1] - 1)
-        idx = np.where(r["status"][:, col] == 1)[0]
-        if len(idx) < 3:
-            return float("inf"), len(idx)
-        return 100.0 * ate_rmse(r["pose"][idx, col, :3, 3], gt[offset + idx][:, :3, 3]), len(idx)
-
     st = run["status"]
     n_kf = states.kf_valid.sum(dim=1).cpu().numpy()
-    ates = [ate(run, k, 3 * k) for k in range(B)]
-    ates1 = [ate(ones[k], k, 3 * k) for k in range(B)]
+    ates = [_ate_cm(run, k, 3 * k, gt) for k in range(B)]
+    ates1 = [_ate_cm(ones[k], k, 3 * k, gt) for k in range(B)]
     ratio = [a / a1 for (a, _), (a1, _) in zip(ates, ates1)]
     worst = int(np.argmax(ratio))
     steps = run["ms"][10:]
     fps = (N - 10) * B / (sum(steps) / 1e3)
     gated = [t - tr for t, tr in zip(run["ms"], run["track_ms"])]
-    max_syncs = {B: 1 + MS_GATE_SYNCS + 2 * MS_KF_SLOTS, 1: 1 + MS_GATE_SYNCS + 2}
     syncs1 = [x for r in ones for x in r["syncs"]]
     print(f"[multi] tracked frames per stream {[int((st[:, k] == 1).sum()) for k in range(B)]}, "
           f"keyframes in the window {n_kf.tolist()}, status-2 reports {int((st == 2).sum())} "
@@ -943,17 +1186,18 @@ def phase_multistream(frames, gt, card):
           f"{statistics.median(steps):.2f} ms per step: track phase "
           f"{statistics.median(run['track_ms'][10:]):.2f} ms, gated phases and finalize "
           f"{statistics.median(gated[10:]):.2f} ms; keyframes served per step median "
-          f"{statistics.median(run['kf'][10:])} (total {sum(run['kf'])}); slowest step "
+          f"{statistics.median(run['served'][10:])} (total {sum(run['served'])}); slowest step "
           f"{max(run['ms']):.1f} ms (step {run['ms'].index(max(run['ms']))}); peak device "
           f"memory {run['peak_mib']:.1f} MiB [{card}]")
+    _by_served(run, "multi", card, MS_KF_SLOTS)
     print(f"[multi] KLT launches per step {sorted(set(run['launches'][1:]))} (B={B}), "
           f"{sorted({x for r in ones for x in r['launches'][1:]})} (B=1); election reads per "
           f"step median {statistics.median(run['gate_syncs'])} (B={B}) and "
           f"{statistics.median(one['gate_syncs'])} (B=1); all host syncs per step median "
-          f"{statistics.median(run['syncs'])} max {max(run['syncs'])} (B={B}, bound "
-          f"{max_syncs[B]}), median {statistics.median(syncs1)} max {max(syncs1)} (B=1, bound "
-          f"{max_syncs[1]}); B=1 median {statistics.median(one['ms'][10:]):.2f} ms per step, "
-          f"the {B} B=1 runs {wall_one:.1f} s [{card}]")
+          f"{statistics.median(run['syncs'])} max {max(run['syncs'])} (B={B}), median "
+          f"{statistics.median(syncs1)} max {max(syncs1)} (B=1), bound {MS_MAX_SYNCS}; B=1 median "
+          f"{statistics.median(one['ms'][10:]):.2f} ms per step, the {B} B=1 runs "
+          f"{wall_one:.1f} s [{card}]")
     # a stream that reset starts its map again from a later frame, with
     # its generator advanced: its run is no longer the B = 1 run's, so the
     # ATE bar holds stream 0 and every stream that never reset
@@ -967,17 +1211,57 @@ def phase_multistream(frames, gt, card):
         _check(ratio[k] <= 1.5, f"[multi] stream {k} ATE {ates[k][0]:.4f} cm > 1.5 x "
                f"{ates1[k][0]:.4f} cm of its B=1 run")
     _check((n_kf >= 2).all(), f"[multi] keyframe starvation: {n_kf.tolist()}")
-    for r, tag, b in [(run, f"B={B}", B)] + [(r, f"B=1 stream {k}", 1) for k, r in enumerate(ones)]:
-        _check(all(x == 2 for x in r["launches"][1:]),
-               f"[multi {tag}] a step after the first did not launch the KLT kernel twice")
-        _check(r["other_launches"] == 0, f"[multi {tag}] a KLT launch outside fb_klt_track")
-        _check(max(r["gate_syncs"]) == MS_GATE_SYNCS,
-               f"[multi {tag}] election reads {max(r['gate_syncs'])} != {MS_GATE_SYNCS}")
-        _check(max(r["syncs"]) <= max_syncs[b],
-               f"[multi {tag}] {max(r['syncs'])} host syncs in a step > {max_syncs[b]}")
-    _check(statistics.median(run["gate_syncs"]) == statistics.median(one["gate_syncs"]),
-           f"[multi] election reads per step differ between B={B} and B=1")
-    return sum(run["launches"]) + sum(sum(r["launches"]) for r in ones)
+    for r, tag, slots in ([(run, f"multi B={B}", MS_KF_SLOTS)]
+                          + [(r, f"multi B=1 stream {k}", 1) for k, r in enumerate(ones)]):
+        _check_steps(r, tag, slots)
+    return sum(run["launches"]) + sum(sum(r["launches"]) for r in ones), one
+
+
+def phase_multistream_wide(frames, gt, one0, card):
+    """Phase 6d: 48 streams at 640x480, default config, 8 keyframe slots
+    (the JAX bench's max(3, ceil(B / 6))); stream b sees golden frames
+    b .. b + 39, staged on the card.  Every stream tracks with >= 2
+    keyframes; stream 0's ATE at most 1.5x its B = 1 run (the first 40
+    steps of phase 6's: the same fresh row and frames)."""
+    import torch
+    from alvaar_tpu_torch import SlamConfig
+    from alvaar_tpu_torch.geom.camera import Camera
+
+    cfg = SlamConfig()
+    cam = Camera.from_fov(cfg.width, cfg.height, 60.0)
+    B, N = WIDE_STREAMS, WIDE_FRAMES
+    golden = torch.as_tensor(np.stack(frames[:B + N]), device="cuda")
+    at = torch.arange(N, device="cuda")[:, None] + torch.arange(B, device="cuda")[None, :]
+    frames_dev = golden[at]                                  # [N, B, H, W]
+    del golden
+    states, run = _multistream_run(frames_dev, cfg, cam, WIDE_KF_SLOTS, "wide", card)
+    del frames_dev
+    st = run["status"]
+    n_kf = states.kf_valid.sum(dim=1).cpu().numpy()
+    one0 = {k: one0[k][:N] for k in ("status", "pose")}      # the same frames
+    (a0, n0), (a1, n1) = _ate_cm(run, 0, 0, gt), _ate_cm(one0, 0, 0, gt)
+    steps = run["ms"][10:]
+    fps = (N - 10) * B / (sum(steps) / 1e3)
+    gated = [t - tr for t, tr in zip(run["ms"], run["track_ms"])]
+    print(f"[wide] tracked frames per stream {[int((st[:, k] == 1).sum()) for k in range(B)]}, "
+          f"keyframes in the window {n_kf.tolist()}, status-2 reports {int((st == 2).sum())} on "
+          f"{int((st == 2).any(axis=0).sum())} streams")
+    print(f"[wide] stream 0 ATE {a0:.4f} cm ({n0} frames) against {a1:.4f} cm ({n1}) at B=1, "
+          f"ratio {a0 / a1:.3f} (bar 1.5x)")
+    print(f"[wide] steps 10-{N - 1}: aggregate {fps:.1f} frames/s ({B} streams), median "
+          f"{statistics.median(steps):.2f} ms per step: track phase "
+          f"{statistics.median(run['track_ms'][10:]):.2f} ms, gated phases and finalize "
+          f"{statistics.median(gated[10:]):.2f} ms; keyframes served per step median "
+          f"{statistics.median(run['served'][10:])} max {max(run['served'])} (total "
+          f"{sum(run['served'])}); host syncs per step max {max(run['syncs'])} (bound "
+          f"{MS_MAX_SYNCS}); peak device memory {run['peak_mib']:.1f} MiB [{card}]")
+    _by_served(run, "wide", card, WIDE_KF_SLOTS)
+    for k in range(B):
+        _check(1 in st[:, k], f"[wide] stream {k} never tracked")
+    _check((n_kf >= 2).all(), f"[wide] keyframe starvation: {n_kf.tolist()}")
+    _check(a0 <= 1.5 * a1, f"[wide] stream 0 ATE {a0:.4f} cm > 1.5 x {a1:.4f} cm")
+    _check_steps(run, "wide", WIDE_KF_SLOTS)
+    return sum(run["launches"])
 
 
 def phase_multistream_loop(card):
@@ -1115,7 +1399,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         launches += phase_facade(slam, more, card, tmp)
     launches += phase_loop_closure(card)
-    launches += phase_multistream(frames, gt, card)
+    launches += phase_subbatch_probe(frames, card)
+    ms_launches, one0 = phase_multistream(frames, gt, card)
+    launches += ms_launches + phase_multistream_wide(frames, gt, one0, card)
     launches += phase_multistream_loop(card)
     launches += phase_server(frames, card)
 
