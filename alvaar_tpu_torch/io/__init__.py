@@ -1,0 +1,3 @@
+from alvaar_tpu_torch.io.frame_ring import FrameRing
+
+__all__ = ["FrameRing"]

@@ -25,6 +25,7 @@ import torch
 
 from alvaar_tpu_torch.ops.lk_level import (BACKWARD_ITERS_MAX, BACKWARD_R, SEARCH_R,
                                            klt_schedule, launch_klt_track, lk_level_plain)
+from alvaar_tpu_torch.utils.stats import count
 
 
 def _launches_kernel(pts, level_fn, name: str) -> bool:
@@ -75,7 +76,7 @@ def klt_pyramidal(pyr_prev: Sequence[torch.Tensor],
             pyr_prev, pyr_cur, pts.contiguous(), prior.contiguous(), valid.contiguous(),
             klt_schedule(levels, search_r, iters, backward=False), gated=True, win=win,
             eps=eps, err_max=err_max)
-        klt_pyramidal.launches += 1
+        count(klt_pyramidal, "launches")
         return TrackResult(xy=xy, status=status, err=err)
     level_fn = level_fn or lk_level_plain
     scale = 2.0 ** (levels - 1)
@@ -112,7 +113,7 @@ def fb_klt_track(pyr_prev, pyr_cur, pts, prior, valid, *, levels: int,
             pyr_prev, pyr_cur, pts.contiguous(), prior.contiguous(), valid.contiguous(),
             klt_schedule(levels, search_r, iters), gated=True, win=win, eps=eps,
             err_max=err_max, fb_dist=fb_dist)
-        fb_klt_track.launches += 1
+        count(fb_klt_track, "launches")
         return TrackResult(xy=xy, status=status, err=err)
     level_fn = level_fn or lk_level_plain
     fwd = klt_pyramidal(pyr_prev, pyr_cur, pts, prior, valid,

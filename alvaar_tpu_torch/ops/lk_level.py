@@ -13,7 +13,9 @@ kernel or raises.
 
 The kernel is compiled with ``nvcc`` at first use into ``build/`` at the
 repository root (one shared library with a plain C entry point, loaded
-with ``ctypes``), and rebuilt when the source's hash changes.
+with ``ctypes``; utils/build.py), and rebuilt when the source's hash
+changes.  Each launch runs under its tensors' device, whichever device is
+current in the calling thread.
 
 The plain level pass sums the 81-tap window terms in the kernel's
 (sequential) order and takes every other product and sum as its own torch
@@ -24,15 +26,14 @@ with the composition of it in ops/klt.py) bit for bit.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
+import threading
 from pathlib import Path
 
 import torch
 
 from alvaar_tpu_torch.ops.image import gather_patches
+from alvaar_tpu_torch.utils.build import build_library, find_tool
+from alvaar_tpu_torch.utils.stats import count
 
 SEARCH_R = 8
 BACKWARD_R = 2
@@ -45,61 +46,43 @@ R_MAX = 12
 LEVELS_MAX = 4
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "klt_track.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _lib = None
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build the KLT kernel")
-    return path
+_LOAD_LOCK = threading.Lock()
 
 
 def build_kernel(verbose: bool = False, src: Path = _SRC) -> Path:
-    """Compile ``src`` (the KLT kernel by default) into ``build/`` unless a
-    library built from the same source and flags is already there.
-    Returns its path."""
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"lib{src.stem}_{digest}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(src)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr.strip())
-    os.replace(tmp, out)
-    return out
+    """Compile ``src`` (the KLT kernel by default) with nvcc into
+    ``build/`` unless a library built from the same source and flags is
+    already there (utils/build.py).  Returns its path."""
+    nvcc = find_tool("nvcc", "/usr/local/cuda/bin/nvcc",
+                     "the CUDA toolkit is needed to build the KLT kernel")
+    return build_library(src, nvcc, _NVCC_FLAGS, verbose=verbose)
 
 
 def _load():
     """The built library's launch function, after checking that its limits
-    are the ones this module checks against."""
+    are the ones this module checks against (built and opened once, by
+    the first thread that asks)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_kernel()))
-        fn = lib.klt_track_launch
-        fn.restype = ctypes.c_int
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, ptr, i32, i32, i32, f32, f32,
-                       f32, f32, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr]
-        lim = lib.klt_track_limits
-        lim.restype = ctypes.c_int
-        lim.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
-        got = [ctypes.c_int() for _ in range(3)]
-        lim(*(ctypes.byref(v) for v in got))
-        if [v.value for v in got] != [WIN_MAX, R_MAX, LEVELS_MAX]:
-            raise RuntimeError(f"kernel limits {[v.value for v in got]} differ from "
-                               f"{[WIN_MAX, R_MAX, LEVELS_MAX]}")
-        _lib = (lib, fn)   # keep lib alive
+    with _LOAD_LOCK:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build_kernel()))
+            fn = lib.klt_track_launch
+            fn.restype = ctypes.c_int
+            ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, ptr, i32, i32, i32, f32, f32,
+                           f32, f32, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr]
+            lim = lib.klt_track_limits
+            lim.restype = ctypes.c_int
+            lim.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+            got = [ctypes.c_int() for _ in range(3)]
+            lim(*(ctypes.byref(v) for v in got))
+            if [v.value for v in got] != [WIN_MAX, R_MAX, LEVELS_MAX]:
+                raise RuntimeError(f"kernel limits {[v.value for v in got]} differ from "
+                                   f"{[WIN_MAX, R_MAX, LEVELS_MAX]}")
+            _lib = (lib, fn)   # keep lib alive
     return _lib[1]
 
 
@@ -335,14 +318,17 @@ def launch_klt_track(pyr_prev, pyr_cur, pts, prior, valid, schedule, *, gated: b
     ints = lambda xs: (ctypes.c_int * len(xs))(*xs)
     flat = [int(v) for ps in schedule for v in ps]
     hw = [t.shape[-2:] for t in pyr_cur[:levels]]
-    rc = fn(ptrs(pyr_prev), ptrs(pyr_cur),
-            (ctypes.c_longlong * LEVELS_MAX)(*[h * w for h, w in hw]),
-            ints([h for h, _ in hw]), ints([w for _, w in hw]), levels,
-            max(1, n // streams), ints(flat),
-            len(schedule), int(gated), win, float(eps * eps), float(min_eig),
-            float(err_max), float(fb_dist), pts.data_ptr(), prior.data_ptr(),
-            valid.data_ptr(), n, xy.data_ptr(), status.data_ptr(), err.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+    # the kernel's attribute call and launch act on the calling thread's
+    # current device: make it the tensors' own
+    with torch.cuda.device(dev):
+        rc = fn(ptrs(pyr_prev), ptrs(pyr_cur),
+                (ctypes.c_longlong * LEVELS_MAX)(*[h * w for h, w in hw]),
+                ints([h for h, _ in hw]), ints([w for _, w in hw]), levels,
+                max(1, n // streams), ints(flat),
+                len(schedule), int(gated), win, float(eps * eps), float(min_eig),
+                float(err_max), float(fb_dist), pts.data_ptr(), prior.data_ptr(),
+                valid.data_ptr(), n, xy.data_ptr(), status.data_ptr(), err.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"KLT kernel launch failed: cudaError_t {rc}")
     return xy, status, err
@@ -368,7 +354,7 @@ def lk_level(img_prev, img_cur, pts_prev, guess, valid, *, win: int,
     out = launch_klt_track([img_prev], [img_cur], pts_prev, guess, valid,
                            [(0, search_r, iters, False)], gated=False, win=win,
                            eps=eps, min_eig=min_eig)
-    lk_level.launches += 1
+    count(lk_level, "launches")
     return out
 
 

@@ -1,4 +1,4 @@
-"""Multi-stream SLAM serving on one GPU.
+"""Multi-stream SLAM serving on one GPU, or sharded over several.
 
 Port of alvaar_tpu/parallel/multistream.py.  B independent camera streams
 share one stacked state (worldmap/state.py ``init_multistream_state``:
@@ -33,27 +33,37 @@ recovery and the bootstrap together, the keyframe election, the reset.
 No phase reads the host inside, so a step makes three host syncs
 (``host_bool.syncs`` counts them all), whatever B and ``kf_slots``.
 
-One device: the JAX package's mesh (``shard_map`` over a "streams" axis,
-``Mesh``, ``shard_states``) has no counterpart here; a step serves the
-streams of one card.
+The stream mesh (the JAX package's ``shard_map`` over a 1-D "streams"
+axis): ``shard_states`` splits a stacked state into contiguous blocks of
+streams, one per device, and ``make_multistream_step(..., devices=...)``
+advances every block with ``multistream_step_local`` on its own device,
+with ``kf_slots`` counted per device.  Streams share nothing, so there is
+no collective; each block runs in a host thread of its own (the step is
+paced by the host, so one thread would serialise the cards), under that
+device.  A device may appear more than once: several shards on one card,
+or on the CPU.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 from torch.func import vmap
 
 from alvaar_tpu_torch.config import SlamConfig
-from alvaar_tpu_torch.frontend.step import (finalize_phase, init_essential_phase_batched,
+from alvaar_tpu_torch.frontend.step import (StepOutput, finalize_phase,
+                                            init_essential_phase_batched,
                                             keyframe_phase, keyframe_phase_batched,
                                             recovery_phase_batched, track_phase_batched)
 from alvaar_tpu_torch.geom.camera import Camera
 from alvaar_tpu_torch.loopclosure import detector
 from alvaar_tpu_torch.loopclosure.detector import LoopDB
 from alvaar_tpu_torch.ops.topk import top_k
+from alvaar_tpu_torch.utils.stats import count
 from alvaar_tpu_torch.worldmap.keyframe import host_bool
 from alvaar_tpu_torch.worldmap.state import (MapState, apply_world_correction, from_tensors,
                                              gather_rows, map_rows, map_tensors, num_streams,
@@ -77,8 +87,8 @@ def _elect(score, slots: int):
 def _read_elections(*elections):
     """Every election's (idx, live) read on the host in one sync.
     Returns a list of (rows, live) pairs of Python lists."""
-    multistream_step_local.syncs += 1
-    host_bool.syncs += 1
+    count(multistream_step_local, "syncs")
+    count(host_bool, "syncs")
     flat = torch.cat([torch.cat([idx, live.to(idx.dtype)]) for idx, live in elections]).tolist()
     out, o = [], 0
     for idx, _ in elections:
@@ -296,16 +306,23 @@ def _frames(frames, device):
 
 
 def make_multistream_step(cfg: SlamConfig, cam: Camera, kf_slots: int = 4,
-                          loop_closure: bool = False, loop_delay: int = 50):
+                          loop_closure: bool = False, loop_delay: int = 50, *,
+                          devices=None):
     """The batched step as a callable: ``(states, frames [B, H, W], dts=None,
     active=None) → (states, outs)``; with ``loop_closure``, ``(states, dbs,
     frames, dts=None, active=None) → (states, dbs, outs)`` with a stacked
     per-stream LoopDB (:func:`init_multistream_loopdbs`).  ``kf_slots`` is
     the keyframe sub-batch size (the JAX bench: ``max(3, ceil(B / 6))``).
 
-    The JAX package shards the streams over a device mesh (``shard_map``,
-    one step per device); the port serves the streams of one card, so there
-    is no mesh, no ``shard_states`` and no per-device slot count."""
+    With ``devices`` (a list, a device may repeat), the step runs over the
+    stream mesh: ``states`` (and ``dbs``) are the blocks of
+    :func:`shard_states` over the same ``devices``, ``frames`` [B, H, W],
+    ``dts`` and ``active`` [B] are global, and each block advances on its
+    device with ``kf_slots`` keyframe slots of its own (per device, as in
+    the JAX package).  Returns the new blocks and a StepOutput on
+    ``devices[0]`` whose row b is stream b's."""
+    if devices is not None:
+        return _mesh_step(cfg, cam, kf_slots, loop_closure, loop_delay, devices)
     if loop_closure:
         def run_lc(states: MapState, dbs: LoopDB, frames, dts=None, active=None):
             dev = states.kp_px.device
@@ -320,6 +337,109 @@ def make_multistream_step(cfg: SlamConfig, cam: Camera, kf_slots: int = 4,
                                       _dts(dts, num_streams(states), dev), cam, cfg,
                                       kf_slots, active=active)
     return run
+
+
+# ---------------------------------------------------------------------------
+# The stream mesh
+# ---------------------------------------------------------------------------
+
+def _device(d) -> torch.device:
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def _generator_on(gen: torch.Generator, dev: torch.device) -> torch.Generator:
+    """A new generator on ``dev`` in ``gen``'s state.  A CUDA generator is
+    bound to one device and its state carries between CUDA devices; CPU
+    and CUDA generator states differ, so the type must stay."""
+    if gen.device.type != dev.type:
+        raise ValueError(f"a {gen.device.type} generator cannot move to {dev}")
+    out = torch.Generator(device=dev)
+    out.set_state(gen.get_state())
+    return out
+
+
+def _block(x, rows: slice, dev: torch.device):
+    """Rows ``rows`` of a stacked MapState or LoopDB, copied onto ``dev``."""
+    take = lambda t: t[rows].to(dev, copy=True)
+    if isinstance(x, LoopDB):
+        return _map_db(take, x)
+    return map_tensors(take, x).replace(rng=tuple(_generator_on(g, dev) for g in x.rng[rows]))
+
+
+def shard_states(states, devices) -> list:
+    """A stacked MapState (or stacked LoopDB) of B streams as
+    ``len(devices)`` contiguous blocks of B / len(devices) streams, block k
+    copied onto ``devices[k]`` with its streams' generators re-created
+    there in the same state: the blocks that ``PartitionSpec("streams")``
+    gives over a 1-D mesh of ``devices`` (the JAX package's
+    ``shard_states``).  A B that does not divide evenly raises."""
+    devices = [_device(d) for d in devices]
+    b = states.kf_id.shape[0]            # MapState [B, W], LoopDB [B, D]
+    if not devices or b % len(devices):
+        raise ValueError(f"{b} streams do not split evenly over {len(devices)} devices")
+    n = b // len(devices)
+    return [_block(states, slice(k * n, (k + 1) * n), d) for k, d in enumerate(devices)]
+
+
+def gather_states(blocks, device=None):
+    """The inverse of :func:`shard_states`: the blocks concatenated in
+    stream order onto ``device`` (block 0's by default), generators
+    included, e.g. for ``multistream_state_to_numpy`` or a checkpoint."""
+    dev = _device(device) if device is not None else blocks[0].kf_id.device
+    cat = lambda *ts: torch.cat([t.to(dev) for t in ts])
+    if isinstance(blocks[0], LoopDB):
+        return _map_db(cat, *blocks)
+    return map_tensors(cat, *blocks).replace(
+        rng=tuple(_generator_on(g, dev) for blk in blocks for g in blk.rng))
+
+
+def _mesh_step(cfg: SlamConfig, cam: Camera, kf_slots: int, loop_closure: bool,
+               loop_delay: int, devices):
+    devices = [_device(d) for d in devices]
+
+    def shard(k, states, dbs, frames, dts, active):
+        dev = devices[k]
+        if states.kf_id.device != dev:
+            raise ValueError(f"block {k} is on {states.kf_id.device}, the mesh puts it on {dev}")
+        n = num_streams(states)
+        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+            return multistream_step_local(
+                states, _frames(frames, dev), _dts(dts, n, dev), cam, cfg, kf_slots, dbs,
+                loop_delay, None if active is None else torch.as_tensor(active).to(dev))
+
+    def run(blocks, dbs, frames, dts, active):
+        if len(blocks) != len(devices):
+            raise ValueError(f"{len(blocks)} blocks for a mesh of {len(devices)} devices")
+        n = num_streams(blocks[0])
+        frames = torch.as_tensor(frames)
+        if frames.shape[0] != n * len(devices):
+            raise ValueError(f"{frames.shape[0]} frames for {n * len(devices)} streams")
+        part = lambda x, k: None if x is None else x[k * n:(k + 1) * n]
+        dts = None if dts is None else torch.as_tensor(dts)
+        active = None if active is None else torch.as_tensor(active)
+        with ThreadPoolExecutor(len(devices)) as pool:
+            futures = [pool.submit(shard, k, blocks[k], None if dbs is None else dbs[k],
+                                   part(frames, k), part(dts, k), part(active, k))
+                       for k in range(len(devices))]
+            results = [f.result() for f in futures]
+        outs = [r[-1] for r in results]
+        out = StepOutput(**{f.name: torch.cat([getattr(o, f.name).to(devices[0]) for o in outs])
+                            for f in dataclasses.fields(StepOutput)})
+        if dbs is None:
+            return [r[0] for r in results], out
+        return [r[0] for r in results], [r[1] for r in results], out
+
+    if loop_closure:
+        def run_lc(blocks, dbs, frames, dts=None, active=None):
+            return run(blocks, dbs, frames, dts, active)
+        return run_lc
+
+    def run_plain(blocks, frames, dts=None, active=None):
+        return run(blocks, None, frames, dts, active)
+    return run_plain
 
 
 def make_multistream_scan(cfg: SlamConfig, cam: Camera, kf_slots: int = 4,

@@ -18,6 +18,7 @@ it off; the JAX package forces the same f32 "island").
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import torch
 
@@ -25,6 +26,11 @@ from alvaar_tpu_torch.geom.camera import Camera
 from alvaar_tpu_torch.geom.lie import SE3
 from alvaar_tpu_torch.solvers.pnp import CHI2_THRESH_2DOF
 from alvaar_tpu_torch.worldmap.state import masked_scatter_set
+
+# torch's forward-mode AD keeps one dual level for the whole process
+# (torch.autograd.forward_ad), so ``jacfwd`` runs in one thread at a time:
+# the shards of a sharded multi-stream step linearise in turns
+_FORWARD_AD_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass
@@ -139,8 +145,9 @@ def _residuals_jacobians(vp: _VirtualProblem, poses: SE3, lam_v, cam: Camera):
         return r, J, z
 
     flat = lambda x: x.reshape((W * K,) + x.shape[2:])
-    r, J, z = torch.func.vmap(one)(flat(q_o), flat(t_o), flat(q_a), flat(t_a),
-                                   flat(vp.mxy), flat(lam), flat(vp.px))
+    with _FORWARD_AD_LOCK:
+        r, J, z = torch.func.vmap(one)(flat(q_o), flat(t_o), flat(q_a), flat(t_a),
+                                       flat(vp.mxy), flat(lam), flat(vp.px))
     return r.reshape(W, K, 2), J.reshape(W, K, 2, 13), z.reshape(W, K)
 
 

@@ -31,6 +31,7 @@ from alvaar_tpu_torch.solvers.essential import (
     refine_relative_pose,
 )
 from alvaar_tpu_torch.solvers.ransac import minimal_samples
+from alvaar_tpu_torch.utils.stats import count
 
 # ---------------------------------------------------------------------------
 # Static monomial algebra tables (numpy, built at import as in JAX)
@@ -303,7 +304,7 @@ def essential_ransac_5pt(gen, f0, f1, valid, *, focal, iters: int = 100,
     ``samples`` = (idx [iters, 5], ok [iters]), or a uniform draw [iters,
     N], replaces the generator's draw.  ``essential_ransac_5pt.calls``
     counts the calls."""
-    essential_ransac_5pt.calls += 1
+    count(essential_ransac_5pt, "calls")
     idx, samp_ok = minimal_samples(gen, valid, 5, iters, samples)
     E, emask = essential_from_5pt(f0[idx], f1[idx], n_grid=n_grid)  # [H, 10, ...]
     H, R = emask.shape

@@ -19,6 +19,7 @@ from alvaar_tpu_torch.solvers.essential import (
     essential_thresh,
 )
 from alvaar_tpu_torch.solvers.ransac import minimal_samples
+from alvaar_tpu_torch.utils.stats import count
 
 
 def _to_norm(f):
@@ -125,7 +126,7 @@ def homography_ransac(gen, f0, f1, valid, *, focal, iters: int = 100,
     ok [iters]), or a uniform draw [iters, N], replaces the generator's
     draw.
     ``homography_ransac.calls`` counts the calls."""
-    homography_ransac.calls += 1
+    count(homography_ransac, "calls")
     x0, x1 = _to_norm(f0), _to_norm(f1)
     idx, samp_ok = minimal_samples(gen, valid, 4, iters, samples)
     H = homography_from_4pt(x0[idx], x1[idx])             # [Hyp, 3, 3]

@@ -22,6 +22,7 @@ from alvaar_tpu_torch.ops.detect import detect_grid
 from alvaar_tpu_torch.ops.hamming import popcount_words
 from alvaar_tpu_torch.ops.orb import describe
 from alvaar_tpu_torch.solvers.ba import BAProblem, local_ba
+from alvaar_tpu_torch.utils.stats import count
 from alvaar_tpu_torch.worldmap.matching import match_to_local_map
 from alvaar_tpu_torch.worldmap.state import (
     MapState,
@@ -39,7 +40,7 @@ def host_bool(x) -> bool:
     """Read a 0-d device bool on the host (one sync per call on CUDA);
     every data-dependent branch of the port goes through here so a run can
     count them."""
-    host_bool.syncs += 1
+    count(host_bool, "syncs")
     return bool(x)
 
 

@@ -38,7 +38,10 @@ Phases, each printed on its own lines:
    launched the KLT kernel exactly twice through ``fb_klt_track`` and
    none through ``klt_pyramidal`` or ``lk_level``; at most 6 host syncs per
    frame at the median.  Then the bootstrap solvers' and CLAHE's times at
-   their main-path shapes;
+   their main-path shapes.  The run is also scored by the port's own
+   ``utils/parity.py``: ``sim3_align_ate`` equal to the ATE above to 1e-9
+   cm, and ``ate_vs_reference`` against the reference runs (the JAX
+   bench's ``ate_vs_reference_synthetic``);
 3b. the 8-point bootstrap (``use_five_point=False``,
    ``use_homography_init=False``) over the first 40 golden frames: first
    status 1 by frame 25, no reset, at least 25 frames tracked;
@@ -93,7 +96,30 @@ Phases, each printed on its own lines:
 6c. the TCP server (serving/server.py): 4 streams at 640x480 on the card,
    4 client threads sending 30 uint8 frames each: every client reaches
    status 1, reply frame ids match, and a fifth client is served on a
-   recycled slot; the round trip's median is printed.
+   recycled slot; the round trip's median is printed;
+6e. the stream mesh (``shard_states``, ``make_multistream_step(devices=)``):
+   8 streams at 640x480, ``SlamConfig()``, 2 keyframe slots per device,
+   stream b on golden frames 3b .. 3b+23 staged on card 0, over (a) two
+   shards on card 0 and (b) one shard per visible card (a one-shard mesh
+   on a one-card machine): each shard's statuses and keyframes equal to
+   ``multistream_step_local`` on its block alone (same fresh rows and
+   generators, same per-device slots), poses within q 1e-5 and t 1e-4, 2
+   KLT launches and at most 4 host syncs per shard per step, every stream
+   at status 1; aggregate frames/s over steps 8-23 for (a), (b) and the
+   unsharded B = 8 step with 4 slots, and the number of cards;
+7. host ingest: golden frames 0-69 quantised to uint8, pushed by a
+   producer thread through the port's ``FrameRing`` (``push_gray``,
+   capacity 8, under a semaphore, as ``io/capture.VideoCapture`` does;
+   the ring's library is built from native/frame_ring.cpp with g++ into
+   build/), consumed by ``find_camera_pose`` on the card (frames 0-59)
+   and ``find_camera_pose_with_imu`` fed from an ``ImuCapture`` (frames
+   60-69): statuses and poses bit-equal to the same frames fed directly,
+   2 KLT launches per status-1 frame, ``push_rgba`` within 1e-3 of
+   ``ops/image.rgba_to_gray`` on the card, the IMU rotation to 1e-6;
+   ``Stats`` times the ring wait and the step.  The video decoder
+   (``io/video.py``, ``io/capture.py``) and the V4L2 camera
+   (``io/camera.py``) do not run here: the repository has no video file
+   and the machine has no camera (the CPU tests cover them).
 
 Every path is driven with the counters set to 0 just before it and read
 just after; the kernel line's ``launches`` sums the paths' launches.  Then
@@ -601,6 +627,20 @@ def phase_main_path(frames, gt, card):
     print(f"[main] ATE to ground truth {ate_cm:.4f} cm (bar {REF_ATE_WORST_CM} cm = worst "
           f"reference run; reference median {REF_ATE_MEDIAN_CM} cm; JAX package on the "
           f"CPU {JAX_CPU_ATE_CM} cm with the 8-point bootstrap)")
+    # the port's own parity module (utils/parity.py) on the same run
+    from alvaar_tpu_torch.utils.parity import ate_vs_reference, sim3_align_ate
+    ate_parity = (100.0 * sim3_align_ate(est, gt[tracked][:, :3, 3]) if len(tracked) > 2
+                  else float("inf"))
+    poses = np.stack([T if T is not None else np.eye(4) for T in run["pose"]])
+    par = ate_vs_reference(np.array(run["status"]), poses, "ref_synthetic_640.npz")
+    _check(par is not None, "ate_vs_reference found no overlap with the reference runs")
+    print(f"[main] utils/parity: sim3_align_ate {ate_parity:.10f} cm (|diff| to the ATE above "
+          f"{abs(ate_parity - ate_cm):.3e} cm); ate_vs_reference_synthetic {par['ate_pct']:.4f}% "
+          f"of the span (reference runs' pairwise median {par['ref_noise_median_pct']:.4f}%, max "
+          f"{par['ref_noise_pct']:.4f}%; overlap {par['overlap']} frames, parity pass "
+          f"{par['parity_pass']}; RPE {par['rpe_trans']:.5f} / {par['rpe_rot_deg']:.4f} deg)")
+    _check(abs(ate_parity - ate_cm) <= 1e-9,
+           f"utils/parity's ATE {ate_parity} cm differs from {ate_cm} cm")
     print(f"[main] frames 20-119: median {ms:.3f} ms/frame ({1e3 / ms:.1f} fps), "
           f"mean {statistics.mean(steady):.3f} ms, max {max(steady):.3f} ms, "
           f"host syncs per frame median {statistics.median(syncs)} max {max(syncs)}; "
@@ -864,6 +904,13 @@ def _wall_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def _q_diff(p, r) -> float:
+    """Largest |p - r| over quaternions [..., 4], up to sign."""
+    import torch
+    sign = torch.sign(torch.sum(p * r, dim=-1, keepdim=True))
+    return float((p * sign - r).abs().max())
+
+
 def _row_diffs(a, b):
     """Two single-stream states at the sub-batch tests' bars: landmarks
     whose ``lm_valid`` differs, integer and bool entries that differ
@@ -884,13 +931,9 @@ def _row_diffs(a, b):
             y = torch.where(torch.isin(y, odd_ids), -1, y)
         mismatch += int((x != y).sum())
 
-    def q_diff(p, r):
-        sign = torch.sign(torch.sum(p * r, dim=-1, keepdim=True))
-        return float((p * sign - r).abs().max())
-
     both3d = a.lm_valid & a.lm_is3d & b.lm_valid & b.lm_is3d
     return dict(lm_valid=int(odd.sum()), ints=mismatch,
-                q=max(q_diff(a.pose.q, b.pose.q), q_diff(a.kf_pose.q, b.kf_pose.q)),
+                q=max(_q_diff(a.pose.q, b.pose.q), _q_diff(a.kf_pose.q, b.kf_pose.q)),
                 t=max(float((a.pose.t - b.pose.t).abs().max()),
                       float((a.kf_pose.t - b.kf_pose.t).abs().max())),
                 lm_pos=float((a.lm_pos[both3d] - b.lm_pos[both3d]).abs().max())
@@ -1368,6 +1411,299 @@ def phase_server(frames, card):
     return fb_klt_track.launches
 
 
+MESH_STREAMS = 8           # phase 6e: B, stream b on golden frames 3b .. 3b + 23
+MESH_FRAMES = 24
+MESH_KF_SLOTS = 2          # per device, as the JAX package counts them
+MESH_TIMED_FROM = 8        # frames/s over steps 8-23
+
+
+def _sync_all() -> None:
+    import torch
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+
+
+def _mesh_drive(step, blocks, frames_dev, tag, shards):
+    """The sharded step over staged frames [N, B, H, W], each step
+    synchronised on every card and timed; per step the KLT launches, the
+    election reads and all host syncs (the output read included), the
+    statuses, keyframes and the blocks' poses (T_cw, gathered on card 0).
+    Returns (blocks, run)."""
+    import torch
+    from alvaar_tpu_torch.ops.klt import fb_klt_track
+    from alvaar_tpu_torch.parallel import multistream as ms
+    from alvaar_tpu_torch.worldmap.keyframe import host_bool
+
+    run = {k: [] for k in ("ms", "launches", "gate_syncs", "syncs", "status", "kf", "q", "t")}
+    dev0 = frames_dev.device
+    fb_klt_track.launches = ms.multistream_step_local.syncs = host_bool.syncs = 0
+    for i in range(frames_dev.shape[0]):
+        l0, g0, h0 = fb_klt_track.launches, ms.multistream_step_local.syncs, host_bool.syncs
+        _sync_all()
+        t0 = time.perf_counter()
+        blocks, out = step(blocks, frames_dev[i])
+        status = out.status.cpu()                        # the caller's output read
+        _sync_all()
+        run["ms"].append((time.perf_counter() - t0) * 1e3)
+        run["launches"].append(fb_klt_track.launches - l0)
+        run["gate_syncs"].append(ms.multistream_step_local.syncs - g0)
+        run["syncs"].append(host_bool.syncs - h0 + 1)
+        run["status"].append(status.numpy())
+        run["kf"].append(out.is_keyframe.cpu().numpy())
+        run["q"].append(torch.cat([b.pose.q.to(dev0) for b in blocks]))
+        run["t"].append(torch.cat([b.pose.t.to(dev0) for b in blocks]))
+    run["status"], run["kf"] = np.stack(run["status"]), np.stack(run["kf"])
+    st = run["status"]
+    print(f"[{tag}] {shards} shards, B={st.shape[1]}, kf_slots={MESH_KF_SLOTS} per device, "
+          f"{st.shape[0]} steps: statuses per stream "
+          + " ".join("".join(map(str, st[:, k])) for k in range(st.shape[1])))
+    return blocks, run
+
+
+def _mesh_serial(fresh, devices, frames_dev, cam, cfg):
+    """``multistream_step_local`` on each block of ``fresh`` alone, one
+    block after the other, from the same fresh rows and generators, with
+    the same per-device slots.  Returns the statuses, keyframes and poses
+    per step, in stream order."""
+    import torch
+    from alvaar_tpu_torch.parallel import multistream as ms
+
+    blocks = ms.shard_states(fresh, devices)
+    n = ms.num_streams(blocks[0])
+    cols = {k: [] for k in ("status", "kf", "q", "t")}
+    for k, blk in enumerate(blocks):
+        dev = torch.device(devices[k])
+        per = {key: [] for key in cols}
+        with torch.cuda.device(dev):
+            for i in range(frames_dev.shape[0]):
+                blk, out = ms.multistream_step_local(
+                    blk, frames_dev[i, k * n:(k + 1) * n].to(dev), torch.ones(n, device=dev),
+                    cam, cfg, MESH_KF_SLOTS)
+                per["status"].append(out.status.cpu().numpy())
+                per["kf"].append(out.is_keyframe.cpu().numpy())
+                per["q"].append(blk.pose.q.to(frames_dev.device))
+                per["t"].append(blk.pose.t.to(frames_dev.device))
+        for key in cols:
+            cols[key].append(per[key])
+    steps = range(frames_dev.shape[0])
+    return (np.stack([np.concatenate([c[i] for c in cols["status"]]) for i in steps]),
+            np.stack([np.concatenate([c[i] for c in cols["kf"]]) for i in steps]),
+            [torch.cat([c[i] for c in cols["q"]]) for i in steps],
+            [torch.cat([c[i] for c in cols["t"]]) for i in steps])
+
+
+def _fps(ms_per_step, b):
+    steps = ms_per_step[MESH_TIMED_FROM:]
+    return len(steps) * b / (sum(steps) / 1e3)
+
+
+def phase_mesh(frames, card):
+    """Phase 6e: the stream mesh.  B = 8 streams at 640x480,
+    ``SlamConfig()``, 2 keyframe slots per device; stream b on golden
+    frames 3b .. 3b + 23, staged on card 0.  (a) two shards on one card,
+    (b) one shard per visible card; each shard equal to
+    ``multistream_step_local`` on its block alone; then the unsharded
+    B = 8 step with 4 slots (the same slot total), for frames/s."""
+    import torch
+    from alvaar_tpu_torch import SlamConfig
+    from alvaar_tpu_torch.geom.camera import Camera
+    from alvaar_tpu_torch.ops.klt import fb_klt_track
+    from alvaar_tpu_torch.parallel import multistream as ms
+
+    cfg = SlamConfig()
+    cam = Camera.from_fov(cfg.width, cfg.height, 60.0)
+    B, N = MESH_STREAMS, MESH_FRAMES
+    seq = np.stack([np.stack([frames[3 * b + i] for b in range(B)]) for i in range(N)])
+    frames_dev = torch.as_tensor(seq, device="cuda:0")
+    fresh = ms.init_multistream_state(cfg, B, device="cuda:0")
+    cards = torch.cuda.device_count()
+    layouts = {"mesh a": ["cuda:0", "cuda:0"],
+               "mesh b": [f"cuda:{i}" for i in range(cards)]}
+    launches, fps = 0, {}
+    for tag, devices in layouts.items():
+        if B % len(devices):
+            print(f"[{tag}] {B} streams do not split over {len(devices)} cards: not run")
+            continue
+        shards = len(devices)
+        step = ms.make_multistream_step(cfg, cam, kf_slots=MESH_KF_SLOTS, devices=devices)
+        blocks, run = _mesh_drive(step, ms.shard_states(fresh, devices), frames_dev, tag, shards)
+        launches += sum(run["launches"])
+        st_ref, kf_ref, q_ref, t_ref = _mesh_serial(fresh, devices, frames_dev, cam, cfg)
+        dq = max(_q_diff(a, b) for a, b in zip(run["q"], q_ref))
+        dt = max(float((a - b).abs().max()) for a, b in zip(run["t"], t_ref))
+        fps[tag] = _fps(run["ms"], B)
+        st = run["status"]
+        print(f"[{tag}] against each block alone: statuses equal {np.array_equal(st, st_ref)}, "
+              f"keyframes served equal {np.array_equal(run['kf'], kf_ref)} "
+              f"({int(run['kf'].sum())} in all), pose q {dq:.3e}, t {dt:.3e} (bars "
+              f"{POSE_Q_TOL}, {POSE_T_TOL}); KLT launches per step "
+              f"{sorted(set(run['launches'][1:]))}, election reads per step "
+              f"{sorted(set(run['gate_syncs']))}, host syncs per step max {max(run['syncs'])} "
+              f"(bar {MS_MAX_SYNCS * shards}); steps {MESH_TIMED_FROM}-{N - 1}: "
+              f"{fps[tag]:.1f} frames/s, median {statistics.median(run['ms'][MESH_TIMED_FROM:]):.1f} "
+              f"ms per step [{card}]")
+        _check(np.array_equal(st, st_ref), f"[{tag}] statuses differ from the blocks run alone")
+        _check(np.array_equal(run["kf"], kf_ref), f"[{tag}] keyframes served differ")
+        _check(dq <= POSE_Q_TOL and dt <= POSE_T_TOL, f"[{tag}] poses differ: q {dq}, t {dt}")
+        _check(all(x == 2 * shards for x in run["launches"][1:]),
+               f"[{tag}] a step after the first did not launch the KLT kernel twice per shard")
+        _check(max(run["syncs"]) <= MS_MAX_SYNCS * shards,
+               f"[{tag}] {max(run['syncs'])} host syncs in a step > {MS_MAX_SYNCS} per shard")
+        _check((st == 1).any(axis=0).all(), f"[{tag}] a stream never reached status 1")
+        del blocks
+
+    # the unsharded step, the same streams and the same slot total
+    step = ms.make_multistream_step(cfg, cam, kf_slots=MESH_KF_SLOTS * 2)
+    states, times = fresh, []
+    fb_klt_track.launches = 0
+    for i in range(N):
+        _sync_all()
+        t0 = time.perf_counter()
+        states, out = step(states, frames_dev[i])
+        out.status.cpu()
+        _sync_all()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches += fb_klt_track.launches
+    fps["unsharded"] = _fps(times, B)
+    print(f"[mesh] aggregate frames/s over steps {MESH_TIMED_FROM}-{N - 1}, B={B}, one call: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in fps.items())
+          + f" (mesh a: 2 shards on card 0, {MESH_KF_SLOTS} slots each; mesh b: {cards} "
+          f"card(s); unsharded: {MESH_KF_SLOTS * 2} slots); cards visible {cards} [{card}]")
+    return launches
+
+
+INGEST_FRAMES = 60         # phase 7: golden frames 0-59 through the ring
+INGEST_IMU_FRAMES = 10     # then 60-69 through find_camera_pose_with_imu
+RING_CAPACITY = 8
+
+
+def phase_ingest(frames, card):
+    """Phase 7: host ingest on the card.  A producer thread pushes golden
+    frames 0-69, quantised to uint8, through the port's ``FrameRing``
+    (``push_gray``, capacity 8, under a semaphore as ``VideoCapture``
+    does); ``AlvaAR.find_camera_pose`` consumes frames 0-59 on the card and
+    ``find_camera_pose_with_imu`` frames 60-69, fed from an
+    ``ImuCapture``.  ``Stats`` times the ring wait and the step."""
+    import threading
+    import torch
+    from alvaar_tpu_torch import AlvaAR, SlamConfig
+    from alvaar_tpu_torch.io import FrameRing
+    from alvaar_tpu_torch.io.imu import ImuCapture
+    from alvaar_tpu_torch.ops.image import rgba_to_gray
+    from alvaar_tpu_torch.ops.klt import fb_klt_track
+    from alvaar_tpu_torch.utils.stats import Stats
+
+    h, w = frames[0].shape
+    n, total = INGEST_FRAMES, INGEST_FRAMES + INGEST_IMU_FRAMES
+    u8 = [np.clip(np.rint(f), 0, 255).astype(np.uint8) for f in frames[:total]]
+    ring, space, stop, errors = FrameRing(w, h, RING_CAPACITY), threading.Semaphore(RING_CAPACITY), \
+        threading.Event(), []
+
+    def produce():
+        try:
+            for i, g in enumerate(u8):
+                while not space.acquire(timeout=0.05):
+                    if stop.is_set():
+                        return
+                if ring.push_gray(g, i / 30.0) < 0:
+                    raise RuntimeError("ring overflow despite the semaphore")
+        except Exception as e:                  # reported by the consumer
+            errors.append(e)
+
+    slam = AlvaAR(w, h, fov=60.0, config=SlamConfig(), device="cuda")
+    stats, imu = Stats(window=total), ImuCapture(platform="android")
+    angles = np.random.default_rng(9).uniform(-60, 60, (INGEST_IMU_FRAMES, 3))
+    run = {k: [] for k in ("status", "pose", "launches", "ms")}
+    imu_worst, imu_launches = 0.0, 0
+    fb_klt_track.launches = 0
+    producer = threading.Thread(target=produce, daemon=True)
+    producer.start()
+    try:
+        for i in range(total):
+            stats.start("ring wait")
+            while (item := ring.front()) is None:
+                _check(producer.is_alive() and not errors, f"[ingest] producer stopped: {errors}")
+                time.sleep(0.0002)
+            frame = item[0].copy()               # detach from the slot before release
+            ring.release()
+            space.release()
+            stats.stop("ring wait")
+            l0 = fb_klt_track.launches
+            torch.cuda.synchronize()
+            stats.start("find_camera_pose" if i < n else "find_camera_pose_with_imu")
+            if i < n:
+                T = slam.find_camera_pose(frame)
+            else:
+                imu.push_orientation(*angles[i - n])
+                imu.push_motion(i / 30.0, (0.01, 0.0, 0.0), (0.0, 0.0, 0.1))
+                q, motion = imu.snapshot()
+                T = slam.find_camera_pose_with_imu(frame, q, motion)
+                imu.drain()
+                qw, x, y, z = q[0], q[1], -q[2], -q[3]      # conj of (w, -x, y, z)
+                R = np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - qw * z), 2 * (x * z + qw * y)],
+                              [2 * (x * y + qw * z), 1 - 2 * (x * x + z * z), 2 * (y * z - qw * x)],
+                              [2 * (x * z - qw * y), 2 * (y * z + qw * x), 1 - 2 * (x * x + y * y)]])
+                imu_worst = max(imu_worst, float(np.abs(T[:3, :3] - R).max()))
+            torch.cuda.synchronize()
+            ms_ = stats.stop("find_camera_pose" if i < n else "find_camera_pose_with_imu")
+            if i < n:
+                run["status"].append(slam.last_status)
+                run["pose"].append(T)
+                run["launches"].append(fb_klt_track.launches - l0)
+                run["ms"].append(ms_)
+            else:
+                imu_launches += fb_klt_track.launches - l0
+    finally:
+        stop.set()
+        producer.join(timeout=10)
+    _check(not producer.is_alive() and not errors, f"[ingest] producer: {errors}")
+    launches = sum(run["launches"]) + imu_launches
+
+    # the same uint8 frames fed directly as float32 arrays to a fresh AlvaAR
+    direct = AlvaAR(w, h, fov=60.0, config=SlamConfig(), device="cuda")
+    fb_klt_track.launches = 0
+    d_st, d_T = [], []
+    for g in u8[:n]:
+        d_T.append(direct.find_camera_pose(g.astype(np.float32)))
+        d_st.append(direct.last_status)
+    launches += fb_klt_track.launches
+    same_pose = all((a is None and b is None) or (a is not None and b is not None
+                                                  and np.array_equal(a, b))
+                    for a, b in zip(run["pose"], d_T))
+    tracked = [i for i, x in enumerate(run["status"]) if x == 1]
+
+    # RGBA through the ring against the port's rgba_to_gray on the card
+    g0 = u8[0]
+    rgba = np.stack([g0, np.roll(g0, 7, axis=1), 255 - g0, np.full_like(g0, 255)], axis=-1)
+    rgba_ring = FrameRing(w, h, 1)
+    _check(rgba_ring.push_rgba(rgba) == 0, "[ingest] push_rgba refused")
+    native = rgba_ring.front()[0].copy()
+    rgba_ring.release()
+    on_card = rgba_to_gray(torch.as_tensor(rgba, device="cuda")).cpu().numpy()
+    rgba_err = float(np.abs(native - on_card).max())
+
+    steady = run["ms"][20:]
+    print(f"[ingest] ring-fed statuses {''.join(map(str, run['status']))}")
+    print(f"[ingest] ring-fed against direct-fed ({n} frames): statuses equal "
+          f"{run['status'] == d_st}, poses bit-equal {same_pose}; {len(tracked)} at status 1, "
+          f"KLT launches per status-1 frame {sorted({run['launches'][i] for i in tracked})}; "
+          f"push_rgba against rgba_to_gray on the card: max |diff| {rgba_err:.3e} (bit-equal "
+          f"{np.array_equal(native, on_card)}); find_camera_pose_with_imu over "
+          f"{INGEST_IMU_FRAMES} frames from ImuCapture: max |R - R(q)| {imu_worst:.2e}, KLT "
+          f"launches {imu_launches}")
+    print(f"[ingest] Stats (mean over the run): {stats.summary()}; frames 20-{n - 1} median "
+          f"{statistics.median(steady):.3f} ms/frame, ring wait median "
+          f"{statistics.median(list(stats.stages['ring wait'].samples)):.4f} ms [{card}]")
+    _check(run["status"] == d_st, "[ingest] ring-fed statuses differ from direct-fed")
+    _check(same_pose, "[ingest] ring-fed poses differ from direct-fed")
+    _check(bool(tracked) and all(run["launches"][i] == 2 for i in tracked),
+           "[ingest] a status-1 frame did not launch the KLT kernel exactly twice")
+    _check(rgba_err <= 1e-3, f"[ingest] push_rgba differs from rgba_to_gray by {rgba_err}")
+    _check(imu_worst <= 1e-6, f"[ingest] IMU rotation off by {imu_worst}")
+    _check(imu_launches > 0, "[ingest] the IMU path launched no KLT kernel")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1404,6 +1740,8 @@ def main() -> int:
     launches += ms_launches + phase_multistream_wide(frames, gt, one0, card)
     launches += phase_multistream_loop(card)
     launches += phase_server(frames, card)
+    launches += phase_mesh(frames, card)
+    launches += phase_ingest(frames, card)
 
     # the top-level numbers are at the heavier main-path call, stage 2 at N=192
     main = shapes[1]

@@ -144,12 +144,24 @@ def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
+def test_mesh_devices_come_from_the_caller():
+    """The stream mesh has no device default: the caller names the
+    devices, and the gather goes to block 0's device unless told."""
+    assert inspect.signature(multistream.shard_states).parameters["devices"].default \
+        is inspect.Parameter.empty
+    step = inspect.signature(multistream.make_multistream_step).parameters["devices"]
+    assert step.default is None and step.kind is inspect.Parameter.KEYWORD_ONLY
+    assert inspect.signature(multistream.gather_states).parameters["device"].default is None
+
+
 def test_port_and_chip_smoke_import_without_jax():
     """Every module of the port, and chip_smoke.py, import with JAX and the
     JAX package blocked, and their sources name neither."""
     mods = sorted(m.name for m in pkgutil.walk_packages(alvaar_tpu_torch.__path__,
                                                         "alvaar_tpu_torch."))
-    assert "alvaar_tpu_torch.parallel.multistream" in mods
+    for m in ("parallel.multistream", "io.frame_ring", "io.video", "io.capture", "io.camera",
+              "io.imu", "utils.parity", "utils.stats", "utils.view", "utils.build"):
+        assert "alvaar_tpu_torch." + m in mods, m
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'alvaar_tpu'):\n"
             "    sys.modules[m] = None\n"
