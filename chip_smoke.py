@@ -119,10 +119,44 @@ Phases, each printed on its own lines:
    ``Stats`` times the ring wait and the step.  The video decoder
    (``io/video.py``, ``io/capture.py``) and the V4L2 camera
    (``io/camera.py``) do not run here: the repository has no video file
-   and the machine has no camera (the CPU tests cover them).
+   and the machine has no camera (the CPU tests cover them);
+8. BASELINE configuration 5, ``hd_serving()`` at 1920x1080 (96 px cells,
+   20 x 12 = 240 keypoints, the bottom row of cells padded; KLT on pyramid
+   levels 1-2, detection at 1920x1080, ORB on level 1) through
+   ``make_multistream_step``, on the JAX bench's 1080p scene (seed 7,
+   ``tex_scale`` 120, fov 60, ``trajectory(M, step=0.04)``).  The frames
+   are rendered on the card by a float64 torch twin of
+   ``TwoPlaneScene.render`` (``_CardScene``), held to the numpy renderer
+   on the first and last frame to 1e-6, and staged once as [M, H, W];
+   each step gathers its [B, H, W] from that stack.  K1 first: one
+   stage-2 launch from level 1 over 8 x 240 and over 64 x 240 points
+   (stream b: frames b*s -> b*s+1, s the run's stagger), against the
+   per-stream plain composition (bit for bit at B = 8) and B single-stream
+   launches, with its bound.  Then B = 8 with 2 keyframe slots, stream b on
+   frames 3b .. 3b+59, and B = 64 with 11 slots, stream b on frames b ..
+   b+47: every stream ends at status 1 with at least 2 keyframes in its
+   window; stream 0 and every stream that never reset (at B = 64 the first
+   four of them) keep their ATE at most 1.5x that of their own B = 1 run
+   from the same fresh row; 2 KLT launches per step after the first, at
+   most 4 host syncs and ``kf_slots`` keyframes per step.  Printed:
+   aggregate frames/s over steps 10 on, step ms by keyframes served, the
+   track / gated split, peak device memory, the start-up resets;
+9. BASELINE configuration 4, ``SlamConfig(max_landmarks=10240)``: (a)
+   ``local_ba`` alone on the JAX bench's problem (W = 30, K = 192,
+   observations 60% valid, the first two poses constant, seed 0), device ms
+   per call by CUDA events, kernels and stream syncs per call under
+   ``torch.profiler``, peak device memory; poses, inverse depths and cost
+   finite, the constant poses' translations unchanged bit for bit and
+   their quaternions to 2.4e-7 (the solver renormalises them); (b) the
+   phase-3 golden sequence through ``AlvaAR.find_camera_pose`` at that
+   pool, held to phase 3's bars, with the live landmarks and the pool's
+   high-water mark per frame, the trajectory's difference from phase 3's,
+   and its keyframe and tracking frames' ms in turns with a run at the
+   default pool (10240, 4096, 10240 landmarks) and beside phase 3's.
 
 Every path is driven with the counters set to 0 just before it and read
-just after; the kernel line's ``launches`` sums the paths' launches.  Then
+just after; the kernel line's ``launches`` sums the paths' launches.  Each
+group of phases prints its seconds on a ``[time]`` line.  Then
 one JSON line describing each kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed bar raises and the script
 exits non-zero without that line; so does a machine without CUDA.  It
@@ -181,24 +215,28 @@ def _time_ms(fn, reps: int = 20, rounds: int = 5, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, kernel_name: str, launches_per_call: int = 1, reps: int = 20):
+def _device_ms(fn, kernel_name: str, launches_per_call: int = 1, reps: int = 20,
+               attempts: int = 3):
     """Device time per call of the kernels whose name holds
     ``kernel_name``, from ``torch.profiler``: their mean time per launch
-    times ``launches_per_call`` (the profiler may drop an event or two),
-    and the launches it recorded per call (nan, 0 if it recorded none)."""
+    times ``launches_per_call``, and the launches it recorded per call.
+    The profiler may drop an event or two, and late in a long process it
+    has recorded none in a session: such a session is run again, up to
+    ``attempts`` in all (nan, 0 if none recorded any)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel_name in e.key]
-    us, count = sum(e.self_device_time_total for e in hits), sum(e.count for e in hits)
-    if us <= 0 or count == 0:
-        return float("nan"), 0.0
-    return us / 1e3 / count * launches_per_call, count / reps
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if kernel_name in e.key]
+        us, count = sum(e.self_device_time_total for e in hits), sum(e.count for e in hits)
+        if us > 0 and count > 0:
+            return us / 1e3 / count * launches_per_call, count / reps
+    return float("nan"), 0.0
 
 
 def phase_env():
@@ -413,7 +451,9 @@ def phase_kernel(frames, card):
         shapes.append(row)
 
     for b, stagger in ((BATCH_STREAMS, 3), (WIDE_STREAMS, 1)):
-        shapes.append(_batched_shape(frames, cfg, args, card, b, stagger))
+        f_prev = torch.as_tensor(np.stack([frames[stagger * i] for i in range(b)]), device=dev)
+        f_cur = torch.as_tensor(np.stack([frames[stagger * i + 1] for i in range(b)]), device=dev)
+        shapes.append(_batched_shape(f_prev, f_cur, cfg, card))
         max_err = max(max_err, shapes[-1]["max_abs_err"])
 
     # klt_pyramidal: the same kernel with the forward passes only
@@ -452,28 +492,34 @@ BATCH_STREAMS = 16         # the multi-stream path's width (phase 6)
 WIDE_STREAMS = 48          # phase 6d's width
 
 
-def _batched_shape(frames, cfg, args, card, B=BATCH_STREAMS, stagger=3):
-    """Phase 2, a stream-batched call: one ``fb_klt_track`` launch over
-    B streams x 192 points (stream b: golden frames stagger*b ->
-    stagger*b+1, the points detected on the first; stage 2's schedule)
-    against the per-stream plain composition; its device time beside B
-    single-stream calls in the same process, and the bound summed over
-    the streams' points."""
+def _batched_shape(f_prev, f_cur, cfg, card, bit_equal_bar=False):
+    """A stream-batched stage-2 call (phases 2 and 8): one ``fb_klt_track``
+    launch over B streams x K points, stream b tracked from ``f_prev[b]``
+    to ``f_cur[b]`` ([B, H, W] on the card) as the step tracks them: the
+    points detected on ``f_prev[b]`` at ``cfg``'s cell, scaled to pyramid
+    level ``cfg.track_base_level``, on the levels from there down (stage
+    2's schedule, R = 8).  Held to the per-stream plain composition (bit
+    for bit with ``bit_equal_bar``); its device time beside B single-stream
+    calls in the same process, and the bound summed over the streams'
+    points."""
     import torch
     from alvaar_tpu_torch.ops import lk_level as lk
     from alvaar_tpu_torch.ops.detect import detect_grid
     from alvaar_tpu_torch.ops.image import build_pyramid
     from alvaar_tpu_torch.ops.klt import fb_klt_track
 
-    dev, levels, R = torch.device("cuda"), 3, 8
-    f_prev = torch.as_tensor(np.stack([frames[stagger * b] for b in range(B)]), device=dev)
-    f_cur = torch.as_tensor(np.stack([frames[stagger * b + 1] for b in range(B)]), device=dev)
+    dev, B, (h, w) = f_prev.device, f_prev.shape[0], f_prev.shape[1:]
+    base, R = cfg.track_base_level, 8
+    levels = max(1, cfg.pyramid_levels - base)
+    args = dict(win=cfg.klt_window, iters=cfg.klt_iters, eps=cfg.klt_eps,
+                err_max=cfg.klt_err_max, fb_dist=cfg.klt_fb_dist)
     dets = [detect_grid(f, torch.zeros((0, 2), device=dev),
                         torch.zeros(0, dtype=torch.bool, device=dev),
                         cell=cfg.cell_size, border=cfg.image_border) for f in f_prev]
-    pts = torch.cat([d.xy for d in dets]).contiguous()
+    pts = (torch.cat([d.xy for d in dets]) / float(2 ** base)).contiguous()
     valid = torch.cat([d.valid for d in dets]).contiguous()
-    pyr_p, pyr_c = build_pyramid(f_prev, cfg.pyramid_levels), build_pyramid(f_cur, cfg.pyramid_levels)
+    pyr_p = build_pyramid(f_prev, cfg.pyramid_levels)[base:]
+    pyr_c = build_pyramid(f_cur, cfg.pyramid_levels)[base:]
     _check(all(lv.is_contiguous() for lv in pyr_p + pyr_c), "stacked levels not contiguous")
     k = pts.shape[0] // B
     run = lambda level_fn=None: fb_klt_track(pyr_p, pyr_c, pts, pts, valid, levels=levels,
@@ -496,7 +542,8 @@ def _batched_shape(frames, cfg, args, card, B=BATCH_STREAMS, stagger=3):
     _check(fb_klt_track.launches == 1, "the batched call did not launch the kernel once")
     rp = run(record)
     torch.cuda.synchronize()
-    name = f"stage2 B={B}x{k} levels={levels} R={R} (stream-batched)"
+    where = "" if base == 0 else f"{w}x{h} from level {base} "
+    name = f"stage2 {where}B={B}x{k} levels={levels} R={R} (stream-batched)"
     sk, sp = rk.status.cpu().numpy(), rp.status.cpu().numpy()
     dxy = float((rk.xy - rp.xy).abs().max())
     derr = float((rk.err - rp.err).abs().max())
@@ -507,6 +554,7 @@ def _batched_shape(frames, cfg, args, card, B=BATCH_STREAMS, stagger=3):
           f"max|derr| {derr:.3e}, bit-equal to the per-stream plain composition {bit_equal}")
     _check((sk == sp).all(), f"{name}: kernel and plain statuses differ")
     _check(max(dxy, derr) <= 1e-5, f"{name}: |dxy| {dxy}, |derr| {derr} > 1e-5")
+    _check(bit_equal or not bit_equal_bar, f"{name}: not bit-equal to the plain composition")
     _check(int(sk.sum()) > 50 * B, f"{name}: only {int(sk.sum())} tracked")
     ones = [fb_klt_track(p, c, pts[s], pts[s], valid[s], levels=levels, search_r=R, **args)
             for p, c, s in singles]
@@ -523,7 +571,11 @@ def _batched_shape(frames, cfg, args, card, B=BATCH_STREAMS, stagger=3):
     dev_b, _ = _device_ms(run, "klt_track_kernel")
     ms = _time_ms(run)
     ms_singles = _time_ms(run_singles, reps=5)
-    plain_ms = _time_ms(lambda: run(lk.lk_level_plain), reps=1, rounds=2, warmup=1)
+    # the plain composition runs stream by stream (seconds per call at
+    # 9216 points): timed twice up to 48 streams, once beyond
+    wide = B * k > WIDE_STREAMS * 192
+    plain_ms = _time_ms(lambda: run(lk.lk_level_plain), reps=1, rounds=1 if wide else 2,
+                        warmup=0 if wide else 1)
     row = dict(shape=name, n=len(pts), bytes=nbytes, flops=flops, bound_ms=bound_ms,
                bound_by=bound_by, ms=ms, plain_ms=plain_ms, launches_per_call=n_a,
                device_ms=statistics.median([dev_a, dev_b]), singles_device_ms=dev_1,
@@ -538,11 +590,12 @@ def _batched_shape(frames, cfg, args, card, B=BATCH_STREAMS, stagger=3):
     return row
 
 
-def _drive(slam, frames, tag):
+def _drive(slam, frames, tag, after=None):
     """``find_camera_pose`` over ``frames``, synchronised around each
-    frame.  Returns per-frame lists: statuses, poses, ms, KLT kernel
-    launches, host syncs, keyframe flags, and the bootstrap's kept model
-    (None, or True where the homography won).  Every frame at status 1
+    frame, then ``after(slam)`` outside the timed and counted part.
+    Returns per-frame lists: statuses, poses, ms, KLT kernel launches, host
+    syncs, keyframe flags, and the bootstrap's kept model (None, or True
+    where the homography won).  Every frame at status 1
     must have launched the fused KLT kernel exactly twice (stage 1 and the
     full-width stage 2), and no frame launched it through ``klt_pyramidal``
     or the one-pass ``lk_level``."""
@@ -571,6 +624,8 @@ def _drive(slam, frames, tag):
         run["pose"].append(T)
         run["use_h"].append(bool(_try_essential.last_use_h)
                             if homography_ransac.calls > h0 else None)
+        if after is not None:
+            after(slam)
     st = run["status"]
     tracked = [i for i, x in enumerate(st) if x == 1]
     _check(all(run["launches"][i] == 2 for i in tracked),
@@ -678,7 +733,7 @@ def phase_main_path(frames, gt, card):
     }
     print("[main] alone, CUDA events around back-to-back calls: " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in times.items()) + f" (N=192, 100 hypotheses) [{card}]")
-    return slam, launches
+    return slam, launches, run
 
 
 def phase_eight_point(frames, card):
@@ -1068,12 +1123,32 @@ def phase_subbatch_probe(frames, card):
     return launches
 
 
-def _multistream_run(frames_dev, cfg, cam, kf_slots, tag, card, row=None):
-    """The batched step over staged frames [N, B, H, W] on the card, each
-    step synchronised and timed, its track phase and its keyframe pass
-    timed apart (the rows each pass served recorded).  With ``row``
-    (B = 1), the stream starts from row ``row`` of a fresh
-    ``BATCH_STREAMS``-stream state, its generator included.  Returns
+class _Staged:
+    """Frames [N, B, H, W] held as a stack of the unique frames [M, H, W]
+    on the card and each stream's frame index per step, ``at`` [N, B]:
+    step i's [B, H, W] is gathered when it is asked for (``frames[i]``)."""
+
+    def __init__(self, stack, at):
+        self.stack, self.at = stack, at
+
+    @property
+    def shape(self):
+        return tuple(self.at.shape) + tuple(self.stack.shape[1:])
+
+    def __getitem__(self, i):
+        return self.stack.index_select(0, self.at[i])
+
+    def column(self, k):
+        """Stream k alone, [N, 1, H, W]."""
+        return _Staged(self.stack, self.at[:, k:k + 1])
+
+
+def _multistream_run(frames_dev, cfg, cam, kf_slots, tag, card, row=None, of=BATCH_STREAMS):
+    """The batched step over staged frames [N, B, H, W] on the card (a
+    tensor or a ``_Staged``), each step synchronised and timed, its track
+    phase and its keyframe pass timed apart (the rows each pass served
+    recorded).  With ``row`` (B = 1), the stream starts from row ``row``
+    of a fresh ``of``-stream state, its generator included.  Returns
     per-step lists and the final states."""
     import torch
     from alvaar_tpu_torch.ops.klt import fb_klt_track, klt_pyramidal
@@ -1088,7 +1163,7 @@ def _multistream_run(frames_dev, cfg, cam, kf_slots, tag, card, row=None):
         states = ms.init_multistream_state(cfg, b, device="cuda")
     else:
         states = stack_states([state_row(
-            ms.init_multistream_state(cfg, BATCH_STREAMS, device="cuda"), row)])
+            ms.init_multistream_state(cfg, of, device="cuda"), row)])
     track_ms, kf_passes = [], []
     batched, kf_batched = ms.track_phase_batched, ms.keyframe_phase_batched
 
@@ -1114,11 +1189,12 @@ def _multistream_run(frames_dev, cfg, cam, kf_slots, tag, card, row=None):
     ms.keyframe_phase_batched = timed(kf_batched, kf_passes, rows=True)
     try:
         for i in range(n):
+            frames_i = frames_dev[i]
             l0, g0, h0 = fb_klt_track.launches, ms.multistream_step_local.syncs, host_bool.syncs
             p0 = len(kf_passes)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            states, out = step(states, frames_dev[i], dts)
+            states, out = step(states, frames_i, dts)
             status = out.status.cpu()                    # the caller's output read
             torch.cuda.synchronize()
             run["ms"].append((time.perf_counter() - t0) * 1e3)
@@ -1704,6 +1780,326 @@ def phase_ingest(frames, card):
     return launches
 
 
+HD_SEED, HD_TEX_SCALE, HD_FOV = 7, 120.0, 60.0   # the JAX bench's 1080p scene (bench.py:235-266)
+HD_STREAMS, HD_KF_SLOTS, HD_FRAMES, HD_STAGGER = 8, 2, 60, 3    # the bench's B, slots, stagger
+HD_WIDE_STREAMS, HD_WIDE_KF_SLOTS, HD_WIDE_FRAMES = 64, 11, 48  # max(3, ceil(64 / 6)); stagger 1
+HD_WIDE_HELD = 4           # at B = 64, the never-reset streams held to their B = 1 run, besides 0
+RENDER_TOL = 1e-6          # the card twin against render_scene_np
+
+
+class _CardScene:
+    """A float64 torch twin of ``render_scene_np.TwoPlaneScene.render`` on
+    the card: the numpy scene's textures, the same operations in the same
+    order and precision (float64 throughout, but for ``z - t_z``, which
+    the numpy renderer takes from a float32 pose: that difference is taken
+    by numpy on the host, so it matches whatever NumPy's promotion gives),
+    ``fmod`` as NumPy's float ``mod``.  Returns float64 images, as the
+    numpy renderer does."""
+
+    def __init__(self, scene, device="cuda"):
+        import torch
+        f64 = dict(dtype=torch.float64, device=device)
+        self.scene, self.f64 = scene, f64
+        self.tex = [torch.as_tensor(t, **f64) for t in (scene.tex_a, scene.tex_b)]
+        yy, xx = torch.meshgrid(torch.arange(scene.h, **f64), torch.arange(scene.w, **f64),
+                                indexing="ij")
+        # divide by tensors: a CUDA tensor divided by a Python number is
+        # multiplied by its reciprocal
+        c = lambda v: torch.tensor(float(v), **f64)
+        self.d_cam = torch.stack([(xx - c(scene.cx)) / c(scene.fx),
+                                  (yy - c(scene.cy)) / c(scene.fy), torch.ones_like(xx)], dim=-1)
+
+    def _sample(self, tex, u, v):
+        import torch
+        n = tex.shape[0] - 1.001
+
+        def wrap(x):
+            m = torch.fmod(x * self.scene.tex_scale, n)
+            return torch.where(m < 0, m + n, m)
+
+        u, v = wrap(u), wrap(v)
+        u0, v0 = u.to(torch.int64), v.to(torch.int64)
+        fu, fv = u - u0, v - v0
+        return (tex[v0, u0] * (1 - fv) * (1 - fu) + tex[v0, u0 + 1] * (1 - fv) * fu
+                + tex[v0 + 1, u0] * fv * (1 - fu) + tex[v0 + 1, u0 + 1] * fv * fu)
+
+    def render(self, T_wc):
+        import torch
+        s = self.scene
+        t = np.asarray(T_wc[:3, 3])
+        R = torch.as_tensor(np.asarray(T_wc[:3, :3], np.float64), device=self.d_cam.device)
+        o_w = torch.as_tensor(t.astype(np.float64), device=self.d_cam.device)
+        d_w = self.d_cam @ R.T
+        dz = d_w[..., 2]
+        dz = torch.where(torch.abs(dz) < 1e-9, 1e-9, dz)
+        hits = []
+        for z in (s.z_near, s.z_far):
+            t_hit = torch.tensor(float(z - t[2]), **self.f64) / dz
+            hits.append((t_hit, o_w + d_w * t_hit[..., None]))
+        (t_near, p_near), (t_far, p_far) = hits
+        use_near = (t_near > 0.1) & (p_near[..., 0] < 0)
+        use_far = (t_far > 0.1) & ~use_near
+        img = torch.full(dz.shape, 50.0, **self.f64)
+        img = torch.where(use_near, self._sample(self.tex[0], p_near[..., 0], p_near[..., 1]), img)
+        return torch.where(use_far, self._sample(self.tex[1], p_far[..., 0], p_far[..., 1]), img)
+
+
+def _hd_serving_run(stack, gt, cfg, cam, B, kf_slots, N, stagger, held_max, one0, card):
+    """Phase 8 at one width: B streams, stream b on frames stagger*b ..
+    stagger*b + N - 1 of ``stack``, ``kf_slots`` keyframe slots; then the
+    B = 1, one-slot run of stream 0 and of every stream that never reset
+    (the first ``held_max`` of them when given), each from its own fresh
+    row.  ``one0``, stream 0's B = 1 run over at least N of the same
+    frames, is reused when given.  Returns (launches, stream 0's B = 1
+    run)."""
+    import torch
+    tag = f"hd B={B}"
+    at = (torch.arange(N, device="cuda")[:, None]
+          + stagger * torch.arange(B, device="cuda")[None, :])
+    staged = _Staged(stack, at)
+    states, run = _multistream_run(staged, cfg, cam, kf_slots, tag, card)
+    st = run["status"]
+    n_kf = states.kf_valid.sum(dim=1).cpu().numpy()
+    reset = [k for k in range(B) if 2 in st[:, k]]
+    never = [k for k in range(1, B) if k not in reset]
+    held = [0] + (never if held_max is None else never[:held_max])
+    t0 = time.perf_counter()
+    ones, new_ones = {}, []
+    for k in held:
+        if k == 0 and one0 is not None:
+            ones[0] = {key: one0[key][:N] for key in ("status", "pose")}     # the same frames
+        else:
+            ones[k] = _multistream_run(staged.column(k), cfg, cam, 1, f"{tag} B=1 stream {k}",
+                                       card, row=k, of=B)[1]
+            new_ones.append((k, ones[k]))
+    wall_one = time.perf_counter() - t0
+    ates = {k: _ate_cm(run, k, stagger * k, gt) for k in held}
+    ates1 = {k: _ate_cm(ones[k], k, stagger * k, gt) for k in held}
+    ratio = {k: ates[k][0] / ates1[k][0] for k in held}
+    steps = run["ms"][10:]
+    fps = (N - 10) * B / (sum(steps) / 1e3)
+    gated = [t - tr for t, tr in zip(run["ms"], run["track_ms"])]
+    print(f"[{tag}] tracked frames per stream {[int((st[:, k] == 1).sum()) for k in range(B)]}, "
+          f"keyframes in the window {n_kf.tolist()}, final statuses {st[-1].tolist()}, first "
+          f"status 1 per stream {[int(np.argmax(st[:, k] == 1)) for k in range(B)]}")
+    print(f"[{tag}] start-up resets: {int((st == 2).sum())} status-2 reports on {len(reset)} "
+          f"streams {reset}")
+    print(f"[{tag}] ATE cm, B={B} / its own B=1 1-slot run (frames at status 1), held streams "
+          f"{held} (stream 0 and " + ("every stream that never reset" if held_max is None else
+                                      f"the first {held_max} that never reset") + "): "
+          + ", ".join(f"{k}: {ates[k][0]:.4f}/{ates1[k][0]:.4f} ({ates[k][1]}/{ates1[k][1]}) "
+                      f"ratio {ratio[k]:.3f}" for k in held) + " (bar 1.5x)")
+    print(f"[{tag}] steps 10-{N - 1}: aggregate {fps:.1f} frames/s ({B} streams at "
+          f"{cfg.width}x{cfg.height}), median {statistics.median(steps):.2f} ms per step: track phase "
+          f"{statistics.median(run['track_ms'][10:]):.2f} ms, gated phases and finalize "
+          f"{statistics.median(gated[10:]):.2f} ms; keyframes served per step median "
+          f"{statistics.median(run['served'][10:])} max {max(run['served'])} (total "
+          f"{sum(run['served'])}); slowest step {max(run['ms']):.1f} ms (step "
+          f"{run['ms'].index(max(run['ms']))}); peak device memory {run['peak_mib']:.1f} MiB "
+          f"[{card}]")
+    _by_served(run, tag, card, kf_slots)
+    syncs1 = [x for _, r in new_ones for x in r["syncs"]]
+    print(f"[{tag}] KLT launches per step {sorted(set(run['launches'][1:]))}; election reads per "
+          f"step max {max(run['gate_syncs'])}; all host syncs per step median "
+          f"{statistics.median(run['syncs'])} max {max(run['syncs'])} (bound {MS_MAX_SYNCS}); the "
+          f"{len(new_ones)} B=1 runs run here: {wall_one:.1f} s, host syncs per step max "
+          f"{max(syncs1) if syncs1 else None} [{card}]")
+    for k in range(B):
+        _check(st[-1, k] == 1, f"[{tag}] stream {k} ends at status {st[-1, k]}")
+    _check((n_kf >= 2).all(), f"[{tag}] keyframe starvation: {n_kf.tolist()}")
+    for k in held:
+        _check(2 not in ones[k]["status"], f"[{tag} B=1] stream {k} reset")
+        _check(ratio[k] <= 1.5, f"[{tag}] stream {k} ATE {ates[k][0]:.4f} cm > 1.5 x "
+               f"{ates1[k][0]:.4f} cm of its B=1 run")
+    _check_steps(run, tag, kf_slots)
+    for k, r in new_ones:
+        _check_steps(r, f"{tag} B=1 stream {k}", 1)
+    launches = sum(run["launches"]) + sum(sum(r["launches"]) for _, r in new_ones)
+    return launches, one0 if one0 is not None else ones[0]
+
+
+def phase_hd_serving(card):
+    """Phase 8: BASELINE configuration 5, ``hd_serving()`` at 1920x1080,
+    on the JAX bench's 1080p scene rendered on the card: K1 at the step's
+    level-1 shapes, then B = 8 (2 slots, stagger 3, 60 frames) and B = 64
+    (11 slots, stagger 1, 48 frames).  Returns (launches on the main path,
+    K1's rows)."""
+    import torch
+    from alvaar_tpu_torch.config import hd_serving
+    from alvaar_tpu_torch.geom.camera import Camera
+    from render_scene_np import TwoPlaneScene, trajectory
+
+    cfg = hd_serving()
+    cam = Camera.from_fov(cfg.width, cfg.height, HD_FOV)
+    M = max(HD_STAGGER * (HD_STREAMS - 1) + HD_FRAMES, HD_WIDE_STREAMS - 1 + HD_WIDE_FRAMES)
+    gt = trajectory(M, step=0.04)
+    scene = TwoPlaneScene(np.random.default_rng(HD_SEED), width=cfg.width, height=cfg.height,
+                          fov=HD_FOV, tex_scale=HD_TEX_SCALE)
+    twin = _CardScene(scene)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stack = torch.stack([twin.render(T).to(torch.float32) for T in gt])
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    diffs = {i: float(np.abs(scene.render(gt[i]) - twin.render(gt[i]).cpu().numpy()).max())
+             for i in (0, M - 1)}
+    print(f"[hd] hd_serving(): {cfg.width}x{cfg.height}, cell {cfg.cell_size}, grid "
+          f"{cfg.grid_cells} = {cfg.max_keypoints} keypoints, KLT from level "
+          f"{cfg.track_base_level}, pyramid {cfg.pyr_shapes}")
+    print(f"[hd] {M} frames rendered on the card in {render_s:.2f} s, staged as "
+          f"{tuple(stack.shape)} float32 ({stack.numel() * 4 / 2 ** 30:.2f} GiB); the card twin "
+          f"against render_scene_np: max |diff| " + ", ".join(
+              f"frame {i} {d:.3e}" for i, d in diffs.items()) + f" (bar {RENDER_TOL})")
+    _check(all(d <= RENDER_TOL for d in diffs.values()),
+           f"[hd] the card renderer differs from render_scene_np: {diffs}")
+
+    shapes = []
+    for B, stagger in ((HD_STREAMS, HD_STAGGER), (HD_WIDE_STREAMS, 1)):
+        first = torch.arange(B, device="cuda") * stagger
+        shapes.append(_batched_shape(stack[first], stack[first + 1], cfg, card,
+                                     bit_equal_bar=B == HD_STREAMS))
+    launches, one0 = _hd_serving_run(stack, gt, cfg, cam, HD_STREAMS, HD_KF_SLOTS, HD_FRAMES,
+                                     HD_STAGGER, None, None, card)
+    wide, _ = _hd_serving_run(stack, gt, cfg, cam, HD_WIDE_STREAMS, HD_WIDE_KF_SLOTS,
+                              HD_WIDE_FRAMES, 1, HD_WIDE_HELD, one0, card)
+    return launches + wide, shapes
+
+
+MAP10K_LANDMARKS = 10240   # BASELINE configuration 4's pool
+BA_TIMED_CALLS = 10
+BA_CONST_Q_TOL = 2.4e-7    # two float32 ulps at 1: the solver renormalises every pose
+
+
+def phase_map10k(frames, gt, main_run, card):
+    """Phase 9: BASELINE configuration 4, ``SlamConfig(max_landmarks=10240)``:
+    (a) ``local_ba`` alone on the JAX bench's problem (bench.py:516-537);
+    (b) the golden sequence through ``AlvaAR.find_camera_pose``, against
+    phase 3's run (``main_run``) in the same call, then at the default pool
+    and at this pool again, for the frame times in turns."""
+    import torch
+    from alvaar_tpu_torch import AlvaAR, SlamConfig
+    from alvaar_tpu_torch.geom.camera import Camera
+    from alvaar_tpu_torch.geom.lie import SE3
+    from alvaar_tpu_torch.ops.klt import fb_klt_track, klt_pyramidal
+    from alvaar_tpu_torch.ops.lk_level import lk_level
+    from alvaar_tpu_torch.solvers.ba import BAProblem, local_ba
+    from alvaar_tpu_torch.worldmap.keyframe import host_bool
+    from render_scene_np import ate_rmse
+
+    cfg = SlamConfig(max_landmarks=MAP10K_LANDMARKS)
+    W, K, L = cfg.window_size, cfg.max_keypoints, cfg.max_landmarks
+    cam = Camera.from_fov(cfg.width, cfg.height, 60.0)
+    dev = torch.device("cuda")
+    on = lambda a, dt=None: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+    # (a) the bench's problem, its draws in its order
+    rng = np.random.default_rng(0)
+    q = rng.normal(0, 1, (W, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    obs_lm = np.tile(rng.integers(0, L, (1, K)), (W, 1))
+    prob = BAProblem(
+        poses=SE3(on(q), on(rng.normal(0, 0.5, (W, 3)), torch.float32)),
+        kf_valid=torch.ones(W, dtype=torch.bool, device=dev),
+        constant=on(np.arange(W) < 2),
+        anchor_kf=on(rng.integers(0, W, L), torch.int64),
+        anchor_mxy=on(rng.normal(0, 0.3, (L, 2)), torch.float32),
+        invdepth=on(1 / rng.uniform(2, 8, L), torch.float32),
+        lm_valid=torch.ones(L, dtype=torch.bool, device=dev),
+        obs_lm=on(obs_lm, torch.int64),
+        obs_px=on(rng.uniform(20, 460, (W, K, 2)), torch.float32),
+        obs_valid=on(rng.random((W, K)) < 0.6))
+    call = lambda: local_ba(prob, cam)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res = call()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in (res.poses.q, res.poses.t, res.invdepth, res.cost))
+    const_dq = float((res.poses.q[:2] - prob.poses.q[:2]).abs().max())
+    const_t = torch.equal(res.poses.t[:2], prob.poses.t[:2])
+    moved = float((res.poses.t[2:] - prob.poses.t[2:]).abs().max())
+    for _ in range(2):
+        call()
+    times = []
+    for _ in range(BA_TIMED_CALLS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        call()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    kernels, device_ms, syncs, wall = _profile_counts(call)
+    print(f"[map10k] local_ba on the bench's problem (W={W}, K={K}, L={L}, "
+          f"{int(prob.obs_valid.sum())} observations valid, {len(np.unique(obs_lm[0]))} landmarks "
+          f"observed): poses, inverse depths and cost finite {finite}, cost {float(res.cost):.6g}, "
+          f"{int(res.num_obs)} inliers; constant poses: t bit-equal {const_t}, max |dq| "
+          f"{const_dq:.3e} (bar {BA_CONST_Q_TOL}); free poses moved up to {moved:.4f}")
+    print(f"[map10k] local_ba {statistics.median(times):.3f} ms per call (CUDA events around one "
+          f"call, median of {BA_TIMED_CALLS} after 2 warm-up calls; min {min(times):.3f}, max "
+          f"{max(times):.3f}); under torch.profiler {kernels} kernels, {device_ms:.3f} ms device "
+          f"time in {wall:.1f} ms (busy {device_ms / wall:.3f}), {syncs} host stream syncs per "
+          f"call; peak device memory {peak:.1f} MiB above the problem [{card}]")
+    _check(finite, "[map10k] local_ba returned non-finite poses, inverse depths or cost")
+    _check(const_t and const_dq <= BA_CONST_Q_TOL, "[map10k] local_ba moved a constant pose")
+
+    # (b) the golden sequence at the 10240-landmark pool
+    h, w = frames[0].shape
+    slam = AlvaAR(w, h, fov=60.0, config=cfg, device="cuda")
+    pool = []
+
+    def pool_read(s):   # live landmarks and the highest slot in use, one read
+        v = s.state.lm_valid
+        ids = torch.arange(1, v.shape[0] + 1, device=v.device)
+        return torch.stack([v.sum(), torch.where(v, ids, 0).max()]).tolist()
+
+    fb_klt_track.launches = klt_pyramidal.launches = lk_level.launches = host_bool.syncs = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = _drive(slam, frames, "map10k", lambda s: pool.append(pool_read(s)))
+    peak_run = torch.cuda.max_memory_allocated() / 2 ** 20
+    launches = fb_klt_track.launches
+    _check(lk_level.launches == 0 and klt_pyramidal.launches == 0,
+           "[map10k] a KLT launch outside fb_klt_track")
+    tracked = [i for i, x in enumerate(run["status"]) if x == 1]
+    est = np.stack([run["pose"][i][:3, 3] for i in tracked]) if tracked else None
+    ate_cm = 100.0 * ate_rmse(est, gt[tracked][:, :3, 3]) if len(tracked) > 2 else float("inf")
+    both = [i for i, (T, T3) in enumerate(zip(run["pose"], main_run["pose"]))
+            if T is not None and T3 is not None]
+    dpose = max((float(np.abs(run["pose"][i] - main_run["pose"][i]).max()) for i in both),
+                default=float("nan"))
+    kf_ms = lambda r: [m for m, k in zip(r["ms"][20:], r["kf"][20:]) if k]
+    tr_ms = lambda r: [m for m, k in zip(r["ms"][20:], r["kf"][20:]) if not k]
+    med = lambda xs: statistics.median(xs) if xs else float("nan")
+    live, high = [p[0] for p in pool], [p[1] for p in pool]
+    print(f"[map10k] golden sequence at max_landmarks={L}: ATE {ate_cm:.4f} cm (bar "
+          f"{REF_ATE_WORST_CM}); statuses equal to phase 3's "
+          f"{run['status'] == main_run['status']}, "
+          f"max |pose - phase 3's pose| {dpose:.3e} over {len(both)} frames; live landmarks "
+          f"max {max(live)} (final {live[-1]}), the pool's high-water mark {max(high)} of {L} "
+          f"slots (phase 3's pool: {SlamConfig().max_landmarks}); peak device memory "
+          f"{peak_run:.1f} MiB")
+    # frame times in turns: the default pool, then this one again, each
+    # run with the same per-frame read (phase 3 ran minutes earlier)
+    turns = [run]
+    for c in (SlamConfig(), cfg):
+        fb_klt_track.launches = 0
+        turns.append(_drive(AlvaAR(w, h, fov=60.0, config=c, device="cuda"), frames,
+                            f"map10k turn, {c.max_landmarks} landmarks", pool_read))
+        launches += fb_klt_track.launches
+    print(f"[map10k] frames 20-119, keyframe / tracking frames median, in turns at 10240, 4096 "
+          f"and 10240 landmarks: " + ", ".join(
+              f"{med(kf_ms(r)):.3f} / {med(tr_ms(r)):.3f} ms" for r in turns)
+          + f"; phase 3 (4096): {med(kf_ms(main_run)):.3f} / {med(tr_ms(main_run)):.3f} ms "
+          f"({len(kf_ms(run))} keyframes); statuses equal in every turn "
+          f"{all(r['status'] == run['status'] for r in turns)}; host syncs per frame median "
+          f"{statistics.median(run['syncs'])} [{card}]")
+    _check_bars(run, "map10k", 25, REF_TRACKED)
+    _check(ate_cm <= REF_ATE_WORST_CM, f"[map10k] ATE {ate_cm:.4f} cm > {REF_ATE_WORST_CM} cm")
+    _check(all(r["status"] == run["status"] for r in turns), "[map10k] the turns' statuses differ")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1716,6 +2112,15 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from render_scene_np import TwoPlaneScene, trajectory
 
+    t_phase = [time.perf_counter()]
+
+    def lap(name):
+        """Print the seconds since the previous lap: the script's time
+        limit is shared by every phase."""
+        now = time.perf_counter()
+        print(f"[time] {name}: {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
+
     card = phase_env()
     golden = np.load(os.path.join(ROOT, "tests", "golden", "ref_synthetic_640.npz"))
     n = int(golden["n_frames"])
@@ -1727,21 +2132,35 @@ def main() -> int:
     frames = [scene.render(gt[i]).astype(np.float32) for i in range(n)]
 
     max_err, shapes = phase_kernel(frames, card)
-    slam, launches = phase_main_path(frames, gt, card)
+    lap("phases 1-2 (environment, golden frames, kernel build and checks)")
+    slam, launches, main_run = phase_main_path(frames, gt, card)
     launches += phase_eight_point(frames, card)
+    lap("phases 3, 3b")
     gt_more = trajectory(n + 45, step=0.04)[n:n + 20]
     more = [scene.render(T).astype(np.float32) for T in gt_more]
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         launches += phase_facade(slam, more, card, tmp)
     launches += phase_loop_closure(card)
+    lap("phases 4, 5")
     launches += phase_subbatch_probe(frames, card)
+    lap("phase 6a")
     ms_launches, one0 = phase_multistream(frames, gt, card)
+    lap("phase 6")
     launches += ms_launches + phase_multistream_wide(frames, gt, one0, card)
+    lap("phase 6d")
     launches += phase_multistream_loop(card)
     launches += phase_server(frames, card)
+    lap("phases 6b, 6c")
     launches += phase_mesh(frames, card)
     launches += phase_ingest(frames, card)
+    lap("phases 6e, 7")
+    hd_launches, hd_shapes = phase_hd_serving(card)
+    lap("phase 8")
+    shapes += hd_shapes
+    max_err = max([max_err] + [row["max_abs_err"] for row in hd_shapes])
+    launches += hd_launches + phase_map10k(frames, gt, main_run, card)
+    lap("phase 9")
 
     # the top-level numbers are at the heavier main-path call, stage 2 at N=192
     main = shapes[1]
