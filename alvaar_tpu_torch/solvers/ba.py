@@ -3,9 +3,13 @@ elimination over virtual landmarks.
 
 Port of alvaar_tpu/solvers/ba.py.  The window's observations stay the
 fixed-shape [W, K] keyframe tables; by the stable-slot invariant a
-landmark's observations all sit in one column k, so landmark parameters
-are re-indexed as virtual landmarks (g, k) = (first observing row,
-column) and every segment reduction is an einsum over W.  Inverse depths
+landmark's observations sit in one column k while it is tracked, so
+landmark parameters are re-indexed as virtual landmarks (g, k) = (first
+observing row, column) and every segment reduction is an einsum over W.
+A landmark that the local-map matching re-found in another column
+(``worldmap/matching.py``) has one virtual landmark per column; the
+write-back keeps the last of their depths (the highest flat [w, k]),
+which is what the JAX package's scatter gives on the CPU.  Inverse depths
 are 1-parameter blocks, so the Schur complement
 S = H_cc − H_clᵀ D⁻¹ H_cl is dense [6W, 6W] and solved by Cholesky
 (``torch.linalg.cholesky_ex``, the JAX package leaves it to XLA too).
@@ -337,6 +341,7 @@ def local_ba(prob: BAProblem, cam: Camera, *, iters: int = 5,
     lam_obs2 = torch.einsum("gwk,gk->wk", vp.E, lam_v2)
     inlier = vp.valid & (r2 <= chi2_thresh) & (z > 0) & (lam_obs2 > 1e-6)
 
+    # a merged landmark's virtual landmarks collide here: the last one wins
     invdepth = masked_scatter_set(prob.invdepth, prob.obs_lm.reshape(-1),
                                   lam_v2.reshape(-1), vp.is_rep.reshape(-1))
     return BAResult(poses=poses2.normalize(), invdepth=invdepth,

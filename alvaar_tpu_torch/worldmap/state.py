@@ -386,12 +386,20 @@ def apply_world_correction(state: MapState, dT: SE3, scale=None) -> MapState:
 
 def masked_scatter_set(arr, idx, values, mask):
     """``arr[idx[i]] = values[i]`` only where ``mask[i]``; returns a new
-    tensor.  Masked-out rows go to a padded dummy row, so stale indices
-    never collide with live writes (``index_put_`` with colliding indices
-    is nondeterministic on CUDA)."""
+    tensor.  ``index_put_`` with colliding indices is nondeterministic on
+    CUDA (and on the CPU on more than one thread), so masked-out rows go
+    to a padded dummy row, and where live
+    writes collide (local BA writes a merged landmark once per column it
+    holds, ``solvers/ba.py``) only the last one (the highest i) is kept:
+    the result of a serial loop, and of the JAX package's scatter on the
+    CPU, on every device."""
     n = arr.shape[0]
-    pad = torch.cat([arr, torch.zeros_like(arr[:1])], dim=0)
+    pos = torch.arange(idx.shape[0], device=idx.device)
     safe_idx = torch.where(mask, idx, n)
+    last = torch.full((n + 1,), -1, dtype=pos.dtype, device=idx.device).scatter_reduce(
+        0, safe_idx, pos, reduce="amax")
+    safe_idx = torch.where(mask & (last[safe_idx] == pos), idx, n)
+    pad = torch.cat([arr, torch.zeros_like(arr[:1])], dim=0)
     pad[safe_idx] = values.to(arr.dtype)
     return pad[:n]
 

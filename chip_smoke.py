@@ -152,7 +152,25 @@ Phases, each printed on its own lines:
    pool, held to phase 3's bars, with the live landmarks and the pool's
    high-water mark per frame, the trajectory's difference from phase 3's,
    and its keyframe and tracking frames' ms in turns with a run at the
-   default pool (10240, 4096, 10240 landmarks) and beside phase 3's.
+   default pool (10240, 4096, 10240 landmarks) and beside phase 3's;
+10. the port's bench (alvaar_tpu_torch/bench.py): first
+   ``masked_scatter_set`` on the card against a serial loop at local BA's
+   write-back size, 3 rows under ``vmap`` and one alone, with about 11
+   writes per written index: every colliding write keeps the last one
+   (a merged landmark's depth is written once per column it holds);
+   (a) its ``bench_multistream_loop`` on phase 6's 16 staged streams (640x480,
+   ``SlamConfig()``, 3 keyframe slots, databases of 256 entries, the
+   default loop delay), one timed rep after the bench's warm-up: the
+   bench's own bars (median tracked >= N // 3, finite poses), every
+   stream's database at least 2 entries, 2 KLT launches per step after
+   the first and at most 4 host syncs per step; printed: aggregate
+   frames/s, median step ms, the tracked median, database entries per
+   stream, launches and syncs per step, peak device memory; (b) the
+   command ``python -m alvaar_tpu_torch.bench --frames 12 --skip-aux`` in
+   a fresh interpreter: exit code 0, exactly two bare-JSON stdout lines,
+   equal, the last line one of them, metric
+   ``multistream_fps_per_chip_640x480`` with a finite value (the bench
+   fails a stage whose reps' statuses or poses are not bit-equal).
 
 Every path is driven with the counters set to 0 just before it and read
 just after; the kernel line's ``launches`` sums the paths' launches.  Each
@@ -2100,6 +2118,167 @@ def phase_map10k(frames, gt, main_run, card):
     return launches
 
 
+LOOP_DB_CAPACITY = 256     # phase 10a: the bench's loop-closure databases
+BENCH_FRAMES = 12          # phase 10b: python -m alvaar_tpu_torch.bench --frames 12 --skip-aux
+BENCH_TIMEOUT_S = 400
+
+
+def _serial_scatter(arr, idx, values, mask):
+    """``arr[idx[i]] = values[i]`` where ``mask[i]``, in order of i: for
+    each index the last live write, in numpy."""
+    out = arr.copy()
+    live = np.flatnonzero(mask)[::-1]
+    _, first = np.unique(idx[live], return_index=True)
+    keep = live[first]
+    out[idx[keep]] = values[keep]
+    return out
+
+
+def check_scatter_order(card, rows=MS_KF_SLOTS, seed=0):
+    """``masked_scatter_set`` on the card against a serial loop, at local
+    BA's write-back size in the keyframe sub-batch (one write per
+    [window, keypoint] cell into the landmark pool, ``rows`` streams under
+    ``vmap``) with about eleven writes per written index, most of them
+    live: colliding writes must keep the last one, as on the CPU."""
+    import torch
+    from alvaar_tpu_torch import SlamConfig
+    from alvaar_tpu_torch.worldmap.state import masked_scatter_set
+
+    cfg = SlamConfig()
+    L, n = cfg.max_landmarks, cfg.window_size * cfg.max_keypoints
+    rng = np.random.default_rng(seed)
+    bad, collided, unordered = 0, 0, 0
+    for width in ((), (3,)):
+        arr = rng.normal(size=(rows, L) + width).astype(np.float32)
+        idx = rng.integers(0, n // 11, size=(rows, n))
+        vals = rng.normal(size=(rows, n) + width).astype(np.float32)
+        mask = rng.random((rows, n)) < 0.6
+        want = np.stack([_serial_scatter(*(a[r] for a in (arr, idx, vals, mask)))
+                         for r in range(rows)])
+        dev = [torch.as_tensor(a, device="cuda") for a in (arr, idx, vals, mask)]
+        got = torch.func.vmap(masked_scatter_set)(*dev).cpu().numpy()
+        one = masked_scatter_set(*(a[0] for a in dev)).cpu().numpy()
+        bad += int((got != want).any(axis=tuple(range(2, got.ndim))).sum())
+        bad += int((one != want[0]).any(axis=tuple(range(1, one.ndim))).sum())
+        for r in range(rows):        # the same writes through index_put_ alone
+            plain = torch.cat([dev[0][r], torch.zeros_like(dev[0][r][:1])])
+            plain[torch.where(dev[3][r], dev[1][r], L)] = dev[2][r]
+            unordered += int((plain[:L].cpu().numpy() != want[r]).any(
+                axis=tuple(range(1, want.ndim - 1))).sum())
+        collided += int(sum(len(np.unique(idx[r][mask[r]])) < mask[r].sum()
+                            for r in range(rows)))
+    print(f"[scatter-order] masked_scatter_set on the card, {rows} rows of {n} writes into "
+          f"{L} landmarks (vmapped and alone, scalar and 3-vector values), about 11 writes per "
+          f"written index: {bad} landmarks differ from the serial loop's last write (through a "
+          f"plain index_put_: {unordered}); rows with colliding live writes "
+          f"{collided}/{2 * rows} [{card}]")
+    _check(collided == 2 * rows, "[scatter-order] no colliding live writes")
+    _check(bad == 0, f"[scatter-order] {bad} landmarks keep another write than the last")
+
+
+def phase_bench_loop(frames, card):
+    """Phase 10a: the bench's loop-closure serving stage on phase 6's 16
+    staged streams, one timed rep, each step's host time, KLT launches
+    and host syncs recorded by wrapping the step the scan builds."""
+    import torch
+    from alvaar_tpu_torch import SlamConfig, bench
+    from alvaar_tpu_torch.geom.camera import Camera
+    from alvaar_tpu_torch.ops.klt import fb_klt_track, klt_pyramidal
+    from alvaar_tpu_torch.ops.lk_level import lk_level
+    from alvaar_tpu_torch.parallel import multistream as ms
+    from alvaar_tpu_torch.worldmap.keyframe import host_bool
+
+    cfg = SlamConfig()
+    cam = Camera.from_fov(cfg.width, cfg.height, 60.0)
+    B, N = BATCH_STREAMS, MS_FRAMES
+    seq = np.stack([np.stack([frames[3 * b + i] for b in range(B)]) for i in range(N)])
+    frames_dev = torch.as_tensor(seq, device="cuda")
+    dts = torch.ones((N, B), device="cuda")
+    steps = []
+    make_step = ms.make_multistream_step
+
+    def traced(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(*args, **kwargs):
+            l0, h0 = fb_klt_track.launches, host_bool.syncs
+            t0 = time.perf_counter()
+            out = step(*args, **kwargs)
+            steps.append(((time.perf_counter() - t0) * 1e3, fb_klt_track.launches - l0,
+                          host_bool.syncs - h0))
+            return out
+        return run
+
+    fb_klt_track.launches = klt_pyramidal.launches = lk_level.launches = 0
+    ms.multistream_step_local.syncs = host_bool.syncs = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms.make_multistream_step = traced
+    try:
+        fps, tracked, entries, outs = bench.bench_multistream_loop(
+            cfg, cam, frames_dev, dts, MS_KF_SLOTS, reps=1, capacity=LOOP_DB_CAPACITY,
+            device="cuda")
+    finally:
+        ms.make_multistream_step = make_step
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    launches = fb_klt_track.launches
+    del frames_dev
+    timed = steps[-N:]                   # the warm-up's steps come first
+    st = outs[-1][0]
+    step_ms = [t for t, _, _ in timed]
+    syncs = [h for _, _, h in timed]
+    print(f"[bench-loop] B={B} kf_slots={MS_KF_SLOTS}, {N} steps, databases of "
+          f"{LOOP_DB_CAPACITY}: aggregate {fps:.2f} frames/s (one rep, the bench's clock), "
+          f"median step {statistics.median(step_ms):.2f} ms (host clock per step call), slowest "
+          f"{max(step_ms):.1f} ms; tracked median {tracked}/{N} (bar {N // 3}), per stream "
+          f"{[int((st[:, k] == 1).sum()) for k in range(B)]}; database entries {entries}; KLT "
+          f"launches per step after the first {sorted({x for _, x, _ in timed[1:]})}, "
+          f"{launches} in all with the warm-up; host syncs per step median "
+          f"{statistics.median(syncs)} max {max(syncs)} (bound {MS_MAX_SYNCS}); peak device "
+          f"memory {peak:.1f} MiB [{card}]")
+    _check(tracked >= N // 3, f"[bench-loop] tracks only {tracked}/{N} frames")
+    _check(np.isfinite(outs[-1][1]).all(), "[bench-loop] non-finite poses")
+    _check(min(entries) >= 2, f"[bench-loop] database starvation {entries}")
+    _check(all(x == 2 for _, x, _ in timed[1:]),
+           "[bench-loop] a step after the first did not launch the KLT kernel twice")
+    _check(lk_level.launches == 0 and klt_pyramidal.launches == 0,
+           "[bench-loop] a KLT launch outside fb_klt_track")
+    _check(max(syncs) <= MS_MAX_SYNCS, f"[bench-loop] {max(syncs)} host syncs in a step")
+    return launches
+
+
+def _json_object(line: str) -> bool:
+    try:
+        return isinstance(json.loads(line), dict)
+    except ValueError:
+        return False
+
+
+def phase_bench_command(card):
+    """Phase 10b: the bench's command in a fresh interpreter, its stdout
+    contract checked."""
+    cmd = [sys.executable, "-m", "alvaar_tpu_torch.bench", "--frames", str(BENCH_FRAMES),
+           "--skip-aux"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = r.stdout.strip().splitlines()
+    heads = [ln for ln in lines if _json_object(ln)]
+    for ln in r.stderr.splitlines():
+        if ln.startswith(("aux ", "devices", "  ", "multi-stream", "bench total")):
+            print(f"[bench-cmd] | {ln}")
+    print(f"[bench-cmd] python -m alvaar_tpu_torch.bench --frames {BENCH_FRAMES} --skip-aux: "
+          f"exit {r.returncode} in {wall:.1f} s, {len(lines)} stdout lines, {len(heads)} of them "
+          f"bare JSON; the last: {lines[-1] if lines else None} [{card}]")
+    _check(r.returncode == 0, f"[bench-cmd] exit {r.returncode}: {r.stderr[-3000:]}")
+    _check(len(heads) == 2 and heads[0] == heads[1] and lines[-1] == heads[1],
+           "[bench-cmd] stdout is not two equal bare-JSON lines with the last line one of them")
+    head = json.loads(heads[1])
+    _check(head.get("metric") == "multistream_fps_per_chip_640x480"
+           and np.isfinite(head.get("value", float("nan"))),
+           f"[bench-cmd] headline {head}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2161,6 +2340,10 @@ def main() -> int:
     max_err = max([max_err] + [row["max_abs_err"] for row in hd_shapes])
     launches += hd_launches + phase_map10k(frames, gt, main_run, card)
     lap("phase 9")
+    check_scatter_order(card)
+    launches += phase_bench_loop(frames, card)
+    phase_bench_command(card)
+    lap("phase 10")
 
     # the top-level numbers are at the heavier main-path call, stage 2 at N=192
     main = shapes[1]

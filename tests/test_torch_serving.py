@@ -18,7 +18,7 @@ import torch
 
 import alvaar_tpu_torch
 from alvaar_tpu.serving.server import SlamClient as JSlamClient
-from alvaar_tpu_torch import SlamConfig
+from alvaar_tpu_torch import SlamConfig, bench
 from alvaar_tpu_torch.geom.camera import Camera
 from alvaar_tpu_torch.io import checkpoint
 from alvaar_tpu_torch.loopclosure import detector
@@ -139,7 +139,11 @@ def test_profile_step_stages_on_cpu():
                                 tstate.init_multistream_state, tstate.multistream_state_from_numpy,
                                 checkpoint.load_map, detector.db_init, detector.loop_db_from_numpy,
                                 multistream.init_multistream_loopdbs,
-                                multistream.loopdbs_from_numpy, SlamServer])
+                                multistream.loopdbs_from_numpy, SlamServer, bench.main,
+                                bench.bench_multistream, bench.bench_multistream_loop,
+                                bench.bench_single, bench.bench_ba_10k,
+                                bench.bench_1080p_streams, bench.bench_real_video,
+                                bench.bench_plane_720p, bench.bench_loop_closure])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -160,7 +164,7 @@ def test_port_and_chip_smoke_import_without_jax():
     mods = sorted(m.name for m in pkgutil.walk_packages(alvaar_tpu_torch.__path__,
                                                         "alvaar_tpu_torch."))
     for m in ("parallel.multistream", "io.frame_ring", "io.video", "io.capture", "io.camera",
-              "io.imu", "utils.parity", "utils.stats", "utils.view", "utils.build"):
+              "io.imu", "utils.parity", "utils.stats", "utils.view", "utils.build", "bench"):
         assert "alvaar_tpu_torch." + m in mods, m
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'alvaar_tpu'):\n"

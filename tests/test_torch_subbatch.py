@@ -320,3 +320,50 @@ def test_step_syncs_and_one_pass_per_phase(monkeypatch):
     assert served[0] == 2 and passes[0] == [2], (served, passes)
     assert passes[1][-1] == 2, passes
     assert all(len(p) <= 4 for p in passes), passes
+
+
+def test_masked_scatter_set_keeps_the_last_colliding_write():
+    """Colliding live writes (local BA writes a merged landmark once per
+    column it holds, tests/test_torch_ba_merge.py) keep the last one, as a
+    serial loop does, alone and under ``vmap``, and as the JAX package's
+    scatter does on the CPU: ``index_put_`` leaves them in no order on
+    CUDA, and on the CPU on more than one thread, which made two runs of
+    the batched keyframe phase differ on the card (chip_smoke.py holds
+    the card to the serial loop)."""
+    from alvaar_tpu.worldmap.state import masked_scatter_set as jmasked_scatter_set
+    rng = np.random.default_rng(0)
+    for _ in range(20):
+        arr = rng.normal(size=(7, 2)).astype(np.float32)
+        idx = rng.integers(0, 7, 12)
+        vals = rng.normal(size=(12, 2)).astype(np.float32)
+        mask = rng.random(12) < 0.6
+        want = arr.copy()
+        for i in range(12):
+            if mask[i]:
+                want[idx[i]] = vals[i]
+        args = [torch.as_tensor(a) for a in (arr, idx, vals, mask)]
+        np.testing.assert_array_equal(tstate.masked_scatter_set(*args).numpy(), want)
+        batched = torch.func.vmap(tstate.masked_scatter_set)(*[a.expand(3, *a.shape)
+                                                               for a in args])
+        np.testing.assert_array_equal(batched.numpy(), np.broadcast_to(want, (3, 7, 2)))
+        np.testing.assert_array_equal(
+            np.asarray(jmasked_scatter_set(jnp.asarray(arr), jnp.asarray(idx),
+                                           jnp.asarray(vals), jnp.asarray(mask))), want)
+    # local BA's write-back size in the default config (30 x 192 writes into
+    # 4096 landmarks), about 11 writes per written index, on 4 threads:
+    # there the CPU's index_put_ leaves colliding writes in no order too
+    L, n = 4096, 30 * 192
+    arr = rng.normal(size=L).astype(np.float32)
+    idx = rng.integers(0, n // 11, n)
+    vals = rng.normal(size=n).astype(np.float32)
+    mask = rng.random(n) < 0.6
+    want = arr.copy()
+    for i in np.flatnonzero(mask):
+        want[idx[i]] = vals[i]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        got = tstate.masked_scatter_set(*(torch.as_tensor(a) for a in (arr, idx, vals, mask)))
+    finally:
+        torch.set_num_threads(threads)
+    np.testing.assert_array_equal(got.numpy(), want)
