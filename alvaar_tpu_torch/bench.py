@@ -97,6 +97,7 @@ import numpy as np
 import torch
 
 from alvaar_tpu_torch.config import SlamConfig, hd_serving
+from alvaar_tpu_torch.examples import REFERENCE_VIDEO, render_scene as _scene
 from alvaar_tpu_torch.frontend.step import slam_step
 from alvaar_tpu_torch.geom.camera import Camera
 from alvaar_tpu_torch.geom.lie import SE3
@@ -109,8 +110,6 @@ from alvaar_tpu_torch.solvers.plane import find_plane_ransac
 from alvaar_tpu_torch.utils import parity
 from alvaar_tpu_torch.worldmap.state import init_map_state
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REFERENCE_VIDEO = os.path.join(ROOT, "assets", "video.mp4")
 WARMUP_STEPS = 8           # frames each end-to-end stage runs before its timed reps
 STAGGER = 3                # golden frames between consecutive streams' starts
 TIMED_CALLS, TIMED_ROUNDS = 20, 5   # plane and loop query: back-to-back calls per round, rounds
@@ -139,16 +138,6 @@ class Workloads:
     ba_cfg: SlamConfig = SlamConfig(max_landmarks=10240)
     loop_capacity: int = 256   # the serving databases and the query stage's
     loop_kps: int = 192
-
-
-def _scene():
-    """tests/render_scene_np.py (the scene, trajectory and ATE), from the
-    repository's tests/ directory."""
-    tests = os.path.join(ROOT, "tests")
-    if tests not in sys.path:
-        sys.path.insert(0, tests)
-    import render_scene_np
-    return render_scene_np
 
 
 def render_frames_cached(seed, width, height, fov, tex_scale, gt):

@@ -27,7 +27,13 @@ Phases, each printed on its own lines:
    single-stream launches, its device time beside theirs, and the bound
    summed over the streams.  Then ``klt_pyramidal``
    (the kernel's forward-only schedule) against its plain composition, and
-   ``lk_level`` (the one-pass schedule) against ``lk_level_plain``;
+   ``lk_level`` (the one-pass schedule) against ``lk_level_plain``.  Before
+   them, the FAST and ACCURATE presets' shapes (phase 11a runs the
+   presets): the points detected on frame 0 at each preset's cell size
+   (N = 130 and 352), stage 1 and stage 2 at its iterations (20 and 30),
+   positions and statuses bit for bit, timed beside the bound; they run
+   here, early in the process: in one call a ``torch.profiler`` session
+   late in phase 11 recorded no kernel in three attempts;
 3. the main path under the default config (5-point and homography
    bootstrap): ``AlvaAR.find_camera_pose`` over the 120-frame 640x480
    golden sequence on the card, held to the native reference's bars
@@ -70,7 +76,7 @@ Phases, each printed on its own lines:
    loop under ``vmap``;
 6. multi-stream serving (parallel/multistream.py): 16 streams at 640x480
    under the default config with 3 keyframe slots, stream b on golden
-   frames 3b .. 3b+59, staged on the card: every stream tracks and keeps
+   frames 3b .. 3b+47, staged on the card: every stream tracks and keeps
    at least 2 keyframes (streams whose first keyframe the election defers
    reset on the next frame and report status 2, as in the JAX package);
    the ATE of stream 0 and of every stream that never reset at most 1.5x
@@ -79,12 +85,12 @@ Phases, each printed on its own lines:
    launches per step after the first, 3 election reads per step, and at
    most 4 host syncs in a step (the election reads and the output read:
    every gated phase runs once on the stack of its elected rows), at
-   B = 16 and B = 1.  Printed: aggregate frames/s over steps 10-59, the
+   B = 16 and B = 1.  Printed: aggregate frames/s over steps 10-47, the
    step split into the track phase and the rest, step ms grouped by
    keyframes served (with the keyframe pass's own ms), host syncs, peak
    device memory;
 6d. 48 streams at 640x480, 8 keyframe slots (the JAX bench's
-   max(3, ceil(B / 6))), stream b on golden frames b .. b+39 staged on the
+   max(3, ceil(B / 6))), stream b on golden frames b .. b+31 staged on the
    card (cut from 60 frames to keep the smoke's time): every stream
    tracks with at least 2 keyframes, at most 8 keyframes and 4 host syncs
    per step, 2 KLT launches per step, stream 0's ATE at most 1.5x its
@@ -133,8 +139,8 @@ Phases, each printed on its own lines:
    (stream b: frames b*s -> b*s+1, s the run's stagger), against the
    per-stream plain composition (bit for bit at B = 8) and B single-stream
    launches, with its bound.  Then B = 8 with 2 keyframe slots, stream b on
-   frames 3b .. 3b+59, and B = 64 with 11 slots, stream b on frames b ..
-   b+47: every stream ends at status 1 with at least 2 keyframes in its
+   frames 3b .. 3b+39, and B = 64 with 11 slots, stream b on frames b ..
+   b+39: every stream ends at status 1 with at least 2 keyframes in its
    window; stream 0 and every stream that never reset (at B = 64 the first
    four of them) keep their ATE at most 1.5x that of their own B = 1 run
    from the same fresh row; 2 KLT launches per step after the first, at
@@ -158,7 +164,8 @@ Phases, each printed on its own lines:
    write-back size, 3 rows under ``vmap`` and one alone, with about 11
    writes per written index: every colliding write keeps the last one
    (a merged landmark's depth is written once per column it holds);
-   (a) its ``bench_multistream_loop`` on phase 6's 16 staged streams (640x480,
+   (a) its ``bench_multistream_loop`` on 16 streams staged as in phase 6 but
+   60 frames each (640x480,
    ``SlamConfig()``, 3 keyframe slots, databases of 256 entries, the
    default loop delay), one timed rep after the bench's warm-up: the
    bench's own bars (median tracked >= N // 3, finite poses), every
@@ -170,7 +177,25 @@ Phases, each printed on its own lines:
    a fresh interpreter: exit code 0, exactly two bare-JSON stdout lines,
    equal, the last line one of them, metric
    ``multistream_fps_per_chip_640x480`` with a finite value (the bench
-   fails a stage whose reps' statuses or poses are not bit-equal).
+   fails a stage whose reps' statuses or poses are not bit-equal);
+11. the JAX package's last entry points: (a) the FAST and ACCURATE presets
+   (config.py; 50 / 30 px cells, 130 / 352 keypoints, 20 / 30 KLT
+   iterations, 50 / 200 hypotheses, 3 / 10 BA iterations; K1 at their
+   shapes runs in phase 2): ``AlvaAR(640, 480, fov=60.0, config=preset)`` over the 120
+   golden frames, held to the JAX package's run on the CPU on the same
+   frames (``JAX_PRESET_BARS``: frames at status 1 within 5, the first
+   within 3 frames, no more resets, ATE at most 1.5x), exactly 2 KLT
+   launches per status-1 frame, host syncs at most 6 per frame at the
+   median; ``local_ba`` on the run's first steady keyframe's problem, by
+   CUDA events and under the profiler (FAST's at 3 iterations, ACCURATE's
+   at 3, 5 and 10); (b) the five examples (alvaar_tpu_torch/examples/),
+   each through its ``main`` in this process on the card: ``demo 60``,
+   ``imu_demo --frames 60`` and ``live_client --serve --source synthetic
+   --frames 60`` held to the JAX examples' runs on the CPU (frames at
+   status 1 within 5, the fused-rotation error within 0.1 deg, every
+   printed pose finite, exit 0), ``preproc_sandbox`` (its lines printed),
+   and ``video_demo``, which finds no video in the repository, says so
+   and exits 2 without opening a file outside the checkout.
 
 Every path is driven with the counters set to 0 just before it and read
 just after; the kernel line's ``launches`` sums the paths' launches.  Each
@@ -185,6 +210,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -231,6 +257,21 @@ def _time_ms(fn, reps: int = 20, rounds: int = 5, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def _event_ms(fn, calls: int) -> list:
+    """``calls`` calls of ``fn``, each alone between two CUDA events and
+    synchronised: the milliseconds of each."""
+    import torch
+    times = []
+    for _ in range(calls):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
 
 
 def _device_ms(fn, kernel_name: str, launches_per_call: int = 1, reps: int = 20,
@@ -362,15 +403,97 @@ def _level_kernel_fn(src):
     return level
 
 
+def _kernel_case(name, pyr0, pyr1, pts, valid, levels, R, args, card, old=None, min_tracked=50,
+                 bit_equal_bar=False):
+    """One ``fb_klt_track`` call (``args``: win, iters, eps, err_max,
+    fb_dist) against its plain composition on the same CUDA tensors:
+    statuses identical, positions and errors within 1e-5 (with
+    ``bit_equal_bar`` positions and statuses bit for bit), more than
+    ``min_tracked`` points tracked; its ms per call by CUDA events beside
+    the plain composition's, its device time by ``torch.profiler``, its
+    bound from this run's points and, with ``old`` (the per-level kernel),
+    the per-level design's device time.  Returns the kernel line's row."""
+    import torch
+    from alvaar_tpu_torch.ops import lk_level as lk
+    from alvaar_tpu_torch.ops.klt import fb_klt_track
+
+    win, iters = args["win"], args["iters"]
+    run = lambda level_fn=None: fb_klt_track(pyr0, pyr1, pts, pts, valid, levels=levels,
+                                             search_r=R, level_fn=level_fn, **args)
+    passes = []       # the plain composition's level calls, for the bound
+
+    def record(img_prev, img_cur, pts_prev, guess, valid_p, **kw):
+        passes.append((img_prev, img_cur, pts_prev, guess, valid_p, kw["search_r"]))
+        return lk.lk_level_plain(img_prev, img_cur, pts_prev, guess, valid_p, **kw)
+
+    rk, rp = run(), run(record)
+    torch.cuda.synchronize()
+    sk, sp = rk.status.cpu().numpy(), rp.status.cpu().numpy()
+    dxy = float((rk.xy - rp.xy).abs().max())
+    derr = float((rk.err - rp.err).abs().max())
+    bit_equal = (torch.equal(rk.xy, rp.xy) and torch.equal(rk.err, rp.err)
+                 and torch.equal(rk.status, rp.status))
+    print(f"[kernel] {name}: tracked kernel {int(sk.sum())} plain {int(sp.sum())} "
+          f"of {int(valid.sum())}, status mismatches {int((sk != sp).sum())}, "
+          f"max|dxy| {dxy:.3e} px, max|derr| {derr:.3e}, bit-equal {bit_equal}")
+    _check((sk == sp).all(), f"{name}: kernel and plain statuses differ")
+    _check(dxy <= 1e-5, f"{name}: |dxy| {dxy} > 1e-5 px")
+    _check(derr <= 1e-5, f"{name}: |derr| {derr} > 1e-5")
+    _check(not bit_equal_bar or torch.equal(rk.xy, rp.xy),
+           f"{name}: positions not bit-equal to the plain composition")
+    _check(int(sk.sum()) > min_tracked, f"{name}: only {int(sk.sum())} tracked")
+
+    schedule = lk.klt_schedule(levels, R, iters)
+    nbytes, flops, bound_ms, bound_by = _klt_bound(passes, schedule, win)
+    # the plain composition takes 35-175 ms a call at 48-352 points and
+    # ~1.4 s at 3072: a few calls give its time
+    plain = lambda: _time_ms(lambda: run(lk.lk_level_plain), reps=1 if len(pts) > 352 else 5,
+                             rounds=3, warmup=1)
+    ms_plain_a = plain()
+    ms_a = _time_ms(run)
+    ms_b = _time_ms(run)
+    ms_plain_b = plain()
+    dev_a, n_a = _device_ms(run, "klt_track_kernel")
+    row = dict(shape=name, n=len(pts), bytes=nbytes, flops=flops, bound_ms=bound_ms,
+               bound_by=bound_by, ms=statistics.median([ms_a, ms_b]),
+               plain_ms=statistics.median([ms_plain_a, ms_plain_b]),
+               launches_per_call=n_a, bit_equal=bit_equal, max_abs_err=max(dxy, derr))
+    line = (f"[kernel] {name}: fused {row['ms']:.4f} ms per call ({ms_a:.4f}, {ms_b:.4f}; "
+            f"CUDA events around back-to-back calls), plain composition "
+            f"{row['plain_ms']:.4f} ms ({ms_plain_a:.4f}, {ms_plain_b:.4f})")
+    if old is not None:
+        ro = run(old)
+        _check(torch.equal(ro.status, rp.status), f"{name}: per-level design's statuses differ")
+        old_a, old_n = _device_ms(lambda: run(old), "lk_level_kernel", len(schedule))
+        old_b, _ = _device_ms(lambda: run(old), "lk_level_kernel", len(schedule))
+        dev_b, _ = _device_ms(run, "klt_track_kernel")
+        row["device_ms"] = statistics.median([dev_a, dev_b])
+        row["old_device_ms"] = statistics.median([old_a, old_b])
+        row["old_launches_per_call"] = old_n
+        row["old_ms"] = _time_ms(lambda: run(old))
+        line += (f"; device time fused {row['device_ms']:.5f} ms ({dev_a:.5f}, {dev_b:.5f}) "
+                 f"in {n_a} launch, per-level design {row['old_device_ms']:.5f} ms "
+                 f"({old_a:.5f}, {old_b:.5f}) in {old_n} launches, "
+                 f"{row['old_ms']:.4f} ms per call by events")
+    else:
+        row["device_ms"] = dev_a
+        line += f"; device time fused {dev_a:.5f} ms in {n_a} launch"
+    print(line + f" (torch.profiler); bound {bound_ms * 1e3:.4f} us by {bound_by} "
+          f"({nbytes / 1e3:.1f} KB, {flops / 1e6:.2f} MFLOP) [{card}]")
+    _check(0 < n_a <= 1, f"{name}: {n_a} kernel launches per fb_klt_track call")
+    return row
+
+
 def phase_kernel(frames, card):
     """Phase 2: the fused KLT kernel against its plain composition, its
     one-pass use (lk_level), its times, bounds, and the per-level design."""
     import torch
+    from alvaar_tpu_torch import config
     from alvaar_tpu_torch.config import SlamConfig
     from alvaar_tpu_torch.ops import lk_level as lk
     from alvaar_tpu_torch.ops.detect import detect_grid
     from alvaar_tpu_torch.ops.image import build_pyramid
-    from alvaar_tpu_torch.ops.klt import fb_klt_track, klt_pyramidal
+    from alvaar_tpu_torch.ops.klt import klt_pyramidal
 
     t0 = time.time()
     lib = lk.build_kernel(verbose=True)
@@ -406,67 +529,29 @@ def phase_kernel(frames, card):
 
     max_err, shapes = 0.0, []
     for name, (pts, valid, levels, R) in cases.items():
-        run = lambda level_fn=None: fb_klt_track(pyr0, pyr1, pts, pts, valid, levels=levels,
-                                                 search_r=R, level_fn=level_fn, **args)
-        passes = []       # the plain composition's level calls, for the bound
-
-        def record(img_prev, img_cur, pts_prev, guess, valid_p, **kw):
-            passes.append((img_prev, img_cur, pts_prev, guess, valid_p, kw["search_r"]))
-            return lk.lk_level_plain(img_prev, img_cur, pts_prev, guess, valid_p, **kw)
-
-        rk, rp = run(), run(record)
-        torch.cuda.synchronize()
-        sk, sp = rk.status.cpu().numpy(), rp.status.cpu().numpy()
-        dxy = float((rk.xy - rp.xy).abs().max())
-        derr = float((rk.err - rp.err).abs().max())
-        bit_equal = (torch.equal(rk.xy, rp.xy) and torch.equal(rk.err, rp.err)
-                     and torch.equal(rk.status, rp.status))
-        print(f"[kernel] {name}: tracked kernel {int(sk.sum())} plain {int(sp.sum())} "
-              f"of {int(valid.sum())}, status mismatches {int((sk != sp).sum())}, "
-              f"max|dxy| {dxy:.3e} px, max|derr| {derr:.3e}, bit-equal {bit_equal}")
-        _check((sk == sp).all(), f"{name}: kernel and plain statuses differ")
-        _check(dxy <= 1e-5, f"{name}: |dxy| {dxy} > 1e-5 px")
-        _check(derr <= 1e-5, f"{name}: |derr| {derr} > 1e-5")
-        _check(int(sk.sum()) > (50 if len(sk) > n48 else 20),
-               f"{name}: only {int(sk.sum())} tracked")
-        max_err = max(max_err, dxy, derr)
-
-        schedule = lk.klt_schedule(levels, R, cfg.klt_iters)
-        nbytes, flops, bound_ms, bound_by = _klt_bound(passes, schedule, win)
-        reps = 5 if len(pts) > 192 else 20
-        ms_plain_a = _time_ms(lambda: run(lk.lk_level_plain), reps=reps, rounds=3)
-        ms_a = _time_ms(run)
-        ms_b = _time_ms(run)
-        ms_plain_b = _time_ms(lambda: run(lk.lk_level_plain), reps=reps, rounds=3)
-        dev_a, n_a = _device_ms(run, "klt_track_kernel")
-        row = dict(shape=name, n=len(pts), bytes=nbytes, flops=flops, bound_ms=bound_ms,
-                   bound_by=bound_by, ms=statistics.median([ms_a, ms_b]),
-                   plain_ms=statistics.median([ms_plain_a, ms_plain_b]),
-                   launches_per_call=n_a, bit_equal=bit_equal, max_abs_err=max(dxy, derr))
-        line = (f"[kernel] {name}: fused {row['ms']:.4f} ms per call ({ms_a:.4f}, {ms_b:.4f}; "
-                f"CUDA events around back-to-back calls), plain composition "
-                f"{row['plain_ms']:.4f} ms ({ms_plain_a:.4f}, {ms_plain_b:.4f})")
-        if old is not None:
-            ro = run(old)
-            _check(torch.equal(ro.status, rp.status), f"{name}: per-level design's statuses differ")
-            old_a, old_n = _device_ms(lambda: run(old), "lk_level_kernel", len(schedule))
-            old_b, _ = _device_ms(lambda: run(old), "lk_level_kernel", len(schedule))
-            dev_b, _ = _device_ms(run, "klt_track_kernel")
-            row["device_ms"] = statistics.median([dev_a, dev_b])
-            row["old_device_ms"] = statistics.median([old_a, old_b])
-            row["old_launches_per_call"] = old_n
-            row["old_ms"] = _time_ms(lambda: run(old))
-            line += (f"; device time fused {row['device_ms']:.5f} ms ({dev_a:.5f}, {dev_b:.5f}) "
-                     f"in {n_a} launch, per-level design {row['old_device_ms']:.5f} ms "
-                     f"({old_a:.5f}, {old_b:.5f}) in {old_n} launches, "
-                     f"{row['old_ms']:.4f} ms per call by events")
-        else:
-            row["device_ms"] = dev_a
-            line += f"; device time fused {dev_a:.5f} ms in {n_a} launch"
-        print(line + f" (torch.profiler); bound {bound_ms * 1e3:.4f} us by {bound_by} "
-              f"({nbytes / 1e3:.1f} KB, {flops / 1e6:.2f} MFLOP) [{card}]")
-        _check(0 < n_a <= 1, f"{name}: {n_a} kernel launches per fb_klt_track call")
+        row = _kernel_case(name, pyr0, pyr1, pts, valid, levels, R, args, card, old=old,
+                           min_tracked=50 if len(pts) > n48 else 20)
+        max_err = max(max_err, row["max_abs_err"])
         shapes.append(row)
+
+    # the FAST and ACCURATE presets' shapes (phase 11a runs the presets):
+    # their cell sizes' detections, both stages at their iterations,
+    # positions and statuses bit for bit
+    for preset in ("FAST", "ACCURATE"):
+        pc = getattr(config, preset)
+        pdet = detect_grid(f0, torch.zeros((0, 2), device=dev),
+                           torch.zeros(0, dtype=torch.bool, device=dev),
+                           cell=pc.cell_size, border=pc.image_border)
+        n = pdet.xy.shape[0]
+        _check(n == pc.max_keypoints, f"[{preset}] {n} cells, {pc.max_keypoints} expected")
+        pargs = dict(args, iters=pc.klt_iters)
+        for stage, levels, R in (("stage1", pc.klt_prior_levels, 4),
+                                 ("stage2", pc.pyramid_levels, 8)):
+            row = _kernel_case(f"{preset} {stage} N={n} levels={levels} R={R} "
+                               f"iters={pc.klt_iters}", pyr0, pyr1, pdet.xy, pdet.valid,
+                               levels, R, pargs, card, min_tracked=n // 4, bit_equal_bar=True)
+            max_err = max(max_err, row["max_abs_err"])
+            shapes.append(row)
 
     for b, stagger in ((BATCH_STREAMS, 3), (WIDE_STREAMS, 1)):
         f_prev = torch.as_tensor(np.stack([frames[stagger * i] for i in range(b)]), device=dev)
@@ -590,10 +675,8 @@ def _batched_shape(f_prev, f_cur, cfg, card, bit_equal_bar=False):
     ms = _time_ms(run)
     ms_singles = _time_ms(run_singles, reps=5)
     # the plain composition runs stream by stream (seconds per call at
-    # 9216 points): timed twice up to 48 streams, once beyond
-    wide = B * k > WIDE_STREAMS * 192
-    plain_ms = _time_ms(lambda: run(lk.lk_level_plain), reps=1, rounds=1 if wide else 2,
-                        warmup=0 if wide else 1)
+    # 9216 points): one call gives its time
+    plain_ms = _time_ms(lambda: run(lk.lk_level_plain), reps=1, rounds=1, warmup=0)
     row = dict(shape=name, n=len(pts), bytes=nbytes, flops=flops, bound_ms=bound_ms,
                bound_by=bound_by, ms=ms, plain_ms=plain_ms, launches_per_call=n_a,
                device_ms=statistics.median([dev_a, dev_b]), singles_device_ms=dev_1,
@@ -951,8 +1034,10 @@ def phase_loop_closure(card):
     return fb_klt_track.launches
 
 
-MS_FRAMES = 60             # frames per stream in phase 6
-WIDE_FRAMES = 40           # in phase 6d (cut from 60 to keep the smoke near 6 minutes)
+# frames per stream in phases 6 and 6d (cut from 60 and 40 in PR 10 to keep
+# the smoke, phase 11 included, near 1000 s of its 1200 s on a slow host)
+MS_FRAMES = 48
+WIDE_FRAMES = 32
 MS_KF_SLOTS = 3            # max(3, ceil(16 / 6)), the JAX bench's rule
 WIDE_KF_SLOTS = 8          # max(3, ceil(48 / 6)), phase 6d
 MS_GATE_SYNCS = 3          # election reads per batched step, whatever B
@@ -1277,7 +1362,7 @@ def _check_steps(r, tag, kf_slots):
 
 def phase_multistream(frames, gt, card):
     """Phase 6: 16 streams at 640x480, default config, 3 keyframe slots;
-    stream b sees golden frames 3b .. 3b + 59.  Then, for every stream, the
+    stream b sees golden frames 3b .. 3b + 47.  Then, for every stream, the
     B = 1, one-slot run of its frames through the same step, from the
     same fresh row (its generator included): the ATE bars and the host
     syncs at B = 1.  Returns (launches, stream 0's B = 1 run)."""
@@ -1357,7 +1442,7 @@ def phase_multistream(frames, gt, card):
 def phase_multistream_wide(frames, gt, one0, card):
     """Phase 6d: 48 streams at 640x480, default config, 8 keyframe slots
     (the JAX bench's max(3, ceil(B / 6))); stream b sees golden frames
-    b .. b + 39, staged on the card.  Every stream tracks with >= 2
+    b .. b + 31, staged on the card.  Every stream tracks with >= 2
     keyframes; stream 0's ATE at most 1.5x its B = 1 run (the first 40
     steps of phase 6's: the same fresh row and frames)."""
     import torch
@@ -1799,8 +1884,9 @@ def phase_ingest(frames, card):
 
 
 HD_SEED, HD_TEX_SCALE, HD_FOV = 7, 120.0, 60.0   # the JAX bench's 1080p scene (bench.py:235-266)
-HD_STREAMS, HD_KF_SLOTS, HD_FRAMES, HD_STAGGER = 8, 2, 60, 3    # the bench's B, slots, stagger
-HD_WIDE_STREAMS, HD_WIDE_KF_SLOTS, HD_WIDE_FRAMES = 64, 11, 48  # max(3, ceil(64 / 6)); stagger 1
+# frames per stream cut from 60 and 48 in PR 10 (the smoke's time)
+HD_STREAMS, HD_KF_SLOTS, HD_FRAMES, HD_STAGGER = 8, 2, 40, 3    # the bench's B, slots, stagger
+HD_WIDE_STREAMS, HD_WIDE_KF_SLOTS, HD_WIDE_FRAMES = 64, 11, 40  # max(3, ceil(64 / 6)); stagger 1
 HD_WIDE_HELD = 4           # at B = 64, the never-reset streams held to their B = 1 run, besides 0
 RENDER_TOL = 1e-6          # the card twin against render_scene_np
 
@@ -1939,8 +2025,8 @@ def _hd_serving_run(stack, gt, cfg, cam, B, kf_slots, N, stagger, held_max, one0
 def phase_hd_serving(card):
     """Phase 8: BASELINE configuration 5, ``hd_serving()`` at 1920x1080,
     on the JAX bench's 1080p scene rendered on the card: K1 at the step's
-    level-1 shapes, then B = 8 (2 slots, stagger 3, 60 frames) and B = 64
-    (11 slots, stagger 1, 48 frames).  Returns (launches on the main path,
+    level-1 shapes, then B = 8 (2 slots, stagger 3, 40 frames) and B = 64
+    (11 slots, stagger 1, 40 frames).  Returns (launches on the main path,
     K1's rows)."""
     import torch
     from alvaar_tpu_torch.config import hd_serving
@@ -2039,14 +2125,7 @@ def phase_map10k(frames, gt, main_run, card):
     moved = float((res.poses.t[2:] - prob.poses.t[2:]).abs().max())
     for _ in range(2):
         call()
-    times = []
-    for _ in range(BA_TIMED_CALLS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        call()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+    times = _event_ms(call, BA_TIMED_CALLS)
     kernels, device_ms, syncs, wall = _profile_counts(call)
     print(f"[map10k] local_ba on the bench's problem (W={W}, K={K}, L={L}, "
           f"{int(prob.obs_valid.sum())} observations valid, {len(np.unique(obs_lm[0]))} landmarks "
@@ -2119,6 +2198,7 @@ def phase_map10k(frames, gt, main_run, card):
 
 
 LOOP_DB_CAPACITY = 256     # phase 10a: the bench's loop-closure databases
+LOOP_FRAMES = 60           # phase 10a: frames per stream
 BENCH_FRAMES = 12          # phase 10b: python -m alvaar_tpu_torch.bench --frames 12 --skip-aux
 BENCH_TIMEOUT_S = 400
 
@@ -2177,8 +2257,8 @@ def check_scatter_order(card, rows=MS_KF_SLOTS, seed=0):
 
 
 def phase_bench_loop(frames, card):
-    """Phase 10a: the bench's loop-closure serving stage on phase 6's 16
-    staged streams, one timed rep, each step's host time, KLT launches
+    """Phase 10a: the bench's loop-closure serving stage on 16 streams
+    staged as phase 6 stages them (LOOP_FRAMES each), one timed rep, each step's host time, KLT launches
     and host syncs recorded by wrapping the step the scan builds."""
     import torch
     from alvaar_tpu_torch import SlamConfig, bench
@@ -2190,7 +2270,7 @@ def phase_bench_loop(frames, card):
 
     cfg = SlamConfig()
     cam = Camera.from_fov(cfg.width, cfg.height, 60.0)
-    B, N = BATCH_STREAMS, MS_FRAMES
+    B, N = BATCH_STREAMS, LOOP_FRAMES
     seq = np.stack([np.stack([frames[3 * b + i] for b in range(B)]) for i in range(N)])
     frames_dev = torch.as_tensor(seq, device="cuda")
     dts = torch.ones((N, B), device="cuda")
@@ -2279,6 +2359,227 @@ def phase_bench_command(card):
            f"[bench-cmd] headline {head}")
 
 
+# Phase 11a's bars: the JAX package's AlvaAR on the CPU under each preset
+# over the same 120 golden frames, from
+#   JAX_PLATFORMS=cpu python -m tests.test_torch_presets FAST ACCURATE
+# (frames at status 1, the first of them, resets, sim3-aligned ATE in cm).
+JAX_PRESET_BARS = {
+    "FAST": dict(tracked=107, first=13, resets=0, ate_cm=0.6104186181280864),
+    "ACCURATE": dict(tracked=108, first=12, resets=0, ate_cm=0.5769660580300388),
+}
+PRESET_TRACKED_SLACK = 5       # frames at status 1, against the JAX count
+PRESET_FIRST_SLACK = 3         # the first status-1 frame, against JAX's
+PRESET_ATE_FACTOR = 1.5        # the multi-stream accuracy bar of PERF.md section 2
+BA_ITERS_TIMED = (3, 5, 10)    # FAST's, the default's and ACCURATE's LM iterations
+PRESET_BA_CALLS = 5            # timed local_ba calls per iteration count
+# Phase 11b's bars: the JAX package's examples run once on the CPU:
+#   JAX_PLATFORMS=cpu python examples/demo.py 60            -> 47 frames at status 1
+#   JAX_PLATFORMS=cpu python examples/imu_demo.py --frames 60
+#                                                  -> fused-rotation error 0.00 deg
+#   JAX_PLATFORMS=cpu python examples/live_client.py --serve --source synthetic \
+#       --frames 60 --port 0                                -> 48 tracked
+EXAMPLE_FRAMES = 60
+JAX_DEMO_TRACKED = 47
+JAX_IMU_ROT_ERR_DEG = 0.0
+JAX_LIVE_TRACKED = 48
+EXAMPLE_TRACKED_SLACK = 5
+EXAMPLE_ROT_ERR_SLACK_DEG = 0.1
+
+
+def _ba_ms(prob, cam, iters, huber_delta, card, tag):
+    """``local_ba`` on ``prob`` at ``iters`` LM iterations: ms per call by
+    CUDA events (median of PRESET_BA_CALLS after 2 warm-up calls), and
+    kernels, device ms and host stream syncs of one call under the
+    profiler."""
+    import torch
+    from alvaar_tpu_torch.solvers.ba import local_ba
+    call = lambda: local_ba(prob, cam, iters=iters, refine_iters=2, huber_delta=huber_delta)
+    res = call()
+    _check(all(bool(torch.isfinite(x).all()) for x in (res.poses.q, res.poses.t, res.invdepth,
+                                                          res.cost)),
+           f"[{tag}] local_ba returned non-finite values")
+    call()
+    times = _event_ms(call, PRESET_BA_CALLS)
+    kernels, device_ms, syncs, wall = _profile_counts(call)
+    W, K = prob.obs_lm.shape
+    print(f"[{tag}] local_ba W={W} K={K} ({int(prob.obs_valid.sum())} observations) at {iters} "
+          f"LM iterations: {statistics.median(times):.3f} ms per call (CUDA events, median of "
+          f"{PRESET_BA_CALLS}; min {min(times):.3f}, max {max(times):.3f}); under torch.profiler "
+          f"{kernels} kernels, {device_ms:.3f} ms device time in {wall:.1f} ms (busy "
+          f"{device_ms / wall:.3f}), {syncs} host stream syncs per call [{card}]")
+    return statistics.median(times)
+
+
+def phase_presets(frames, gt, card):
+    """Phase 11a: the FAST and ACCURATE presets: ``AlvaAR`` under each over
+    the 120 golden frames, held to the JAX package's bars, and ``local_ba``
+    timed on the run's first steady keyframe's problem (K1 at the presets'
+    shapes runs in phase 2).  Returns the KLT launches."""
+    import copy
+    from alvaar_tpu_torch import AlvaAR, config
+    from alvaar_tpu_torch.ops.klt import fb_klt_track, klt_pyramidal
+    from alvaar_tpu_torch.ops.lk_level import lk_level
+    from alvaar_tpu_torch.worldmap import keyframe
+    from alvaar_tpu_torch.worldmap.keyframe import host_bool
+    from render_scene_np import ate_rmse
+
+    launches, problems = 0, {}
+    for name in ("FAST", "ACCURATE"):
+        cfg, bars = getattr(config, name), JAX_PRESET_BARS[name]
+        # the golden run, the first local BA's problem kept
+        seen = []
+        local_ba = keyframe.local_ba
+
+        def keep_first(prob, cam, **kw):
+            if not seen:
+                seen.append((copy.deepcopy(prob), cam, kw))
+            return local_ba(prob, cam, **kw)
+
+        slam = AlvaAR(640, 480, fov=60.0, config=cfg, device="cuda")
+        fb_klt_track.launches = klt_pyramidal.launches = lk_level.launches = 0
+        host_bool.syncs = 0
+        keyframe.local_ba = keep_first
+        try:
+            run = _drive(slam, frames, f"preset {name}")
+        finally:
+            keyframe.local_ba = local_ba
+        launches += fb_klt_track.launches
+        _check(lk_level.launches == 0 and klt_pyramidal.launches == 0,
+               f"[preset {name}] a KLT launch outside fb_klt_track")
+        st = run["status"]
+        tracked = [i for i, x in enumerate(st) if x == 1]
+        est = np.stack([run["pose"][i][:3, 3] for i in tracked]) if tracked else None
+        ate_cm = (100.0 * ate_rmse(est, gt[tracked][:, :3, 3]) if len(tracked) > 2
+                  else float("inf"))
+        first = tracked[0] if tracked else None
+        steady, kfs = run["ms"][20:], run["kf"][20:]
+        kf_ms = [m for m, k in zip(steady, kfs) if k]
+        tr_ms = [m for m, k in zip(steady, kfs) if not k]
+        med = lambda xs: statistics.median(xs) if xs else float("nan")
+        print(f"[preset {name}] cell {cfg.cell_size} ({cfg.max_keypoints} keypoints), KLT "
+              f"{cfg.klt_iters} iterations, {cfg.ransac_iters} hypotheses, BA {cfg.ba_iters} "
+              f"iterations: {len(tracked)}/{len(st)} at status 1 (JAX {bars['tracked']}), first "
+              f"at frame {first} (JAX {bars['first']}), {st.count(2)} resets (JAX "
+              f"{bars['resets']}), ATE {ate_cm:.4f} cm (JAX {bars['ate_cm']:.4f} cm, bar "
+              f"{PRESET_ATE_FACTOR * bars['ate_cm']:.4f}); frames 20-119: {len(tr_ms)} tracking "
+              f"frames median {med(tr_ms):.3f} ms, {len(kf_ms)} keyframes median "
+              f"{med(kf_ms):.3f} ms, slowest {max(run['ms']):.1f} ms; host syncs per frame "
+              f"median {statistics.median(run['syncs'])} [{card}]")
+        _check(len(tracked) >= bars["tracked"] - PRESET_TRACKED_SLACK,
+               f"[preset {name}] {len(tracked)} frames at status 1")
+        _check(first is not None and abs(first - bars["first"]) <= PRESET_FIRST_SLACK,
+               f"[preset {name}] first status 1 at frame {first}")
+        _check(st.count(2) <= bars["resets"], f"[preset {name}] {st.count(2)} resets")
+        _check(ate_cm <= PRESET_ATE_FACTOR * bars["ate_cm"], f"[preset {name}] ATE {ate_cm} cm")
+        _check(statistics.median(run["syncs"]) <= 6,
+               f"[preset {name}] host syncs per frame median {statistics.median(run['syncs'])}")
+        _check(bool(seen), f"[preset {name}] local BA never ran")
+        problems[name] = seen[0]
+
+    # local BA on each preset's first steady keyframe: FAST's problem at its
+    # 3 iterations, ACCURATE's ([30, 352]) at 3, 5 and 10
+    prob, cam, kw = problems["FAST"]
+    _ba_ms(prob, cam, config.FAST.ba_iters, kw["huber_delta"], card, "preset FAST")
+    prob, cam, kw = problems["ACCURATE"]
+    for iters in BA_ITERS_TIMED:
+        _ba_ms(prob, cam, iters, kw["huber_delta"], card, "preset ACCURATE")
+    return launches
+
+
+def _captured(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with its standard output kept: (its return,
+    the lines, seconds)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args, **kwargs)
+    return rc, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def _floats(text):
+    return [float(x) for x in re.findall(r"[-+]?(?:\d+\.\d*|nan|inf)", text)]
+
+
+def phase_examples(card):
+    """Phase 11b: the five examples (alvaar_tpu_torch/examples/), each
+    through its ``main`` in this process on the card, held to the JAX
+    examples' bars.  Returns the KLT launches."""
+    from alvaar_tpu_torch.examples import demo, imu_demo, live_client, preproc_sandbox, video_demo
+    from alvaar_tpu_torch.ops.klt import fb_klt_track
+
+    fb_klt_track.launches = 0
+    rc, lines, s = _captured(demo.main, [str(EXAMPLE_FRAMES)])
+    st = [int(m.group(1)) for m in map(re.compile(r"^frame +\d+: status (\d)").match, lines) if m]
+    pos = [_floats(ln.split("pos [")[1].split("]")[0]) for ln in lines if "pos [" in ln]
+    finite = all(len(p) == 3 and np.isfinite(p).all() for p in pos)
+    print(f"[examples] demo {EXAMPLE_FRAMES}: exit {rc} in {s:.1f} s, {st.count(1)}/{len(st)} at "
+          f"status 1 (JAX {JAX_DEMO_TRACKED}), poses finite {finite}, KLT launches "
+          f"{fb_klt_track.launches}; {lines[-2] if len(lines) > 1 else ''} | {lines[-1]} [{card}]")
+    _check(rc == 0 and len(st) == EXAMPLE_FRAMES, f"[examples] demo: exit {rc}, {len(st)} frames")
+    _check(abs(st.count(1) - JAX_DEMO_TRACKED) <= EXAMPLE_TRACKED_SLACK,
+           f"[examples] demo: {st.count(1)} tracked")
+    _check(finite and len(pos) == st.count(1), "[examples] demo: a pose is not finite")
+    launches = fb_klt_track.launches
+
+    fb_klt_track.launches = 0
+    rc, lines, s = _captured(imu_demo.main, ["--frames", str(EXAMPLE_FRAMES)])
+    err = [_floats(ln)[0] for ln in lines if ln.startswith("fused-rotation error")]
+    t = [_floats(ln.split("=")[1]) for ln in lines if ln.startswith("final fused pose t")]
+    print(f"[examples] imu_demo --frames {EXAMPLE_FRAMES}: exit {rc} in {s:.1f} s; "
+          f"{' | '.join(lines)} (JAX: {JAX_IMU_ROT_ERR_DEG:.2f} deg); KLT launches "
+          f"{fb_klt_track.launches} [{card}]")
+    _check(rc == 0 and len(err) == 1 and len(t) == 1, f"[examples] imu_demo: exit {rc}")
+    _check(abs(err[0] - JAX_IMU_ROT_ERR_DEG) <= EXAMPLE_ROT_ERR_SLACK_DEG,
+           f"[examples] imu_demo: fused-rotation error {err[0]} deg")
+    _check(len(t[0]) == 3 and np.isfinite(t[0]).all(), "[examples] imu_demo: pose not finite")
+    launches += fb_klt_track.launches
+
+    fb_klt_track.launches = 0
+    rc, lines, s = _captured(live_client.main, ["--serve", "--source", "synthetic", "--frames",
+                                                str(EXAMPLE_FRAMES), "--port", "0"])
+    poses = [_floats(ln.split("t=(")[1].split(")")[0]) for ln in lines if "pose t=(" in ln]
+    m = re.match(r"(\d+) frames in .* (\d+) tracked$", lines[-1] if lines else "")
+    tracked = int(m.group(2)) if m else -1
+    finite = all(len(p) == 3 and np.isfinite(p).all() for p in poses)
+    print(f"[examples] live_client --serve --source synthetic --frames {EXAMPLE_FRAMES}: exit {rc} "
+          f"in {s:.1f} s; {lines[0] if lines else ''} | {lines[-1] if lines else ''} (JAX "
+          f"{JAX_LIVE_TRACKED} tracked); poses finite {finite}; KLT launches "
+          f"{fb_klt_track.launches} [{card}]")
+    _check(rc == 0 and m is not None and int(m.group(1)) == EXAMPLE_FRAMES,
+           f"[examples] live_client: exit {rc}")
+    _check(abs(tracked - JAX_LIVE_TRACKED) <= EXAMPLE_TRACKED_SLACK,
+           f"[examples] live_client: {tracked} tracked")
+    _check(finite and len(poses) == tracked, "[examples] live_client: a pose is not finite")
+    launches += fb_klt_track.launches
+
+    rc, lines, s = _captured(preproc_sandbox.main, [])
+    for ln in lines:
+        print(f"[examples] preproc_sandbox | {ln}")
+    print(f"[examples] preproc_sandbox: exit {rc} in {s:.1f} s [{card}]")
+    _check(rc == 0 and lines and lines[-1].lstrip().startswith("gray+pyramid+detect"),
+           f"[examples] preproc_sandbox: exit {rc}")
+
+    # video_demo: no video in the repository; it must say so and open
+    # nothing outside the checkout
+    opened, watching = [], [True]
+
+    def audit(event, args):
+        if watching[0] and event == "open" and isinstance(args[0], (str, bytes, os.PathLike)):
+            opened.append(os.path.abspath(os.fsdecode(args[0])))
+    sys.addaudithook(audit)
+    try:
+        rc, lines, s = _captured(video_demo.main, [])
+    finally:
+        watching[0] = False
+    outside = [p for p in opened if not p.startswith(ROOT + os.sep)]
+    print(f"[examples] video_demo: exit {rc}: {' | '.join(lines)}; files opened outside the "
+          f"checkout {outside}")
+    _check(rc == 2 and len(lines) == 1 and not outside, f"[examples] video_demo: exit {rc}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2344,6 +2645,8 @@ def main() -> int:
     launches += phase_bench_loop(frames, card)
     phase_bench_command(card)
     lap("phase 10")
+    launches += phase_presets(frames, gt, card) + phase_examples(card)
+    lap("phase 11")
 
     # the top-level numbers are at the heavier main-path call, stage 2 at N=192
     main = shapes[1]
