@@ -4,11 +4,19 @@ Port of alvaar_tpu/frontend/step.py (the single-stream path):
 preprocess → motion prior → two-stage forward-backward KLT → [bootstrap |
 PnP] → keyframe decision → [keyframe pipeline] → status and reset.
 Where the JAX package compiles ``lax.cond``/``lax.switch`` branches into
-one program, the port runs eager torch and branches in Python on device
-scalars, each read through ``host_bool`` so a run can count its host
-syncs.  The bootstrap runs the 5-point (or 8-point) essential RANSAC and,
-with ``use_homography_init``, the homography RANSAC, and keeps the model
-with more inliers by a select, not a branch.
+one program, the port runs eager torch and branches in Python.  The
+branch of a frame (first frame, initializing, tracking; P3P before PnP or
+not) is decided on the host before its work is dispatched (``Branch``):
+its flags come from the previous frame's one packed read.
+``slam_step`` is ``dispatch_step`` (the track work, nothing waited for on
+a tracking frame, the flags' copy to pinned memory started) then
+``complete_step`` (the read, then the keyframe pipeline, status and
+reset); the facade defers the second to overlap the card's work.  Every
+other data-dependent branch reads its device scalar through
+``host_bool``, so a run can count its host reads.  The bootstrap runs the
+5-point (or 8-point) essential RANSAC and, with ``use_homography_init``,
+the homography RANSAC, and keeps the model with more inliers by a select,
+not a branch.
 
 Multi-stream serving (parallel/multistream.py) recomposes the phases as
 the JAX package does: ``track_phase_batched`` runs the per-frame work of B
@@ -28,6 +36,7 @@ Status codes: 1 = tracking, 2 = reset performed, 3 = initializing.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional
 
 import torch
 from torch.func import vmap
@@ -36,6 +45,7 @@ from alvaar_tpu_torch.config import SlamConfig
 from alvaar_tpu_torch.geom.camera import Camera
 from alvaar_tpu_torch.geom.lie import SE3
 from alvaar_tpu_torch.ops.image import build_pyramid, clahe
+from alvaar_tpu_torch.ops.index import take_row
 from alvaar_tpu_torch.ops.klt import fb_klt_track
 from alvaar_tpu_torch.ops.topk import top_k
 from alvaar_tpu_torch.solvers.absolute import p3p_lmeds
@@ -44,6 +54,8 @@ from alvaar_tpu_torch.solvers.fivept import essential_ransac_5pt
 from alvaar_tpu_torch.solvers.homography import homography_ransac
 from alvaar_tpu_torch.solvers.pnp import pnp_refine
 from alvaar_tpu_torch.solvers.ransac import uniform_draw
+from alvaar_tpu_torch.utils.pinned import HostRead, ReadRing
+from alvaar_tpu_torch.utils.stats import count
 from alvaar_tpu_torch.worldmap.keyframe import create_keyframe, host_bool
 from alvaar_tpu_torch.worldmap.state import (MapState, from_tensors, map_rows,
                                              reset_map_state, stack_states, state_row)
@@ -160,21 +172,27 @@ def _merge_tracks(state: MapState, cam: Camera, sc: float, prior_ok, s1_xy, s1_s
 # Pose estimation
 # ---------------------------------------------------------------------------
 
-def _compute_pose(state: MapState, cam: Camera, cfg: SlamConfig, p3p=None, samples=None):
-    """P3P-LMedS recovery when requested, then motion-only PnP.
-    ``p3p``: None runs P3P when the state requests it (a branch on a device
-    scalar), False never (the deferred, batched track phase), True always
-    (the recovery phase).  ``samples`` replaces P3P's draw.
-    Returns (state, success, P3P requested)."""
+def _p3p_flag(state: MapState, cfg: SlamConfig):
+    """The JAX package's ``do_p3p``: P3P before PnP where the state asks
+    for it (and, with ``use_p3p``, after a failed pose)."""
+    return state.p3p_req | (state.pose_failures > 0) if cfg.use_p3p else state.p3p_req
+
+
+def _compute_pose(state: MapState, cam: Camera, cfg: SlamConfig, p3p: bool, samples=None):
+    """P3P-LMedS recovery where ``p3p`` (the caller decides on the host:
+    the step from its branch, the recovery phase always, the deferred
+    track phase never), then motion-only PnP.  ``samples`` replaces P3P's
+    draw.  Returns (state, success, the state's own P3P request
+    ``_p3p_flag``, a device bool)."""
     is3d = (state.kp_valid & state.lm_valid[state.kp_lm]
             & state.lm_is3d[state.kp_lm])
     n3d = torch.sum(is3d)
     pts_w = state.lm_pos[state.kp_lm]
-    do_p3p = state.p3p_req | (state.pose_failures > 0) if cfg.use_p3p else state.p3p_req
+    do_p3p = _p3p_flag(state, cfg)
 
     pose_init, pnp_mask = state.pose, is3d
     p3p_ok = torch.ones((), dtype=torch.bool, device=is3d.device)
-    if p3p or (p3p is None and host_bool(do_p3p)):
+    if p3p:
         r = p3p_lmeds(state.rng, cam.bearing(state.kp_und), pts_w, is3d,
                       focal=cam.focal, iters=cfg.ransac_iters,
                       err_px=cfg.ransac_err_px, min_inliers=cfg.p3p_min_inliers,
@@ -209,11 +227,12 @@ def _parallax_vs_kf(state: MapState, cam: Camera, rotation_compensated: bool,
     observations (by the stable-slot invariant).  Returns (value, count)."""
     slot = state.cur_kf_slot
     K = state.kp_lm.shape[0]
-    same = (state.kf_obs_lm[slot] == state.kp_lm) & state.kf_obs_valid[slot] & state.kp_valid
-    kf_px = state.kf_obs_px[slot]
+    same = ((take_row(state.kf_obs_lm, slot) == state.kp_lm)
+            & take_row(state.kf_obs_valid, slot) & state.kp_valid)
+    kf_px = take_row(state.kf_obs_px, slot)
     cur_px = state.kp_und
     if rotation_compensated:
-        T_kf = state.kf_pose[slot]
+        T_kf = state.kf_pose.row(slot)
         zero = torch.zeros_like(T_kf.t)
         R_rel = SE3(T_kf.q, zero).compose(SE3(state.pose.q, zero).inverse())
         cur_px = cam.project(R_rel.rotate(cam.bearing(cur_px)))
@@ -221,7 +240,7 @@ def _parallax_vs_kf(state: MapState, cam: Camera, rotation_compensated: bool,
     n = torch.sum(same)
     if median:
         srt = torch.sort(torch.where(same, d, torch.inf)).values
-        val = srt[torch.clamp(n // 2, 0, K - 1)]
+        val = take_row(srt, torch.clamp(n // 2, 0, K - 1))
         return torch.where(n > 0, val, 0.0), n
     avg = torch.sum(torch.where(same, d, 0.0)) / torch.clamp_min(n, 1)
     return torch.where(n > 0, avg, 0.0), n
@@ -243,8 +262,9 @@ def _bootstrap(state: MapState, cam: Camera, cfg: SlamConfig, samples=None):
     choice: a device bool, True where the homography was kept, or None
     without ``use_homography_init``)."""
     slot = state.cur_kf_slot
-    same = (state.kf_obs_lm[slot] == state.kp_lm) & state.kf_obs_valid[slot] & state.kp_valid
-    f_kf, f_cur = cam.bearing(state.kf_obs_px[slot]), cam.bearing(state.kp_und)
+    same = ((take_row(state.kf_obs_lm, slot) == state.kp_lm)
+            & take_row(state.kf_obs_valid, slot) & state.kp_valid)
+    f_kf, f_cur = cam.bearing(take_row(state.kf_obs_px, slot)), cam.bearing(state.kp_und)
     s_e, s_h = samples if samples is not None else (None, None)
     solver = essential_ransac_5pt if cfg.use_five_point else essential_ransac
     args = dict(focal=cam.focal, iters=cfg.ransac_iters, err_px=cfg.ransac_err_px,
@@ -293,8 +313,8 @@ def _keyframe_required(state: MapState, cam: Camera, cfg: SlamConfig):
     n_occupied = torch.sum(state.kp_valid)
     n3d = torch.sum(state.kp_valid & state.lm_is3d[state.kp_lm]
                     & state.lm_valid[state.kp_lm])
-    kf_lm = state.kf_obs_lm[slot]
-    kf_n3d = torch.sum(state.kf_obs_valid[slot] & state.lm_is3d[kf_lm]
+    kf_lm = take_row(state.kf_obs_lm, slot)
+    kf_n3d = torch.sum(take_row(state.kf_obs_valid, slot) & state.lm_is3d[kf_lm]
                        & state.lm_valid[kf_lm])
     max_kps = cfg.max_keypoints
     c_occ = (id_diff >= 5) & (n_occupied < 0.33 * max_kps)
@@ -312,6 +332,153 @@ def _keyframe_required(state: MapState, cam: Camera, cfg: SlamConfig):
 # The step
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class Branch:
+    """The branch a frame takes, chosen on the host before its work is
+    dispatched: the first frame, initializing or tracking, and on a
+    tracking frame whether P3P runs before PnP (the frame's own stage 1
+    can still ask for it: see ``dispatch_step``).  All are flags of the
+    state at the frame's start, so the previous frame's packed read gives
+    them (``complete_step`` leaves them on the state it returns, as
+    ``MapState.next_branch``); ``branch_of`` reads them from any other
+    state."""
+    is_first: bool
+    in_tracking: bool
+    do_p3p: bool
+
+
+_FIRST = Branch(is_first=True, in_tracking=False, do_p3p=False)
+
+
+def _host_flags(t) -> list:
+    """A small device bool vector on the host, in one sync (counted as one
+    ``host_bool`` read)."""
+    count(host_bool, "syncs")
+    return t.tolist()
+
+
+def branch_of(state: MapState, cfg: SlamConfig) -> Branch:
+    """The branch of the next frame on ``state``: the one the step left on
+    it, else read from the state in one sync (a fresh, loaded or edited
+    state: ``MapState.replace`` drops the step's branch)."""
+    if state.next_branch is not None:
+        return state.next_branch
+    first, ready, p3p = _host_flags(torch.stack([state.frame_id == 0, state.ready_for_init,
+                                                 _p3p_flag(state, cfg)]))
+    return _FIRST if first else Branch(is_first=False, in_tracking=ready, do_p3p=p3p)
+
+
+@dataclasses.dataclass
+class PendingStep:
+    """A frame whose track work is dispatched (``dispatch_step``), with its
+    packed flags on their way to the host; ``complete_step`` finishes it."""
+    state: MapState            # after the track work
+    kf_req: torch.Tensor       # keyframe required, reset-gated (device bool)
+    flags: HostRead            # kf_req, reset_requested, ready_for_init, next do_p3p, P3P missed
+    redo: Optional[Callable]   # the tracking pose again with P3P (see dispatch_step)
+    cam: Camera
+    cfg: SlamConfig
+
+
+def _packed_flags(state: MapState, kf_req, missed, cfg: SlamConfig):
+    return torch.stack([kf_req, state.reset_requested, state.ready_for_init,
+                        _p3p_flag(state, cfg), missed])
+
+
+def _track_pose(state: MapState, prev_pose: SE3, dt: float, cam: Camera, cfg: SlamConfig,
+                p3p: bool):
+    """The tracking branch after the KLT: PnP (after P3P where ``p3p``)
+    from the motion prior in ``state.pose``, the velocity, the keyframe
+    decision.  Returns (state, keyframe required, the state's own P3P
+    request)."""
+    state, success, do_p3p = _compute_pose(state, cam, cfg, p3p)
+    new_vel = prev_pose.compose(state.pose.inverse()).log() / dt
+    state = state.replace(vel=torch.where(success, new_vel, state.vel))
+    return state, _keyframe_required(state, cam, cfg) & success, do_p3p
+
+
+def dispatch_step(state: MapState, gray, cam: Camera, cfg: SlamConfig, dt=1.0,
+                  ring: Optional[ReadRing] = None) -> PendingStep:
+    """The frame's track work on the branch ``branch_of`` gives, then its
+    packed flags, copied into ``ring``'s pinned buffers without a wait
+    (without a ring, ``complete_step`` reads them directly).  On a
+    tracking frame nothing here waits for the card; an initializing
+    frame reads its bootstrap gate, as the JAX package's ``lax.cond``
+    decides it, and the CPU's stage-2 compaction reads its count.
+
+    A tracking frame whose branch skipped P3P still asks for it when its
+    own stage 1 tracked under a third of its priors (``_merge_tracks``):
+    the JAX package then runs P3P before PnP on this frame.  The flags
+    carry that case, and ``complete_step`` redoes the pose with P3P from
+    the same KLT state, so the result and the RANSAC draws are the JAX
+    package's order; only the discarded PnP is extra work."""
+    branch = branch_of(state, cfg)
+    pyr_cur = preprocess(gray, cfg)
+    dt = max(float(dt), 1e-6)
+    dev = state.kp_px.device
+    prev_pose = state.pose
+    if branch.in_tracking:
+        # constant-velocity prior: T_cw_prior = Exp(-vel·dt) ∘ T_cw
+        pose_prior = SE3.exp(-state.vel * dt).compose(state.pose)
+    else:
+        pose_prior = state.pose
+    # on the card stage 2 runs at full width: one kernel launch over all
+    # keypoints costs about what 48 slots do, and saves the host sync, the
+    # top_k and the scatters of the compaction
+    state = _track_keypoints(state, pyr_cur, pose_prior, cam, cfg,
+                             allow_cond=not pyr_cur[0].is_cuda).replace(prev_pyr=pyr_cur)
+
+    missed = torch.zeros((), dtype=torch.bool, device=dev)
+    redo = None
+    if branch.is_first:
+        state = state.replace(pose=SE3.identity(dtype=state.kp_px.dtype, device=dev))
+        kf_required = torch.ones((), dtype=torch.bool, device=dev)
+    elif not branch.in_tracking:
+        n2d = torch.sum(state.kp_valid)
+        state = state.replace(reset_requested=state.reset_requested
+                              | (n2d < cfg.min_init_keypoints))
+        state, kf_required = _attempt_init(state, cam, cfg)
+    else:
+        klt_state = state.replace(pose=pose_prior)
+        state, kf_required, do_p3p = _track_pose(klt_state, prev_pose, dt, cam, cfg,
+                                                 branch.do_p3p)
+        if not branch.do_p3p:
+            missed = do_p3p
+            redo = lambda: _track_pose(klt_state, prev_pose, dt, cam, cfg, True)[:2]
+    kf_req = kf_required & ~state.reset_requested
+    packed = _packed_flags(state, kf_req, missed, cfg)
+    flags = ring.start(packed) if ring is not None else HostRead(packed)
+    return PendingStep(state, kf_req, flags, redo, cam, cfg)
+
+
+def _settle(p: PendingStep):
+    """The frame's packed read (one sync), and the P3P redo where the
+    frame asked for it (one more).  Returns (state, kf_req, flags)."""
+    count(host_bool, "syncs")
+    flags = p.flags.get().tolist()
+    state, kf_req = p.state, p.kf_req
+    if flags[4]:
+        state, kf_required = p.redo()
+        kf_req = kf_required & ~state.reset_requested
+        flags = _host_flags(_packed_flags(state, kf_req, torch.zeros_like(kf_req), p.cfg))
+    return state, kf_req, flags
+
+
+def complete_step(p: PendingStep) -> tuple[MapState, StepOutput]:
+    """The rest of a dispatched frame: its packed read, then the keyframe
+    pipeline where it asks for one (its own two gated reads, and one more
+    of ``reset_requested``, which a keyframe can raise), the status and
+    the reset.  The state returned carries the next frame's branch."""
+    state, kf_req, (kf, reset, ready, do_p3p, _) = _settle(p)
+    if kf:
+        state = keyframe_phase(state, p.cam, p.cfg)
+        reset = host_bool(state.reset_requested)
+    state, out = finalize_phase(state, kf_req, p.cfg, reset=reset)
+    state.next_branch = (_FIRST if reset else
+                         Branch(is_first=False, in_tracking=ready, do_p3p=do_p3p))
+    return state, out
+
+
 def track_phase(state: MapState, gray, cam: Camera, cfg: SlamConfig, dt=1.0, *,
                 defer_heavy: bool = False):
     """Per-frame work without the keyframe pipeline.  Returns (state,
@@ -324,42 +491,9 @@ def track_phase(state: MapState, gray, cam: Camera, cfg: SlamConfig, dt=1.0, *,
         states, fl = track_phase_batched(stack_states([state]), gray[None], cam, cfg, [dt])
         return state_row(states, 0), TrackFlags(kf_req=fl.kf_req[0], p3p_need=fl.p3p_need[0],
                                                 init_gate=fl.init_gate[0])
-    pyr_cur = preprocess(gray, cfg)
-    dt = max(float(dt), 1e-6)
-    dev = state.kp_px.device
-
-    is_first = host_bool(state.frame_id == 0)
-    in_tracking = (not is_first) and host_bool(state.ready_for_init)
-    prev_pose = state.pose
-    if in_tracking:
-        # constant-velocity prior: T_cw_prior = Exp(-vel·dt) ∘ T_cw
-        pose_prior = SE3.exp(-state.vel * dt).compose(state.pose)
-    else:
-        pose_prior = state.pose
-    # on the card stage 2 runs at full width: one kernel launch over all
-    # keypoints costs about what 48 slots do, and saves the host sync, the
-    # top_k and the scatters of the compaction
-    state = _track_keypoints(state, pyr_cur, pose_prior, cam, cfg,
-                             allow_cond=not pyr_cur[0].is_cuda)
-
-    if is_first:
-        state = state.replace(pose=SE3.identity(dtype=state.kp_px.dtype, device=dev))
-        kf_required = torch.ones((), dtype=torch.bool, device=dev)
-    elif not in_tracking:
-        n2d = torch.sum(state.kp_valid)
-        state = state.replace(reset_requested=state.reset_requested
-                              | (n2d < cfg.min_init_keypoints))
-        state, kf_required = _attempt_init(state, cam, cfg)
-    else:
-        state = state.replace(pose=pose_prior)
-        state, success, _ = _compute_pose(state, cam, cfg)
-        new_vel = prev_pose.compose(state.pose.inverse()).log() / dt
-        state = state.replace(vel=torch.where(success, new_vel, state.vel))
-        kf_required = _keyframe_required(state, cam, cfg) & success
-    state = state.replace(prev_pyr=pyr_cur)
-    false = torch.zeros((), dtype=torch.bool, device=dev)
-    return state, TrackFlags(kf_req=kf_required & ~state.reset_requested, p3p_need=false,
-                             init_gate=false)
+    state, kf_req, _ = _settle(dispatch_step(state, gray, cam, cfg, dt))
+    false = torch.zeros((), dtype=torch.bool, device=kf_req.device)
+    return state, TrackFlags(kf_req=kf_req, p3p_need=false, init_gate=false)
 
 
 def _branches(state: MapState, pose_prior_q, pose_prior_t, dt, cam: Camera,
@@ -518,11 +652,13 @@ def keyframe_phase_batched(states: MapState, cam: Camera, cfg: SlamConfig) -> Ma
     return map_rows(lambda s: keyframe_phase(s, cam, cfg, select=True), states)
 
 
-def finalize_phase(state: MapState, kf_created, cfg: SlamConfig, defer_reset: bool = False):
+def finalize_phase(state: MapState, kf_created, cfg: SlamConfig, defer_reset: bool = False,
+                   reset: Optional[bool] = None):
     """Status, output marshalling and the reset, for one stream or (with
     ``defer_reset``) a stacked state of B streams.  ``defer_reset`` leaves
     the reset to the caller (``reset_requested`` stays set) and needs no
-    host sync."""
+    host sync; ``reset``, where the caller has read ``reset_requested``
+    already, saves the read here."""
     status = torch.where(state.reset_requested, 2,
                          torch.where(state.ready_for_init, 1, 3))
     at_kp = lambda field: torch.gather(field, -1, state.kp_lm)
@@ -533,7 +669,8 @@ def finalize_phase(state: MapState, kf_created, cfg: SlamConfig, defer_reset: bo
                      is_keyframe=kf_created & ~state.reset_requested)
     if defer_reset:
         return state.replace(frame_id=torch.where(status == 2, 0, state.frame_id + 1)), out
-    reset = host_bool(state.reset_requested)
+    if reset is None:
+        reset = host_bool(state.reset_requested)
     if reset:
         state = reset_map_state(state, cfg)
     return state.replace(frame_id=torch.zeros_like(state.frame_id) if reset
@@ -544,8 +681,7 @@ def slam_step(state: MapState, gray, cam: Camera, cfg: SlamConfig,
               dt=1.0) -> tuple[MapState, StepOutput]:
     """Process one grayscale frame; returns the new state and outputs.
     ``dt`` is the time since the previous frame (1.0 per frame when the
-    caller has no timestamps)."""
-    state, flags = track_phase(state, gray, cam, cfg, dt)
-    if host_bool(flags.kf_req):
-        state = keyframe_phase(state, cam, cfg)
-    return finalize_phase(state, flags.kf_req, cfg)
+    caller has no timestamps).  ``dispatch_step`` then ``complete_step``:
+    on a tracking frame one host read, of the frame's packed flags, and
+    one more where the state did not come from the step (``branch_of``)."""
+    return complete_step(dispatch_step(state, gray, cam, cfg, dt))

@@ -13,6 +13,8 @@ import dataclasses
 
 import torch
 
+from alvaar_tpu_torch.ops.index import take_row
+
 _EPS = 1e-8
 
 
@@ -21,9 +23,10 @@ _EPS = 1e-8
 # --------------------------------------------------------------------------
 
 def quat_identity(batch_shape=(), dtype=torch.float32, device=None):
+    # built by concatenation: writing a Python number into a CUDA tensor
+    # (``q[..., 0] = 1.0``) copies it from host memory and waits
     q = torch.zeros(tuple(batch_shape) + (4,), dtype=dtype, device=device)
-    q[..., 0] = 1.0
-    return q
+    return torch.cat([torch.ones_like(q[..., :1]), q[..., 1:]], dim=-1)
 
 
 def quat_normalize(q):
@@ -31,7 +34,9 @@ def quat_normalize(q):
 
 
 def quat_conj(q):
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    # negation is exact, and it builds no constant from host data (a
+    # synchronizing copy on the card)
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def quat_mul(a, b):
@@ -224,11 +229,9 @@ class SE3:
     def matrix(self):
         """[..., 4, 4] homogeneous matrix."""
         batch = self.q.shape[:-1]
-        T = torch.zeros(batch + (4, 4), dtype=self.q.dtype, device=self.q.device)
-        T[..., :3, :3] = quat_to_matrix(self.q)
-        T[..., :3, 3] = self.t
-        T[..., 3, 3] = 1.0
-        return T
+        bottom = torch.eye(4, dtype=self.q.dtype, device=self.q.device)[3:]
+        top = torch.cat([quat_to_matrix(self.q), self.t[..., None]], dim=-1)
+        return torch.cat([top, bottom.expand(batch + (1, 4))], dim=-2)
 
     def retract(self, xi) -> "SE3":
         """Left-multiplicative update ``Exp(xi) ∘ self``."""
@@ -240,6 +243,10 @@ class SE3:
     # -- tensor plumbing (the JAX package does these with jax.tree.map) --
     def __getitem__(self, idx) -> "SE3":
         return SE3(self.q[idx], self.t[idx])
+
+    def row(self, i) -> "SE3":
+        """``self[i]`` at a 0-d index tensor, without reading it on the host."""
+        return SE3(take_row(self.q, i), take_row(self.t, i))
 
     def unsqueeze(self, dim: int) -> "SE3":
         return SE3(self.q.unsqueeze(dim), self.t.unsqueeze(dim))

@@ -19,6 +19,7 @@ from alvaar_tpu_torch.ops.image import (
     gaussian_blur3,
     sobel_gradients,
 )
+from alvaar_tpu_torch.ops.index import take_row
 from alvaar_tpu_torch.ops.topk import top_k
 
 # cv::cornerMinEigenVal units for 8-bit input (see alvaar_tpu/ops/detect.py)
@@ -143,7 +144,7 @@ def detect_grid(img, existing_xy, existing_valid, *, cell: int, border: int,
     meets = n_eff_r >= 0.9 * empty
     k = torch.where(torch.any(meets), torch.argmax(meets.to(torch.int32)),
                     ladder.shape[0] - 1)
-    valid = valid_r[k]
+    valid = take_row(valid_r, k)
     factor = torch.where(n_eff_r[-1] < 0.33 * empty, 0.5,
                          torch.where(n_eff_r[0] > 0.9 * empty, 1.5, 1.0))
     new_quality = torch.clamp(q0 * factor, 1e-9, 1.0)

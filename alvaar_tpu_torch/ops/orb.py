@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from alvaar_tpu_torch.ops.image import _sep_conv, gather_patches
+from alvaar_tpu_torch.utils.tables import device_table
 
 PATCH_RADIUS = 15
 DESC_BITS = 256
@@ -79,8 +80,8 @@ def _moment_angle(patches):
     """Intensity-centroid angle from [N, 36, 36] patches."""
     lo = _PLO - PATCH_RADIUS
     win = patches[:, lo:lo + 31, lo:lo + 31]
-    mx = torch.as_tensor(_MASK_X, device=patches.device)
-    my = torch.as_tensor(_MASK_Y, device=patches.device)
+    mx = device_table(_MASK_X, patches.device)
+    my = device_table(_MASK_Y, patches.device)
     m10 = torch.sum(win * mx, dim=(1, 2))
     m01 = torch.sum(win * my, dim=(1, 2))
     return torch.atan2(m01, m10)
@@ -110,7 +111,7 @@ def describe(img, xy, valid, *, blur: bool = True):
     abin = torch.floor(torch.remainder(angle, two_pi) / two_pi * NUM_ANGLE_BINS
                        + 0.5).to(torch.int64) % NUM_ANGLE_BINS
 
-    taps = torch.as_tensor(_TAP_LUTS, device=img.device)[abin]     # [N, 256, 2]
+    taps = device_table(_TAP_LUTS, img.device)[abin]               # [N, 256, 2]
     flat = patches.reshape(patches.shape[0], _PSZ * _PSZ)
     flat = flat.to(torch.bfloat16).to(torch.float32)
     v0 = torch.gather(flat, 1, taps[..., 0])

@@ -9,6 +9,7 @@ import dataclasses
 import torch
 
 from alvaar_tpu_torch.geom.lie import SE3
+from alvaar_tpu_torch.ops.index import take_row
 from alvaar_tpu_torch.solvers.p3p import p3p_grunert
 from alvaar_tpu_torch.solvers.ransac import (
     masked_quantile,
@@ -47,9 +48,9 @@ def p3p_lmeds(gen, bearings, points_w, valid, *, focal, iters: int = 100,
     med = masked_quantile(errs, valid[None], 0.5)
     best, _ = select_best_by_median(med, cand_ok)
 
-    tan = torch.tensor(err_px, dtype=bearings.dtype, device=bearings.device) / focal
+    tan = torch.full((), err_px, dtype=bearings.dtype, device=bearings.device) / focal
     thresh = 1.0 - torch.cos(torch.atan(tan))
-    inliers = (errs[best] < thresh) & valid
+    inliers = (take_row(errs, best) < thresh) & valid
     num = torch.sum(inliers)
-    return AbsolutePoseResult(pose_flat[best], inliers, num,
-                              (num >= min_inliers) & cand_ok[best])
+    return AbsolutePoseResult(pose_flat.row(best), inliers, num,
+                              (num >= min_inliers) & take_row(cand_ok, best))

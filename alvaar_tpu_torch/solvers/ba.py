@@ -75,9 +75,12 @@ class _VirtualProblem:
     A1hot: torch.Tensor        # [W, K, W] one-hot anchor slot
     a_const: torch.Tensor      # [W, K]
     a_valid: torch.Tensor      # [W, K]
+    # fx, fy, cx, cy as float32 0-d tensors: under jacfwd a Python float
+    # times a 0-d tensor would promote to float64
+    intr: tuple
 
 
-def _build_virtual(prob: BAProblem) -> _VirtualProblem:
+def _build_virtual(prob: BAProblem, cam: Camera) -> _VirtualProblem:
     W, K = prob.obs_lm.shape
     dev = prob.obs_lm.device
     dt = prob.obs_px.dtype
@@ -101,7 +104,9 @@ def _build_virtual(prob: BAProblem) -> _VirtualProblem:
     return _VirtualProblem(
         poses=prob.poses, kf_valid=prob.kf_valid, constant=prob.constant,
         valid=valid & a_valid, px=prob.obs_px, E=E, is_rep=is_rep, lam_v=lam_v,
-        mxy=mxy, A1hot=A1hot, a_const=a_const, a_valid=a_valid)
+        mxy=mxy, A1hot=A1hot, a_const=a_const, a_valid=a_valid,
+        intr=tuple(torch.full((), v, dtype=dt, device=dev)
+                   for v in (cam.fx, cam.fy, cam.cx, cam.cy)))
 
 
 def _obs_residual(params13, q_o, t_o, q_a, t_a, mxy, lam, px, fx, fy, cx, cy):
@@ -138,12 +143,9 @@ def _residuals_jacobians(vp: _VirtualProblem, poses: SE3, lam_v, cam: Camera):
     W, K = vp.valid.shape
     q_o, t_o, q_a, t_a, lam = _per_obs_inputs(vp, poses, lam_v)
     zero13 = torch.zeros(13, dtype=vp.px.dtype, device=vp.px.device)
-    # intrinsics as float32 tensors: under jacfwd a Python float times a
-    # 0-d tensor would promote to float64
-    intr = tuple(zero13.new_tensor(v) for v in (cam.fx, cam.fy, cam.cx, cam.cy))
 
     def one(q_o, t_o, q_a, t_a, mxy, lam, px):
-        args = (q_o, t_o, q_a, t_a, mxy, lam, px) + intr
+        args = (q_o, t_o, q_a, t_a, mxy, lam, px) + vp.intr
         r, z = _obs_residual(zero13, *args)
         J = torch.func.jacfwd(lambda p: _obs_residual(p, *args)[0])(zero13)
         return r, J, z
@@ -303,7 +305,7 @@ def _lm_phase(vp: _VirtualProblem, cam: Camera, delta_huber, n_iters: int,
         return torch.sum(torch.where(vp.valid, _huber_rho(r2, delta_huber), 0.0))
 
     cost = cost_only(poses, lam_v)
-    lam_lm = torch.tensor(1e-4, dtype=lam_v.dtype, device=lam_v.device)
+    lam_lm = torch.full((), 1e-4, dtype=lam_v.dtype, device=lam_v.device)
     for _ in range(n_iters):
         lin = _linearize(vp, poses, lam_v, cam, delta_huber)
         dc, dl = _solve_lm(vp, lin, lam_lm)
@@ -324,7 +326,7 @@ def local_ba(prob: BAProblem, cam: Camera, *, iters: int = 5,
              chi2_thresh: float = CHI2_THRESH_2DOF) -> BAResult:
     """Huber LM solve, chi²/depth outlier pruning, short L2 re-solve on the
     inliers."""
-    vp =_build_virtual(prob)
+    vp = _build_virtual(prob, cam)
     poses1, lam_v1, _ = _lm_phase(vp, cam, huber_delta, iters, prob.poses, vp.lam_v)
 
     r, z = _residuals_fast(vp, poses1, lam_v1, cam)

@@ -12,11 +12,14 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from alvaar_tpu_torch.geom.lie import SE3, matrix_to_quat
 from alvaar_tpu_torch.geom.triangulation import triangulate_midpoint
+from alvaar_tpu_torch.ops.index import take_row
 from alvaar_tpu_torch.solvers.ransac import minimal_samples
+from alvaar_tpu_torch.utils.tables import device_table
 
 
 @dataclasses.dataclass
@@ -40,7 +43,7 @@ class RelativePoseResult:
 def essential_thresh(err_px: float, focal, like):
     """Angular inlier threshold of the two-view error: twice 1 − cos of
     the angle that ``err_px`` subtends at ``focal``."""
-    tan = torch.tensor(err_px, dtype=like.dtype, device=like.device) / focal
+    tan = torch.full((), err_px, dtype=like.dtype, device=like.device) / focal
     return 2.0 * (1.0 - torch.cos(torch.atan(tan)))
 
 
@@ -52,10 +55,12 @@ def essential_from_8pt(f0, f1):
     Vt = torch.linalg.svd(A, full_matrices=True).Vh
     E = Vt[..., -1, :].reshape(f0.shape[:-2] + (3, 3))
     U, _, Vt2 = torch.linalg.svd(E)
-    S = torch.zeros_like(E)
-    S[..., 0, 0] = 1.0
-    S[..., 1, 1] = 1.0
+    one = torch.ones_like(E[..., 0, 0])
+    S = torch.diag_embed(torch.stack([one, one, torch.zeros_like(one)], dim=-1))
     return U @ S @ Vt2
+
+
+_W_ROT = np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], np.float32)
 
 
 def decompose_essential(E):
@@ -64,7 +69,7 @@ def decompose_essential(E):
     U, _, Vt = torch.linalg.svd(E)
     U = U * torch.sign(torch.linalg.det(U))[..., None, None]
     Vt = Vt * torch.sign(torch.linalg.det(Vt))[..., None, None]
-    W = E.new_tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
+    W = device_table(_W_ROT, E.device).to(E.dtype)
     Ra = U @ W @ Vt
     Rb = U @ W.T @ Vt
     t = U[..., :, 2]
@@ -105,10 +110,10 @@ def refine_relative_pose(pose_01: SE3, inliers, f0, f1, thresh, valid):
     inl0 = (err0 < thresh) & pos0 & valid[None]
     n0 = torch.sum(inl0[0])
 
-    better = (counts[b] >= n0) & well_posed
-    pose = SE3.where(better, cand_01[b], pose_01)
-    return (pose, torch.where(better, inl[b], inl0[0]),
-            torch.where(better, counts[b], n0))
+    better = (take_row(counts, b) >= n0) & well_posed
+    pose = SE3.where(better, cand_01.row(b), pose_01)
+    return (pose, torch.where(better, take_row(inl, b), inl0[0]),
+            torch.where(better, take_row(counts, b), n0))
 
 
 def essential_ransac(gen, f0, f1, valid, *, focal, iters: int = 100,

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from alvaar_tpu_torch.geom.lie import SE3, matrix_to_quat
+from alvaar_tpu_torch.ops.index import take_row
 from alvaar_tpu_torch.ops.topk import top_k
 from alvaar_tpu_torch.solvers.essential import (
     RelativePoseResult,
@@ -32,6 +33,7 @@ from alvaar_tpu_torch.solvers.essential import (
 )
 from alvaar_tpu_torch.solvers.ransac import minimal_samples
 from alvaar_tpu_torch.utils.stats import count
+from alvaar_tpu_torch.utils.tables import device_table
 
 # ---------------------------------------------------------------------------
 # Static monomial algebra tables (numpy, built at import as in JAX)
@@ -107,7 +109,7 @@ def _poly_mul(a, b, gather):
     product a_i·b_j summed into its output monomial, in index order."""
     prod = (a[..., :, None] * b[..., None, :]).flatten(-2)
     prod = torch.cat([prod, torch.zeros_like(prod[..., :1])], dim=-1)
-    g = torch.as_tensor(gather, device=a.device)
+    g = device_table(gather, a.device)
     out = prod[..., g[:, 0]]
     for k in range(1, g.shape[1]):
         out = out + prod[..., g[:, k]]
@@ -321,7 +323,7 @@ def essential_ransac_5pt(gen, f0, f1, valid, *, focal, iters: int = 100,
     best = torch.argmax(counts)
 
     best_pose, inliers, num = refine_relative_pose(
-        pose_01[best], inl[best], f0, f1, thresh, valid)
+        pose_01.row(best), take_row(inl, best), f0, f1, thresh, valid)
     return RelativePoseResult(best_pose, inliers, num, num >= min_inliers)
 
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from alvaar_tpu_torch.geom.lie import SE3, matrix_to_quat
+from alvaar_tpu_torch.ops.index import take_row
 from alvaar_tpu_torch.solvers.essential import (
     RelativePoseResult,
     _score_candidates,
@@ -140,7 +141,7 @@ def homography_ransac(gen, f0, f1, valid, *, focal, iters: int = 100,
     best_h = torch.argmax(h_counts)
 
     # refit on the best inlier set (row-weighted least squares)
-    H_best = homography_from_4pt(x0, x1, weights=h_inl[best_h].to(x0.dtype))
+    H_best = homography_from_4pt(x0, x1, weights=take_row(h_inl, best_h).to(x0.dtype))
     R8, t8, _, ok8 = decompose_homography(H_best)          # [8, ...]
     tn = torch.linalg.norm(t8, dim=-1)
     t8u = t8 / torch.where(tn < 1e-9, 1.0, tn)[..., None]
@@ -151,9 +152,10 @@ def homography_ransac(gen, f0, f1, valid, *, focal, iters: int = 100,
     inl = (err_c < thresh) & posdepth & valid[None]
     counts = torch.where(ok8 & (tn > 1e-6), torch.sum(inl, dim=-1), -1)
     b = torch.argmax(counts)
-    num = torch.sum(inl[b])
-    success = (num >= min_inliers) & (counts[b] > 0)
-    return RelativePoseResult(pose_01[b], inl[b], num, success), h_counts[best_h]
+    num = torch.sum(take_row(inl, b))
+    success = (num >= min_inliers) & (take_row(counts, b) > 0)
+    return (RelativePoseResult(pose_01.row(b), take_row(inl, b), num, success),
+            take_row(h_counts, best_h))
 
 
 homography_ransac.calls = 0

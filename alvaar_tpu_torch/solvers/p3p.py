@@ -19,10 +19,9 @@ def _kabsch(P, X):
     Xc = X.mean(dim=-2, keepdim=True)
     C = torch.einsum("...ni,...nj->...ij", X - Xc, P - Pc)
     U, _, Vt = torch.linalg.svd(C)
-    D = torch.zeros_like(C)
-    D[..., 0, 0] = 1.0
-    D[..., 1, 1] = 1.0
-    D[..., 2, 2] = torch.linalg.det(U @ Vt)
+    det = torch.linalg.det(U @ Vt)
+    one = torch.ones_like(det)
+    D = torch.diag_embed(torch.stack([one, one, det], dim=-1))
     R = U @ D @ Vt
     t = Xc[..., 0, :] - (R @ Pc[..., 0, :, None])[..., 0]
     return R, t

@@ -106,7 +106,7 @@ def _lm_solve(pose0: SE3, cam: Camera, points_w, px_obs, weights_fixed, *,
         return H + lam * torch.diag(torch.diagonal(H)).clamp_min(1e-8) + 1e-9 * eye6
 
     H_b, g_b, cost_best = linearize(pose0)
-    lam = torch.tensor(1e-3, dtype=points_w.dtype, device=points_w.device)
+    lam = torch.full((), 1e-3, dtype=points_w.dtype, device=points_w.device)
     pose_best = pose0
     pose_trial = pose0.retract(-_chol_solve6(damped(H_b, lam), g_b))
     for _ in range(iters):

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from alvaar_tpu_torch.ops.index import take_row
+
 
 def uniform_draw(gen: torch.Generator, num_hyp: int, n: int, device):
     """The uniform draw [num_hyp, n] behind ``num_hyp`` minimal samples
@@ -64,4 +66,4 @@ def select_best_by_median(medians, cand_valid):
     """argmin of LMedS scores with a validity mask."""
     m = torch.where(cand_valid, medians, torch.inf)
     i = torch.argmin(m)
-    return i, m[i]
+    return i, take_row(m, i)

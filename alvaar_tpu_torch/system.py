@@ -9,10 +9,13 @@ loop closure (``enable_loop_closure``) with ``relocalize``; ``reset``.
 Status codes are the reference's (1 = tracking → pose returned; 2 =
 reset → None; 3 = initializing → None).
 
-The map state stays on the device across calls; each frame costs one
-upload and one small packed readback (status, pose, counts), plus the
-host syncs of the data-dependent branches in the step
-(``host_bool.syncs`` counts them).
+The map state stays on the device across calls.  A frame goes up through
+a pinned buffer without a wait; on a tracking frame the host then reads
+twice, both small packed copies behind CUDA events: the step's flags
+(``frontend/step.complete_step``) and the result (status, pose, counts).
+``find_camera_pose_async`` defers both to the next call or to the first
+read of its result; keyframe frames add the pipeline's own reads
+(``host_bool.syncs`` counts every read).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 
 from alvaar_tpu_torch.config import SlamConfig
-from alvaar_tpu_torch.frontend.step import slam_step
+from alvaar_tpu_torch.frontend.step import PendingStep, complete_step, dispatch_step
 from alvaar_tpu_torch.geom.camera import Camera
 from alvaar_tpu_torch.geom.lie import SE3, matrix_to_quat, quat_conj, quat_to_matrix
 from alvaar_tpu_torch.io import checkpoint
@@ -33,7 +36,8 @@ from alvaar_tpu_torch.ops.detect import detect_grid
 from alvaar_tpu_torch.ops.image import rgba_to_gray
 from alvaar_tpu_torch.ops.orb import describe
 from alvaar_tpu_torch.solvers.plane import find_plane_ransac
-from alvaar_tpu_torch.worldmap.state import apply_world_correction, init_map_state
+from alvaar_tpu_torch.utils.pinned import ReadRing, UploadRing
+from alvaar_tpu_torch.worldmap.state import MapState, apply_world_correction, init_map_state
 
 
 def pose_to_array(T_wc: np.ndarray) -> np.ndarray:
@@ -54,30 +58,28 @@ def pose_to_three(T_wc: np.ndarray) -> tuple:
 class PendingResult:
     """Deferred per-frame result of :meth:`AlvaAR.find_camera_pose_async`.
 
-    Holds the step's device outputs.  On CUDA the packed 20-float result
-    [status, pose (16, row-major), num_tracked, num_3d, is_keyframe] starts
-    its copy into pinned host memory at once, behind a CUDA event; reading
-    any property waits for that event only."""
+    Made when the frame's track work is dispatched.  The first read of any
+    property completes the frame if it is still pending (its packed read,
+    then the keyframe pipeline, status and reset: ``complete_step``), then
+    waits for the packed 20-float result [status, pose (16, row-major),
+    num_tracked, num_3d, is_keyframe], whose copy into a reused pinned
+    buffer started behind a CUDA event when the frame completed."""
 
-    __slots__ = ("_packed", "_points", "_points_valid", "_host", "_event", "_np")
+    __slots__ = ("_complete", "_read", "_points", "_points_valid", "_np")
 
-    def __init__(self, packed, points, points_valid):
-        self._packed, self._points, self._points_valid = packed, points, points_valid
-        self._np = None
-        self._host = self._event = None
-        if packed.is_cuda:
-            self._host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-            self._host.copy_(packed, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
+    def __init__(self, complete):
+        self._complete = complete      # the facade's completion of this frame
+        self._read = self._points = self._points_valid = self._np = None
+
+    def _finish(self, read, points, points_valid) -> None:
+        self._read, self._points, self._points_valid = read, points, points_valid
+        self._complete = None
 
     def _sync(self) -> np.ndarray:
         if self._np is None:
-            if self._event is not None:
-                self._event.synchronize()
-                self._np = self._host.numpy()
-            else:
-                self._np = self._packed.numpy()
+            if self._read is None:
+                self._complete()
+            self._np = self._read.get()
         return self._np
 
     @property
@@ -105,6 +107,7 @@ class PendingResult:
         return bool(self._sync()[19] > 0.5)
 
     def frame_points(self) -> np.ndarray:
+        self._sync()
         pts = self._points.cpu().numpy()
         return pts[self._points_valid.cpu().numpy()].astype(np.int32)
 
@@ -123,7 +126,10 @@ class AlvaAR:
     port never moves to the CPU on its own.  Tests pass ``device="cpu"``.
     ``enable_loop_closure`` keeps a ring database of ``loop_db_capacity``
     keyframes; keyframes younger than ``max(loop_delay, window_size)`` are
-    not loop candidates (they are still inside the local BA window)."""
+    not loop candidates (they are still inside the local BA window).
+
+    ``state`` is the map; reading or assigning it completes a frame that
+    ``find_camera_pose_async`` left pending."""
 
     def __init__(self, width: int, height: int, fov: float = 45.0,
                  config: Optional[SlamConfig] = None, device="cuda",
@@ -140,7 +146,11 @@ class AlvaAR:
         torch.backends.cudnn.allow_tf32 = False
         self.config = cfg
         self.camera = camera if camera is not None else Camera.from_fov(width, height, fov)
-        self.state = init_map_state(cfg, self.device)
+        self._state = init_map_state(cfg, self.device)
+        self._pending: Optional[tuple] = None      # (PendingStep, PendingResult)
+        self._flags = ReadRing()                   # the step's packed flags
+        self._results = ReadRing(slots=4)          # the packed results
+        self._frames = UploadRing(self.device)
         self._last_out: Optional[PendingResult] = None
         self._last_ts: Optional[float] = None
         # IMU fusion accumulators
@@ -155,6 +165,16 @@ class AlvaAR:
         if enable_loop_closure:
             self.loop_db = detector.db_init(loop_db_capacity, cfg.max_keypoints, self.device)
 
+    @property
+    def state(self) -> MapState:
+        self._complete()
+        return self._state
+
+    @state.setter
+    def state(self, value: MapState) -> None:
+        self._complete()
+        self._state = value
+
     # ------------------------------------------------------------------
     def _dt(self, timestamp: Optional[float]) -> float:
         if timestamp is None:
@@ -165,43 +185,64 @@ class AlvaAR:
         return dt if dt > 0 else 1.0
 
     def _upload(self, frames):
-        """Frame(s) to the device; float64 goes up as float32, as JAX does
-        without x64."""
+        """Frame(s) to the device through pinned buffers, without waiting
+        for the card; float64 goes up as float32, as JAX does without x64."""
         f = np.asarray(frames)
         if f.dtype == np.float64:
             f = f.astype(np.float32)
-        return torch.as_tensor(f).to(self.device)
+        return self._frames.upload(f)
 
-    def _step(self, frame, dt: float):
+    def _dispatch_step(self, frame, dt: float) -> PendingStep:
         gray = rgba_to_gray(frame) if frame.ndim == 3 else frame.to(torch.float32)
-        self.state, out = slam_step(self.state, gray, self.camera, self.config, dt)
-        return out
+        return dispatch_step(self._state, gray, self.camera, self.config, dt, ring=self._flags)
 
-    def _dispatch(self, frame, timestamp) -> PendingResult:
-        out = self._step(self._upload(frame), self._dt(timestamp))
+    def _complete(self) -> None:
+        """Complete the pending frame, if any, and start its result's read."""
+        if self._pending is None:
+            return
+        step, res = self._pending
+        self._pending = None
+        self._state, out = complete_step(step)
         packed = torch.cat([
             out.status.reshape(1).to(torch.float32), out.pose_wc.reshape(-1),
             out.num_tracked.reshape(1).to(torch.float32),
             out.num_3d.reshape(1).to(torch.float32),
             out.is_keyframe.reshape(1).to(torch.float32)])
-        self._last_out = PendingResult(packed, out.points, out.points_valid)
+        res._finish(self._results.start(packed), out.points, out.points_valid)
+
+    def _dispatch(self, frame, timestamp) -> PendingResult:
+        """Complete the previous frame, then dispatch this one's track work."""
+        self._complete()
+        step = self._dispatch_step(self._upload(frame), self._dt(timestamp))
+        self._last_out = PendingResult(self._complete)
+        self._pending = (step, self._last_out)
         return self._last_out
 
     def find_camera_pose(self, frame, timestamp: Optional[float] = None
                          ) -> Optional[np.ndarray]:
         """Run one SLAM iteration on a [H, W] gray or [H, W, 4] RGBA frame.
         Returns the 4x4 camera-to-world pose when tracking (status 1),
-        else None.  ``timestamp`` (seconds) scales the motion prior."""
+        else None.  ``timestamp`` (seconds) scales the motion prior.  On a
+        tracking frame the host waits twice: for the step's packed flags
+        and for the packed result."""
         res = self._dispatch(frame, timestamp)
         self._loop_closure_hooks(res)
         return res.pose
 
     def find_camera_pose_async(self, frame, timestamp: Optional[float] = None
                                ) -> PendingResult:
-        """One SLAM iteration whose result is read later (see
-        :class:`PendingResult`).  The step's own branches still sync the
-        host several times per frame, and with loop closure on the
-        keyframe flag is read every frame."""
+        """Dispatch one SLAM iteration without waiting for its result.
+
+        Completes the previous frame first, if it is still pending (on a
+        tracking frame one read, of flags the card has usually produced by
+        then, and the keyframe pipeline when that frame asked for one),
+        uploads this frame, dispatches its track work and returns a
+        :class:`PendingResult`: nothing in the call waits for this frame.
+        Reading the result completes the frame.  The order of the device
+        work is that of :meth:`find_camera_pose`, so results are bit-equal
+        to it.  With loop closure on, keyframe bookkeeping needs the status
+        and keyframe flag every frame, which makes this equivalent to the
+        synchronous call."""
         res = self._dispatch(frame, timestamp)
         self._loop_closure_hooks(res)
         return res
@@ -210,7 +251,16 @@ class AlvaAR:
         """SLAM over a sequence: [N, H, W] gray or [N, H, W, 4] RGBA frames
         (or a list), staged to the device ``chunk`` frames at a time.
         Returns (statuses [N] int32, poses [N, 4, 4] float32); pose rows
-        are meaningful where the status is 1."""
+        are meaningful where the status is 1.
+
+        Each frame is ``dispatch_step`` then ``complete_step``; statuses and
+        poses stay on the device and come back in one read at the end, as
+        the JAX package reads its chunks' outputs after the last chunk.
+        Where the JAX package's ``lax.scan`` branches on the device, eager
+        torch branches on the host: a tracking frame still makes one read,
+        of its packed flags (a CUDA graph's conditional nodes could take
+        it onto the card)."""
+        self._complete()
         frames = np.asarray(frames)
         n = frames.shape[0]
         if timestamps is None:
@@ -220,16 +270,17 @@ class AlvaAR:
             dts = np.concatenate([[1.0], np.diff(ts)]).astype(np.float32)
             dts[dts <= 0] = 1.0
             self._last_ts = float(ts[-1])
-        statuses, poses = [], []
+        outs = []
         for lo in range(0, n, chunk):
             block = self._upload(frames[lo:lo + chunk])
             for j in range(block.shape[0]):
-                out = self._step(block[j], float(dts[lo + j]))
-                statuses.append(out.status)
-                poses.append(out.pose_wc)
+                self._state, out = complete_step(self._dispatch_step(block[j],
+                                                                     float(dts[lo + j])))
+                outs.append(torch.cat([out.status.reshape(1).to(torch.float32),
+                                       out.pose_wc.reshape(-1)]))
         self._last_out = None
-        return (torch.stack(statuses).to(torch.int32).cpu().numpy(),
-                torch.stack(poses).cpu().numpy())
+        host = torch.stack(outs).cpu().numpy()
+        return host[:, 0].astype(np.int32), host[:, 1:].reshape(n, 4, 4)
 
     @property
     def last_status(self) -> int:

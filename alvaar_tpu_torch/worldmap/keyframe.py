@@ -17,9 +17,11 @@ import torch
 
 from alvaar_tpu_torch.config import SlamConfig
 from alvaar_tpu_torch.geom.camera import Camera
+from alvaar_tpu_torch.geom.lie import SE3
 from alvaar_tpu_torch.geom.triangulation import triangulate_midpoint
 from alvaar_tpu_torch.ops.detect import detect_grid
 from alvaar_tpu_torch.ops.hamming import popcount_words
+from alvaar_tpu_torch.ops.index import put_col, put_row, take_col, take_row
 from alvaar_tpu_torch.ops.orb import describe
 from alvaar_tpu_torch.solvers.ba import BAProblem, local_ba
 from alvaar_tpu_torch.utils.stats import count
@@ -70,31 +72,24 @@ def evict_and_write_keyframe(state: MapState, cfg: SlamConfig) -> MapState:
     keypoints as its observations."""
     W = cfg.window_size
     slot = state.next_kf_id % W
-    lm_obs = state.lm_obs.clone()     # in-place column updates on a copy
-    lm_obs[:, slot] = False
+    lm_obs = put_col(state.lm_obs, slot, False)
     bound = _lm_bound_in_frame(state)
     n_obs = torch.sum(lm_obs & state.kf_valid[None, :], dim=1)
     lm_valid = state.lm_valid & ((n_obs > 0) | bound)
 
-    kf_pose = state.kf_pose.clone()
-    kf_pose.q[slot] = state.pose.q
-    kf_pose.t[slot] = state.pose.t
-    kf_valid = state.kf_valid.clone()
-    kf_valid[slot] = True
-    kf_id = state.kf_id.clone()
-    kf_id[slot] = state.next_kf_id
+    kf_pose = SE3(put_row(state.kf_pose.q, slot, state.pose.q),
+                  put_row(state.kf_pose.t, slot, state.pose.t))
+    kf_valid = put_row(state.kf_valid, slot, True)
+    kf_id = put_row(state.kf_id, slot, state.next_kf_id)
 
     obs_ok = state.kp_valid & lm_valid[state.kp_lm]
-    kf_obs_lm = state.kf_obs_lm.clone()
-    kf_obs_lm[slot] = state.kp_lm
-    kf_obs_px = state.kf_obs_px.clone()
-    kf_obs_px[slot] = state.kp_und
-    kf_obs_valid = state.kf_obs_valid.clone()
-    kf_obs_valid[slot] = obs_ok
+    kf_obs_lm = put_row(state.kf_obs_lm, slot, state.kp_lm)
+    kf_obs_px = put_row(state.kf_obs_px, slot, state.kp_und)
+    kf_obs_valid = put_row(state.kf_obs_valid, slot, obs_ok)
     # lm_obs[kp_lm, slot] |= obs_ok (OR-scatter into the slot's column)
-    col = lm_obs[:, slot].to(torch.int64).scatter_reduce(
+    col = take_col(lm_obs, slot).to(torch.int64).scatter_reduce(
         0, state.kp_lm, obs_ok.to(torch.int64), reduce="amax")
-    lm_obs[:, slot] = col.to(torch.bool)
+    lm_obs = put_col(lm_obs, slot, col.to(torch.bool))
 
     return state.replace(
         lm_obs=lm_obs, lm_valid=lm_valid, kf_pose=kf_pose, kf_valid=kf_valid,
@@ -172,12 +167,10 @@ def describe_and_detect(state: MapState, pyr, cam: Camera,
     W = state.lm_obs.shape[1]
     fresh_rows = (torch.arange(W, device=ok.device) == slot)[None, :].expand(ok.shape[0], W)
 
-    kf_obs_lm = state.kf_obs_lm.clone()
-    kf_obs_lm[slot] = masked_scatter_set(state.kf_obs_lm[slot], kp_slot, lm_slot, ok)
-    kf_obs_px = state.kf_obs_px.clone()
-    kf_obs_px[slot] = masked_scatter_set(state.kf_obs_px[slot], kp_slot, und, ok)
-    kf_obs_valid = state.kf_obs_valid.clone()
-    kf_obs_valid[slot] = masked_scatter_set(state.kf_obs_valid[slot], kp_slot, ones, ok)
+    at_slot = lambda x, v: put_row(x, slot, masked_scatter_set(take_row(x, slot), kp_slot, v, ok))
+    kf_obs_lm = at_slot(state.kf_obs_lm, lm_slot)
+    kf_obs_px = at_slot(state.kf_obs_px, und)
+    kf_obs_valid = at_slot(state.kf_obs_valid, ones)
 
     return state.replace(
         kp_px=masked_scatter_set(state.kp_px, kp_slot, det.xy, ok),
@@ -203,8 +196,8 @@ def triangulate_temporal(state: MapState, cam: Camera, cfg: SlamConfig) -> MapSt
     slot = state.cur_kf_slot
     K = state.kp_lm.shape[0]
     kr = torch.arange(K, device=state.kp_lm.device)
-    lm = state.kf_obs_lm[slot]
-    obs_ok = state.kf_obs_valid[slot]
+    lm = take_row(state.kf_obs_lm, slot)
+    obs_ok = take_row(state.kf_obs_valid, slot)
 
     first_w, has_other = _oldest_observer(state, exclude_slot=slot)
     w_i = first_w[lm]
@@ -215,7 +208,7 @@ def triangulate_temporal(state: MapState, cam: Camera, cfg: SlamConfig) -> MapSt
     T_i = state.kf_pose[w_i]
     T_ij = T_i.compose(state.pose.inverse())
     px_i = state.kf_obs_px[w_i, kr]
-    px_j = state.kf_obs_px[slot]
+    px_j = take_row(state.kf_obs_px, slot)
     f_i = cam.bearing(px_i)
     f_j = cam.bearing(px_j)
     X_i = triangulate_midpoint(T_ij, f_i, f_j)
@@ -233,12 +226,10 @@ def triangulate_temporal(state: MapState, cam: Camera, cfg: SlamConfig) -> MapSt
     z_safe = torch.where(z_i > 1e-3, z_i, 1.0)
     lm_is3d = state.lm_is3d.to(torch.int64).scatter_reduce(
         0, lm, good.to(torch.int64), reduce="amax").to(torch.bool)
-    kf_obs_valid = state.kf_obs_valid.clone()
-    kf_obs_valid[slot] = state.kf_obs_valid[slot] & ~drop
-    lm_obs = state.lm_obs.clone()
-    col = lm_obs[:, slot].to(torch.int64).scatter_reduce(
+    kf_obs_valid = put_row(state.kf_obs_valid, slot, obs_ok & ~drop)
+    col = take_col(state.lm_obs, slot).to(torch.int64).scatter_reduce(
         0, lm, (~drop).to(torch.int64), reduce="amin")
-    lm_obs[:, slot] = col.to(torch.bool)
+    lm_obs = put_col(state.lm_obs, slot, col.to(torch.bool))
     return state.replace(
         lm_pos=masked_scatter_set(state.lm_pos, lm, X_w, good),
         lm_is3d=lm_is3d,
@@ -255,17 +246,17 @@ def refine_landmark_depths(state: MapState, cam: Camera, cfg: SlamConfig) -> Map
     slot = state.cur_kf_slot
     K = state.kp_lm.shape[0]
     kr = torch.arange(K, device=state.kp_lm.device)
-    lm = state.kf_obs_lm[slot]
-    obs_ok = state.kf_obs_valid[slot] & state.lm_valid[lm] & state.lm_is3d[lm]
+    lm = take_row(state.kf_obs_lm, slot)
+    obs_ok = take_row(state.kf_obs_valid, slot) & state.lm_valid[lm] & state.lm_is3d[lm]
     a = state.lm_anchor[lm].clamp(0, state.kf_valid.shape[0] - 1)
     same = (state.kf_obs_lm[a, kr] == lm) & state.kf_obs_valid[a, kr]
     cand = obs_ok & same & (a != slot) & state.kf_valid[a]
 
     T_a = state.kf_pose[a]
-    T_j = state.kf_pose[slot]
+    T_j = state.kf_pose.row(slot)
     T_aj = T_a.compose(T_j.inverse())
     px_a = state.kf_obs_px[a, kr]
-    px_j = state.kf_obs_px[slot]
+    px_j = take_row(state.kf_obs_px, slot)
     f_a = cam.bearing(px_a)
     f_j = cam.bearing(px_j)
     X_a = triangulate_midpoint(T_aj, f_a, f_j)
@@ -276,7 +267,7 @@ def refine_landmark_depths(state: MapState, cam: Camera, cfg: SlamConfig) -> Map
     e_cur = (torch.linalg.norm(cam.project(T_a.apply(Xw)) - px_a, dim=-1)
              + torch.linalg.norm(cam.project(T_j.apply(Xw)) - px_j, dim=-1))
     cosang = torch.sum(f_a * T_aj.rotate(f_j), dim=-1)
-    cos1 = torch.cos(torch.deg2rad(torch.tensor(1.0, device=lm.device)))
+    cos1 = torch.cos(torch.deg2rad(torch.ones((), device=lm.device)))
     good = (cand & (X_a[..., 2] > 0.1) & (X_j[..., 2] > 0.1)
             & (cosang < cos1) & (e_new < e_cur))
     return state.replace(lm_pos=masked_scatter_set(
@@ -287,15 +278,15 @@ def build_ba_problem(state: MapState, cfg: SlamConfig) -> BAProblem:
     """The window's BA problem.  Low-covisibility keyframes are constant,
     the oldest live one always, the second-oldest once ≥ 3 are live."""
     slot = state.cur_kf_slot
-    score = covisibility(state)[:, slot]
+    score = take_col(covisibility(state), slot)
     constant = (score < cfg.ba_min_covisibility) & state.kf_valid
     ids = torch.where(state.kf_valid, state.kf_id, _INT_MAX)
     order = torch.argsort(ids, stable=True)
     n_live = torch.sum(state.kf_valid)
-    constant = constant.clone()
-    constant[order[0]] = True
-    constant[order[1]] = torch.where(n_live >= 3, True, constant[order[1]])
-    constant = constant | ~state.kf_valid
+    W = constant.shape[0]
+    rank = torch.arange(W, device=constant.device)
+    constant = (constant | (rank == order[0])
+                | ((rank == order[1]) & (n_live >= 3)) | ~state.kf_valid)
 
     obs_lm = state.kf_obs_lm
     ba_obs = state.kf_obs_valid & state.lm_valid[obs_lm] & state.lm_is3d[obs_lm]
@@ -331,7 +322,7 @@ def run_local_ba(state: MapState, cam: Camera, cfg: SlamConfig) -> MapState:
         kf_pose=res.poses, lm_invd=res.invdepth, lm_pos=lm_pos,
         kf_obs_valid=state.kf_obs_valid & ~remove, lm_obs=lm_obs,
         lm_valid=state.lm_valid & ~(state.lm_is3d & (n_obs < 2) & ~bound),
-        pose=res.poses[slot])
+        pose=res.poses.row(slot))
 
 
 def filter_redundant_keyframes(state: MapState, cfg: SlamConfig) -> MapState:

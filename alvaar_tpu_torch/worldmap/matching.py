@@ -11,12 +11,14 @@ overlap), then masked selection and vectorized merge scatters.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from alvaar_tpu_torch.config import SlamConfig
 from alvaar_tpu_torch.geom.camera import Camera
 from alvaar_tpu_torch.ops.hamming import hamming_min_crossbag
 from alvaar_tpu_torch.ops.topk import top_k
+from alvaar_tpu_torch.ops.index import take_col
 from alvaar_tpu_torch.worldmap.state import MapState, masked_scatter_set
 
 MAX_PROJ_PX = 2.0
@@ -33,13 +35,15 @@ def match_to_local_map(state: MapState, cam: Camera, cfg: SlamConfig) -> MapStat
     kp_young = state.lm_valid[kp_lm] & state.kp_valid
 
     # ---- candidate old landmarks: valid, 3D, not observed by this kf ----
-    cand = state.lm_valid & state.lm_is3d & ~state.lm_obs[:, slot]
+    cand = state.lm_valid & state.lm_is3d & ~take_col(state.lm_obs, slot)
     Xc = state.pose.apply(state.lm_pos)
     z = Xc[:, 2]
     view_cos = z / torch.linalg.norm(Xc, dim=-1).clamp_min(1e-9)
-    fov = torch.tensor([0.5 * cfg.width, 0.5 * cfg.height], dtype=torch.float32,
-                       device=dev) / Xc.new_tensor([cam.fx, cam.fy])
-    view_th = torch.cos(torch.atan(torch.max(fov)))
+    # the half-FOV tangent in float32 on the host (IEEE division, as on the
+    # device): a tensor built from host data would wait for the card
+    fov = max(np.float32(0.5 * cfg.width) / np.float32(cam.fx),
+              np.float32(0.5 * cfg.height) / np.float32(cam.fy))
+    view_th = torch.cos(torch.atan(torch.full((), float(fov), dtype=Xc.dtype, device=dev)))
     proj = cam.project_dist(Xc)
     in_img = cam.in_roi(proj, cfg.width, cfg.height, border=1)
     cand = cand & (z > 0.1) & (torch.abs(view_cos) >= view_th) & in_img

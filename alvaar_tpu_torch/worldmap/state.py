@@ -80,6 +80,10 @@ class MapState:
     kf_pending: torch.Tensor
     detect_quality: torch.Tensor
     rng: torch.Generator
+    # not a field: the next frame's branch, which the single-stream step
+    # leaves on the state it returns (frontend/step.py ``Branch``); a state
+    # made any other way, ``replace`` included, has none
+    next_branch = None
 
     def replace(self, **changes) -> "MapState":
         return dataclasses.replace(self, **changes)

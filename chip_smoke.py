@@ -42,8 +42,14 @@ Phases, each printed on its own lines:
    most 1.176 cm (the worst of the reference's 10 runs); the 5-point and
    the homography RANSAC must each have run; every frame at status 1
    launched the KLT kernel exactly twice through ``fb_klt_track`` and
-   none through ``klt_pyramidal`` or ``lk_level``; at most 6 host syncs per
-   frame at the median.  Then the bootstrap solvers' and CLAHE's times at
+   none through ``klt_pyramidal`` or ``lk_level``; statuses and poses
+   bit-equal to those of the port of commit 26d2929 (``PARENT_DIGESTS``);
+   host reads per tracking frame at most 2 at the median (the step's
+   packed flags and the packed result); frames 100-107 run under
+   ``torch.profiler``: at most 2 host waits for the card (stream, event
+   and device syncs) in a tracking frame, the keyframe frames' printed;
+   the two constants the keyframe path now makes on the host equal to the
+   card's arithmetic.  Then the bootstrap solvers' and CLAHE's times at
    their main-path shapes.  The run is also scored by the port's own
    ``utils/parity.py``: ``sim3_align_ate`` equal to the ATE above to 1e-9
    cm, and ``ate_vs_reference`` against the reference runs (the JAX
@@ -56,9 +62,15 @@ Phases, each printed on its own lines:
    track golden frames 120-139 at status 1; ``find_plane``;
    ``find_plane_ransac`` on a 2048-point tabletop cloud (normal within 5°
    of +z, timed); ``find_camera_pose_with_imu`` (the mirrored quaternion's
-   rotation to 1e-6); ``find_camera_pose_async`` with
-   ``PendingResult.drain`` against the synchronous path from the same
-   checkpoint (statuses equal, poses within 1e-4);
+   rotation to 1e-6); from the same checkpoint, ``find_camera_pose_async``
+   with ``PendingResult.drain``, ``find_camera_pose_async`` read one frame
+   late (at most 1 host wait inside a call that completes a tracking
+   frame, under the profiler) and ``process_frames``, each bit-equal to
+   the synchronous path; frames/s of ``find_camera_pose`` and of
+   ``find_camera_pose_async`` over golden frames 0-59 with the next
+   frame rendered on the host between calls (both bit-equal to phase 3);
+   ``entry()`` once on the card (the first frame: status 3, a keyframe at
+   the identity);
 5. loop closure: (a) a full 256-keyframe x 192-descriptor database,
    ``detect_loop`` finding the revisited entry, ``relocalize_topk``, their
    times and peak device memory; (b) the 89-frame 320x240 out-and-back of
@@ -72,7 +84,7 @@ Phases, each printed on its own lines:
    (``keyframe_phase`` per row, then ``write_rows``), timed in turns
    (rows, batched, batched, rows) and held to tests/test_torch_subbatch.py's
    bars; at S = 3 both under ``torch.profiler`` (kernels launched, device
-   time, host stream syncs); the ops, if any, that fell back to a per-row
+   time, host waits); the ops, if any, that fell back to a per-row
    loop under ``vmap``;
 6. multi-stream serving (parallel/multistream.py): 16 streams at 640x480
    under the default config with 3 keyframe slots, stream b on golden
@@ -150,15 +162,17 @@ Phases, each printed on its own lines:
 9. BASELINE configuration 4, ``SlamConfig(max_landmarks=10240)``: (a)
    ``local_ba`` alone on the JAX bench's problem (W = 30, K = 192,
    observations 60% valid, the first two poses constant, seed 0), device ms
-   per call by CUDA events, kernels and stream syncs per call under
-   ``torch.profiler``, peak device memory; poses, inverse depths and cost
+   per call by CUDA events, kernels and host waits per call under
+   ``torch.profiler``, peak device memory, and its host waits at 3, 5 and
+   10 LM iterations, equal and at most 4; poses, inverse depths and cost
    finite, the constant poses' translations unchanged bit for bit and
    their quaternions to 2.4e-7 (the solver renormalises them); (b) the
    phase-3 golden sequence through ``AlvaAR.find_camera_pose`` at that
    pool, held to phase 3's bars, with the live landmarks and the pool's
    high-water mark per frame, the trajectory's difference from phase 3's,
    and its keyframe and tracking frames' ms in turns with a run at the
-   default pool (10240, 4096, 10240 landmarks) and beside phase 3's;
+   default pool (10240, 4096, 10240 landmarks, over frames 0-63) and
+   beside phase 3's;
 10. the port's bench (alvaar_tpu_torch/bench.py): first
    ``masked_scatter_set`` on the card against a serial loop at local BA's
    write-back size, 3 rows under ``vmap`` and one alone, with about 11
@@ -184,11 +198,12 @@ Phases, each printed on its own lines:
    shapes runs in phase 2): ``AlvaAR(640, 480, fov=60.0, config=preset)`` over the 120
    golden frames, held to the JAX package's run on the CPU on the same
    frames (``JAX_PRESET_BARS``: frames at status 1 within 5, the first
-   within 3 frames, no more resets, ATE at most 1.5x), exactly 2 KLT
-   launches per status-1 frame, host syncs at most 6 per frame at the
-   median; ``local_ba`` on the run's first steady keyframe's problem, by
-   CUDA events and under the profiler (FAST's at 3 iterations, ACCURATE's
-   at 3, 5 and 10); (b) the five examples (alvaar_tpu_torch/examples/),
+   within 3 frames, no more resets, ATE at most 1.5x), bit-equal to the
+   port of commit 26d2929's runs, exactly 2 KLT launches per status-1
+   frame, host reads per tracking frame at most 2 at the median;
+   ``local_ba`` on the run's first steady keyframe's problem, by CUDA
+   events and under the profiler (FAST's at 3 iterations, ACCURATE's at 3,
+   5 and 10, its host waits equal at the three and at most 4); (b) the five examples (alvaar_tpu_torch/examples/),
    each through its ``main`` in this process on the card: ``demo 60``,
    ``imu_demo --frames 60`` and ``live_client --serve --source synthetic
    --frames 60`` held to the JAX examples' runs on the CPU (frames at
@@ -691,15 +706,19 @@ def _batched_shape(f_prev, f_cur, cfg, card, bit_equal_bar=False):
     return row
 
 
-def _drive(slam, frames, tag, after=None):
+def _drive(slam, frames, tag, after=None, profile=()):
     """``find_camera_pose`` over ``frames``, synchronised around each
     frame, then ``after(slam)`` outside the timed and counted part.
     Returns per-frame lists: statuses, poses, ms, KLT kernel launches, host
-    syncs, keyframe flags, and the bootstrap's kept model (None, or True
-    where the homography won).  Every frame at status 1
-    must have launched the fused KLT kernel exactly twice (stage 1 and the
-    full-width stage 2), and no frame launched it through ``klt_pyramidal``
-    or the one-pass ``lk_level``."""
+    reads (``host_bool.syncs``, plus one for the packed result), keyframe
+    flags, and the bootstrap's kept model (None, or True where the
+    homography won); and for the frames in ``profile``, each run under
+    ``torch.profiler`` (``_profile_counts``; their ms are None), (frame,
+    status, keyframe, host waits, kernels, device busy share) under
+    "prof".  Every frame at
+    status 1 must have launched the fused KLT kernel exactly twice (stage 1
+    and the full-width stage 2), and no frame launched it through
+    ``klt_pyramidal`` or the one-pass ``lk_level``."""
     import torch
     from alvaar_tpu_torch.frontend.step import _try_essential
     from alvaar_tpu_torch.ops.klt import fb_klt_track, klt_pyramidal
@@ -707,15 +726,23 @@ def _drive(slam, frames, tag, after=None):
     from alvaar_tpu_torch.solvers.homography import homography_ransac
     from alvaar_tpu_torch.worldmap.keyframe import host_bool
 
-    run = {k: [] for k in ("status", "pose", "ms", "launches", "syncs", "kf", "use_h")}
-    for frame in frames:
+    run = {k: [] for k in ("status", "pose", "ms", "launches", "syncs", "kf", "use_h", "prof")}
+    for i, frame in enumerate(frames):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         l0, s0, h0 = fb_klt_track.launches, host_bool.syncs, homography_ransac.calls
         p0 = lk_level.launches + klt_pyramidal.launches
-        T = slam.find_camera_pose(frame)
+        if i in profile:
+            got = []
+            kernels, device_ms, waits, wall = _profile_counts(
+                lambda: got.append(slam.find_camera_pose(frame)))
+            T = got[0]
+            run["prof"].append((i, slam.last_status, slam.last_is_keyframe, waits, kernels,
+                                device_ms / wall))
+        else:
+            T = slam.find_camera_pose(frame)
         torch.cuda.synchronize()
-        run["ms"].append((time.perf_counter() - t0) * 1e3)
+        run["ms"].append(None if i in profile else (time.perf_counter() - t0) * 1e3)
         run["launches"].append(fb_klt_track.launches - l0)
         _check(lk_level.launches + klt_pyramidal.launches == p0,
                f"[{tag}] a KLT launch outside fb_klt_track on the main path")
@@ -731,13 +758,31 @@ def _drive(slam, frames, tag, after=None):
     tracked = [i for i, x in enumerate(st) if x == 1]
     _check(all(run["launches"][i] == 2 for i in tracked),
            f"[{tag}] a frame at status 1 did not launch the KLT kernel exactly twice")
-    print(f"[{tag}] statuses {''.join(str(x) for x in st)}")
+    print(f"[{tag}] statuses {''.join(str(x) for x in st)}; digest of statuses and poses "
+          f"{_run_digest(run)}")
     print(f"[{tag}] first status 1 at frame {tracked[0] if tracked else None}, "
           f"{len(tracked)}/{len(st)} at status 1, {st.count(2)} resets, KLT launches "
           f"{sum(run['launches'])} ({statistics.median(run['launches'])} per frame; "
           f"{statistics.median([run['launches'][i] for i in tracked]) if tracked else 0} per "
           f"tracking frame), host syncs per frame median {statistics.median(run['syncs'])}")
     return run
+
+
+def _run_digest(run) -> str:
+    """SHA-256 of a run's statuses (int32) and poses (float32 4x4, zeros
+    where the frame gave none), the first 16 hex digits: equal runs, bit
+    for bit, have equal digests."""
+    import hashlib
+    poses = np.stack([np.zeros((4, 4), np.float32) if T is None else np.asarray(T, np.float32)
+                      for T in run["pose"]])
+    return hashlib.sha256(np.asarray(run["status"], np.int32).tobytes()
+                          + poses.tobytes()).hexdigest()[:16]
+
+
+def _steady(run, key="ms", start=20):
+    """The run's ``key`` values from frame ``start`` on, profiled frames
+    left out."""
+    return [x for i, x in enumerate(run[key]) if i >= start and run["ms"][i] is not None]
 
 
 def _check_bars(run, tag, by_frame, min_tracked):
@@ -748,6 +793,42 @@ def _check_bars(run, tag, by_frame, min_tracked):
     _check(2 not in st, f"[{tag}] a reset (status 2) happened")
     _check(len(tracked) >= min_tracked, f"[{tag}] only {len(tracked)} frames at status 1")
     return tracked
+
+
+MAIN_PROFILED = tuple(range(100, 108))   # phase 3's frames run under the profiler
+# ``_run_digest`` of phases 3 and 11a's golden runs by the port of commit
+# 26d2929 (before the step's dispatch and completion were split), on an
+# NVIDIA H100 80GB HBM3: the runs stay bit-equal to it
+PARENT_DIGESTS = {"main": "31c493345229c14c", "preset FAST": "c3c2a7ce09310a3e",
+                  "preset ACCURATE": "305bdc07be52d9d8"}
+
+
+def _check_parent_digest(run, tag) -> None:
+    digest = _run_digest(run)
+    print(f"[{tag}] digest of statuses and poses {digest}, commit 26d2929's "
+          f"{PARENT_DIGESTS[tag]}: bit-equal {digest == PARENT_DIGESTS[tag]}")
+    _check(digest == PARENT_DIGESTS[tag], f"[{tag}] statuses or poses differ from commit 26d2929's")
+
+
+def _check_host_constants(slam) -> None:
+    """The two keyframe-path constants that are no longer built on the
+    card from host data, against the card's own arithmetic: the
+    local-map matching's half-FOV tangent (float32 division on the host)
+    and the depth refinement's cos 1 deg (a fill, then the card's
+    deg2rad and cos, as before)."""
+    import torch
+    cfg, cam = slam.config, slam.camera
+    dev = torch.device("cuda")
+    fov_card = torch.max(torch.tensor([0.5 * cfg.width, 0.5 * cfg.height], dtype=torch.float32,
+                                      device=dev) / torch.tensor([cam.fx, cam.fy], device=dev))
+    fov_host = max(np.float32(0.5 * cfg.width) / np.float32(cam.fx),
+                   np.float32(0.5 * cfg.height) / np.float32(cam.fy))
+    cos_card = torch.cos(torch.deg2rad(torch.tensor(1.0, device=dev)))
+    cos_fill = torch.cos(torch.deg2rad(torch.ones((), device=dev)))
+    print(f"[main] host-side constants: half-FOV tangent {float(fov_host)!r} (card "
+          f"{float(fov_card)!r}), cos 1 deg {float(cos_fill)!r} (card {float(cos_card)!r})")
+    _check(float(fov_card) == float(fov_host), "the half-FOV tangent differs from the card's")
+    _check(torch.equal(cos_card, cos_fill), "cos 1 deg differs from the card's")
 
 
 def phase_main_path(frames, gt, card):
@@ -765,7 +846,7 @@ def phase_main_path(frames, gt, card):
     slam = AlvaAR(w, h, fov=60.0, config=SlamConfig(), device="cuda")
     fb_klt_track.launches = klt_pyramidal.launches = lk_level.launches = 0
     essential_ransac_5pt.calls = homography_ransac.calls = host_bool.syncs = 0
-    run = _drive(slam, frames, "main")
+    run = _drive(slam, frames, "main", profile=MAIN_PROFILED)
     launches, n5, nh = fb_klt_track.launches, essential_ransac_5pt.calls, homography_ransac.calls
     _check(lk_level.launches == 0 and klt_pyramidal.launches == 0,
            "the main path launched the kernel outside fb_klt_track")
@@ -776,7 +857,7 @@ def phase_main_path(frames, gt, card):
     tracked = [i for i, x in enumerate(run["status"]) if x == 1]
     est = np.stack([run["pose"][i][:3, 3] for i in tracked]) if tracked else None
     ate_cm = 100.0 * ate_rmse(est, gt[tracked][:, :3, 3]) if len(tracked) > 2 else float("inf")
-    steady, syncs, kfs = run["ms"][20:], run["syncs"][20:], run["kf"][20:]
+    steady, syncs, kfs = _steady(run), _steady(run, "syncs"), _steady(run, "kf")
     ms = statistics.median(steady)
     print(f"[main] bootstrap: essential_ransac_5pt {n5} calls, homography_ransac {nh} calls; "
           f"model kept per attempt {['H' if c else 'E' for c in choices]}")
@@ -797,20 +878,37 @@ def phase_main_path(frames, gt, card):
           f"{par['parity_pass']}; RPE {par['rpe_trans']:.5f} / {par['rpe_rot_deg']:.4f} deg)")
     _check(abs(ate_parity - ate_cm) <= 1e-9,
            f"utils/parity's ATE {ate_parity} cm differs from {ate_cm} cm")
-    print(f"[main] frames 20-119: median {ms:.3f} ms/frame ({1e3 / ms:.1f} fps), "
+    print(f"[main] frames 20-119 (not the {len(MAIN_PROFILED)} profiled): median {ms:.3f} "
+          f"ms/frame ({1e3 / ms:.1f} fps), "
           f"mean {statistics.mean(steady):.3f} ms, max {max(steady):.3f} ms, "
           f"host syncs per frame median {statistics.median(syncs)} max {max(syncs)}; "
-          f"first frame {run['ms'][0]:.1f} ms, slowest frame {max(run['ms']):.1f} ms "
-          f"(frame {run['ms'].index(max(run['ms']))}) [{card}]")
+          f"first frame {run['ms'][0]:.1f} ms, slowest frame {max(_steady(run, start=0)):.1f} ms "
+          f"(frame {run['ms'].index(max(_steady(run, start=0)))}) [{card}]")
     kf_ms = [m for m, k in zip(steady, kfs) if k]
     track_ms = [m for m, k in zip(steady, kfs) if not k]
     print(f"[main] frames 20-119 by kind: {len(track_ms)} tracking frames median "
           f"{statistics.median(track_ms):.3f} ms, {len(kf_ms)} keyframes median "
           f"{statistics.median(kf_ms) if kf_ms else float('nan'):.3f} ms [{card}]")
     _check_bars(run, "main", 25, REF_TRACKED)
+    _check_parent_digest(run, "main")
     _check(ate_cm <= REF_ATE_WORST_CM, f"ATE {ate_cm:.4f} cm > {REF_ATE_WORST_CM} cm")
-    _check(statistics.median(run["syncs"]) <= 6,
-           f"host syncs per frame median {statistics.median(run['syncs'])} > 6")
+    _check_host_constants(slam)
+    # host reads per tracking frame: the step's packed flags and the result
+    tr_reads = [s for s, k, st in zip(syncs, kfs, _steady(run, "status")) if not k and st == 1]
+    _check(statistics.median(tr_reads) <= 2,
+           f"host reads per tracking frame median {statistics.median(tr_reads)} > 2")
+    # host waits under the profiler, by kind of frame
+    prof = run["prof"]
+    waits_tr = [p[3] for p in prof if p[1] == 1 and not p[2]]
+    waits_kf = [p[3] for p in prof if p[2]]
+    print(f"[main] under torch.profiler, frames {MAIN_PROFILED[0]}-{MAIN_PROFILED[-1]}: host waits "
+          f"for the card (stream, event and device syncs) per tracking frame {waits_tr}, per "
+          f"keyframe frame {waits_kf}; kernels per tracking frame "
+          f"{[p[4] for p in prof if p[1] == 1 and not p[2]]}, device busy share per tracking "
+          f"frame median {statistics.median(p[5] for p in prof if p[1] == 1 and not p[2]):.3f} "
+          f"(the profiler on) [{card}]")
+    _check(len(waits_tr) >= 3 and max(waits_tr) <= 2,
+           f"host waits per tracking frame {waits_tr} (bar 2)")
     _check(n5 > 0, "the 5-point RANSAC never ran on the card")
     _check(nh > 0, "the homography RANSAC never ran on the card")
 
@@ -855,7 +953,20 @@ def phase_eight_point(frames, card):
     return fb_klt_track.launches
 
 
-def phase_facade(slam, more_frames, card, tmp):
+FPS_FRAMES = 60     # phase 4's rendered runs (cut from 120 for the smoke's time)
+
+
+def _same_run(tag, statuses, poses, ref_statuses, ref_poses) -> None:
+    """Statuses equal and poses bit-equal where the reference tracked."""
+    _check(list(statuses) == list(ref_statuses), f"[facade] {tag}: statuses differ")
+    bad = [i for i, (T, R) in enumerate(zip(poses, ref_poses))
+           if R is not None and not np.array_equal(np.asarray(T), R)]
+    _check(not bad, f"[facade] {tag}: poses differ from the reference at frames {bad}")
+    print(f"[facade] {tag}: statuses and poses bit-equal to the synchronous path's "
+          f"({len(ref_statuses)} frames)")
+
+
+def phase_facade(slam, more_frames, card, tmp, scene, gt, main_run):
     """Phase 4: the rest of the facade on the phase-3 map."""
     import torch
     from alvaar_tpu_torch import AlvaAR
@@ -897,19 +1008,93 @@ def phase_facade(slam, more_frames, card, tmp):
     launches = fb_klt_track.launches
     _check(sync_st[:10] == [1] * 10, "tracking did not resume at status 1 after load_map")
 
-    # async + drain against the synchronous path, from the same checkpoint
+    # async + drain, async read one frame late, and process_frames against
+    # the synchronous path, from the same checkpoint: bit for bit
     fb_klt_track.launches = 0
     inst = loaded()
     pending = [inst.find_camera_pose_async(f) for f in more_frames]
     PendingResult.drain(pending)
     _check(fb_klt_track.launches > 0, "async path launched no KLT kernel")
     launches += fb_klt_track.launches
-    _check([r.status for r in pending] == sync_st, "async statuses differ from the sync path")
-    dmax = max((float(np.abs(r.pose - T).max()) for r, T in zip(pending, sync_T)
-                if T is not None), default=0.0)
-    print(f"[facade] find_camera_pose_async + drain over {len(more_frames)} frames: statuses "
-          f"equal to the sync path, max |pose diff| {dmax:.3e}")
-    _check(dmax <= 1e-4, f"async poses differ from the sync path by {dmax}")
+    _same_run("async + drain", [r.status for r in pending], [r.pose for r in pending],
+              sync_st, sync_T)
+    fb_klt_track.launches = 0
+    inst = loaded()
+    late, waits = [], []
+    for f in more_frames:
+        got = []
+        waits.append(_profile_counts(lambda: got.append(inst.find_camera_pose_async(f)))[2])
+        late.append(got[0])
+        if len(late) >= 2:
+            late[-2].status                 # the caller reads one frame late
+    PendingResult.drain(late)
+    launches += fb_klt_track.launches
+    _same_run("async read one frame late", [r.status for r in late], [r.pose for r in late],
+              sync_st, sync_T)
+    # a call completes its predecessor: one wait after a tracking frame
+    after_tr = [w for w, r in zip(waits[1:], late) if r.status == 1 and not r.is_keyframe]
+    print(f"[facade] find_camera_pose_async read one frame late: host waits inside each call "
+          f"(under torch.profiler) {waits}; after a tracking frame {after_tr} [{card}]")
+    _check(len(after_tr) >= 5 and max(after_tr) <= 1,
+           f"find_camera_pose_async waited {after_tr} times after a tracking frame (bar 1)")
+    fb_klt_track.launches = 0
+    st, po = loaded().process_frames(np.stack(more_frames))
+    launches += fb_klt_track.launches
+    _same_run("process_frames", st.tolist(), [T if s == 1 else None for s, T in zip(st, po)],
+              sync_st, sync_T)
+
+    # frames/s with the caller rendering the next frame on the host between
+    # calls (examples/demo.py's loop), sync then async, from a fresh start,
+    # over golden frames 0 .. FPS_FRAMES - 1
+    fps, gt = {}, gt[:FPS_FRAMES]
+    for mode in ("sync", "async"):
+        fb_klt_track.launches = 0
+        inst = AlvaAR(slam.config.width, slam.config.height, camera=slam.camera,
+                      config=slam.config, device="cuda")
+        statuses, poses, render_ms, prev = [], [], [], None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for T_gt in gt:
+            r0 = time.perf_counter()
+            f = scene.render(T_gt).astype(np.float32)
+            render_ms.append((time.perf_counter() - r0) * 1e3)
+            if mode == "sync":
+                poses.append(inst.find_camera_pose(f))
+                statuses.append(inst.last_status)
+                continue
+            res = inst.find_camera_pose_async(f)
+            if prev is not None:
+                statuses.append(prev.status)
+                poses.append(prev.pose)
+            prev = res
+        if prev is not None:
+            statuses.append(prev.status)
+            poses.append(prev.pose)
+        torch.cuda.synchronize()
+        fps[mode] = len(gt) / (time.perf_counter() - t0)
+        launches += fb_klt_track.launches
+        _same_run(f"{mode} with host rendering", statuses, poses,
+                  main_run["status"][:FPS_FRAMES], main_run["pose"][:FPS_FRAMES])
+        print(f"[facade] {mode} with the next frame rendered on the host between calls: "
+              f"{fps[mode]:.3f} frames/s over {len(gt)} golden frames (render "
+              f"{statistics.median(render_ms):.1f} ms a frame, median), statuses and poses "
+              f"bit-equal to phase 3's [{card}]")
+    print(f"[facade] async / sync frames/s with host rendering: {fps['async'] / fps['sync']:.4f}")
+
+    # entry(): the JAX package's __graft_entry__.entry, on the card
+    from alvaar_tpu_torch.entry import entry
+    fb_klt_track.launches = 0
+    fn, args = entry("cuda")
+    state, out = fn(*args)
+    launches += fb_klt_track.launches
+    print(f"[facade] entry() on the card: status {int(out.status)}, keyframe "
+          f"{bool(out.is_keyframe)}, {int(out.num_tracked)} keypoints, identity pose "
+          f"{bool(torch.equal(out.pose_wc, torch.eye(4, device=out.pose_wc.device)))}, frame on "
+          f"{args[1].device}, KLT launches {fb_klt_track.launches}")
+    _check(int(out.status) == 3 and bool(out.is_keyframe) and int(out.num_tracked) > 100
+           and torch.equal(out.pose_wc, torch.eye(4, device=out.pose_wc.device)),
+           "entry(): the first frame is not an initializing keyframe at the identity")
+    _check(state.kp_px.is_cuda and args[1].is_cuda, "entry(): not on the card")
 
     # IMU: rotation from the mirrored, inverted quaternion
     fb_klt_track.launches = 0
@@ -1098,10 +1283,21 @@ def _row_diffs(a, b):
                 if bool(both3d.any()) else 0.0, n3d=int(both3d.sum()))
 
 
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
+_HARNESS_WAITS = []     # the waits that _profile_counts records around an empty call
+
+
 def _profile_counts(fn):
     """One call under ``torch.profiler``: device kernels launched, their
-    summed device ms, host stream synchronisations, and the call's wall
-    ms (the profiler on)."""
+    summed device ms, the host's waits for the card inside the call
+    (stream, device and event synchronisations, less those the harness
+    records around an empty call: its own ``torch.cuda.synchronize()`` and
+    the profiler's on exit), and the call's wall ms (the profiler on)."""
+    if not _HARNESS_WAITS:
+        _HARNESS_WAITS.append(0)
+        _HARNESS_WAITS[0] = _profile_counts(lambda: None)[2]
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1115,9 +1311,9 @@ def _profile_counts(fn):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             kernels += e.count
             device_us += e.self_device_time_total
-        elif e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+        elif e.key in HOST_WAITS:
             syncs += e.count
-    return kernels, device_us / 1e3, syncs, wall
+    return kernels, device_us / 1e3, syncs - _HARNESS_WAITS[0], wall
 
 
 def phase_subbatch_probe(frames, card):
@@ -1218,7 +1414,7 @@ def phase_subbatch_probe(frames, card):
         prof[tag] = _profile_counts(fn)
     print("[probe] S=3 under torch.profiler: " + "; ".join(
         f"{tag} {k} kernels, {dev:.1f} ms device time in {wall:.1f} ms (busy {dev / wall:.3f}), "
-        f"{syncs} host stream syncs" for tag, (k, dev, syncs, wall) in prof.items()) + f" [{card}]")
+        f"{syncs} host waits" for tag, (k, dev, syncs, wall) in prof.items()) + f" [{card}]")
     _check(worst["lm_valid"] <= LM_VALID_SLACK and worst["ints"] == 0,
            "[probe] batched and row integer fields differ")
     _check(worst["q"] <= POSE_Q_TOL and worst["t"] <= POSE_T_TOL and worst["lm_pos"] <= LM_POS_TOL,
@@ -2071,6 +2267,7 @@ def phase_hd_serving(card):
 
 MAP10K_LANDMARKS = 10240   # BASELINE configuration 4's pool
 BA_TIMED_CALLS = 10
+MAP10K_TURN_FRAMES = 64       # phase 9's turns (cut from 120 for the smoke's time)
 BA_CONST_Q_TOL = 2.4e-7    # two float32 ulps at 1: the solver renormalises every pose
 
 
@@ -2135,10 +2332,12 @@ def phase_map10k(frames, gt, main_run, card):
     print(f"[map10k] local_ba {statistics.median(times):.3f} ms per call (CUDA events around one "
           f"call, median of {BA_TIMED_CALLS} after 2 warm-up calls; min {min(times):.3f}, max "
           f"{max(times):.3f}); under torch.profiler {kernels} kernels, {device_ms:.3f} ms device "
-          f"time in {wall:.1f} ms (busy {device_ms / wall:.3f}), {syncs} host stream syncs per "
+          f"time in {wall:.1f} ms (busy {device_ms / wall:.3f}), {syncs} host waits per "
           f"call; peak device memory {peak:.1f} MiB above the problem [{card}]")
     _check(finite, "[map10k] local_ba returned non-finite poses, inverse depths or cost")
     _check(const_t and const_dq <= BA_CONST_Q_TOL, "[map10k] local_ba moved a constant pose")
+    _ba_waits_equal({it: _profile_counts(lambda: local_ba(prob, cam, iters=it))[2]
+                     for it in BA_ITERS_TIMED}, "map10k", card)
 
     # (b) the golden sequence at the 10240-landmark pool
     h, w = frames[0].shape
@@ -2165,8 +2364,8 @@ def phase_map10k(frames, gt, main_run, card):
             if T is not None and T3 is not None]
     dpose = max((float(np.abs(run["pose"][i] - main_run["pose"][i]).max()) for i in both),
                 default=float("nan"))
-    kf_ms = lambda r: [m for m, k in zip(r["ms"][20:], r["kf"][20:]) if k]
-    tr_ms = lambda r: [m for m, k in zip(r["ms"][20:], r["kf"][20:]) if not k]
+    kf_ms = lambda r: [m for m, k in zip(_steady(r), _steady(r, "kf")) if k]
+    tr_ms = lambda r: [m for m, k in zip(_steady(r), _steady(r, "kf")) if not k]
     med = lambda xs: statistics.median(xs) if xs else float("nan")
     live, high = [p[0] for p in pool], [p[1] for p in pool]
     print(f"[map10k] golden sequence at max_landmarks={L}: ATE {ate_cm:.4f} cm (bar "
@@ -2176,24 +2375,27 @@ def phase_map10k(frames, gt, main_run, card):
           f"max {max(live)} (final {live[-1]}), the pool's high-water mark {max(high)} of {L} "
           f"slots (phase 3's pool: {SlamConfig().max_landmarks}); peak device memory "
           f"{peak_run:.1f} MiB")
-    # frame times in turns: the default pool, then this one again, each
-    # run with the same per-frame read (phase 3 ran minutes earlier)
-    turns = [run]
+    # frame times in turns over the first MAP10K_TURN_FRAMES frames: the
+    # default pool, then this one again, each run with the same per-frame
+    # read (phase 3 ran minutes earlier)
+    n = MAP10K_TURN_FRAMES
+    turns = [{k: v[:n] for k, v in run.items()}]
     for c in (SlamConfig(), cfg):
         fb_klt_track.launches = 0
-        turns.append(_drive(AlvaAR(w, h, fov=60.0, config=c, device="cuda"), frames,
+        turns.append(_drive(AlvaAR(w, h, fov=60.0, config=c, device="cuda"), frames[:n],
                             f"map10k turn, {c.max_landmarks} landmarks", pool_read))
         launches += fb_klt_track.launches
-    print(f"[map10k] frames 20-119, keyframe / tracking frames median, in turns at 10240, 4096 "
-          f"and 10240 landmarks: " + ", ".join(
+    same = all(r["status"] == turns[0]["status"] for r in turns)
+    print(f"[map10k] frames 20-{n - 1}, keyframe / tracking frames median, in turns at 10240, "
+          f"4096 and 10240 landmarks: " + ", ".join(
               f"{med(kf_ms(r)):.3f} / {med(tr_ms(r)):.3f} ms" for r in turns)
-          + f"; phase 3 (4096): {med(kf_ms(main_run)):.3f} / {med(tr_ms(main_run)):.3f} ms "
-          f"({len(kf_ms(run))} keyframes); statuses equal in every turn "
-          f"{all(r['status'] == run['status'] for r in turns)}; host syncs per frame median "
+          + f"; phase 3 (4096, frames 20-119): {med(kf_ms(main_run)):.3f} / "
+          f"{med(tr_ms(main_run)):.3f} ms ({len(kf_ms(run))} keyframes at 10240 in 20-119); "
+          f"statuses equal in every turn {same}; host syncs per frame median "
           f"{statistics.median(run['syncs'])} [{card}]")
     _check_bars(run, "map10k", 25, REF_TRACKED)
     _check(ate_cm <= REF_ATE_WORST_CM, f"[map10k] ATE {ate_cm:.4f} cm > {REF_ATE_WORST_CM} cm")
-    _check(all(r["status"] == run["status"] for r in turns), "[map10k] the turns' statuses differ")
+    _check(same, "[map10k] the turns' statuses differ")
     return launches
 
 
@@ -2371,7 +2573,7 @@ PRESET_TRACKED_SLACK = 5       # frames at status 1, against the JAX count
 PRESET_FIRST_SLACK = 3         # the first status-1 frame, against JAX's
 PRESET_ATE_FACTOR = 1.5        # the multi-stream accuracy bar of PERF.md section 2
 BA_ITERS_TIMED = (3, 5, 10)    # FAST's, the default's and ACCURATE's LM iterations
-PRESET_BA_CALLS = 5            # timed local_ba calls per iteration count
+PRESET_BA_CALLS = 3            # timed local_ba calls per iteration count
 # Phase 11b's bars: the JAX package's examples run once on the CPU:
 #   JAX_PLATFORMS=cpu python examples/demo.py 60            -> 47 frames at status 1
 #   JAX_PLATFORMS=cpu python examples/imu_demo.py --frames 60
@@ -2406,8 +2608,21 @@ def _ba_ms(prob, cam, iters, huber_delta, card, tag):
           f"LM iterations: {statistics.median(times):.3f} ms per call (CUDA events, median of "
           f"{PRESET_BA_CALLS}; min {min(times):.3f}, max {max(times):.3f}); under torch.profiler "
           f"{kernels} kernels, {device_ms:.3f} ms device time in {wall:.1f} ms (busy "
-          f"{device_ms / wall:.3f}), {syncs} host stream syncs per call [{card}]")
-    return statistics.median(times)
+          f"{device_ms / wall:.3f}), {syncs} host waits per call [{card}]")
+    return statistics.median(times), syncs
+
+
+BA_WAITS_MAX = 4      # host waits per local_ba call, at any number of LM iterations
+
+
+def _ba_waits_equal(waits: dict, tag: str, card: str) -> None:
+    """``local_ba``'s host waits per call by LM iterations: equal at every
+    count (no wait inside the LM loop) and at most BA_WAITS_MAX."""
+    print(f"[{tag}] local_ba host waits per call at " + ", ".join(
+        f"{it} LM iterations: {w}" for it, w in waits.items()) + f" [{card}]")
+    _check(len(set(waits.values())) == 1 and max(waits.values()) <= BA_WAITS_MAX,
+           f"[{tag}] local_ba's host waits {waits} differ by LM iterations or pass "
+           f"{BA_WAITS_MAX}")
 
 
 def phase_presets(frames, gt, card):
@@ -2452,7 +2667,7 @@ def phase_presets(frames, gt, card):
         ate_cm = (100.0 * ate_rmse(est, gt[tracked][:, :3, 3]) if len(tracked) > 2
                   else float("inf"))
         first = tracked[0] if tracked else None
-        steady, kfs = run["ms"][20:], run["kf"][20:]
+        steady, kfs = _steady(run), _steady(run, "kf")
         kf_ms = [m for m, k in zip(steady, kfs) if k]
         tr_ms = [m for m, k in zip(steady, kfs) if not k]
         med = lambda xs: statistics.median(xs) if xs else float("nan")
@@ -2471,9 +2686,11 @@ def phase_presets(frames, gt, card):
                f"[preset {name}] first status 1 at frame {first}")
         _check(st.count(2) <= bars["resets"], f"[preset {name}] {st.count(2)} resets")
         _check(ate_cm <= PRESET_ATE_FACTOR * bars["ate_cm"], f"[preset {name}] ATE {ate_cm} cm")
-        _check(statistics.median(run["syncs"]) <= 6,
-               f"[preset {name}] host syncs per frame median {statistics.median(run['syncs'])}")
+        tr_reads = [s for s, k, x in zip(run["syncs"], run["kf"], run["status"]) if x == 1 and not k]
+        _check(statistics.median(tr_reads) <= 2,
+               f"[preset {name}] host reads per tracking frame median {statistics.median(tr_reads)}")
         _check(bool(seen), f"[preset {name}] local BA never ran")
+        _check_parent_digest(run, f"preset {name}")
         problems[name] = seen[0]
 
     # local BA on each preset's first steady keyframe: FAST's problem at its
@@ -2481,8 +2698,8 @@ def phase_presets(frames, gt, card):
     prob, cam, kw = problems["FAST"]
     _ba_ms(prob, cam, config.FAST.ba_iters, kw["huber_delta"], card, "preset FAST")
     prob, cam, kw = problems["ACCURATE"]
-    for iters in BA_ITERS_TIMED:
-        _ba_ms(prob, cam, iters, kw["huber_delta"], card, "preset ACCURATE")
+    _ba_waits_equal({iters: _ba_ms(prob, cam, iters, kw["huber_delta"], card, "preset ACCURATE")[1]
+                     for iters in BA_ITERS_TIMED}, "preset ACCURATE", card)
     return launches
 
 
@@ -2620,7 +2837,7 @@ def main() -> int:
     more = [scene.render(T).astype(np.float32) for T in gt_more]
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
-        launches += phase_facade(slam, more, card, tmp)
+        launches += phase_facade(slam, more, card, tmp, scene, gt, main_run)
     launches += phase_loop_closure(card)
     lap("phases 4, 5")
     launches += phase_subbatch_probe(frames, card)
