@@ -38,24 +38,22 @@ axis): ``shard_states`` splits a stacked state into contiguous blocks of
 streams, one per device, and ``make_multistream_step(..., devices=...)``
 advances every block with ``multistream_step_local`` on its own device,
 with ``kf_slots`` counted per device.  Streams share nothing, so there is
-no collective; each block runs in a host thread of its own (the step is
-paced by the host, so one thread would serialise the cards), under that
-device.  A device may appear more than once: several shards on one card,
-or on the CPU.
+no collective; each block lives in a worker process of its own
+(parallel/workers.py: the step is paced by the host, so shards that share
+one interpreter add their host time up).  A device may appear more than
+once: several shards on one card, or on the CPU.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 from torch.func import vmap
 
 from alvaar_tpu_torch.config import SlamConfig
-from alvaar_tpu_torch.frontend.step import (StepOutput, finalize_phase,
+from alvaar_tpu_torch.frontend.step import (finalize_phase,
                                             init_essential_phase_batched,
                                             keyframe_phase, keyframe_phase_batched,
                                             recovery_phase_batched, track_phase_batched)
@@ -63,6 +61,7 @@ from alvaar_tpu_torch.geom.camera import Camera
 from alvaar_tpu_torch.loopclosure import detector
 from alvaar_tpu_torch.loopclosure.detector import LoopDB
 from alvaar_tpu_torch.ops.topk import top_k
+from alvaar_tpu_torch.parallel.workers import ShardHandle, StreamMesh
 from alvaar_tpu_torch.utils.stats import count
 from alvaar_tpu_torch.worldmap.keyframe import host_bool
 from alvaar_tpu_torch.worldmap.state import (MapState, apply_world_correction, from_tensors,
@@ -315,14 +314,19 @@ def make_multistream_step(cfg: SlamConfig, cam: Camera, kf_slots: int = 4,
     the keyframe sub-batch size (the JAX bench: ``max(3, ceil(B / 6))``).
 
     With ``devices`` (a list, a device may repeat), the step runs over the
-    stream mesh: ``states`` (and ``dbs``) are the blocks of
-    :func:`shard_states` over the same ``devices``, ``frames`` [B, H, W],
-    ``dts`` and ``active`` [B] are global, and each block advances on its
-    device with ``kf_slots`` keyframe slots of its own (per device, as in
-    the JAX package).  Returns the new blocks and a StepOutput on
+    stream mesh and is a :class:`~alvaar_tpu_torch.parallel.workers.StreamMesh`:
+    one worker process per entry of ``devices``, started at the first
+    call, stopped by its ``close()`` or when it is dropped.  ``states``
+    (and ``dbs``) are the blocks of :func:`shard_states` over the same
+    ``devices``, or the handles the previous call returned; ``frames``
+    [B, H, W], ``dts`` and ``active`` [B] are global, and each block
+    advances on its device with ``kf_slots`` keyframe slots of its own
+    (per device, as in the JAX package).  Returns handles to the new
+    blocks (:func:`gather_states` reads them) and a StepOutput on
     ``devices[0]`` whose row b is stream b's."""
     if devices is not None:
-        return _mesh_step(cfg, cam, kf_slots, loop_closure, loop_delay, devices)
+        return StreamMesh(cfg, cam, kf_slots, loop_closure, loop_delay,
+                          [_device(d) for d in devices])
     if loop_closure:
         def run_lc(states: MapState, dbs: LoopDB, frames, dts=None, active=None):
             dev = states.kp_px.device
@@ -387,59 +391,17 @@ def shard_states(states, devices) -> list:
 def gather_states(blocks, device=None):
     """The inverse of :func:`shard_states`: the blocks concatenated in
     stream order onto ``device`` (block 0's by default), generators
-    included, e.g. for ``multistream_state_to_numpy`` or a checkpoint."""
+    included, e.g. for ``multistream_state_to_numpy`` or a checkpoint.
+    ``blocks`` may be the handles that a mesh's latest step returned: the
+    states are fetched from its workers (a stale handle raises)."""
+    if isinstance(blocks[0], ShardHandle):
+        blocks = blocks[0].mesh.fetch(blocks, None if device is None else _device(device))
     dev = _device(device) if device is not None else blocks[0].kf_id.device
     cat = lambda *ts: torch.cat([t.to(dev) for t in ts])
     if isinstance(blocks[0], LoopDB):
         return _map_db(cat, *blocks)
     return map_tensors(cat, *blocks).replace(
         rng=tuple(_generator_on(g, dev) for blk in blocks for g in blk.rng))
-
-
-def _mesh_step(cfg: SlamConfig, cam: Camera, kf_slots: int, loop_closure: bool,
-               loop_delay: int, devices):
-    devices = [_device(d) for d in devices]
-
-    def shard(k, states, dbs, frames, dts, active):
-        dev = devices[k]
-        if states.kf_id.device != dev:
-            raise ValueError(f"block {k} is on {states.kf_id.device}, the mesh puts it on {dev}")
-        n = num_streams(states)
-        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
-            return multistream_step_local(
-                states, _frames(frames, dev), _dts(dts, n, dev), cam, cfg, kf_slots, dbs,
-                loop_delay, None if active is None else torch.as_tensor(active).to(dev))
-
-    def run(blocks, dbs, frames, dts, active):
-        if len(blocks) != len(devices):
-            raise ValueError(f"{len(blocks)} blocks for a mesh of {len(devices)} devices")
-        n = num_streams(blocks[0])
-        frames = torch.as_tensor(frames)
-        if frames.shape[0] != n * len(devices):
-            raise ValueError(f"{frames.shape[0]} frames for {n * len(devices)} streams")
-        part = lambda x, k: None if x is None else x[k * n:(k + 1) * n]
-        dts = None if dts is None else torch.as_tensor(dts)
-        active = None if active is None else torch.as_tensor(active)
-        with ThreadPoolExecutor(len(devices)) as pool:
-            futures = [pool.submit(shard, k, blocks[k], None if dbs is None else dbs[k],
-                                   part(frames, k), part(dts, k), part(active, k))
-                       for k in range(len(devices))]
-            results = [f.result() for f in futures]
-        outs = [r[-1] for r in results]
-        out = StepOutput(**{f.name: torch.cat([getattr(o, f.name).to(devices[0]) for o in outs])
-                            for f in dataclasses.fields(StepOutput)})
-        if dbs is None:
-            return [r[0] for r in results], out
-        return [r[0] for r in results], [r[1] for r in results], out
-
-    if loop_closure:
-        def run_lc(blocks, dbs, frames, dts=None, active=None):
-            return run(blocks, dbs, frames, dts, active)
-        return run_lc
-
-    def run_plain(blocks, frames, dts=None, active=None):
-        return run(blocks, None, frames, dts, active)
-    return run_plain
 
 
 def make_multistream_scan(cfg: SlamConfig, cam: Camera, kf_slots: int = 4,

@@ -32,8 +32,11 @@ from alvaar_tpu_torch.solvers.pnp import CHI2_THRESH_2DOF
 from alvaar_tpu_torch.worldmap.state import masked_scatter_set
 
 # torch's forward-mode AD keeps one dual level for the whole process
-# (torch.autograd.forward_ad), so ``jacfwd`` runs in one thread at a time:
-# the shards of a sharded multi-stream step linearise in turns
+# (torch.autograd.forward_ad), so ``jacfwd`` runs in one thread at a time.
+# ``SlamServer`` (serving/server.py) runs the batched step, local BA
+# included, on its engine thread: a process that serves beside an
+# ``AlvaAR`` of its own, or runs two servers, linearises from two threads.
+# (The stream mesh's shards are processes, each with its own level.)
 _FORWARD_AD_LOCK = threading.Lock()
 
 

@@ -8,8 +8,10 @@ utils/profiling.py.
 
 ``count`` increments a process-wide counter kept as an attribute of the
 function that counts (``fb_klt_track.launches``, ``host_bool.syncs``,
-...) under one lock, so that the threads of a sharded step add up
-exactly; callers read and reset the attributes directly.
+...) under one lock, so that counts from several threads (a server's
+engine thread beside the caller's) add up exactly; callers read and reset
+the attributes directly.  The stream mesh's workers count in their own
+processes and the mesh adds their deltas here (parallel/workers.py).
 """
 
 from __future__ import annotations

@@ -115,16 +115,27 @@ Phases, each printed on its own lines:
    4 client threads sending 30 uint8 frames each: every client reaches
    status 1, reply frame ids match, and a fifth client is served on a
    recycled slot; the round trip's median is printed;
-6e. the stream mesh (``shard_states``, ``make_multistream_step(devices=)``):
-   8 streams at 640x480, ``SlamConfig()``, 2 keyframe slots per device,
-   stream b on golden frames 3b .. 3b+23 staged on card 0, over (a) two
-   shards on card 0 and (b) one shard per visible card (a one-shard mesh
-   on a one-card machine): each shard's statuses and keyframes equal to
-   ``multistream_step_local`` on its block alone (same fresh rows and
-   generators, same per-device slots), poses within q 1e-5 and t 1e-4, 2
-   KLT launches and at most 4 host syncs per shard per step, every stream
-   at status 1; aggregate frames/s over steps 8-23 for (a), (b) and the
-   unsharded B = 8 step with 4 slots, and the number of cards;
+6e. the stream mesh (``shard_states``, ``make_multistream_step(devices=)``:
+   one worker process per shard, spawned once per mesh, each seeing only
+   its card), at 640x480 under ``SlamConfig()``, frames staged on card 0:
+   (a) 8 streams, 2 keyframe slots per device, stream b on golden frames
+   3b .. 3b+17 (cut from 24 frames), as two shards on card 0 and as one shard per
+   visible card (a one-shard mesh on a one-card machine); (b) 16 streams
+   per shard, 3 slots per device, 20 steps, every shard's rows the fresh
+   16-stream state of phase 6 on its frames, as one shard per visible card and as
+   two shards on card 0; every mesh's workers start and take their first
+   step at once (threads of this process), then each run loads fresh
+   blocks into its warm workers.  Each shard's outputs, final state and generators
+   bit-equal to ``multistream_step_local`` on its block alone (in (b) one
+   card's unsharded 16-stream run, itself equal to phase 6's first 20
+   steps); 2 KLT launches, 3 election reads and at most 4 host syncs per
+   shard per step, counted in the workers and added up in this process;
+   no worker left after each mesh's ``close()``; every stream of (a) at
+   status 1; on two or more cards, (b)'s aggregate frames/s at least one
+   card's unsharded 16-stream step's.  Printed: the host's cores and this
+   process's affinity, aggregate frames/s over steps 8 on of every layout
+   beside the unsharded step of the same call (B = 8 with 4 slots; 16
+   streams with 3; 32 with 6 on card 0), each worker's own step ms;
 7. host ingest: golden frames 0-69 quantised to uint8, pushed by a
    producer thread through the port's ``FrameRing`` (``push_gray``,
    capacity 8, under a semaphore, as ``io/capture.VideoCapture`` does;
@@ -1561,7 +1572,8 @@ def phase_multistream(frames, gt, card):
     stream b sees golden frames 3b .. 3b + 47.  Then, for every stream, the
     B = 1, one-slot run of its frames through the same step, from the
     same fresh row (its generator included): the ATE bars and the host
-    syncs at B = 1.  Returns (launches, stream 0's B = 1 run)."""
+    syncs at B = 1.  Returns (launches, stream 0's B = 1 run, the B = 16
+    run)."""
     import torch
     from alvaar_tpu_torch import SlamConfig
     from alvaar_tpu_torch.geom.camera import Camera
@@ -1632,7 +1644,7 @@ def phase_multistream(frames, gt, card):
     for r, tag, slots in ([(run, f"multi B={B}", MS_KF_SLOTS)]
                           + [(r, f"multi B=1 stream {k}", 1) for k, r in enumerate(ones)]):
         _check_steps(r, tag, slots)
-    return sum(run["launches"]) + sum(sum(r["launches"]) for r in ones), one
+    return sum(run["launches"]) + sum(sum(r["launches"]) for r in ones), one, run
 
 
 def phase_multistream_wide(frames, gt, one0, card):
@@ -1786,10 +1798,13 @@ def phase_server(frames, card):
     return fb_klt_track.launches
 
 
-MESH_STREAMS = 8           # phase 6e: B, stream b on golden frames 3b .. 3b + 23
-MESH_FRAMES = 24
-MESH_KF_SLOTS = 2          # per device, as the JAX package counts them
-MESH_TIMED_FROM = 8        # frames/s over steps 8-23
+MESH_STREAMS = 8           # (a): B, stream b on golden frames 3b .. 3b + 17
+MESH_FRAMES = 18           # (a): cut from 24 for the smoke's time; the last streams track at 17
+MESH_KF_SLOTS = 2          # (a): per device, as the JAX package counts them
+MESH_WIDE_FRAMES = 20      # (b): BATCH_STREAMS (16) streams per shard with MS_KF_SLOTS (3)
+                           # slots per device, stream j on golden frames 3j .. 3j + 19:
+                           # phase 6's first 20 steps
+MESH_TIMED_FROM = 8        # frames/s over steps 8 on
 
 
 def _sync_all() -> None:
@@ -1798,73 +1813,99 @@ def _sync_all() -> None:
         torch.cuda.synchronize(d)
 
 
+def _host_outs(out) -> dict:
+    import dataclasses
+    return {f.name: getattr(out, f.name).cpu().numpy() for f in dataclasses.fields(out)}
+
+
 def _mesh_drive(step, blocks, frames_dev, tag, shards):
-    """The sharded step over staged frames [N, B, H, W], each step
+    """The sharded step over staged frames [N, B, H, W] from ``blocks``
+    (loaded into the mesh's workers by the first call), each step
     synchronised on every card and timed; per step the KLT launches, the
-    election reads and all host syncs (the output read included), the
-    statuses, keyframes and the blocks' poses (T_cw, gathered on card 0).
-    Returns (blocks, run)."""
-    import torch
-    from alvaar_tpu_torch.ops.klt import fb_klt_track
+    election reads and all host syncs (each shard's output read
+    included), every worker's own step ms and the StepOutput on the host.
+    Then the mesh's state, gathered on card 0, and the mesh closed (none
+    of its workers may outlive it).  Returns (run, state)."""
+    import multiprocessing
+    from alvaar_tpu_torch.ops.klt import fb_klt_track, klt_pyramidal
+    from alvaar_tpu_torch.ops.lk_level import lk_level
     from alvaar_tpu_torch.parallel import multistream as ms
     from alvaar_tpu_torch.worldmap.keyframe import host_bool
 
-    run = {k: [] for k in ("ms", "launches", "gate_syncs", "syncs", "status", "kf", "q", "t")}
-    dev0 = frames_dev.device
-    fb_klt_track.launches = ms.multistream_step_local.syncs = host_bool.syncs = 0
-    for i in range(frames_dev.shape[0]):
-        l0, g0, h0 = fb_klt_track.launches, ms.multistream_step_local.syncs, host_bool.syncs
-        _sync_all()
-        t0 = time.perf_counter()
-        blocks, out = step(blocks, frames_dev[i])
-        status = out.status.cpu()                        # the caller's output read
-        _sync_all()
-        run["ms"].append((time.perf_counter() - t0) * 1e3)
-        run["launches"].append(fb_klt_track.launches - l0)
-        run["gate_syncs"].append(ms.multistream_step_local.syncs - g0)
-        run["syncs"].append(host_bool.syncs - h0 + 1)
-        run["status"].append(status.numpy())
-        run["kf"].append(out.is_keyframe.cpu().numpy())
-        run["q"].append(torch.cat([b.pose.q.to(dev0) for b in blocks]))
-        run["t"].append(torch.cat([b.pose.t.to(dev0) for b in blocks]))
-    run["status"], run["kf"] = np.stack(run["status"]), np.stack(run["kf"])
-    st = run["status"]
-    print(f"[{tag}] {shards} shards, B={st.shape[1]}, kf_slots={MESH_KF_SLOTS} per device, "
-          f"{st.shape[0]} steps: statuses per stream "
+    run = {k: [] for k in ("ms", "launches", "gate_syncs", "syncs", "shard_ms", "outs")}
+    t0 = time.perf_counter()
+    fb_klt_track.launches = klt_pyramidal.launches = lk_level.launches = 0
+    ms.multistream_step_local.syncs = host_bool.syncs = 0
+    try:
+        for i in range(frames_dev.shape[0]):
+            l0, g0, h0 = fb_klt_track.launches, ms.multistream_step_local.syncs, host_bool.syncs
+            _sync_all()
+            t1 = time.perf_counter()
+            blocks, out = step(blocks, frames_dev[i])
+            out.status.cpu()                             # the caller's output read
+            _sync_all()
+            run["ms"].append((time.perf_counter() - t1) * 1e3)
+            run["launches"].append(fb_klt_track.launches - l0)
+            run["gate_syncs"].append(ms.multistream_step_local.syncs - g0)
+            run["syncs"].append(host_bool.syncs - h0 + shards)
+            run["shard_ms"].append(list(step.last_shard_ms))
+            run["outs"].append(_host_outs(out))
+        run["other_launches"] = klt_pyramidal.launches + lk_level.launches
+        state = ms.gather_states(blocks, "cuda:0")
+    finally:
+        alive = len(multiprocessing.active_children())
+        step.close()
+    _check(len(multiprocessing.active_children()) == alive - shards,
+           f"[{tag}] a mesh worker outlived close()")
+    st = np.stack([o["status"] for o in run["outs"]])
+    print(f"[{tag}] {shards} shards, B={st.shape[1]}, {st.shape[0]} steps in "
+          f"{time.perf_counter() - t0:.1f} s (the first, the blocks' load included, "
+          f"{run['ms'][0] / 1e3:.1f} s): statuses per stream "
           + " ".join("".join(map(str, st[:, k])) for k in range(st.shape[1])))
-    return blocks, run
+    return run, state
 
 
-def _mesh_serial(fresh, devices, frames_dev, cam, cfg):
-    """``multistream_step_local`` on each block of ``fresh`` alone, one
-    block after the other, from the same fresh rows and generators, with
-    the same per-device slots.  Returns the statuses, keyframes and poses
-    per step, in stream order."""
+def _alone(state, frames_dev, cam, cfg, slots, dev):
+    """``multistream_step_local`` on a copy of ``state`` (its generators
+    too) alone on ``dev`` over staged frames [N, n, H, W], each step
+    synchronised and timed.  Returns (per-step ms, per-step StepOutput on
+    the host, the final state on card 0)."""
     import torch
     from alvaar_tpu_torch.parallel import multistream as ms
 
-    blocks = ms.shard_states(fresh, devices)
-    n = ms.num_streams(blocks[0])
-    cols = {k: [] for k in ("status", "kf", "q", "t")}
-    for k, blk in enumerate(blocks):
-        dev = torch.device(devices[k])
-        per = {key: [] for key in cols}
-        with torch.cuda.device(dev):
-            for i in range(frames_dev.shape[0]):
-                blk, out = ms.multistream_step_local(
-                    blk, frames_dev[i, k * n:(k + 1) * n].to(dev), torch.ones(n, device=dev),
-                    cam, cfg, MESH_KF_SLOTS)
-                per["status"].append(out.status.cpu().numpy())
-                per["kf"].append(out.is_keyframe.cpu().numpy())
-                per["q"].append(blk.pose.q.to(frames_dev.device))
-                per["t"].append(blk.pose.t.to(frames_dev.device))
-        for key in cols:
-            cols[key].append(per[key])
-    steps = range(frames_dev.shape[0])
-    return (np.stack([np.concatenate([c[i] for c in cols["status"]]) for i in steps]),
-            np.stack([np.concatenate([c[i] for c in cols["kf"]]) for i in steps]),
-            [torch.cat([c[i] for c in cols["q"]]) for i in steps],
-            [torch.cat([c[i] for c in cols["t"]]) for i in steps])
+    dev = torch.device(dev)
+    blk = ms.shard_states(state, [dev])[0]
+    n = ms.num_streams(blk)
+    times, outs = [], []
+    with torch.cuda.device(dev):
+        dts = torch.ones(n, device=dev)
+        for i in range(frames_dev.shape[0]):
+            _sync_all()
+            t0 = time.perf_counter()
+            blk, out = ms.multistream_step_local(blk, frames_dev[i].to(dev), dts, cam, cfg, slots)
+            out.status.cpu()
+            _sync_all()
+            times.append((time.perf_counter() - t0) * 1e3)
+            outs.append(_host_outs(out))
+    return times, outs, ms.gather_states([blk], "cuda:0")
+
+
+def _mesh_differences(run, state, refs):
+    """Rows of the mesh's outputs and final state against each reference
+    (rows, outs, final state) run alone: the names of what differs."""
+    import torch
+    bad = []
+    for rows, outs, ref in refs:
+        for i, (got, want) in enumerate(zip(run["outs"], outs)):
+            bad += [f"step {i} {k} rows {rows.start}-{rows.stop - 1}"
+                    for k in want if not np.array_equal(got[k][rows], want[k])]
+        bad += [f"state {name} rows {rows.start}-{rows.stop - 1}"
+                for (name, a), (_, b) in zip(state.tensors(), ref.tensors())
+                if not torch.equal(a[rows], b)]
+        bad += [f"generator of stream {rows.start + j}"
+                for j, (g, h) in enumerate(zip(state.rng[rows], ref.rng))
+                if not torch.equal(g.get_state(), h.get_state())]
+    return bad
 
 
 def _fps(ms_per_step, b):
@@ -1872,78 +1913,174 @@ def _fps(ms_per_step, b):
     return len(steps) * b / (sum(steps) / 1e3)
 
 
-def phase_mesh(frames, card):
-    """Phase 6e: the stream mesh.  B = 8 streams at 640x480,
-    ``SlamConfig()``, 2 keyframe slots per device; stream b on golden
-    frames 3b .. 3b + 23, staged on card 0.  (a) two shards on one card,
-    (b) one shard per visible card; each shard equal to
-    ``multistream_step_local`` on its block alone; then the unsharded
-    B = 8 step with 4 slots (the same slot total), for frames/s."""
+def _check_mesh(run, state, refs, tag, shards, card):
+    """Phase 6e's bars on one layout; prints its line.  Returns its
+    frames/s."""
+    n_steps = len(run["ms"])
+    bad = _mesh_differences(run, state, refs)
+    per_shard = [statistics.median(r[k] for r in run["shard_ms"][MESH_TIMED_FROM:])
+                 for k in range(shards)]
+    b = len(run["outs"][0]["status"])
+    fps = _fps(run["ms"], b)
+    print(f"[{tag}] against each block alone (outputs, final state and generators, bit for bit): "
+          f"{'equal' if not bad else f'{len(bad)} differences, first {bad[:5]}'}; keyframes served "
+          f"{int(sum(o['is_keyframe'].sum() for o in run['outs']))}; KLT launches per step "
+          f"{sorted(set(run['launches'][1:]))}, election reads per step "
+          f"{sorted(set(run['gate_syncs']))}, host syncs per step max {max(run['syncs'])} (bar "
+          f"{MS_MAX_SYNCS * shards}); steps {MESH_TIMED_FROM}-{n_steps - 1}: {fps:.2f} frames/s, "
+          f"median {statistics.median(run['ms'][MESH_TIMED_FROM:]):.1f} ms per step, each "
+          f"worker's own step median {[round(x, 1) for x in per_shard]} ms [{card}]")
+    _check(not bad, f"[{tag}] a shard differs from its block run alone: {bad[:5]}")
+    _check(all(x == 2 * shards for x in run["launches"][1:]),
+           f"[{tag}] a step after the first did not launch the KLT kernel twice per shard")
+    _check(run["other_launches"] == 0, f"[{tag}] a KLT launch outside fb_klt_track")
+    _check(max(run["gate_syncs"]) == MS_GATE_SYNCS * shards,
+           f"[{tag}] election reads {max(run['gate_syncs'])} != {MS_GATE_SYNCS} per shard")
+    _check(max(run["syncs"]) <= MS_MAX_SYNCS * shards,
+           f"[{tag}] {max(run['syncs'])} host syncs in a step > {MS_MAX_SYNCS} per shard")
+    return fps
+
+
+def phase_mesh(frames, multi_run, card):
+    """Phase 6e: the stream mesh, one worker process per shard, at
+    640x480 under ``SlamConfig()``, frames staged on card 0.  (a) B = 8,
+    2 keyframe slots per device, stream b on golden frames 3b .. 3b + 17:
+    two shards on card 0, then one shard per visible card, each against
+    its blocks run alone; every stream reaches status 1; then the
+    unsharded B = 8 step with 4 slots (the same slot total).  (b) 16
+    streams per shard, 3 slots per device, each shard's rows the fresh
+    16-stream state of phase 6 and its frames: one card's unsharded
+    16-stream step (every shard's block alone, and equal to phase 6's first
+    20 steps), one shard per visible card, two shards on card 0, and the
+    unsharded 32-stream step with 6 slots on card 0.  Every mesh starts
+    its workers and takes a first step before the runs, all at once.
+    Returns launches."""
+    import multiprocessing
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
     from alvaar_tpu_torch import SlamConfig
     from alvaar_tpu_torch.geom.camera import Camera
     from alvaar_tpu_torch.ops.klt import fb_klt_track
     from alvaar_tpu_torch.parallel import multistream as ms
+    from alvaar_tpu_torch.worldmap.state import gather_rows
 
     cfg = SlamConfig()
     cam = Camera.from_fov(cfg.width, cfg.height, 60.0)
-    B, N = MESH_STREAMS, MESH_FRAMES
-    seq = np.stack([np.stack([frames[3 * b + i] for b in range(B)]) for i in range(N)])
-    frames_dev = torch.as_tensor(seq, device="cuda:0")
-    fresh = ms.init_multistream_state(cfg, B, device="cuda:0")
     cards = torch.cuda.device_count()
-    layouts = {"mesh a": ["cuda:0", "cuda:0"],
-               "mesh b": [f"cuda:{i}" for i in range(cards)]}
+    every = [f"cuda:{i}" for i in range(cards)]
+    affinity = sorted(os.sched_getaffinity(0))
+    print(f"[mesh] host: os.cpu_count() {os.cpu_count()}, this process may run on "
+          f"{len(affinity)} cores {affinity}; cards visible {cards} [{card}]")
+
+    def staged(b, n):
+        seq = np.stack([np.stack([frames[3 * j + i] for j in range(b)]) for i in range(n)])
+        return torch.as_tensor(seq, device="cuda:0")
+
     launches, fps = 0, {}
-    for tag, devices in layouts.items():
+    B, N = MESH_STREAMS, MESH_FRAMES
+    b, n16 = BATCH_STREAMS, MESH_WIDE_FRAMES
+    frames_dev, frames16 = staged(B, N), staged(b, n16)
+    fresh = ms.init_multistream_state(cfg, B, device="cuda:0")
+    fresh16 = ms.init_multistream_state(cfg, b, device="cuda:0")
+
+    # layout: (devices, slots per device, the fresh state, frames [N, B, H, W]); the
+    # (b) rows and frames are phase 6's 16 streams tiled once per shard
+    layouts = {}
+    for tag, devices in (("mesh a", ["cuda:0", "cuda:0"]), ("mesh b", every)):
         if B % len(devices):
             print(f"[{tag}] {B} streams do not split over {len(devices)} cards: not run")
-            continue
-        shards = len(devices)
-        step = ms.make_multistream_step(cfg, cam, kf_slots=MESH_KF_SLOTS, devices=devices)
-        blocks, run = _mesh_drive(step, ms.shard_states(fresh, devices), frames_dev, tag, shards)
-        launches += sum(run["launches"])
-        st_ref, kf_ref, q_ref, t_ref = _mesh_serial(fresh, devices, frames_dev, cam, cfg)
-        dq = max(_q_diff(a, b) for a, b in zip(run["q"], q_ref))
-        dt = max(float((a - b).abs().max()) for a, b in zip(run["t"], t_ref))
-        fps[tag] = _fps(run["ms"], B)
-        st = run["status"]
-        print(f"[{tag}] against each block alone: statuses equal {np.array_equal(st, st_ref)}, "
-              f"keyframes served equal {np.array_equal(run['kf'], kf_ref)} "
-              f"({int(run['kf'].sum())} in all), pose q {dq:.3e}, t {dt:.3e} (bars "
-              f"{POSE_Q_TOL}, {POSE_T_TOL}); KLT launches per step "
-              f"{sorted(set(run['launches'][1:]))}, election reads per step "
-              f"{sorted(set(run['gate_syncs']))}, host syncs per step max {max(run['syncs'])} "
-              f"(bar {MS_MAX_SYNCS * shards}); steps {MESH_TIMED_FROM}-{N - 1}: "
-              f"{fps[tag]:.1f} frames/s, median {statistics.median(run['ms'][MESH_TIMED_FROM:]):.1f} "
-              f"ms per step [{card}]")
-        _check(np.array_equal(st, st_ref), f"[{tag}] statuses differ from the blocks run alone")
-        _check(np.array_equal(run["kf"], kf_ref), f"[{tag}] keyframes served differ")
-        _check(dq <= POSE_Q_TOL and dt <= POSE_T_TOL, f"[{tag}] poses differ: q {dq}, t {dt}")
-        _check(all(x == 2 * shards for x in run["launches"][1:]),
-               f"[{tag}] a step after the first did not launch the KLT kernel twice per shard")
-        _check(max(run["syncs"]) <= MS_MAX_SYNCS * shards,
-               f"[{tag}] {max(run['syncs'])} host syncs in a step > {MS_MAX_SYNCS} per shard")
-        _check((st == 1).any(axis=0).all(), f"[{tag}] a stream never reached status 1")
-        del blocks
+        else:
+            layouts[tag] = (devices, MESH_KF_SLOTS, fresh, lambda: frames_dev)
+    for tag, devices in ((f"mesh {cards}x{b}", every), (f"mesh 2x{b} card 0", ["cuda:0"] * 2)):
+        k = len(devices)
+        layouts[tag] = (devices, MS_KF_SLOTS, gather_rows(fresh16, list(range(b)) * k),
+                        lambda k=k: frames16.repeat(1, k, 1, 1))
+    steps = {tag: ms.make_multistream_step(cfg, cam, kf_slots=slots, devices=devices)
+             for tag, (devices, slots, _, _) in layouts.items()}
 
-    # the unsharded step, the same streams and the same slot total
-    step = ms.make_multistream_step(cfg, cam, kf_slots=MESH_KF_SLOTS * 2)
-    states, times = fresh, []
+    def first_call(tag):
+        devices, _, state, _ = layouts[tag]
+        f0 = frames_dev[0] if state is fresh else frames16[0].repeat(len(devices), 1, 1)
+        steps[tag](ms.shard_states(state, devices), f0)
+
+    # a fresh process's first step costs ~10 s of library and kernel loading: every
+    # mesh starts its workers and takes that step at once, in threads of this process
+    # (they wait on pipes); each run below then loads fresh blocks into warm workers
+    t0 = time.perf_counter()
     fb_klt_track.launches = 0
-    for i in range(N):
-        _sync_all()
-        t0 = time.perf_counter()
-        states, out = step(states, frames_dev[i])
-        out.status.cpu()
-        _sync_all()
-        times.append((time.perf_counter() - t0) * 1e3)
+    with ThreadPoolExecutor(len(steps)) as pool:
+        list(pool.map(first_call, steps))
+    launches += fb_klt_track.launches
+    print(f"[mesh] {sum(len(d) for d, _, _, _ in layouts.values())} workers of "
+          f"{len(steps)} meshes started and stepped once, all at once: "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+    # (a) B = 8: two shards on card 0, then one per card
+    for tag in ("mesh a", "mesh b"):
+        if tag not in layouts:
+            continue
+        devices = layouts[tag][0]
+        shards, n = len(devices), B // len(devices)
+        run, state = _mesh_drive(steps.pop(tag), ms.shard_states(fresh, devices), frames_dev,
+                                 tag, shards)
+        launches += sum(run["launches"])
+        fb_klt_track.launches = 0
+        refs = []
+        for k, blk in enumerate(ms.shard_states(fresh, devices)):
+            rows = slice(k * n, (k + 1) * n)
+            _, outs, final = _alone(blk, frames_dev[:, rows], cam, cfg, MESH_KF_SLOTS, devices[k])
+            refs.append((rows, outs, final))
+        launches += fb_klt_track.launches
+        fps[tag] = _check_mesh(run, state, refs, tag, shards, card)
+        st = np.stack([o["status"] for o in run["outs"]])
+        _check((st == 1).any(axis=0).all(), f"[{tag}] a stream never reached status 1")
+    fb_klt_track.launches = 0
+    times, _, _ = _alone(fresh, frames_dev, cam, cfg, MESH_KF_SLOTS * 2, "cuda:0")
     launches += fb_klt_track.launches
     fps["unsharded"] = _fps(times, B)
-    print(f"[mesh] aggregate frames/s over steps {MESH_TIMED_FROM}-{N - 1}, B={B}, one call: "
-          + ", ".join(f"{k} {v:.1f}" for k, v in fps.items())
-          + f" (mesh a: 2 shards on card 0, {MESH_KF_SLOTS} slots each; mesh b: {cards} "
-          f"card(s); unsharded: {MESH_KF_SLOTS * 2} slots); cards visible {cards} [{card}]")
+    del frames_dev
+    print(f"[mesh] (a) aggregate frames/s over steps {MESH_TIMED_FROM}-{N - 1}, B={B}, one call: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in fps.items())
+          + f" (mesh a: 2 workers on card 0, {MESH_KF_SLOTS} slots each; mesh b: {cards} "
+          f"card(s); unsharded: {MESH_KF_SLOTS * 2} slots) [{card}]")
+
+    # (b) 16 streams per shard, the headline's shape
+    fb_klt_track.launches = 0
+    times16, outs16, final16 = _alone(fresh16, frames16, cam, cfg, MS_KF_SLOTS, "cuda:0")
+    launches += fb_klt_track.launches
+    st16 = np.stack([o["status"] for o in outs16])
+    pose16 = np.stack([o["pose_wc"] for o in outs16])
+    same6 = "not run" if multi_run is None else (
+        np.array_equal(st16, multi_run["status"][:n16])
+        and np.array_equal(pose16, multi_run["pose"][:n16]))
+    print(f"[mesh] (b) one card's unsharded {b}-stream step, {MS_KF_SLOTS} slots: statuses and "
+          f"poses of its {n16} steps equal to phase 6's first {n16}: {same6} [{card}]")
+    _check(same6 is not False, "[mesh] the 16-stream block differs from phase 6's run")
+    fps16 = {f"one card, {b} streams": _fps(times16, b)}
+    for tag in list(steps):
+        devices, _, state, tiled_frames = layouts[tag]
+        k_shards = len(devices)
+        run, state = _mesh_drive(steps.pop(tag), ms.shard_states(state, devices), tiled_frames(),
+                                 tag, k_shards)
+        launches += sum(run["launches"])
+        refs = [(slice(k * b, (k + 1) * b), outs16, final16) for k in range(k_shards)]
+        fps16[tag] = _check_mesh(run, state, refs, tag, k_shards, card)
+    _check(not multiprocessing.active_children(), "[mesh] a worker outlived its mesh")
+    fb_klt_track.launches = 0
+    times32, _, _ = _alone(gather_rows(fresh16, list(range(b)) * 2),
+                           frames16.repeat(1, 2, 1, 1), cam, cfg, 2 * MS_KF_SLOTS, "cuda:0")
+    launches += fb_klt_track.launches
+    fps16[f"one card, {2 * b} streams, {2 * MS_KF_SLOTS} slots"] = _fps(times32, 2 * b)
+    one = fps16[f"one card, {b} streams"]
+    over_cards = fps16[f"mesh {cards}x{b}"] / one
+    on_card0 = fps16[f"mesh 2x{b} card 0"] / fps16[f"one card, {2 * b} streams, {2 * MS_KF_SLOTS} slots"]
+    print(f"[mesh] (b) aggregate frames/s over steps {MESH_TIMED_FROM}-{n16 - 1}, one call: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in fps16.items())
+          + f"; {cards} card(s) / one card {over_cards:.3f}x, 2 workers on card 0 / one process "
+          f"at {2 * b} streams {on_card0:.3f}x [{card}]")
+    _check(cards < 2 or over_cards >= 1.0,
+           f"[mesh] {cards} cards at {b} streams each: {over_cards:.3f}x one card's frames/s")
     return launches
 
 
@@ -2842,14 +2979,14 @@ def main() -> int:
     lap("phases 4, 5")
     launches += phase_subbatch_probe(frames, card)
     lap("phase 6a")
-    ms_launches, one0 = phase_multistream(frames, gt, card)
+    ms_launches, one0, multi_run = phase_multistream(frames, gt, card)
     lap("phase 6")
     launches += ms_launches + phase_multistream_wide(frames, gt, one0, card)
     lap("phase 6d")
     launches += phase_multistream_loop(card)
     launches += phase_server(frames, card)
     lap("phases 6b, 6c")
-    launches += phase_mesh(frames, card)
+    launches += phase_mesh(frames, multi_run, card)
     launches += phase_ingest(frames, card)
     lap("phases 6e, 7")
     hd_launches, hd_shapes = phase_hd_serving(card)

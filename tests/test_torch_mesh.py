@@ -8,10 +8,12 @@ compiled), the port's shards on ``["cpu", "cpu"]``.
   places on mesh device k, for B = 8 over 2, 4 and 8 devices.
 * Generators are carried bit for bit; the gather is the inverse; a B
   that does not divide raises.
-* The sharded step (one host thread per shard) equals
+* The sharded step (one worker process per shard) equals
   ``multistream_step_local`` run serially on each block alone, bit for
   bit, at 320x240 under tests/test_torch_bootstrap.CFG_ARGS; ``kf_slots``
   is counted per device, as JAX's per-device election over each block.
+  The step returns handles to the workers' blocks, read through
+  ``gather_states``.
 * The loop-closure variant returns sharded databases, equal to each
   block's serial run.
 """
@@ -148,9 +150,13 @@ def mesh_run():
     fresh = tstate.init_multistream_state(cfg, B, seed=11, device="cpu")
     step = tms.make_multistream_step(cfg, cam, kf_slots=SLOTS, devices=["cpu"] * SHARDS)
     blocks, outs = tms.shard_states(fresh, ["cpu"] * SHARDS), []
-    for f in frames:
-        blocks, out = step(blocks, f)
-        outs.append(out)
+    try:
+        for f in frames:
+            blocks, out = step(blocks, f)
+            outs.append(out)
+        blocks = [tms.gather_states([h]) for h in blocks]
+    finally:
+        step.close()
     n = B // SHARDS
     ref = [_serial(blk, frames[:, k * n:(k + 1) * n], cam, cfg)
            for k, blk in enumerate(tms.shard_states(fresh, ["cpu"] * SHARDS))]
@@ -211,8 +217,12 @@ def test_loop_closure_mesh_returns_sharded_dbs():
     step = tms.make_multistream_step(cfg, cam, kf_slots=SLOTS, loop_closure=True, loop_delay=1,
                                      devices=["cpu"] * SHARDS)
     blocks, dbs = tms.shard_states(fresh, ["cpu"] * SHARDS), tms.shard_states(dbs0, ["cpu"] * SHARDS)
-    for f in frames:
-        blocks, dbs, out = step(blocks, dbs, f)
+    try:
+        for f in frames:
+            blocks, dbs, out = step(blocks, dbs, f)
+        dbs = [tms.gather_states([h]) for h in dbs]
+    finally:
+        step.close()
     assert len(dbs) == SHARDS and all(isinstance(d, tms.LoopDB) for d in dbs)
     assert [int(d.kf_id.shape[0]) for d in dbs] == [B // SHARDS] * SHARDS
     assert (tms.gather_states(dbs).ptr >= 1).any()
