@@ -13,10 +13,21 @@ which is what the JAX package's scatter gives on the CPU.  Inverse depths
 are 1-parameter blocks, so the Schur complement
 S = H_cc − H_clᵀ D⁻¹ H_cl is dense [6W, 6W] and solved by Cholesky
 (``torch.linalg.cholesky_ex``, the JAX package leaves it to XLA too).
-Per-observation Jacobians are forward-mode autodiff of the 13-parameter
-residual at the zero retraction (``torch.func.jacfwd`` under ``vmap``).
-Everything runs in float32 with TF32 off (the caller, ``AlvaAR``, turns
-it off; the JAX package forces the same f32 "island").
+
+On CUDA tensors an LM iteration is three kernel launches and the solve:
+K6a (csrc/ba_kernels.cu, solvers/ba_kernels.py) linearises the window
+with closed-form Jacobians and assembles the normal-equation blocks in one
+launch, and in its cost-only mode runs the residual pass (the trial cost
+and the pruning); K6b assembles the damped Schur complement.  The wrappers
+``ba_linearize``, ``ba_residuals`` and ``ba_schur`` launch them through
+custom ops whose batching rule makes one launch over all the rows that
+``torch.func.vmap`` stacks (the gated keyframe sub-batch, ``map_rows``).
+On CPU tensors the wrappers run the plain versions, ``_linearize``
+(per-observation Jacobians by forward-mode autodiff of the 13-parameter
+residual at the zero retraction, ``torch.func.jacfwd`` under ``vmap``),
+``_residual_pass`` and ``_schur_plain``; a CUDA tensor launches the kernel
+or raises.  Everything runs in float32 with TF32 off (the caller,
+``AlvaAR``, turns it off; the JAX package forces the same f32 "island").
 """
 
 from __future__ import annotations
@@ -28,11 +39,14 @@ import torch
 
 from alvaar_tpu_torch.geom.camera import Camera
 from alvaar_tpu_torch.geom.lie import SE3
+from alvaar_tpu_torch.solvers import ba_kernels
 from alvaar_tpu_torch.solvers.pnp import CHI2_THRESH_2DOF
+from alvaar_tpu_torch.utils.stats import count
 from alvaar_tpu_torch.worldmap.state import masked_scatter_set
 
 # torch's forward-mode AD keeps one dual level for the whole process
-# (torch.autograd.forward_ad), so ``jacfwd`` runs in one thread at a time.
+# (torch.autograd.forward_ad), so ``jacfwd`` (the CPU path's linearisation;
+# on CUDA K6a computes the Jacobians) runs in one thread at a time.
 # ``SlamServer`` (serving/server.py) runs the batched step, local BA
 # included, on its engine thread: a process that serves beside an
 # ``AlvaAR`` of its own, or runs two servers, linearises from two threads.
@@ -81,6 +95,9 @@ class _VirtualProblem:
     # fx, fy, cx, cy as float32 0-d tensors: under jacfwd a Python float
     # times a 0-d tensor would promote to float64
     intr: tuple
+    first: torch.Tensor        # [W, K] int64 row g of each obs' virtual landmark (W: none)
+    a_idx: torch.Tensor        # [W, K] int64 anchor slot of each obs
+    free: torch.Tensor         # [W] bool live and not gauge-fixed
 
 
 def _build_virtual(prob: BAProblem, cam: Camera) -> _VirtualProblem:
@@ -109,7 +126,8 @@ def _build_virtual(prob: BAProblem, cam: Camera) -> _VirtualProblem:
         valid=valid & a_valid, px=prob.obs_px, E=E, is_rep=is_rep, lam_v=lam_v,
         mxy=mxy, A1hot=A1hot, a_const=a_const, a_valid=a_valid,
         intr=tuple(torch.full((), v, dtype=dt, device=dev)
-                   for v in (cam.fx, cam.fy, cam.cx, cam.cy)))
+                   for v in (cam.fx, cam.fy, cam.cx, cam.cy)),
+        first=first, a_idx=a_idx, free=prob.kf_valid & ~prob.constant)
 
 
 def _obs_residual(params13, q_o, t_o, q_a, t_a, mxy, lam, px, fx, fy, cx, cy):
@@ -153,6 +171,7 @@ def _residuals_jacobians(vp: _VirtualProblem, poses: SE3, lam_v, cam: Camera):
         J = torch.func.jacfwd(lambda p: _obs_residual(p, *args)[0])(zero13)
         return r, J, z
 
+    count(_residuals_jacobians, "calls")
     flat = lambda x: x.reshape((W * K,) + x.shape[2:])
     with _FORWARD_AD_LOCK:
         r, J, z = torch.func.vmap(one)(flat(q_o), flat(t_o), flat(q_a), flat(t_a),
@@ -212,7 +231,9 @@ class _Linearization:
     va: torch.Tensor     # [W(g), K, 6]
     D: torch.Tensor      # [W(g), K]
     g_l: torch.Tensor    # [W(g), K]
-    cost: torch.Tensor
+    # the plain version's Huber cost; K6a writes none (LM takes its costs
+    # from the residual pass)
+    cost: torch.Tensor | None = None
 
 
 def _linearize(vp: _VirtualProblem, poses: SE3, lam_v, cam: Camera,
@@ -252,8 +273,20 @@ def _linearize(vp: _VirtualProblem, poses: SE3, lam_v, cam: Camera,
     return _Linearization(H_cc, g_c, u, va, D, g_l, cost)
 
 
-def _solve_lm(vp: _VirtualProblem, lin: _Linearization, lam_lm):
-    """Damped Schur solve.  Returns (delta_pose [W, 6], delta_lam_v [W, K])."""
+def _residual_pass(vp: _VirtualProblem, poses: SE3, lam_v, cam: Camera, huber_delta):
+    """The Jacobian-free pass (K6a's cost-only mode, plain): the Huber cost
+    over the usable observations, and per slot r², the depth z and the
+    observation's inverse depth (0 where it belongs to no virtual
+    landmark)."""
+    r, z = _residuals_fast(vp, poses, lam_v, cam)
+    r2 = torch.sum(r * r, dim=-1)
+    cost = torch.sum(torch.where(vp.valid, _huber_rho(r2, huber_delta), 0.0))
+    return cost, r2, z, torch.einsum("gwk,gk->wk", vp.E, lam_v)
+
+
+def _schur_plain(vp: _VirtualProblem, lin: _Linearization, lam_lm):
+    """The damped Schur complement S [6W, 6W] and its right-hand side g_s
+    [6W], constant and dead poses masked (K6b, plain)."""
     W, K = vp.valid.shape
     C = 6 * W
     eyeW = torch.eye(W, dtype=lin.H_cc.dtype, device=lin.H_cc.device)
@@ -278,10 +311,231 @@ def _solve_lm(vp: _VirtualProblem, lin: _Linearization, lam_lm):
            + torch.einsum("gkx,gk,gki->xi", Av, gld, va))
     g_s = lin.g_c - hts.reshape(C)
 
-    free6 = (vp.kf_valid & ~vp.constant).repeat_interleave(6)
+    free6 = vp.free.repeat_interleave(6)
     S = torch.where(free6[:, None] & free6[None, :], S, 0.0)
     S = S + torch.diag(torch.where(free6, 1e-9, 1.0))
     g_s = torch.where(free6, g_s, 0.0)
+    return S, g_s
+
+
+# ---------------------------------------------------------------------------
+# The kernels' custom ops: a leading S on every tensor, one launch over all
+# S rows (csrc/ba_kernels.cu).  The CPU implementations run the plain
+# versions row by row; the main path on the CPU calls those directly.
+# ---------------------------------------------------------------------------
+
+_NS = "alvaar_tpu_torch"
+
+
+def _rows_vp(first, a_idx, constant, dtype, **fields) -> _VirtualProblem:
+    """One row's virtual problem rebuilt from the kernels' index form: the
+    dense one-hot tensors equal ``_build_virtual``'s bit for bit.
+    ``fields`` fills the rest (None where the plain version reads
+    nothing)."""
+    W = first.shape[0]
+    g = torch.arange(W, device=first.device)
+    base = dict(poses=None, kf_valid=None, valid=None, px=None, lam_v=None, mxy=None,
+                a_valid=None, intr=None, free=None)
+    return _VirtualProblem(**{**base, **fields}, constant=constant,
+                           E=(first[None] == g[:, None, None]).to(dtype),
+                           is_rep=first == g[:, None], A1hot=(a_idx[..., None] == g).to(dtype),
+                           a_const=constant[a_idx], first=first, a_idx=a_idx)
+
+
+def _rows_rule(op):
+    """The custom op's batching rule: the vmapped dimension moved to the
+    front and merged with S, one call over all the rows, the result split
+    back.  An argument that is not batched is repeated for every row."""
+    def rule(info, in_dims, *args):
+        b = info.batch_size
+        flat = []
+        for a, d in zip(args, in_dims):
+            if isinstance(a, torch.Tensor):
+                a = a.expand(b, *a.shape) if d is None else a.movedim(d, 0)
+                a = a.reshape((-1,) + tuple(a.shape[2:])).contiguous()
+            flat.append(a)
+        outs = op(*flat)
+        return tuple(o.reshape((b, -1) + tuple(o.shape[1:])) for o in outs), (0,) * len(outs)
+    return rule
+
+
+def _linearize_rows(q, t, lam_v, valid, px, mxy, first, a_idx, constant, fx, fy, cx, cy,
+                    huber_delta):
+    cam = Camera(fx, fy, cx, cy)
+    rows = []
+    for i in range(lam_v.shape[0]):
+        vp = _rows_vp(first[i], a_idx[i], constant[i], px.dtype, valid=valid[i], px=px[i],
+                      mxy=mxy[i], intr=tuple(torch.full((), v, dtype=px.dtype)
+                                             for v in (fx, fy, cx, cy)))
+        lin = _linearize(vp, SE3(q[i], t[i]), lam_v[i], cam, huber_delta)
+        rows.append([lin.H_cc, lin.g_c, lin.u, lin.va, lin.D, lin.g_l])
+    return tuple(torch.stack(x) for x in zip(*rows))
+
+
+def _launch_linearize(q, t, lam_v, valid, px, mxy, first, a_idx, constant, fx, fy, cx, cy,
+                      huber_delta):
+    out = ba_kernels.launch_linearize(q, t, lam_v, valid, px, mxy, first, a_idx, constant,
+                                      (fx, fy, cx, cy), huber_delta)
+    count(ba_linearize, "launches")
+    return out
+
+
+def _linearize_fake(q, t, lam_v, valid, px, mxy, first, a_idx, constant, fx, fy, cx, cy,
+                    huber_delta):
+    s, w, k = lam_v.shape
+    new = lambda *shape: lam_v.new_empty(shape)
+    return (new(s, 6 * w, 6 * w), new(s, 6 * w), new(s, w, k, 6), new(s, w, k, 6),
+            new(s, w, k), new(s, w, k))
+
+
+def _residuals_rows(q, t, lam_v, valid, px, mxy, first, a_idx, fx, fy, cx, cy, huber_delta):
+    cam = Camera(fx, fy, cx, cy)
+    rows = []
+    for i in range(lam_v.shape[0]):
+        vp = _rows_vp(first[i], a_idx[i], torch.zeros(first.shape[1], dtype=torch.bool),
+                      px.dtype, valid=valid[i], px=px[i], mxy=mxy[i])
+        cost, r2, z, lam_obs = _residual_pass(vp, SE3(q[i], t[i]), lam_v[i], cam, huber_delta)
+        rows.append((cost.double(), r2, z, lam_obs))
+    return tuple(torch.stack(x) for x in zip(*rows))
+
+
+def _launch_residuals(q, t, lam_v, valid, px, mxy, first, a_idx, fx, fy, cx, cy, huber_delta):
+    out = ba_kernels.launch_residuals(q, t, lam_v, valid, px, mxy, first, a_idx,
+                                      (fx, fy, cx, cy), huber_delta)
+    count(ba_residuals, "launches")
+    return out
+
+
+def _residuals_fake(q, t, lam_v, valid, px, mxy, first, a_idx, fx, fy, cx, cy, huber_delta):
+    s = lam_v.shape[0]
+    return (lam_v.new_empty(s, dtype=torch.float64), torch.empty_like(lam_v),
+            torch.empty_like(lam_v), torch.empty_like(lam_v))
+
+
+def _schur_rows(D, u, va, first, a_idx, H, g_c, g_l, lam_lm, free):
+    rows = []
+    for i in range(D.shape[0]):
+        # valid: only its shape is read
+        vp = _rows_vp(first[i], a_idx[i], torch.zeros_like(free[i]), D.dtype,
+                      valid=first[i] < 0, free=free[i])
+        lin = _Linearization(H[i], g_c[i], u[i], va[i], D[i], g_l[i])
+        rows.append(_schur_plain(vp, lin, lam_lm[i]))
+    return tuple(torch.stack(x) for x in zip(*rows))
+
+
+def _launch_schur(D, u, va, first, a_idx, H, g_c, g_l, lam_lm, free):
+    out = ba_kernels.launch_schur(D, u, va, first, a_idx, H, g_c, g_l, lam_lm, free)
+    count(ba_schur, "launches")
+    return out
+
+
+def _schur_fake(D, u, va, first, a_idx, H, g_c, g_l, lam_lm, free):
+    return torch.empty_like(H), torch.empty_like(g_c)
+
+
+_LINEARIZE_OP = torch.library.custom_op(
+    f"{_NS}::ba_linearize", _linearize_rows, mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor t, Tensor lam_v, Tensor valid, Tensor px, Tensor mxy, "
+           "Tensor first, Tensor a_idx, Tensor constant, float fx, float fy, float cx, "
+           "float cy, float huber_delta) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)")
+_RESIDUALS_OP = torch.library.custom_op(
+    f"{_NS}::ba_residuals", _residuals_rows, mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor t, Tensor lam_v, Tensor valid, Tensor px, Tensor mxy, "
+           "Tensor first, Tensor a_idx, float fx, float fy, float cx, float cy, "
+           "float huber_delta) -> (Tensor, Tensor, Tensor, Tensor)")
+_SCHUR_OP = torch.library.custom_op(
+    f"{_NS}::ba_schur", _schur_rows, mutates_args=(), device_types="cpu",
+    schema="(Tensor D, Tensor u, Tensor va, Tensor first, Tensor a_idx, Tensor H, "
+           "Tensor g_c, Tensor g_l, Tensor lam_lm, Tensor free) -> (Tensor, Tensor)")
+for _op, _launch, _fake in ((_LINEARIZE_OP, _launch_linearize, _linearize_fake),
+                            (_RESIDUALS_OP, _launch_residuals, _residuals_fake),
+                            (_SCHUR_OP, _launch_schur, _schur_fake)):
+    _op.register_kernel("cuda")(_launch)
+    _op.register_fake(_fake)
+    _op.register_vmap(_rows_rule(_op))
+
+
+def _dispatch(x, name: str) -> bool:
+    """True to launch the kernel (CUDA tensors), False for the plain
+    version (CPU tensors); any other device raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type == "cuda":
+        return True
+    raise ValueError(f"{name} runs on CPU or CUDA tensors, got {x.device}")
+
+
+def _one(x):
+    return x.contiguous().unsqueeze(0)
+
+
+def linearize_op(vp: _VirtualProblem, poses: SE3, lam_v, cam: Camera,
+                 huber_delta: float) -> _Linearization:
+    """K6a's custom op on one problem (a leading S = 1 added and taken off);
+    the result's cost is None."""
+    outs = _LINEARIZE_OP(*map(_one, (poses.q, poses.t, lam_v, vp.valid, vp.px, vp.mxy,
+                                     vp.first, vp.a_idx, vp.constant)),
+                         cam.fx, cam.fy, cam.cx, cam.cy, float(huber_delta))
+    return _Linearization(*(o[0] for o in outs))
+
+
+def residuals_op(vp: _VirtualProblem, poses: SE3, lam_v, cam: Camera, huber_delta: float):
+    """K6a's cost-only custom op on one problem."""
+    outs = _RESIDUALS_OP(*map(_one, (poses.q, poses.t, lam_v, vp.valid, vp.px, vp.mxy,
+                                     vp.first, vp.a_idx)),
+                         cam.fx, cam.fy, cam.cx, cam.cy, float(huber_delta))
+    return tuple(o[0] for o in outs)
+
+
+def schur_op(vp: _VirtualProblem, lin: _Linearization, lam_lm):
+    """K6b's custom op on one problem."""
+    D, u, va, first, a_idx, H, g_c, g_l = map(_one, (lin.D, lin.u, lin.va, vp.first, vp.a_idx,
+                                                     lin.H_cc, lin.g_c, lin.g_l))
+    outs = _SCHUR_OP(D, u, va, first, a_idx, H, g_c, g_l, lam_lm.reshape(1), _one(vp.free))
+    return tuple(o[0] for o in outs)
+
+
+def ba_linearize(vp: _VirtualProblem, poses: SE3, lam_v, cam: Camera,
+                 huber_delta: float) -> _Linearization:
+    """The normal-equation blocks at (poses, lam_v): K6a on CUDA tensors,
+    ``_linearize`` on CPU tensors."""
+    if _dispatch(lam_v, "ba_linearize"):
+        return linearize_op(vp, poses, lam_v, cam, huber_delta)
+    return _linearize(vp, poses, lam_v, cam, huber_delta)
+
+
+def ba_residuals(vp: _VirtualProblem, poses: SE3, lam_v, cam: Camera, huber_delta: float):
+    """(cost, r² [W, K], z [W, K], the observations' inverse depths [W, K]):
+    K6a's cost-only mode on CUDA tensors (the cost in float64),
+    ``_residual_pass`` on CPU tensors."""
+    if _dispatch(lam_v, "ba_residuals"):
+        return residuals_op(vp, poses, lam_v, cam, huber_delta)
+    return _residual_pass(vp, poses, lam_v, cam, huber_delta)
+
+
+def ba_schur(vp: _VirtualProblem, lin: _Linearization, lam_lm):
+    """(S [6W, 6W], g_s [6W]): K6b on CUDA tensors, ``_schur_plain`` on CPU
+    tensors."""
+    if _dispatch(lin.D, "ba_schur"):
+        return schur_op(vp, lin, lam_lm)
+    return _schur_plain(vp, lin, lam_lm)
+
+
+ba_linearize.launches = 0
+ba_residuals.launches = 0
+ba_schur.launches = 0
+_residuals_jacobians.calls = 0
+
+
+def _solve_lm(vp: _VirtualProblem, lin: _Linearization, lam_lm):
+    """Damped Schur solve.  Returns (delta_pose [W, 6], delta_lam_v [W, K])."""
+    W, K = vp.valid.shape
+    Av = vp.A1hot
+    u, va, D, g_l = lin.u, lin.va, lin.D, lin.g_l
+    lm_active = vp.is_rep & (D > 1e-12)
+    invD = torch.where(lm_active, 1.0 / torch.where(lm_active, D * (1.0 + lam_lm), 1.0), 0.0)
+    S, g_s = ba_schur(vp, lin, lam_lm)
+    free6 = vp.free.repeat_interleave(6)
 
     # SPD by construction; an indefinite system gives a zero step, which
     # the LM loop then rejects (the JAX package's isfinite guard)
@@ -301,20 +555,16 @@ def _solve_lm(vp: _VirtualProblem, lin: _Linearization, lam_lm):
 def _lm_phase(vp: _VirtualProblem, cam: Camera, delta_huber, n_iters: int,
               poses: SE3, lam_v):
     """Branch-free accept/reject LM: linearize + solve, then one
-    Jacobian-free residual pass for the trial cost."""
-    def cost_only(poses, lam_v):
-        r, _ = _residuals_fast(vp, poses, lam_v, cam)
-        r2 = torch.sum(r * r, dim=-1)
-        return torch.sum(torch.where(vp.valid, _huber_rho(r2, delta_huber), 0.0))
-
-    cost = cost_only(poses, lam_v)
+    Jacobian-free residual pass for the trial cost (float64 on CUDA
+    tensors: csrc/ba_kernels.cu ``residual_pass`` says why)."""
+    cost = ba_residuals(vp, poses, lam_v, cam, delta_huber)[0]
     lam_lm = torch.full((), 1e-4, dtype=lam_v.dtype, device=lam_v.device)
     for _ in range(n_iters):
-        lin = _linearize(vp, poses, lam_v, cam, delta_huber)
+        lin = ba_linearize(vp, poses, lam_v, cam, delta_huber)
         dc, dl = _solve_lm(vp, lin, lam_lm)
         new_poses = SE3.exp(dc).compose(poses).normalize()
         new_lam_v = lam_v + dl
-        new_cost = cost_only(new_poses, new_lam_v)
+        new_cost = ba_residuals(vp, new_poses, new_lam_v, cam, delta_huber)[0]
         accept = new_cost < cost
         poses = SE3.where(accept, new_poses, poses)
         lam_v = torch.where(accept, new_lam_v, lam_v)
@@ -332,22 +582,18 @@ def local_ba(prob: BAProblem, cam: Camera, *, iters: int = 5,
     vp = _build_virtual(prob, cam)
     poses1, lam_v1, _ = _lm_phase(vp, cam, huber_delta, iters, prob.poses, vp.lam_v)
 
-    r, z = _residuals_fast(vp, poses1, lam_v1, cam)
-    r2 = torch.sum(r * r, dim=-1)
-    lam_obs1 = torch.einsum("gwk,gk->wk", vp.E, lam_v1)
+    _, r2, z, lam_obs1 = ba_residuals(vp, poses1, lam_v1, cam, huber_delta)
     keep = vp.valid & (r2 <= chi2_thresh) & (z > 0) & (lam_obs1 > 1e-6)
 
     # L2 re-solve on the inliers (Huber with a huge delta is L2)
     vp2 = dataclasses.replace(vp, valid=keep)
     poses2, lam_v2, cost = _lm_phase(vp2, cam, 1e9, refine_iters, poses1, lam_v1)
 
-    r, z = _residuals_fast(vp2, poses2, lam_v2, cam)
-    r2 = torch.sum(r * r, dim=-1)
-    lam_obs2 = torch.einsum("gwk,gk->wk", vp.E, lam_v2)
+    _, r2, z, lam_obs2 = ba_residuals(vp2, poses2, lam_v2, cam, 1e9)
     inlier = vp.valid & (r2 <= chi2_thresh) & (z > 0) & (lam_obs2 > 1e-6)
 
     # a merged landmark's virtual landmarks collide here: the last one wins
     invdepth = masked_scatter_set(prob.invdepth, prob.obs_lm.reshape(-1),
                                   lam_v2.reshape(-1), vp.is_rep.reshape(-1))
-    return BAResult(poses=poses2.normalize(), invdepth=invdepth,
-                    obs_inlier=inlier, cost=cost, num_obs=torch.sum(inlier))
+    return BAResult(poses=poses2.normalize(), invdepth=invdepth, obs_inlier=inlier,
+                    cost=cost.to(prob.obs_px.dtype), num_obs=torch.sum(inlier))

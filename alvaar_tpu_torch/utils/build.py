@@ -17,7 +17,8 @@ from pathlib import Path
 from typing import Sequence
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-_BUILD_LOCK = threading.Lock()
+_LOCKS_LOCK = threading.Lock()
+_BUILD_LOCKS: dict = {}     # one per library: different libraries build at once
 
 
 def find_tool(name: str, fallback: str | None = None, why: str = "") -> str:
@@ -36,7 +37,9 @@ def build_library(src: Path, compiler: str, flags: Sequence[str], libs: Sequence
     command = [*flags, *libs]
     digest = hashlib.sha256(src.read_bytes() + " ".join(command).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{src.stem}_{digest}.so"
-    with _BUILD_LOCK:
+    with _LOCKS_LOCK:
+        lock = _BUILD_LOCKS.setdefault(out, threading.Lock())
+    with lock:
         if out.exists():
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

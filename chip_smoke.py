@@ -34,6 +34,32 @@ Phases, each printed on its own lines:
    positions and statuses bit for bit, timed beside the bound; they run
    here, early in the process: in one call a ``torch.profiler`` session
    late in phase 11 recorded no kernel in three attempts;
+2b. local BA's kernels (csrc/ba_kernels.cu), built from the checkout, run
+   after phase 3 (whose golden keyframes' problems it takes): K6a
+   (``ba_linearize``: the linearisation with its normal-equation blocks,
+   and its cost-only residual pass) and K6b (``ba_schur``: the damped,
+   masked Schur complement) against their plain versions
+   (solvers/ba.py ``_linearize``, ``_residual_pass``, ``_schur_plain``)
+   and a float64 evaluation of them on the same CUDA tensors: each block
+   within 2e-5 of its largest magnitude of the float64 result
+   (``BA_BLOCK_BAR``; the plain version's own error printed beside), the
+   residual pass's r², z and inverse depths within 1e-6 (bit-equality
+   printed), every result bit-equal run to run; whole ``local_ba``,
+   kernels against plain versions, at tests/test_torch_solvers.py's bars
+   (poses and inverse depths 1e-4, inlier flags equal), on that test's two
+   problems (outlier fractions 0 and 0.05), forward windows of K = 130, 240
+   and 352 at 20 LM iterations and phase 3's golden keyframes; printed,
+   with both versions' distances from a float64 run, for the bench's
+   L = 10240 problem and a problem with slots at the inverse-depth and
+   depth clamps (the plain float32 version is itself beyond the bars from
+   float64 there); three golden keyframes as
+   S = 3 rows under ``torch.func.vmap`` (as ``map_rows`` runs them): one
+   launch of each op over the rows, each row bit-equal to its launch
+   alone, whole ``local_ba`` under vmap at the same bars.  Times per call
+   at the main path's shapes (S = 1, 3, 8 at K = 192; K = 130, 352; S = 2,
+   11 at K = 240; the bench problem) by CUDA events and
+   ``torch.profiler``, beside the plain versions' and the bound (this
+   run's bytes and float32 operations over the H100's rates);
 3. the main path under the default config (5-point and homography
    bootstrap): ``AlvaAR.find_camera_pose`` over the 120-frame 640x480
    golden sequence on the card, held to the native reference's bars
@@ -43,7 +69,9 @@ Phases, each printed on its own lines:
    the homography RANSAC must each have run; every frame at status 1
    launched the KLT kernel exactly twice through ``fb_klt_track`` and
    none through ``klt_pyramidal`` or ``lk_level``; statuses and poses
-   bit-equal to those of the port of commit 26d2929 (``PARENT_DIGESTS``);
+   bit-equal to this tree's earlier runs (``RUN_DIGESTS``; commit 7c0f4da's,
+   local BA eager, printed beside); local BA's kernels launched and
+   forward-mode AD never (so in phases 6a, 6, 6e's workers, 8, 9, 11a);
    host reads per tracking frame at most 2 at the median (the step's
    packed flags and the packed result); frames 100-107 run under
    ``torch.profiler``: at most 2 host waits for the card (stream, event
@@ -83,7 +111,8 @@ Phases, each printed on its own lines:
    (``keyframe_phase_batched``) against the composition of rows
    (``keyframe_phase`` per row, then ``write_rows``), timed in turns
    (rows, batched, batched, rows) and held to tests/test_torch_subbatch.py's
-   bars; at S = 3 both under ``torch.profiler`` (kernels launched, device
+   bars; local BA's launches per batched pass equal at every S (one launch
+   over all rows); at S = 3 both under ``torch.profiler`` (kernels launched, device
    time, host waits); the ops, if any, that fell back to a per-row
    loop under ``vmap``;
 6. multi-stream serving (parallel/multistream.py): 16 streams at 640x480
@@ -173,8 +202,9 @@ Phases, each printed on its own lines:
 9. BASELINE configuration 4, ``SlamConfig(max_landmarks=10240)``: (a)
    ``local_ba`` alone on the JAX bench's problem (W = 30, K = 192,
    observations 60% valid, the first two poses constant, seed 0), device ms
-   per call by CUDA events, kernels and host waits per call under
-   ``torch.profiler``, peak device memory, and its host waits at 3, 5 and
+   per call by CUDA events, kernels (at most 2500; ~9.7 k eager) and host
+   waits per call under ``torch.profiler``, K6a's and K6b's launches per
+   call, peak device memory, and its host waits at 3, 5 and
    10 LM iterations, equal and at most 4; poses, inverse depths and cost
    finite, the constant poses' translations unchanged bit for bit and
    their quaternions to 2.4e-7 (the solver renormalises them); (b) the
@@ -209,8 +239,8 @@ Phases, each printed on its own lines:
    shapes runs in phase 2): ``AlvaAR(640, 480, fov=60.0, config=preset)`` over the 120
    golden frames, held to the JAX package's run on the CPU on the same
    frames (``JAX_PRESET_BARS``: frames at status 1 within 5, the first
-   within 3 frames, no more resets, ATE at most 1.5x), bit-equal to the
-   port of commit 26d2929's runs, exactly 2 KLT launches per status-1
+   within 3 frames, no more resets, ATE at most 1.5x), bit-equal to
+   this tree's earlier runs, exactly 2 KLT launches per status-1
    frame, host reads per tracking frame at most 2 at the median;
    ``local_ba`` on the run's first steady keyframe's problem, by CUDA
    events and under the profiler (FAST's at 3 iterations, ACCURATE's at 3,
@@ -224,7 +254,8 @@ Phases, each printed on its own lines:
    and exits 2 without opening a file outside the checkout.
 
 Every path is driven with the counters set to 0 just before it and read
-just after; the kernel line's ``launches`` sums the paths' launches.  Each
+just after; the kernel line's ``launches`` sums the paths' launches (for
+local BA's kernels, phases 3, 6a, 6, 6e's workers, 8, 9 and 11a's).  Each
 group of phases prints its seconds on a ``[time]`` line.  Then
 one JSON line describing each kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed bar raises and the script
@@ -336,6 +367,7 @@ def phase_env():
 
 H100_BYTES_PER_S = 3.35e12     # HBM3, the H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12    # float32 outside the tensor cores, same sheet
+H100_F64_FLOP_PER_S = 34e12    # float64 outside the tensor cores, same sheet
 
 
 def _mark(mask, base, size: int, off: int) -> None:
@@ -521,9 +553,15 @@ def phase_kernel(frames, card):
     from alvaar_tpu_torch.ops.image import build_pyramid
     from alvaar_tpu_torch.ops.klt import klt_pyramidal
 
+    # every kernel source of the port at once, one nvcc each
+    from concurrent.futures import ThreadPoolExecutor
+    from alvaar_tpu_torch.solvers import ba_kernels
     t0 = time.time()
-    lib = lk.build_kernel(verbose=True)
-    print(f"[kernel] built {os.path.relpath(lib, ROOT)} in {time.time() - t0:.2f} s")
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(b, verbose=True) for b in (lk.build_kernel, ba_kernels.build_kernel)]
+        libs = [b.result() for b in builds]
+    print(f"[kernel] built {', '.join(os.path.relpath(lib, ROOT) for lib in libs)} in "
+          f"{time.time() - t0:.2f} s")
 
     cfg = SlamConfig()
     dev = torch.device("cuda")
@@ -615,6 +653,413 @@ def phase_kernel(frames, card):
     _check(torch.equal(a[1], b[1]), "lk_level: kernel and plain statuses differ")
     _check(float((a[0] - b[0]).abs().max()) <= 1e-5, "lk_level: |dxy| > 1e-5")
     return max_err, shapes
+
+
+# ---------------------------------------------------------------------------
+# Phase 2b: local BA's kernels (csrc/ba_kernels.cu)
+# ---------------------------------------------------------------------------
+
+# A kernel's block is held to a float64 evaluation of the plain version on the
+# same inputs: its error is at most BA_BLOCK_BAR of the block's largest
+# magnitude (the float32 plain version's own error is printed beside it).
+BA_BLOCK_BAR = 2e-5
+BA_BLOCKS = ("H_cc", "g_c", "u", "va", "D", "g_l")   # what K6a's linearisation writes
+BA_POSE_TOL = BA_INVD_TOL = 1e-4   # whole local_ba: tests/test_torch_solvers.py's bars
+BA_LAM_LM = 1e-3                   # the damping K6b is checked at
+BA_WINDOW_ITERS = 20               # LM iterations on the W = 30 forward windows
+# operations that a linearisation needs per usable observation (one
+# evaluation each; the kernel's re-evaluations are not counted): in float64
+# the unit quaternions, residual and closed-form Jacobian ~270, in float32
+# the Huber weight and the normal-equation products ~565; a residual pass
+# per slot ~95 in float32 (r2, z) and per usable slot ~90 in float64 (the
+# cost)
+BA_LIN_FLOPS_PER_OBS = (565, 270)     # (float32, float64)
+BA_RES_FLOPS_PER_SLOT = 95            # float32
+BA_RES_F64_PER_OBS = 90
+BA_PATH_LAUNCHES = {"ba_linearize": 0, "ba_schur": 0}   # summed over the paths
+
+
+def _ba_zero() -> None:
+    from alvaar_tpu_torch.solvers import ba
+    ba.ba_linearize.launches = ba.ba_residuals.launches = ba.ba_schur.launches = 0
+    ba._residuals_jacobians.calls = 0
+
+
+def _ba_counts() -> dict:
+    from alvaar_tpu_torch.solvers import ba
+    return dict(linearize=ba.ba_linearize.launches, residuals=ba.ba_residuals.launches,
+                schur=ba.ba_schur.launches, jacfwd=ba._residuals_jacobians.calls)
+
+
+def _ba_path(tag: str) -> None:
+    """After a path driven from zeroed BA counters: K6a (both modes) and K6b
+    launched, forward-mode AD (the CPU path's linearisation) never; the
+    launches go into the kernel line."""
+    c = _ba_counts()
+    print(f"[{tag}] local BA on the path: ba_linearize {c['linearize']} linearisations + "
+          f"{c['residuals']} residual passes, ba_schur {c['schur']} launches, forward-mode AD "
+          f"{c['jacfwd']} calls")
+    _check(min(c["linearize"], c["residuals"], c["schur"]) > 0,
+           f"[{tag}] local BA's kernels did not all launch on the path: {c}")
+    _check(c["jacfwd"] == 0, f"[{tag}] the plain linearisation ran on the card")
+    BA_PATH_LAUNCHES["ba_linearize"] += c["linearize"] + c["residuals"]
+    BA_PATH_LAUNCHES["ba_schur"] += c["schur"]
+
+
+class _PlainBA:
+    """Within: local BA's wrappers run the plain versions on CUDA tensors."""
+
+    def __enter__(self):
+        from alvaar_tpu_torch.solvers import ba
+        self.saved = ba._dispatch
+        ba._dispatch = lambda x, name: False
+
+    def __exit__(self, *exc):
+        from alvaar_tpu_torch.solvers import ba
+        ba._dispatch = self.saved
+
+
+def _f64(prob):
+    from alvaar_tpu_torch.geom.lie import SE3
+    from alvaar_tpu_torch.solvers.ba import BAProblem
+    d = lambda x: x.double() if x.is_floating_point() else x
+    return BAProblem(**{k: SE3(v.q.double(), v.t.double()) if isinstance(v, SE3) else d(v)
+                        for k, v in vars(prob).items()})
+
+
+def _vs64(got, plain, ref, scale=None):
+    """(kernel, plain) largest absolute error against the float64 ``ref``
+    over ``scale`` (default: ref's largest magnitude)."""
+    ref = ref.double()
+    sc = max(scale if scale is not None else float(ref.abs().max()), 1e-30)
+    return (float((got.double() - ref).abs().max()) / sc,
+            float((plain.double() - ref).abs().max()) / sc)
+
+
+def _ba_fields(lin):
+    return [getattr(lin, f) for f in BA_BLOCKS]
+
+
+def _pose_diffs(a, b):
+    """Largest |dq| (sign-aligned), |dt|, |d invdepth| and differing
+    inlier flags of two BAResults."""
+    import torch
+    qa, qb = a.poses.q.double(), b.poses.q.double()
+    qb = qb * torch.where((qa * qb).sum(-1, keepdim=True) < 0, -1.0, 1.0)
+    return (float((qa - qb).abs().max()), float((a.poses.t.double() - b.poses.t.double()).abs().max()),
+            float((a.invdepth.double() - b.invdepth.double()).abs().max()),
+            int((a.obs_inlier != b.obs_inlier).sum()))
+
+
+def _ba_case(name, prob, cam, delta, whole="held", iters=5):
+    """K6a (both modes) and K6b against their plain versions and a float64
+    evaluation on one problem's CUDA tensors, run-to-run bits, and whole
+    ``local_ba`` with the kernels against the plain versions.  Returns
+    {kernel: (worst relative error against float64, worst absolute error
+    against the plain version)}."""
+    import torch
+    from alvaar_tpu_torch.solvers import ba
+    vp, vp64 = ba._build_virtual(prob, cam), ba._build_virtual(_f64(prob), cam)
+    poses, lam_v = prob.poses, vp.lam_v
+    lam = torch.tensor(BA_LAM_LM, device=lam_v.device)
+    lin_k = ba.ba_linearize(vp, poses, lam_v, cam, delta)
+    again = ba.ba_linearize(vp, poses, lam_v, cam, delta)
+    lin_p = ba._linearize(vp, poses, lam_v, cam, delta)
+    lin_64 = ba._linearize(vp64, vp64.poses, vp64.lam_v, cam, delta)
+    res_k = ba.ba_residuals(vp, poses, lam_v, cam, delta)
+    res_again = ba.ba_residuals(vp, poses, lam_v, cam, delta)
+    res_p = ba._residual_pass(vp, poses, lam_v, cam, delta)
+    res_64 = ba._residual_pass(vp64, vp64.poses, vp64.lam_v, cam, delta)
+    sch_k = ba.ba_schur(vp, lin_p, lam)
+    sch_again = ba.ba_schur(vp, lin_p, lam)
+    sch_p = ba._schur_plain(vp, lin_p, lam)
+    lin_p64 = ba._Linearization(*(x.double() for x in _ba_fields(lin_p)))
+    sch_64 = ba._schur_plain(vp64, lin_p64, lam.double())
+    torch.cuda.synchronize()
+    out, worst = [], {"ba_linearize": [0.0, 0.0], "ba_schur": [0.0, 0.0]}
+
+    def hold(kernel, block, got, plain, ref, scale=None):
+        ek, ep = _vs64(got, plain, ref, scale)
+        dabs = float((got.double() - plain.double()).abs().max())
+        out.append(f"{block} {ek:.1e}/{ep:.1e}")
+        _check(ek <= BA_BLOCK_BAR,
+               f"[ba] {name}: {block} {ek:.3e} from float64 (plain version {ep:.3e})")
+        worst[kernel][0] = max(worst[kernel][0], ek)
+        worst[kernel][1] = max(worst[kernel][1], dabs)
+
+    for block, a, b, c in zip(BA_BLOCKS, _ba_fields(lin_k), _ba_fields(lin_p),
+                              _ba_fields(lin_64)):
+        hold("ba_linearize", block, a, b, c)
+    hold("ba_linearize", "pass cost", res_k[0], res_p[0], res_64[0])
+    res_equal = all(torch.equal(a, b) for a, b in zip(res_k[1:], res_p[1:]))
+    res_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                  for a, b in zip(res_k[1:], res_p[1:]))
+    _check(res_rel <= 1e-6, f"[ba] {name}: the residual pass's r2/z/lambda differ by {res_rel:.3e}")
+    hold("ba_schur", "S", sch_k[0], sch_p[0], sch_64[0],
+         max(float(sch_64[0].abs().max()), float(lin_p.H_cc.abs().max())))
+    hold("ba_schur", "g_s", sch_k[1], sch_p[1], sch_64[1],
+         max(float(sch_64[1].abs().max()), float(lin_p.g_c.abs().max())))
+    bits = (all(torch.equal(a, b) for a, b in zip(_ba_fields(lin_k), _ba_fields(again)))
+            and all(torch.equal(a, b) for a, b in zip(res_k, res_again))
+            and all(torch.equal(a, b) for a, b in zip(sch_k, sch_again)))
+    W, K = vp.valid.shape
+    line = (f"[ba] {name} (W={W}, K={K}, {int(vp.valid.sum())} usable observations): error "
+            f"from float64, kernel/plain, over the block's largest magnitude: "
+            + ", ".join(out) + f"; the residual pass's r2, z, lambda bit-equal to the plain "
+            f"pass {res_equal} (rel {res_rel:.1e}); run to run bit-equal {bits}")
+    _check(bits, f"[ba] {name}: a kernel's result differs run to run")
+    if whole:
+        kw = dict(iters=iters, refine_iters=2, huber_delta=delta)
+        rk = ba.local_ba(prob, cam, **kw)
+        with _PlainBA():
+            rp = ba.local_ba(prob, cam, **kw)
+            r64 = ba.local_ba(_f64(prob), cam, **kw)
+        dq, dt, dl, din = _pose_diffs(rk, rp)
+        k64, p64 = _pose_diffs(rk, r64), _pose_diffs(rp, r64)
+        line += (f"; whole local_ba at {iters} LM iterations, kernels against plain versions: "
+                 f"|dq| {dq:.2e} |dt| {dt:.2e} "
+                 f"|d invdepth| {dl:.2e}, inliers differing {din} (from float64: kernels "
+                 f"{k64[1]:.2e} / {k64[2]:.2e}, plain {p64[1]:.2e} / {p64[2]:.2e} in t / invdepth)")
+    print(line)
+    if whole == "held":
+        _check(max(dq, dt) <= BA_POSE_TOL and dl <= BA_INVD_TOL and din == 0,
+               f"[ba] {name}: whole local_ba beyond the bars")
+    return worst
+
+
+def _ba_stack(probs, cam):
+    """The kernels' inputs of S problems, stacked ([S, ...])."""
+    import torch
+    from alvaar_tpu_torch.solvers import ba
+    vps = [ba._build_virtual(p, cam) for p in probs]
+    st = lambda f: torch.stack([f(vp, p) for vp, p in zip(vps, probs)]).contiguous()
+    return dict(q=st(lambda v, p: p.poses.q), t=st(lambda v, p: p.poses.t),
+                lam_v=st(lambda v, p: v.lam_v), valid=st(lambda v, p: v.valid),
+                px=st(lambda v, p: v.px), mxy=st(lambda v, p: v.mxy),
+                first=st(lambda v, p: v.first), a_idx=st(lambda v, p: v.a_idx),
+                constant=st(lambda v, p: v.constant), free=st(lambda v, p: v.free)), vps
+
+
+def _ba_batched(probs, cam, delta):
+    """S rows under ``torch.func.vmap``, as ``map_rows`` runs them: each op
+    one launch over the rows, each row bit-equal to its launch alone; and
+    whole ``local_ba`` under vmap against each row alone at the bars."""
+    import dataclasses
+    import torch
+    from alvaar_tpu_torch.geom.lie import SE3
+    from alvaar_tpu_torch.solvers import ba
+    x, vps = _ba_stack(probs, cam)
+    lam = torch.full((len(probs),), BA_LAM_LM, device=x["q"].device)
+
+    def row(q, t, lam_v, valid, px, mxy, first, a_idx, constant, free, lam_lm):
+        vp = dataclasses.replace(vps[0], valid=valid, px=px, mxy=mxy, first=first,
+                                 a_idx=a_idx, constant=constant, free=free)
+        lin = ba.linearize_op(vp, SE3(q, t), lam_v, cam, delta)
+        res = ba.residuals_op(vp, SE3(q, t), lam_v, cam, delta)
+        return tuple(_ba_fields(lin)) + tuple(res) + tuple(ba.schur_op(vp, lin, lam_lm))
+
+    keys = ("q", "t", "lam_v", "valid", "px", "mxy", "first", "a_idx", "constant", "free")
+    _ba_zero()
+    got = torch.func.vmap(row)(*(x[k] for k in keys), lam)
+    batched = _ba_counts()
+    _ba_zero()
+    alone = [row(*(x[k][i] for k in keys), lam[i]) for i in range(len(probs))]
+    torch.cuda.synchronize()
+    equal = all(torch.equal(g[i], a) for i, one in enumerate(alone) for g, a in zip(got, one))
+    names = [f.name for f in dataclasses.fields(ba.BAProblem)]
+
+    def solve(q, t, *rest):
+        r = ba.local_ba(ba.BAProblem(SE3(q, t), **dict(zip(names[1:], rest))), cam,
+                        huber_delta=delta)
+        return r.poses.q, r.poses.t, r.invdepth, r.obs_inlier
+
+    cols = [torch.stack([getattr(p, n) if n != "poses" else p.poses.q for p in probs])
+            for n in names]
+    tcol = torch.stack([p.poses.t for p in probs])
+    vq, vt, vinv, vin = torch.func.vmap(solve)(cols[0], tcol, *cols[1:])
+    worst = [0.0, 0.0, 0, 0]
+    for i, p in enumerate(probs):
+        r = ba.local_ba(p, cam, huber_delta=delta)
+        d = _pose_diffs(ba.BAResult(SE3(vq[i], vt[i]), vinv[i], vin[i], None, None), r)
+        worst = [max(a, b) for a, b in zip(worst, d)]
+    print(f"[ba] S={len(probs)} rows under vmap: launches ba_linearize {batched['linearize']} + "
+          f"{batched['residuals']}, ba_schur {batched['schur']} (one each over all rows); every row "
+          f"bit-equal to its launch alone {equal}; whole local_ba under vmap against each row alone: "
+          f"|dq| {worst[0]:.2e} |dt| {worst[1]:.2e} |d invdepth| {worst[2]:.2e}, inliers "
+          f"differing {worst[3]}")
+    _check(batched["linearize"] == batched["residuals"] == batched["schur"] == 1,
+           f"[ba] the batched ops launched {batched}")
+    _check(equal, "[ba] a row of a batched launch differs from its launch alone")
+    _check(max(worst[:2]) <= BA_POSE_TOL and worst[2] <= BA_INVD_TOL and worst[3] == 0,
+           "[ba] local_ba under vmap differs from the rows alone beyond the bars")
+
+
+def _ba_bounds(x, vps, lin):
+    """The least time each kernel could take on the card for these S rows:
+    (bytes, flops, ms, bound_by) for K6a's linearisation, its residual pass
+    and K6b.  Bytes: each input read once, each output written once.
+    Operations: what this run's data needs: per usable observation for the
+    linearisation, per slot and usable slot for the residual pass, and for
+    K6b per term that a live virtual landmark adds to a 6x6 block (T_uu,
+    T_uv twice, T_vv: 3 operations per entry) and to g_s, plus the block's
+    damping and mask; float32 and float64 each over their own peak, the
+    larger time counting (separate units).  ``flops`` is both summed."""
+    import torch
+    S, W, K = x["lam_v"].shape
+    WK, C = W * K, 6 * W
+    inp = S * (W * 7 * 4 + WK * (4 + 1 + 8 + 8 + 8 + 8))
+    lin_bytes = inp + S * W + S * (C * C * 4 + C * 4 + WK * 14 * 4)
+    res_bytes = inp + S * (WK * 3 * 4 + 8)
+    n_usable = int(x["valid"].sum())
+    sch_bytes = S * (WK * (4 + 24 + 24 + 8 + 8 + 4) + C * C * 4 + C * 4 + 4 + W) + S * (C * C + C) * 4
+    n_terms = n_gs = 0
+    for s, vp in enumerate(vps):
+        g_iota = torch.arange(W, device=vp.first.device)
+        active = (vp.first == g_iota[:, None]) & (lin[s].D > 1e-12)           # [g, k]
+        fx = vp.first.clamp(max=W - 1)
+        act_x = (vp.first < W) & active.gather(0, fx)                         # [x, k]
+        same = (vp.first[:, None, :] == vp.first[None, :, :]) & act_x[:, None, :]
+        n_terms += int(same.sum()) + 2 * int(act_x.sum()) + int(active.sum())
+        n_gs += int(act_x.sum()) + int(active.sum())
+    sch_flops = n_terms * 36 * 3 + n_gs * 12 + S * W * W * 36 * 3
+    rows = {}
+    for name, nb, f32, f64 in (
+            ("linearize", lin_bytes, n_usable * BA_LIN_FLOPS_PER_OBS[0],
+             n_usable * BA_LIN_FLOPS_PER_OBS[1]),
+            ("residuals", res_bytes, S * WK * BA_RES_FLOPS_PER_SLOT, n_usable * BA_RES_F64_PER_OBS),
+            ("schur", sch_bytes, sch_flops, 0)):
+        tb = nb / H100_BYTES_PER_S
+        to = max(f32 / H100_F32_FLOP_PER_S, f64 / H100_F64_FLOP_PER_S)
+        rows[name] = (nb, f32 + f64, 1e3 * max(tb, to), "bytes" if tb >= to else "operations")
+    return rows
+
+
+def _ba_timing(tag, probs, cam, delta, card, plain=True):
+    """Per call at S = len(probs) rows: the kernels' ms by CUDA events
+    around back-to-back launches (``solvers/ba_kernels.py``, as the custom
+    ops call them) and their device time by ``torch.profiler``, the plain
+    versions' ms per row (S = 1 only), and the bounds."""
+    import torch
+    from alvaar_tpu_torch.solvers import ba, ba_kernels
+    x, vps = _ba_stack(probs, cam)
+    camt = (cam.fx, cam.fy, cam.cx, cam.cy)
+    lin_args = [x[k] for k in ("q", "t", "lam_v", "valid", "px", "mxy", "first", "a_idx",
+                               "constant")]
+    lin = ba_kernels.launch_linearize(*lin_args, camt, delta)
+    H, g_c, u, va, D, g_l = lin
+    lam = torch.full((len(probs),), BA_LAM_LM, device=x["q"].device)
+    calls = {
+        "linearize": (lambda: ba_kernels.launch_linearize(*lin_args, camt, delta),
+                      "ba_linearize_kernel"),
+        "residuals": (lambda: ba_kernels.launch_residuals(*lin_args[:-1], camt, delta),
+                      "ba_linearize_kernel"),
+        "schur": (lambda: ba_kernels.launch_schur(D, u, va, x["first"], x["a_idx"], H, g_c, g_l,
+                                                  lam, x["free"]), "ba_schur_kernel"),
+    }
+    bounds = _ba_bounds(x, vps, [ba._Linearization(*(t[s] for t in lin)) for s in range(len(probs))])
+    rows = {}
+    for name, (fn, kname) in calls.items():
+        ms = _time_ms(fn)
+        dev, n = _device_ms(fn, kname)
+        rows[name] = dict(ms=ms, device_ms=dev, launches_per_call=n, bytes=bounds[name][0],
+                          flops=bounds[name][1], bound_ms=bounds[name][2],
+                          bound_by=bounds[name][3], plain_ms=None)
+    if plain:
+        vp, p = vps[0], probs[0]
+        lin_p = ba._linearize(vp, p.poses, vp.lam_v, cam, delta)
+        lam0 = lam[0]
+        pl = {"linearize": lambda: ba._linearize(vp, p.poses, vp.lam_v, cam, delta),
+              "residuals": lambda: ba._residual_pass(vp, p.poses, vp.lam_v, cam, delta),
+              "schur": lambda: ba._schur_plain(vp, lin_p, lam0)}
+        for name, fn in pl.items():
+            rows[name]["plain_ms"] = _time_ms(fn, reps=3, rounds=3, warmup=1)
+    S, W, K = x["lam_v"].shape
+    print(f"[ba] {tag} (S={S}, W={W}, K={K}): " + "; ".join(
+        f"{name} {r['ms']:.4f} ms per call (CUDA events), device {r['device_ms']:.4f} ms in "
+        f"{r['launches_per_call']:g} launch, plain "
+        + (f"{r['plain_ms']:.3f} ms" if r["plain_ms"] is not None else "not measured")
+        + f", bound {r['bound_ms'] * 1e3:.3f} us by {r['bound_by']} ({r['bytes'] / 1e3:.1f} KB, "
+        f"{r['flops'] / 1e6:.2f} MFLOP)" for name, r in rows.items()) + f" [{card}]")
+    return rows
+
+
+def phase_ba_kernels(golden, card):
+    """Phase 2b: K6a and K6b against their plain versions on the card (the
+    problems: tests/test_torch_solvers.py's at outlier fraction 0 and 0.05,
+    the bench's L = 10240 problem, K = 130, 240 and 352 windows, the
+    clamp slots, phase 3's golden keyframes), S = 3 rows under vmap, and
+    their times at the main path's shapes.  Returns the kernel line's rows
+    for ba_linearize and ba_schur."""
+    import torch
+    from ba_problems import bench_problem, build_problem, clamp_problem
+    from alvaar_tpu_torch import config
+    from alvaar_tpu_torch.config import SlamConfig
+    from alvaar_tpu_torch.solvers import ba_kernels
+    from alvaar_tpu_torch.solvers.pnp import CHI2_THRESH_2DOF
+
+    t0 = time.time()
+    lib = ba_kernels.build_kernel(verbose=True)
+    print(f"[ba] built {os.path.relpath(lib, ROOT)} in {time.time() - t0:.2f} s")
+    dev = torch.device("cuda")
+    delta = SlamConfig().huber_thresh
+    worst = {"ba_linearize": [0.0, 0.0], "ba_schur": [0.0, 0.0]}
+
+    def case(name, prob, cam, whole="held", d=delta, iters=5):
+        for k, (rel, dabs) in _ba_case(name, prob, cam, d, whole, iters).items():
+            worst[k] = [max(worst[k][0], rel), max(worst[k][1], dabs)]
+
+    for frac in (0.0, 0.05):
+        prob, cam = build_problem(np.random.default_rng(0), outlier_frac=frac, device=dev)
+        case(f"test_torch_solvers problem, outliers {frac}", prob, cam,
+             d=CHI2_THRESH_2DOF ** 0.5)
+    for K in (config.FAST.max_keypoints, 240, config.ACCURATE.max_keypoints):
+        prob, cam = build_problem(np.random.default_rng(K), W=30, L=2 * K, K=K, device=dev)
+        case(f"forward window K={K}", prob, cam, iters=BA_WINDOW_ITERS)
+    # whole local_ba printed, not held: the plain float32 version is itself
+    # beyond the bars from its float64 run on these two (a point near its
+    # image plane amplifies the pose chain's round-off), so it is no
+    # yardstick there; both distances from float64 are printed
+    prob, cam = clamp_problem(np.random.default_rng(0), device=dev)
+    case("clamp slots", prob, cam, whole="printed")
+    bench, bcam = bench_problem(np.random.default_rng(0), device=dev)
+    case("bench problem L=10240", bench, bcam, whole="printed")
+    for i, (prob, cam, kw) in enumerate(golden):
+        case(f"golden keyframe {i}", prob, cam, d=kw["huber_delta"])
+
+    rows3 = [g[0] for g in golden[:3]]
+    _ba_batched(rows3, golden[0][1], delta)
+
+    # times at the main path's shapes (the tentpole table of PERF.md)
+    gcam = golden[0][1]
+    main = _ba_timing("golden keyframe 0", [golden[0][0]], gcam, delta, card)
+    shapes = [("golden keyframe 0", 1, 192, main)]
+    for S in (3, 8):
+        shapes.append((f"golden keyframes x{S}", S, 192,
+                       _ba_timing(f"golden keyframes x{S}", [golden[i % len(golden)][0]
+                                                            for i in range(S)],
+                                  gcam, delta, card, plain=False)))
+    for K in (config.FAST.max_keypoints, config.ACCURATE.max_keypoints):
+        prob, cam = build_problem(np.random.default_rng(K), W=30, L=2 * K, K=K, device=dev)
+        shapes.append((f"forward window K={K}", 1, K,
+                       _ba_timing(f"forward window K={K}", [prob], cam, delta, card)))
+    for S in (2, 11):
+        probs = [build_problem(np.random.default_rng(240 + i), W=30, L=480, K=240,
+                               device=dev)[0] for i in range(S)]
+        shapes.append((f"forward windows K=240 x{S}", S, 240,
+                       _ba_timing(f"forward windows K=240 x{S}", probs, cam, delta, card,
+                                  plain=(S == 1))))
+    shapes.append(("bench problem L=10240", 1, 192,
+                   _ba_timing("bench problem L=10240", [bench], bcam, delta, card)))
+    out = {}
+    for kernel, modes in (("ba_linearize", ("linearize", "residuals")), ("ba_schur", ("schur",))):
+        m = main[modes[0]]
+        out[kernel] = dict(
+            max_abs_err=worst[kernel][1], max_rel_err_vs_float64=worst[kernel][0],
+            ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
+            device_ms=m["device_ms"], shape="golden keyframe 0 (S=1, W=30, K=192)",
+            shapes=[dict(shape=tag, S=S, K=K, mode=mode, **{k: v for k, v in r[mode].items()})
+                    for tag, S, K, r in shapes for mode in modes])
+    return out
 
 
 BATCH_STREAMS = 16         # the multi-stream path's width (phase 6)
@@ -807,18 +1252,23 @@ def _check_bars(run, tag, by_frame, min_tracked):
 
 
 MAIN_PROFILED = tuple(range(100, 108))   # phase 3's frames run under the profiler
-# ``_run_digest`` of phases 3 and 11a's golden runs by the port of commit
-# 26d2929 (before the step's dispatch and completion were split), on an
-# NVIDIA H100 80GB HBM3: the runs stay bit-equal to it
+# ``_run_digest`` of phases 3 and 11a's golden runs on an NVIDIA H100 80GB
+# HBM3 since local BA runs on its kernels (csrc/ba_kernels.cu): the runs stay
+# bit-equal to them
+RUN_DIGESTS = {"main": "48bcdf6badf830c2", "preset FAST": "45be75e6c1d5b0ed",
+               "preset ACCURATE": "0f8f8a12a7d91408"}
+# the same runs by commit 7c0f4da, local BA eager (equal to commit 26d2929's):
+# printed beside, the kernels round differently by design
 PARENT_DIGESTS = {"main": "31c493345229c14c", "preset FAST": "c3c2a7ce09310a3e",
                   "preset ACCURATE": "305bdc07be52d9d8"}
 
 
-def _check_parent_digest(run, tag) -> None:
+def _check_run_digest(run, tag) -> None:
     digest = _run_digest(run)
-    print(f"[{tag}] digest of statuses and poses {digest}, commit 26d2929's "
-          f"{PARENT_DIGESTS[tag]}: bit-equal {digest == PARENT_DIGESTS[tag]}")
-    _check(digest == PARENT_DIGESTS[tag], f"[{tag}] statuses or poses differ from commit 26d2929's")
+    print(f"[{tag}] digest of statuses and poses {digest}, this tree's {RUN_DIGESTS[tag]}: "
+          f"bit-equal {digest == RUN_DIGESTS[tag]} (commit 7c0f4da's, local BA eager: "
+          f"{PARENT_DIGESTS[tag]})")
+    _check(digest == RUN_DIGESTS[tag], f"[{tag}] statuses or poses differ from this tree's run")
 
 
 def _check_host_constants(slam) -> None:
@@ -844,12 +1294,14 @@ def _check_host_constants(slam) -> None:
 
 def phase_main_path(frames, gt, card):
     """Phase 3: the default config over the golden sequence."""
+    import copy
     import torch
     from alvaar_tpu_torch import AlvaAR, SlamConfig
     from alvaar_tpu_torch.ops.klt import fb_klt_track, klt_pyramidal
     from alvaar_tpu_torch.ops.lk_level import lk_level
     from alvaar_tpu_torch.solvers.fivept import essential_ransac_5pt
     from alvaar_tpu_torch.solvers.homography import homography_ransac
+    from alvaar_tpu_torch.worldmap import keyframe
     from alvaar_tpu_torch.worldmap.keyframe import host_bool
     from render_scene_np import ate_rmse
 
@@ -857,7 +1309,20 @@ def phase_main_path(frames, gt, card):
     slam = AlvaAR(w, h, fov=60.0, config=SlamConfig(), device="cuda")
     fb_klt_track.launches = klt_pyramidal.launches = lk_level.launches = 0
     essential_ransac_5pt.calls = homography_ransac.calls = host_bool.syncs = 0
-    run = _drive(slam, frames, "main", profile=MAIN_PROFILED)
+    # every local BA's problem is kept for phase 2b
+    problems, local_ba = [], keyframe.local_ba
+
+    def keep(prob, cam, **kw):
+        problems.append((copy.deepcopy(prob), cam, kw))
+        return local_ba(prob, cam, **kw)
+
+    keyframe.local_ba = keep
+    try:
+        run = _drive(slam, frames, "main", profile=MAIN_PROFILED)
+    finally:
+        keyframe.local_ba = local_ba
+    run["ba_problems"] = problems
+    _check(len(problems) >= 3, f"[main] local BA ran {len(problems)} times")
     launches, n5, nh = fb_klt_track.launches, essential_ransac_5pt.calls, homography_ransac.calls
     _check(lk_level.launches == 0 and klt_pyramidal.launches == 0,
            "the main path launched the kernel outside fb_klt_track")
@@ -901,7 +1366,7 @@ def phase_main_path(frames, gt, card):
           f"{statistics.median(track_ms):.3f} ms, {len(kf_ms)} keyframes median "
           f"{statistics.median(kf_ms) if kf_ms else float('nan'):.3f} ms [{card}]")
     _check_bars(run, "main", 25, REF_TRACKED)
-    _check_parent_digest(run, "main")
+    _check_run_digest(run, "main")
     _check(ate_cm <= REF_ATE_WORST_CM, f"ATE {ate_cm:.4f} cm > {REF_ATE_WORST_CM} cm")
     _check_host_constants(slam)
     # host reads per tracking frame: the step's packed flags and the result
@@ -1393,11 +1858,13 @@ def phase_subbatch_probe(frames, card):
                         if "batching rule" in str(c.message)})
     print(f"[probe] ops that fell back to a per-row loop under vmap: {fallbacks or 'none'}")
     out, worst = {}, dict(lm_valid=0, ints=0, q=0.0, t=0.0, lm_pos=0.0)
+    ba_launched = {}
     for S in PROBE_SIZES:
         rows = pool[:S]
         r_fn, b_fn = rows_fn(rows), batched_fn(rows)
-        s0 = host_bool.syncs
+        s0, c0 = host_bool.syncs, _ba_counts()
         got = b_fn()
+        ba_launched[S] = tuple(v - c0[k] for k, v in _ba_counts().items() if k != "jacfwd")
         _check(host_bool.syncs == s0, "[probe] a host read in the batched pass")
         ref = r_fn()
         for j in range(S):
@@ -1416,6 +1883,11 @@ def phase_subbatch_probe(frames, card):
     print(f"[probe] batched(S)/batched(1) " + ", ".join(
         f"{out[S]['batched'] / b1:.3f}" for S in PROBE_SIZES) + "; rows(S)/rows(1) " + ", ".join(
         f"{out[S]['rows'] / r1:.3f}" for S in PROBE_SIZES) + f"; batched(1)/rows(1) {b1 / r1:.3f}")
+    print("[probe] local BA's launches per batched pass (ba_linearize linearisations, residual "
+          "passes, ba_schur): " + ", ".join(f"S={S}: {n}" for S, n in ba_launched.items())
+          + " (one launch over all S rows each)")
+    _check(len(set(ba_launched.values())) == 1 and min(ba_launched[1]) > 0,
+           f"[probe] local BA's launches per batched pass vary with S: {ba_launched}")
     print(f"[probe] batched against rows, largest over all S: lm_valid differs on {worst['lm_valid']} "
           f"landmarks, {worst['ints']} int/bool entries differ outside them, pose q {worst['q']:.3e}, "
           f"pose t {worst['t']:.3e}, lm_pos {worst['lm_pos']:.3e} (bars {LM_VALID_SLACK}, 0, "
@@ -1836,6 +2308,7 @@ def _mesh_drive(step, blocks, frames_dev, tag, shards):
     t0 = time.perf_counter()
     fb_klt_track.launches = klt_pyramidal.launches = lk_level.launches = 0
     ms.multistream_step_local.syncs = host_bool.syncs = 0
+    _ba_zero()
     try:
         for i in range(frames_dev.shape[0]):
             l0, g0, h0 = fb_klt_track.launches, ms.multistream_step_local.syncs, host_bool.syncs
@@ -1851,6 +2324,7 @@ def _mesh_drive(step, blocks, frames_dev, tag, shards):
             run["shard_ms"].append(list(step.last_shard_ms))
             run["outs"].append(_host_outs(out))
         run["other_launches"] = klt_pyramidal.launches + lk_level.launches
+        _ba_path(f"{tag}, the workers")      # their counts, added up in this process
         state = ms.gather_states(blocks, "cuda:0")
     finally:
         alive = len(multiprocessing.active_children())
@@ -2406,6 +2880,7 @@ MAP10K_LANDMARKS = 10240   # BASELINE configuration 4's pool
 BA_TIMED_CALLS = 10
 MAP10K_TURN_FRAMES = 64       # phase 9's turns (cut from 120 for the smoke's time)
 BA_CONST_Q_TOL = 2.4e-7    # two float32 ulps at 1: the solver renormalises every pose
+BA_KERNELS_MAX = 2500      # kernels per local_ba call at 5 LM iterations (eager: ~9.7 k)
 
 
 def phase_map10k(frames, gt, main_run, card):
@@ -2460,7 +2935,9 @@ def phase_map10k(frames, gt, main_run, card):
     for _ in range(2):
         call()
     times = _event_ms(call, BA_TIMED_CALLS)
+    c0 = _ba_counts()
     kernels, device_ms, syncs, wall = _profile_counts(call)
+    per_call = {k: v - c0[k] for k, v in _ba_counts().items()}
     print(f"[map10k] local_ba on the bench's problem (W={W}, K={K}, L={L}, "
           f"{int(prob.obs_valid.sum())} observations valid, {len(np.unique(obs_lm[0]))} landmarks "
           f"observed): poses, inverse depths and cost finite {finite}, cost {float(res.cost):.6g}, "
@@ -2471,7 +2948,12 @@ def phase_map10k(frames, gt, main_run, card):
           f"{max(times):.3f}); under torch.profiler {kernels} kernels, {device_ms:.3f} ms device "
           f"time in {wall:.1f} ms (busy {device_ms / wall:.3f}), {syncs} host waits per "
           f"call; peak device memory {peak:.1f} MiB above the problem [{card}]")
+    print(f"[map10k] local_ba per call: ba_linearize {per_call['linearize']} linearisations + "
+          f"{per_call['residuals']} residual passes, ba_schur {per_call['schur']}; {kernels} "
+          f"kernels in all (bar {BA_KERNELS_MAX}; commit 7c0f4da's eager local BA ~9.7 k, "
+          f"PERF.md)")
     _check(finite, "[map10k] local_ba returned non-finite poses, inverse depths or cost")
+    _check(kernels <= BA_KERNELS_MAX, f"[map10k] local_ba launched {kernels} kernels per call")
     _check(const_t and const_dq <= BA_CONST_Q_TOL, "[map10k] local_ba moved a constant pose")
     _ba_waits_equal({it: _profile_counts(lambda: local_ba(prob, cam, iters=it))[2]
                      for it in BA_ITERS_TIMED}, "map10k", card)
@@ -2739,12 +3221,15 @@ def _ba_ms(prob, cam, iters, huber_delta, card, tag):
            f"[{tag}] local_ba returned non-finite values")
     call()
     times = _event_ms(call, PRESET_BA_CALLS)
+    c0 = _ba_counts()
     kernels, device_ms, syncs, wall = _profile_counts(call)
+    per_call = {k: v - c0[k] for k, v in _ba_counts().items()}
     W, K = prob.obs_lm.shape
     print(f"[{tag}] local_ba W={W} K={K} ({int(prob.obs_valid.sum())} observations) at {iters} "
           f"LM iterations: {statistics.median(times):.3f} ms per call (CUDA events, median of "
           f"{PRESET_BA_CALLS}; min {min(times):.3f}, max {max(times):.3f}); under torch.profiler "
-          f"{kernels} kernels, {device_ms:.3f} ms device time in {wall:.1f} ms (busy "
+          f"{kernels} kernels ({per_call['linearize']} + {per_call['residuals']} ba_linearize, "
+          f"{per_call['schur']} ba_schur), {device_ms:.3f} ms device time in {wall:.1f} ms (busy "
           f"{device_ms / wall:.3f}), {syncs} host waits per call [{card}]")
     return statistics.median(times), syncs
 
@@ -2827,7 +3312,7 @@ def phase_presets(frames, gt, card):
         _check(statistics.median(tr_reads) <= 2,
                f"[preset {name}] host reads per tracking frame median {statistics.median(tr_reads)}")
         _check(bool(seen), f"[preset {name}] local BA never ran")
-        _check_parent_digest(run, f"preset {name}")
+        _check_run_digest(run, f"preset {name}")
         problems[name] = seen[0]
 
     # local BA on each preset's first steady keyframe: FAST's problem at its
@@ -2967,9 +3452,13 @@ def main() -> int:
 
     max_err, shapes = phase_kernel(frames, card)
     lap("phases 1-2 (environment, golden frames, kernel build and checks)")
+    _ba_zero()
     slam, launches, main_run = phase_main_path(frames, gt, card)
+    _ba_path("main")
     launches += phase_eight_point(frames, card)
     lap("phases 3, 3b")
+    ba_rows = phase_ba_kernels(main_run["ba_problems"], card)
+    lap("phase 2b (local BA's kernels)")
     gt_more = trajectory(n + 45, step=0.04)[n:n + 20]
     more = [scene.render(T).astype(np.float32) for T in gt_more]
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -2977,9 +3466,13 @@ def main() -> int:
         launches += phase_facade(slam, more, card, tmp, scene, gt, main_run)
     launches += phase_loop_closure(card)
     lap("phases 4, 5")
+    _ba_zero()
     launches += phase_subbatch_probe(frames, card)
+    _ba_path("probe")
     lap("phase 6a")
+    _ba_zero()
     ms_launches, one0, multi_run = phase_multistream(frames, gt, card)
+    _ba_path("multi")
     lap("phase 6")
     launches += ms_launches + phase_multistream_wide(frames, gt, one0, card)
     lap("phase 6d")
@@ -2989,29 +3482,48 @@ def main() -> int:
     launches += phase_mesh(frames, multi_run, card)
     launches += phase_ingest(frames, card)
     lap("phases 6e, 7")
+    _ba_zero()
     hd_launches, hd_shapes = phase_hd_serving(card)
+    _ba_path("hd")
     lap("phase 8")
     shapes += hd_shapes
     max_err = max([max_err] + [row["max_abs_err"] for row in hd_shapes])
+    _ba_zero()
     launches += hd_launches + phase_map10k(frames, gt, main_run, card)
+    _ba_path("map10k")
     lap("phase 9")
     check_scatter_order(card)
     launches += phase_bench_loop(frames, card)
     phase_bench_command(card)
     lap("phase 10")
-    launches += phase_presets(frames, gt, card) + phase_examples(card)
+    _ba_zero()
+    launches += phase_presets(frames, gt, card)
+    _ba_path("presets")
+    launches += phase_examples(card)
     lap("phase 11")
 
     # the top-level numbers are at the heavier main-path call, stage 2 at N=192
     main = shapes[1]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "klt_track", "route": "cuda",
         "source": "alvaar_tpu_torch/csrc/klt_track.cu",
         "replaces": "alvaar_tpu/ops/pallas/lk_kernel.py:173",
         "launches": launches, "max_abs_err": max_err,
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": None, "device_ms": main["device_ms"],
-        "shape": main["shape"], "card": card, "shapes": shapes}]}))
+        "shape": main["shape"], "card": card, "shapes": shapes}]
+    # local BA's kernels replace XLA formulations of the jitted local_ba,
+    # not Pallas kernels; no single PyTorch call computes either function
+    for name, replaces, what in (
+            ("ba_linearize", "alvaar_tpu/solvers/ba.py:172",
+             "_residuals_jacobians + _linearize (:172-206, :288-345) and _residuals_fast"),
+            ("ba_schur", "alvaar_tpu/solvers/ba.py:347", "the reduction of _solve_lm (:347-410)")):
+        r = ba_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "alvaar_tpu_torch/csrc/ba_kernels.cu",
+            "replaces": replaces, "replaces_what": f"XLA formulation, not a Pallas kernel: {what}",
+            "launches": BA_PATH_LAUNCHES[name], "library_ms": None, "card": card, **r})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
