@@ -14,11 +14,12 @@ are 1-parameter blocks, so the Schur complement
 S = H_cc − H_clᵀ D⁻¹ H_cl is dense [6W, 6W] and solved by Cholesky
 (``torch.linalg.cholesky_ex``, the JAX package leaves it to XLA too).
 
-On CUDA tensors an LM iteration is three kernel launches and the solve:
-K6a (csrc/ba_kernels.cu, solvers/ba_kernels.py) linearises the window
-with closed-form Jacobians and assembles the normal-equation blocks in one
-launch, and in its cost-only mode runs the residual pass (the trial cost
-and the pruning); K6b assembles the damped Schur complement.  The wrappers
+On CUDA tensors an LM iteration is three custom ops (five kernel launches)
+and the solve: K6a (csrc/ba_kernels.cu, solvers/ba_kernels.py) linearises
+the window with closed-form Jacobians, each observation evaluated once, and
+assembles the normal-equation blocks (two launches), and runs the residual
+pass (the trial cost and the pruning; two launches); K6b assembles the
+damped Schur complement (one launch).  The wrappers
 ``ba_linearize``, ``ba_residuals`` and ``ba_schur`` launch them through
 custom ops whose batching rule makes one launch over all the rows that
 ``torch.func.vmap`` stacks (the gated keyframe sub-batch, ``map_rows``).

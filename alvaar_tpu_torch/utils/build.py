@@ -33,14 +33,18 @@ def build_library(src: Path, compiler: str, flags: Sequence[str], libs: Sequence
                   verbose: bool = False) -> Path:
     """Compile ``src`` with ``compiler flags -o OUT src libs`` into
     ``build/lib<stem>_<hash>.so`` unless it is already there.  Returns its
-    path."""
+    path.  The compiler's messages are kept beside it (``.log``) and printed
+    when ``verbose``, whether it was built now or before."""
     command = [*flags, *libs]
     digest = hashlib.sha256(src.read_bytes() + " ".join(command).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     with _LOCKS_LOCK:
         lock = _BUILD_LOCKS.setdefault(out, threading.Lock())
+    log = out.with_suffix(".log")     # the compiler's messages (ptxas -v: registers, spills)
     with lock:
         if out.exists():
+            if verbose and log.exists():
+                print(log.read_text().strip())
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -50,6 +54,7 @@ def build_library(src: Path, compiler: str, flags: Sequence[str], libs: Sequence
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"{os.path.basename(compiler)} failed on {src.name} "
                                f"({res.returncode}):\n{res.stderr}")
+        log.write_text(res.stderr)
         if verbose:
             print(res.stderr.strip())
         os.replace(tmp, out)

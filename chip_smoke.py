@@ -58,8 +58,10 @@ Phases, each printed on its own lines:
    alone, whole ``local_ba`` under vmap at the same bars.  Times per call
    at the main path's shapes (S = 1, 3, 8 at K = 192; K = 130, 352; S = 2,
    11 at K = 240; the bench problem) by CUDA events and
-   ``torch.profiler``, beside the plain versions' and the bound (this
-   run's bytes and float32 operations over the H100's rates);
+   ``torch.profiler`` (K6a's linearisation and its residual pass are two
+   launches each, K6b one: the kernel line's ``launches_per_op``), beside
+   the plain versions' and the bound (this run's bytes and float32
+   operations over the H100's rates);
 3. the main path under the default config (5-point and homography
    bootstrap): ``AlvaAR.find_camera_pose`` over the 120-frame 640x480
    golden sequence on the card, held to the native reference's bars
@@ -69,8 +71,8 @@ Phases, each printed on its own lines:
    the homography RANSAC must each have run; every frame at status 1
    launched the KLT kernel exactly twice through ``fb_klt_track`` and
    none through ``klt_pyramidal`` or ``lk_level``; statuses and poses
-   bit-equal to this tree's earlier runs (``RUN_DIGESTS``; commit 7c0f4da's,
-   local BA eager, printed beside); local BA's kernels launched and
+   bit-equal to this tree's earlier runs (``RUN_DIGESTS``; commit 23c34e3's,
+   local BA's earlier kernels, printed beside); local BA's kernels launched and
    forward-mode AD never (so in phases 6a, 6, 6e's workers, 8, 9, 11a);
    host reads per tracking frame at most 2 at the median (the step's
    packed flags and the packed result); frames 100-107 run under
@@ -334,8 +336,10 @@ def _event_ms(fn, calls: int) -> list:
 def _device_ms(fn, kernel_name: str, launches_per_call: int = 1, reps: int = 20,
                attempts: int = 3):
     """Device time per call of the kernels whose name holds
-    ``kernel_name``, from ``torch.profiler``: their mean time per launch
-    times ``launches_per_call``, and the launches it recorded per call.
+    ``kernel_name``, from ``torch.profiler``: each such kernel's mean time
+    per launch times ``launches_per_call``, summed over the kernels (an op
+    of two kernels, one launch each, is their two means), and the launches
+    it recorded per call.
     The profiler may drop an event or two, and late in a long process it
     has recorded none in a session: such a session is run again, up to
     ``attempts`` in all (nan, 0 if none recorded any)."""
@@ -348,10 +352,11 @@ def _device_ms(fn, kernel_name: str, launches_per_call: int = 1, reps: int = 20,
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages() if kernel_name in e.key]
-        us, count = sum(e.self_device_time_total for e in hits), sum(e.count for e in hits)
+        hits = [e for e in prof.key_averages() if kernel_name in e.key and e.count > 0]
+        us = sum(e.self_device_time_total / e.count for e in hits)
+        count = sum(e.count for e in hits)
         if us > 0 and count > 0:
-            return us / 1e3 / count * launches_per_call, count / reps
+            return us / 1e3 * launches_per_call, count / reps
     return float("nan"), 0.0
 
 
@@ -668,7 +673,7 @@ BA_POSE_TOL = BA_INVD_TOL = 1e-4   # whole local_ba: tests/test_torch_solvers.py
 BA_LAM_LM = 1e-3                   # the damping K6b is checked at
 BA_WINDOW_ITERS = 20               # LM iterations on the W = 30 forward windows
 # operations that a linearisation needs per usable observation (one
-# evaluation each; the kernel's re-evaluations are not counted): in float64
+# evaluation each): in float64
 # the unit quaternions, residual and closed-form Jacobian ~270, in float32
 # the Huber weight and the normal-equation products ~565; a residual pass
 # per slot ~95 in float32 (r2, z) and per usable slot ~90 in float64 (the
@@ -950,11 +955,11 @@ def _ba_timing(tag, probs, cam, delta, card, plain=True):
     lam = torch.full((len(probs),), BA_LAM_LM, device=x["q"].device)
     calls = {
         "linearize": (lambda: ba_kernels.launch_linearize(*lin_args, camt, delta),
-                      "ba_linearize_kernel"),
+                      "ba_linearize_"),
         "residuals": (lambda: ba_kernels.launch_residuals(*lin_args[:-1], camt, delta),
-                      "ba_linearize_kernel"),
+                      "ba_residuals_"),
         "schur": (lambda: ba_kernels.launch_schur(D, u, va, x["first"], x["a_idx"], H, g_c, g_l,
-                                                  lam, x["free"]), "ba_schur_kernel"),
+                                                  lam, x["free"]), "ba_schur_"),
     }
     bounds = _ba_bounds(x, vps, [ba._Linearization(*(t[s] for t in lin)) for s in range(len(probs))])
     rows = {}
@@ -976,7 +981,7 @@ def _ba_timing(tag, probs, cam, delta, card, plain=True):
     S, W, K = x["lam_v"].shape
     print(f"[ba] {tag} (S={S}, W={W}, K={K}): " + "; ".join(
         f"{name} {r['ms']:.4f} ms per call (CUDA events), device {r['device_ms']:.4f} ms in "
-        f"{r['launches_per_call']:g} launch, plain "
+        f"{r['launches_per_call']:g} launches, plain "
         + (f"{r['plain_ms']:.3f} ms" if r["plain_ms"] is not None else "not measured")
         + f", bound {r['bound_ms'] * 1e3:.3f} us by {r['bound_by']} ({r['bytes'] / 1e3:.1f} KB, "
         f"{r['flops'] / 1e6:.2f} MFLOP)" for name, r in rows.items()) + f" [{card}]")
@@ -1057,6 +1062,7 @@ def phase_ba_kernels(golden, card):
             max_abs_err=worst[kernel][1], max_rel_err_vs_float64=worst[kernel][0],
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
             device_ms=m["device_ms"], shape="golden keyframe 0 (S=1, W=30, K=192)",
+            launches_per_op={mode: round(main[mode]["launches_per_call"]) for mode in modes},
             shapes=[dict(shape=tag, S=S, K=K, mode=mode, **{k: v for k, v in r[mode].items()})
                     for tag, S, K, r in shapes for mode in modes])
     return out
@@ -1253,20 +1259,21 @@ def _check_bars(run, tag, by_frame, min_tracked):
 
 MAIN_PROFILED = tuple(range(100, 108))   # phase 3's frames run under the profiler
 # ``_run_digest`` of phases 3 and 11a's golden runs on an NVIDIA H100 80GB
-# HBM3 since local BA runs on its kernels (csrc/ba_kernels.cu): the runs stay
-# bit-equal to them
-RUN_DIGESTS = {"main": "48bcdf6badf830c2", "preset FAST": "45be75e6c1d5b0ed",
-               "preset ACCURATE": "0f8f8a12a7d91408"}
-# the same runs by commit 7c0f4da, local BA eager (equal to commit 26d2929's):
-# printed beside, the kernels round differently by design
-PARENT_DIGESTS = {"main": "31c493345229c14c", "preset FAST": "c3c2a7ce09310a3e",
-                  "preset ACCURATE": "305bdc07be52d9d8"}
+# HBM3 with local BA's redesigned kernels (csrc/ba_kernels.cu: each
+# observation evaluated once, fixed-order warp sums): the runs stay bit-equal
+# to them
+RUN_DIGESTS = {"main": "e93db1c4301fcfa7", "preset FAST": "22656a9d8bd8ec3f",
+               "preset ACCURATE": "856fba5c53fd6e53"}
+# the same runs by commit 23c34e3, whose kernels summed in another order:
+# printed beside, a new order of summation changes BA's last bits by design
+PARENT_DIGESTS = {"main": "48bcdf6badf830c2", "preset FAST": "45be75e6c1d5b0ed",
+                  "preset ACCURATE": "0f8f8a12a7d91408"}
 
 
 def _check_run_digest(run, tag) -> None:
     digest = _run_digest(run)
     print(f"[{tag}] digest of statuses and poses {digest}, this tree's {RUN_DIGESTS[tag]}: "
-          f"bit-equal {digest == RUN_DIGESTS[tag]} (commit 7c0f4da's, local BA eager: "
+          f"bit-equal {digest == RUN_DIGESTS[tag]} (commit 23c34e3's, local BA's earlier kernels: "
           f"{PARENT_DIGESTS[tag]})")
     _check(digest == RUN_DIGESTS[tag], f"[{tag}] statuses or poses differ from this tree's run")
 

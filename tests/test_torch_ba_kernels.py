@@ -2,8 +2,10 @@
 its cost-only residual pass) and K6b (Schur assembly): their plain
 versions against the JAX package, the custom ops' fake shapes and batching
 rule, the CPU path's independence of the library, the launchers' argument
-checks.  tests/test_torch_ba_kernels_card.py holds the kernels to their
-plain versions on a card.
+checks; and the kernels' CUDA source itself, run on the CPU through
+tools/cpu_cuda_shim.h, against the plain versions.
+tests/test_torch_ba_kernels_card.py holds the kernels to their plain
+versions on a card.
 
 Bars: the plain versions are today's arithmetic of solvers/ba.py, and the
 JAX package computes the same blocks in float32 with its own einsum
@@ -11,6 +13,8 @@ orders, so blocks agree to 2e-5 of each block's largest magnitude; the
 residual pass's r^2 and z to 1e-6 of theirs."""
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -309,3 +313,65 @@ def test_ba_problems_match_test_ba(rng):
         for x, y in pairs:
             np.testing.assert_allclose(y.numpy(), np.asarray(x), rtol=1e-5, atol=1e-5,
                                        err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def cuda_source_on_cpu(tmp_path_factory):
+    """tools/rehearse_ba_kernels.py and csrc/ba_kernels.cu built with it for
+    the CPU (tools/cpu_cuda_shim.h: every CUDA thread a fiber)."""
+    path = Path(__file__).resolve().parents[1] / "tools" / "rehearse_ba_kernels.py"
+    spec = importlib.util.spec_from_file_location("rehearse_ba_kernels", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod, mod.build(str(tmp_path_factory.mktemp("ba_kernels_cpu")))
+
+
+@pytest.mark.parametrize("outlier_frac", [0.0, 0.05])
+def test_cuda_source_on_cpu_matches_plain(cuda_source_on_cpu, outlier_frac):
+    """K6a and K6b's CUDA source run on the CPU on tests/test_ba.py's window
+    (W 8, K 96): each block within BLOCK_BAR of a float64 evaluation of the
+    plain version, and the residual pass's cost too; its r2, z and inverse
+    depths bit-equal to the plain pass; two rows in one launch each
+    bit-equal to its launch alone; whole ``local_ba`` against the plain
+    versions at tests/test_torch_solvers.py's bars (1e-4, inlier flags
+    equal).  At outlier fraction 0.05 the pruning drops the first row of
+    some virtual landmarks and keeps their others, which the member walk
+    must still sum."""
+    from tests.test_torch_ba_kernels_card import _f64, _launch_all, _stacked
+    mod, lib = cuda_source_on_cpu
+    probs = [ba_problems.build_problem(np.random.default_rng(seed),
+                                       outlier_frac=outlier_frac)[0] for seed in (0, 1)]
+    prob, cam = probs[0], ba_problems.CAM
+    vp, vp64 = tba._build_virtual(prob, cam), tba._build_virtual(_f64(prob), cam)
+    lam = torch.tensor(1e-3)
+    with mod.on_cpu(lib):
+        lin_k = tba.ba_linearize(vp, prob.poses, vp.lam_v, cam, 2.0)
+        res_k = tba.ba_residuals(vp, prob.poses, vp.lam_v, cam, 2.0)
+        sch_k = tba.ba_schur(vp, lin_k, lam)
+        x, _ = _stacked(probs, cam)
+        both = _launch_all(x, slice(None), cam, 2.0)
+        alone = [_launch_all(x, slice(i, i + 1), cam, 2.0) for i in range(2)]
+        ba_k = tba.local_ba(prob, cam)
+        launches = (tba.ba_linearize.launches, tba.ba_schur.launches)
+    ba_p = tba.local_ba(prob, cam)
+    lin_64 = tba._linearize(vp64, vp64.poses, vp64.lam_v, cam, 2.0)
+    mag = lambda t: float(t.abs().max())
+    for name in KERNEL_BLOCKS:
+        got, ref = getattr(lin_k, name).double(), getattr(lin_64, name)
+        assert float((got - ref).abs().max()) <= BLOCK_BAR * mag(ref), name
+    cost_64 = tba._residual_pass(vp64, vp64.poses, vp64.lam_v, cam, 2.0)[0]
+    assert res_k[0].dtype == torch.float64
+    assert abs(float(res_k[0]) - float(cost_64)) <= BLOCK_BAR * abs(float(cost_64))
+    plain = tba._residual_pass(vp, prob.poses, vp.lam_v, cam, 2.0)
+    assert all(torch.equal(a, b) for a, b in zip(res_k[1:], plain[1:]))
+    lin_k64 = tba._Linearization(*(t.double() for t in _blocks(lin_k)))
+    S_64, g_64 = tba._schur_plain(vp64, lin_k64, lam.double())
+    assert float((sch_k[0].double() - S_64).abs().max()) <= BLOCK_BAR * max(mag(S_64),
+                                                                          mag(lin_k64.H_cc))
+    assert float((sch_k[1].double() - g_64).abs().max()) <= BLOCK_BAR * max(mag(g_64),
+                                                                          mag(lin_k64.g_c))
+    assert all(torch.equal(a[i:i + 1], b) for i in range(2) for a, b in zip(both, alone[i]))
+    assert float((ba_k.poses.t - ba_p.poses.t).abs().max()) <= 1e-4
+    assert float((ba_k.invdepth - ba_p.invdepth).abs().max()) <= 1e-4
+    assert torch.equal(ba_k.obs_inlier, ba_p.obs_inlier)
+    assert min(launches) > 0
