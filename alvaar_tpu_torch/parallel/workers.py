@@ -67,6 +67,7 @@ from alvaar_tpu_torch.loopclosure.detector import LoopDB
 from alvaar_tpu_torch.ops.klt import fb_klt_track, klt_pyramidal
 from alvaar_tpu_torch.ops.lk_level import lk_level
 from alvaar_tpu_torch.solvers.ba import _residuals_jacobians, ba_linearize, ba_residuals, ba_schur
+from alvaar_tpu_torch.solvers.pnp import pnp_refine
 from alvaar_tpu_torch.utils.pinned import UploadRing
 from alvaar_tpu_torch.utils.stats import count
 from alvaar_tpu_torch.worldmap.keyframe import host_bool
@@ -83,7 +84,8 @@ def _counters():
     from alvaar_tpu_torch.parallel.multistream import multistream_step_local
     return ((fb_klt_track, "launches"), (klt_pyramidal, "launches"), (lk_level, "launches"),
             (ba_linearize, "launches"), (ba_residuals, "launches"), (ba_schur, "launches"),
-            (_residuals_jacobians, "calls"), (multistream_step_local, "syncs"),
+            (pnp_refine, "launches"), (_residuals_jacobians, "calls"),
+            (multistream_step_local, "syncs"),
             (host_bool, "syncs"))
 
 
@@ -392,11 +394,12 @@ class StreamMesh:
 
     def _start(self) -> None:
         if any(d.type == "cuda" for d in self.devices):
-            # the workers build nothing: both libraries are built here first
+            # the workers build nothing: the kernels' libraries are built here first
             from alvaar_tpu_torch.ops.lk_level import build_kernel
-            from alvaar_tpu_torch.solvers import ba_kernels
+            from alvaar_tpu_torch.solvers import ba_kernels, pnp_kernel
             build_kernel()
             ba_kernels.build_kernel()
+            pnp_kernel.build_kernel()
         flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
         ctx = torch.multiprocessing.get_context("spawn")
         for k, dev in enumerate(self.devices):

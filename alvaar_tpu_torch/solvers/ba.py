@@ -42,6 +42,8 @@ from alvaar_tpu_torch.geom.camera import Camera
 from alvaar_tpu_torch.geom.lie import SE3
 from alvaar_tpu_torch.solvers import ba_kernels
 from alvaar_tpu_torch.solvers.pnp import CHI2_THRESH_2DOF
+from alvaar_tpu_torch.utils.custom_ops import (dispatch as _dispatch, one as _one,
+                                               rows_rule as _rows_rule)
 from alvaar_tpu_torch.utils.stats import count
 from alvaar_tpu_torch.worldmap.state import masked_scatter_set
 
@@ -343,23 +345,6 @@ def _rows_vp(first, a_idx, constant, dtype, **fields) -> _VirtualProblem:
                            a_const=constant[a_idx], first=first, a_idx=a_idx)
 
 
-def _rows_rule(op):
-    """The custom op's batching rule: the vmapped dimension moved to the
-    front and merged with S, one call over all the rows, the result split
-    back.  An argument that is not batched is repeated for every row."""
-    def rule(info, in_dims, *args):
-        b = info.batch_size
-        flat = []
-        for a, d in zip(args, in_dims):
-            if isinstance(a, torch.Tensor):
-                a = a.expand(b, *a.shape) if d is None else a.movedim(d, 0)
-                a = a.reshape((-1,) + tuple(a.shape[2:])).contiguous()
-            flat.append(a)
-        outs = op(*flat)
-        return tuple(o.reshape((b, -1) + tuple(o.shape[1:])) for o in outs), (0,) * len(outs)
-    return rule
-
-
 def _linearize_rows(q, t, lam_v, valid, px, mxy, first, a_idx, constant, fx, fy, cx, cy,
                     huber_delta):
     cam = Camera(fx, fy, cx, cy)
@@ -454,20 +439,6 @@ for _op, _launch, _fake in ((_LINEARIZE_OP, _launch_linearize, _linearize_fake),
     _op.register_kernel("cuda")(_launch)
     _op.register_fake(_fake)
     _op.register_vmap(_rows_rule(_op))
-
-
-def _dispatch(x, name: str) -> bool:
-    """True to launch the kernel (CUDA tensors), False for the plain
-    version (CPU tensors); any other device raises."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type == "cuda":
-        return True
-    raise ValueError(f"{name} runs on CPU or CUDA tensors, got {x.device}")
-
-
-def _one(x):
-    return x.contiguous().unsqueeze(0)
 
 
 def linearize_op(vp: _VirtualProblem, poses: SE3, lam_v, cam: Camera,

@@ -4,6 +4,15 @@ Port of alvaar_tpu/solvers/pnp.py: Huber IRLS over all valid points with
 a fixed LM iteration budget and branch-free accept/reject, then a
 chi²/negative-depth prune and an L2 re-solve on the inliers.  The 6x6
 normal equations are solved by the same unrolled Cholesky.
+
+The JAX package traces the whole solve into its jitted step, one fused
+XLA program that ``vmap`` batches across streams.  Here ``pnp_refine``
+dispatches on the device: CPU tensors run the plain version
+(``_pnp_refine_plain``, this module's eager torch); CUDA tensors launch
+K9 (csrc/pnp_kernel.cu, solvers/pnp_kernel.py), the whole function in
+one launch, through the custom op ``alvaar_tpu_torch::pnp_refine`` whose
+batching rule makes one launch over all the rows that ``torch.func.vmap``
+stacks; any other device raises.
 """
 
 from __future__ import annotations
@@ -14,6 +23,9 @@ import torch
 
 from alvaar_tpu_torch.geom.camera import Camera
 from alvaar_tpu_torch.geom.lie import SE3, so3_hat
+from alvaar_tpu_torch.solvers import pnp_kernel
+from alvaar_tpu_torch.utils.custom_ops import dispatch as _dispatch, one, rows_rule
+from alvaar_tpu_torch.utils.stats import count
 
 CHI2_THRESH_2DOF = 5.9915
 
@@ -121,12 +133,11 @@ def _lm_solve(pose0: SE3, cam: Camera, points_w, px_obs, weights_fixed, *,
     return pose_best, cost_best
 
 
-def pnp_refine(pose0: SE3, cam: Camera, points_w, px_obs, valid, *,
-               iters: int = 5, huber_delta: float = CHI2_THRESH_2DOF ** 0.5,
-               chi2_thresh: float = CHI2_THRESH_2DOF,
-               refine_l2: bool = True) -> PnPResult:
-    """Huber LM over the valid points, chi²/depth prune, L2 re-solve on
-    the inliers (points_w [N, 3], px_obs [N, 2] undistorted, valid [N])."""
+def _pnp_refine_plain(pose0: SE3, cam: Camera, points_w, px_obs, valid, *,
+                      iters: int = 5, huber_delta: float = CHI2_THRESH_2DOF ** 0.5,
+                      chi2_thresh: float = CHI2_THRESH_2DOF,
+                      refine_l2: bool = True) -> PnPResult:
+    """``pnp_refine``'s plain version (K9's, in eager torch)."""
     wfix = valid.to(points_w.dtype)
     pose1, _ = _lm_solve(pose0, cam, points_w, px_obs, wfix,
                          iters=iters, huber_delta=huber_delta)
@@ -144,3 +155,74 @@ def pnp_refine(pose0: SE3, cam: Camera, points_w, px_obs, valid, *,
     inliers = valid & (chi2 <= chi2_thresh) & (z > 0)
     return PnPResult(pose=pose2.normalize(), inliers=inliers,
                      num_inliers=torch.sum(inliers), cost=cost)
+
+
+# ---------------------------------------------------------------------------
+# K9's custom op: a leading S on every tensor, one launch over all S rows
+# (csrc/pnp_kernel.cu).  Its CPU implementation runs the plain version row
+# by row; the main path on the CPU calls that directly.
+# ---------------------------------------------------------------------------
+
+def _refine_rows(q, t, points_w, px_obs, valid, fx, fy, cx, cy, iters, huber_delta,
+                 chi2_thresh, refine_l2):
+    cam = Camera(fx, fy, cx, cy)
+    rows = []
+    for i in range(q.shape[0]):
+        r = _pnp_refine_plain(SE3(q[i], t[i]), cam, points_w[i], px_obs[i], valid[i],
+                              iters=iters, huber_delta=huber_delta, chi2_thresh=chi2_thresh,
+                              refine_l2=refine_l2)
+        rows.append((r.pose.q, r.pose.t, r.inliers, r.num_inliers, r.cost))
+    return tuple(torch.stack(x) for x in zip(*rows))
+
+
+def _launch_refine(q, t, points_w, px_obs, valid, fx, fy, cx, cy, iters, huber_delta,
+                   chi2_thresh, refine_l2):
+    out = pnp_kernel.launch(q, t, points_w, px_obs, valid, (fx, fy, cx, cy), iters,
+                            huber_delta, chi2_thresh, refine_l2)
+    count(pnp_refine, "launches")
+    return out
+
+
+def _refine_fake(q, t, points_w, px_obs, valid, fx, fy, cx, cy, iters, huber_delta,
+                 chi2_thresh, refine_l2):
+    s = q.shape[0]
+    return (torch.empty_like(q), torch.empty_like(t), torch.empty_like(valid),
+            q.new_empty(s, dtype=torch.int64), q.new_empty(s))
+
+
+_REFINE_OP = torch.library.custom_op(
+    "alvaar_tpu_torch::pnp_refine", _refine_rows, mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor t, Tensor points_w, Tensor px_obs, Tensor valid, float fx, "
+           "float fy, float cx, float cy, int iters, float huber_delta, float chi2_thresh, "
+           "bool refine_l2) -> (Tensor, Tensor, Tensor, Tensor, Tensor)")
+_REFINE_OP.register_kernel("cuda")(_launch_refine)
+_REFINE_OP.register_fake(_refine_fake)
+_REFINE_OP.register_vmap(rows_rule(_REFINE_OP))
+
+
+def pnp_refine_op(pose0: SE3, cam: Camera, points_w, px_obs, valid, *, iters: int,
+                  huber_delta: float, chi2_thresh: float, refine_l2: bool) -> PnPResult:
+    """K9's custom op on one problem (a leading S = 1 added and taken off)."""
+    outs = _REFINE_OP(*map(one, (pose0.q, pose0.t, points_w, px_obs, valid)),
+                      cam.fx, cam.fy, cam.cx, cam.cy, int(iters), float(huber_delta),
+                      float(chi2_thresh), bool(refine_l2))
+    q, t, inliers, num, cost = (o[0] for o in outs)
+    return PnPResult(pose=SE3(q, t), inliers=inliers, num_inliers=num, cost=cost)
+
+
+def pnp_refine(pose0: SE3, cam: Camera, points_w, px_obs, valid, *,
+               iters: int = 5, huber_delta: float = CHI2_THRESH_2DOF ** 0.5,
+               chi2_thresh: float = CHI2_THRESH_2DOF,
+               refine_l2: bool = True) -> PnPResult:
+    """Huber LM over the valid points, chi²/depth prune, L2 re-solve on
+    the inliers (points_w [N, 3], px_obs [N, 2] undistorted, valid [N]):
+    K9 in one launch on CUDA tensors (float32, valid bool), the plain
+    version on CPU tensors."""
+    kw = dict(iters=iters, huber_delta=huber_delta, chi2_thresh=chi2_thresh,
+              refine_l2=refine_l2)
+    if _dispatch(points_w, "pnp_refine"):
+        return pnp_refine_op(pose0, cam, points_w, px_obs, valid, **kw)
+    return _pnp_refine_plain(pose0, cam, points_w, px_obs, valid, **kw)
+
+
+pnp_refine.launches = 0

@@ -1,0 +1,41 @@
+"""What the port's kernel-backed custom ops share (solvers/ba.py,
+solvers/pnp.py): the device dispatch of their wrappers and the batching
+rule that turns a ``torch.func.vmap`` of an op into one launch over all the
+rows."""
+
+from __future__ import annotations
+
+import torch
+
+
+def dispatch(x, name: str) -> bool:
+    """True to launch the kernel (CUDA tensors), False for the plain
+    version (CPU tensors); any other device raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type == "cuda":
+        return True
+    raise ValueError(f"{name} runs on CPU or CUDA tensors, got {x.device}")
+
+
+def one(x):
+    """``x`` as a contiguous stack of one row."""
+    return x.contiguous().unsqueeze(0)
+
+
+def rows_rule(op):
+    """The batching rule of a custom op whose tensors all lead with S rows:
+    the vmapped dimension moved to the front and merged with S, one call
+    over all the rows, the result split back.  An argument that is not
+    batched is repeated for every row."""
+    def rule(info, in_dims, *args):
+        b = info.batch_size
+        flat = []
+        for a, d in zip(args, in_dims):
+            if isinstance(a, torch.Tensor):
+                a = a.expand(b, *a.shape) if d is None else a.movedim(d, 0)
+                a = a.reshape((-1,) + tuple(a.shape[2:])).contiguous()
+            flat.append(a)
+        outs = op(*flat)
+        return tuple(o.reshape((b, -1) + tuple(o.shape[1:])) for o in outs), (0,) * len(outs)
+    return rule

@@ -62,6 +62,22 @@ Phases, each printed on its own lines:
    launches each, K6b one: the kernel line's ``launches_per_op``), beside
    the plain versions' and the bound (this run's bytes and float32
    operations over the H100's rates);
+2c. motion-only PnP's kernel K9 (csrc/pnp_kernel.cu), built from the
+   checkout with the others, right after phase 2: ``pnp_refine`` on CUDA
+   tensors under ``torch.func.vmap`` (the rows of tests/pnp_problems.py:
+   N = 130, 192, 240 and 352 alone with outlier fractions 0 and 0.3, points
+   behind the camera and masked slots; 16 x 192 and 64 x 240; 8 LM
+   iterations at N = 192, the loop's; 4 x 192 with an all-masked row)
+   against the plain version (solvers/pnp.py ``_pnp_refine_plain``) and
+   its float64 evaluation per row: t within 1e-5 of float64's largest |t|
+   and q within 1e-6 (the plain version's own distance printed beside; a
+   shape where it misses a bar itself is printed, not held), the inlier
+   flags equal to float64's but within 1e-4 of the chi^2 threshold, the
+   count equal to the flags', one launch per call, bit-equal run to run
+   and each row to its launch alone; then its times at the main path's
+   shapes (N = 192, 16 x 192, 64 x 240, 130, 352, 8 iterations) by CUDA
+   events and ``torch.profiler``, beside the plain composition's (alone,
+   or under vmap as the batched track phase ran it) and the bound;
 3. the main path under the default config (5-point and homography
    bootstrap): ``AlvaAR.find_camera_pose`` over the 120-frame 640x480
    golden sequence on the card, held to the native reference's bars
@@ -70,9 +86,13 @@ Phases, each printed on its own lines:
    most 1.176 cm (the worst of the reference's 10 runs); the 5-point and
    the homography RANSAC must each have run; every frame at status 1
    launched the KLT kernel exactly twice through ``fb_klt_track`` and
-   none through ``klt_pyramidal`` or ``lk_level``; statuses and poses
-   bit-equal to this tree's earlier runs (``RUN_DIGESTS``; commit 23c34e3's,
-   local BA's earlier kernels, printed beside); local BA's kernels launched and
+   none through ``klt_pyramidal`` or ``lk_level``, and every tracking
+   frame (at status 1 after a frame at status 1) K9 exactly once; the
+   kernels per tracking frame under the profiler at least 2000 under commit
+   14aa8df's median (``PARENT_TRACKING_KERNELS``, PnP eager there);
+   statuses and poses
+   bit-equal to this tree's earlier runs (``RUN_DIGESTS``; commit 14aa8df's,
+   PnP eager, printed beside); local BA's kernels launched and
    forward-mode AD never (so in phases 6a, 6, 6e's workers, 8, 9, 11a);
    host reads per tracking frame at most 2 at the median (the step's
    packed flags and the packed result); frames 100-107 run under
@@ -105,7 +125,8 @@ Phases, each printed on its own lines:
    ``detect_loop`` finding the revisited entry, ``relocalize_topk``, their
    times and peak device memory; (b) the 89-frame 320x240 out-and-back of
    tests/test_loop_e2e.py with loop closure on: a loop detected in the
-   return half, a correction applied, more than 40 frames tracked;
+   return half, a correction applied, more than 40 frames tracked, K9
+   launched once in each ``verify_loop`` call;
 6a. the sub-batch probe: the keyframe phase on S = 1, 2, 3 and 8
    keyframe-requesting rows of the single stream's 640x480 golden run (a
    steady keyframe with local BA, the first keyframe, the bootstrap pair's
@@ -125,7 +146,8 @@ Phases, each printed on its own lines:
    the ATE of stream 0 and of every stream that never reset at most 1.5x
    that of the B = 1, one-slot run of its frames through the same step
    from the same fresh row, which never resets; exactly 2 KLT
-   launches per step after the first, 3 election reads per step, and at
+   launches per step after the first, 1 K9 launch per step (the batched
+   track phase), 3 election reads per step, and at
    most 4 host syncs in a step (the election reads and the output read:
    every gated phase runs once on the stack of its elected rows), at
    B = 16 and B = 1.  Printed: aggregate frames/s over steps 10-47, the
@@ -159,8 +181,9 @@ Phases, each printed on its own lines:
    blocks into its warm workers.  Each shard's outputs, final state and generators
    bit-equal to ``multistream_step_local`` on its block alone (in (b) one
    card's unsharded 16-stream run, itself equal to phase 6's first 20
-   steps); 2 KLT launches, 3 election reads and at most 4 host syncs per
-   shard per step, counted in the workers and added up in this process;
+   steps); 2 KLT launches, 1 K9 launch, 3 election reads and at most 4
+   host syncs per shard per step, counted in the workers and added up in
+   this process;
    no worker left after each mesh's ``close()``; every stream of (a) at
    status 1; on two or more cards, (b)'s aggregate frames/s at least one
    card's unsharded 16-stream step's.  Printed: the host's cores and this
@@ -257,7 +280,10 @@ Phases, each printed on its own lines:
 
 Every path is driven with the counters set to 0 just before it and read
 just after; the kernel line's ``launches`` sums the paths' launches (for
-local BA's kernels, phases 3, 6a, 6, 6e's workers, 8, 9 and 11a's).  Each
+local BA's kernels, phases 3, 6a, 6, 6e's workers, 8, 9 and 11a's; for K9
+every phase's from 3 on but 2b and 6a, which run no PnP, each of them
+held to at least one launch).  The batched steps of phases 6, 6d and 8
+(``_check_steps``) launch K9 once per step.  Each
 group of phases prints its seconds on a ``[time]`` line.  Then
 one JSON line describing each kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed bar raises and the script
@@ -560,10 +586,11 @@ def phase_kernel(frames, card):
 
     # every kernel source of the port at once, one nvcc each
     from concurrent.futures import ThreadPoolExecutor
-    from alvaar_tpu_torch.solvers import ba_kernels
+    from alvaar_tpu_torch.solvers import ba_kernels, pnp_kernel
     t0 = time.time()
-    with ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(b, verbose=True) for b in (lk.build_kernel, ba_kernels.build_kernel)]
+    with ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(b, verbose=True) for b in (lk.build_kernel, ba_kernels.build_kernel,
+                                                          pnp_kernel.build_kernel)]
         libs = [b.result() for b in builds]
     print(f"[kernel] built {', '.join(os.path.relpath(lib, ROOT) for lib in libs)} in "
           f"{time.time() - t0:.2f} s")
@@ -1068,6 +1095,231 @@ def phase_ba_kernels(golden, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 2c: motion-only PnP's kernel K9 (csrc/pnp_kernel.cu)
+# ---------------------------------------------------------------------------
+
+# K9's pose is held to a float64 evaluation of the plain version on the same
+# inputs: t within PNP_T_BAR of the largest |t|, q within PNP_Q_BAR (the
+# plain float32 version's own distance printed beside; a shape where that is
+# itself beyond a bar is printed, not held).  Inlier flags equal float64's,
+# but for points whose float64 chi^2 lies within PNP_CHI2_NEAR (relative) of
+# the threshold.
+PNP_T_BAR = 1e-5
+PNP_Q_BAR = 1e-6
+PNP_CHI2_NEAR = 1e-4
+PNP_ITERS = 4                      # SlamConfig().pnp_iters
+PNP_LOOP_ITERS = 8                 # loopclosure/detector.py verify_loop
+# (name, N, S, LM iterations, outlier fraction, points behind the camera, an
+# all-masked row): FAST's, the default's, hd_serving()'s and ACCURATE's
+# widths alone; the 16-stream and 64-stream batched steps; the loop's
+# iterations; a stack with a row whose slots are all masked
+PNP_CASES = tuple(
+    [(f"N={n} outliers {f}", n, 1, PNP_ITERS, f, 4 if f else 0, False)
+     for n in (130, 192, 240, 352) for f in (0.0, 0.3)]
+    + [("16 x 192", 192, 16, PNP_ITERS, 0.3, 4, False),
+       ("64 x 240", 240, 64, PNP_ITERS, 0.3, 4, False),
+       ("N=192 loop iterations", 192, 1, PNP_LOOP_ITERS, 0.0, 0, False),
+       ("N=192 loop iterations, outliers", 192, 1, PNP_LOOP_ITERS, 0.3, 4, False),
+       ("4 x 192 with an all-masked row", 192, 4, PNP_ITERS, 0.3, 4, True)])
+# float64 operations per point of one linearisation (the point's rotation,
+# residual and 2x6 Jacobian ~66, the Huber weight ~12, the 21 + 6 sums
+# ~110) and of one prune (~75); float32 operations of one 6x6 step (damping,
+# Cholesky, two solves, the retraction ~320)
+PNP_LIN_F64_PER_POINT = 200
+PNP_PRUNE_F64_PER_POINT = 75
+PNP_STEP_F32 = 320
+PNP_PATH_LAUNCHES = [0]            # K9's launches, summed over the paths
+
+
+def _pnp_zero() -> None:
+    from alvaar_tpu_torch.solvers import pnp
+    pnp.pnp_refine.launches = 0
+
+
+def _pnp_path(tag: str) -> int:
+    """After a path driven from a zeroed counter: K9 launched; the launches
+    go into the kernel line.  Returns them."""
+    from alvaar_tpu_torch.solvers import pnp
+    n = pnp.pnp_refine.launches
+    print(f"[{tag}] motion-only PnP on the path: pnp_refine {n} launches")
+    _check(n > 0, f"[{tag}] K9 did not launch on the path")
+    PNP_PATH_LAUNCHES[0] += n
+    return n
+
+
+def _pnp_problems(case, dev):
+    """Case ``case``'s problems (tests/pnp_problems.py), each row its own
+    seed; an all-masked row at index 1 where the case asks."""
+    from pnp_problems import build_problem
+    name, n, S, _, frac, behind, masked_row = case
+    rows = []
+    for i in range(S):
+        (pose0, pts, obs, valid), cam = build_problem(np.random.default_rng(1000 * n + i), N=n,
+                                                      outlier_frac=frac, behind=behind,
+                                                      device=dev)
+        if masked_row and i == 1:
+            valid = valid & False
+        rows.append((pose0, pts, obs, valid))
+    return rows, cam
+
+
+def _pnp_rel(a, ref):
+    """|a - ref| over the largest |ref| (t) and |a - ref| (q), float64."""
+    t = float((a.t.double() - ref.t).abs().max()) / max(float(ref.t.abs().max()), 1e-30)
+    return t, float((a.q.double() - ref.q).abs().max())
+
+
+def _pnp_case(case, dev):
+    """K9 on one case's S rows: under ``torch.func.vmap`` (one launch), again
+    (bit-equal), each row alone (bit-equal to its row of the stack), against
+    the plain version and its float64 evaluation per row.  Returns (worst
+    |kernel - plain| over q and t, worst kernel distance from float64 (t, q),
+    the plain version's)."""
+    import torch
+    from pnp_problems import stack, to_f64
+    from alvaar_tpu_torch.geom.lie import SE3
+    from alvaar_tpu_torch.solvers import pnp
+    from alvaar_tpu_torch.solvers.pnp import CHI2_THRESH_2DOF, _pnp_refine_plain
+    name, n, S, iters, *_ = case
+    rows, cam = _pnp_problems(case, dev)
+    kw = dict(iters=iters, huber_delta=CHI2_THRESH_2DOF ** 0.5)
+
+    def row_fn(q, t, pts, obs, valid):
+        r = pnp.pnp_refine(SE3(q, t), cam, pts, obs, valid, **kw)
+        return r.pose.q, r.pose.t, r.inliers, r.num_inliers, r.cost
+
+    x = stack(rows)
+    _pnp_zero()
+    got = torch.func.vmap(row_fn)(*x)
+    launched = pnp.pnp_refine.launches
+    again = torch.func.vmap(row_fn)(*x)
+    alone = [row_fn(*(c[i] for c in x)) for i in range(S)]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    bits = all(torch.equal(a, b) for a, b in zip(got, again))
+    rows_equal = all(torch.equal(g[i], a) for i, one in enumerate(alone) for g, a in zip(got, one))
+    worst_abs, k64, p64, flags_off, near = 0.0, [0.0, 0.0], [0.0, 0.0], 0, 0
+    for i, (pose0, pts, obs, valid) in enumerate(rows):
+        ker = SE3(got[0][i], got[1][i])
+        plain = _pnp_refine_plain(pose0, cam, pts, obs, valid, **kw)
+        p0, pts64, obs64, _ = to_f64((pose0, pts, obs, valid))
+        ref = _pnp_refine_plain(p0, cam, pts64, obs64, valid, **kw)
+        worst_abs = max(worst_abs, float((ker.q - plain.pose.q).abs().max()),
+                        float((ker.t - plain.pose.t).abs().max()))
+        k64 = [max(a, b) for a, b in zip(k64, _pnp_rel(ker, ref.pose))]
+        p64 = [max(a, b) for a, b in zip(p64, _pnp_rel(plain.pose, ref.pose))]
+        r, _, _ = pnp._residuals_jacobian(ref.pose, cam, pts64, obs64)
+        chi2 = (r * r).sum(-1)
+        tie = (chi2 - CHI2_THRESH_2DOF).abs() <= PNP_CHI2_NEAR * CHI2_THRESH_2DOF
+        differ = got[2][i] != ref.inliers
+        flags_off += int((differ & ~tie).sum())
+        near += int((differ & tie).sum())
+        _check(int(got[3][i]) == int(got[2][i].sum()),
+               f"[pnp] {name} row {i}: num_inliers {int(got[3][i])} != the flags' "
+               f"{int(got[2][i].sum())}")
+        _check(bool(torch.isfinite(ker.t).all() & torch.isfinite(ker.q).all()),
+               f"[pnp] {name} row {i}: a non-finite pose")
+    held = p64[0] <= PNP_T_BAR and p64[1] <= PNP_Q_BAR
+    print(f"[pnp] {name} (S={S}, N={n}, {iters} LM iterations): from float64, t / q, kernel "
+          f"{k64[0]:.2e} / {k64[1]:.2e}, plain {p64[0]:.2e} / {p64[1]:.2e}"
+          f"{'' if held else ' (the plain version misses a bar here: printed, not held)'}; "
+          f"inlier flags differing from float64 {flags_off} (+{near} within {PNP_CHI2_NEAR:g} of "
+          f"the threshold); |kernel - plain| {worst_abs:.2e}; launches under vmap {launched}; "
+          f"run to run bit-equal {bits}; rows bit-equal to their launches alone {rows_equal}")
+    if held:
+        _check(k64[0] <= PNP_T_BAR and k64[1] <= PNP_Q_BAR,
+               f"[pnp] {name}: kernel {k64[0]:.3e} / {k64[1]:.3e} from float64 in t / q")
+    _check(flags_off == 0, f"[pnp] {name}: {flags_off} inlier flags differ from float64")
+    _check(launched == 1, f"[pnp] {name}: {launched} launches under vmap")
+    _check(bits, f"[pnp] {name}: the kernel's result differs run to run")
+    _check(rows_equal, f"[pnp] {name}: a row of the stack differs from its launch alone")
+    return worst_abs, k64, p64
+
+
+def _pnp_checks(dev):
+    """Phase 2c's bars at every case of PNP_CASES on ``dev`` (the card, or
+    the CPU rehearsal of the source).  Returns the worst |kernel - plain|."""
+    return max(_pnp_case(case, dev)[0] for case in PNP_CASES)
+
+
+def _pnp_bound(x, iters: int):
+    """(bytes, flops, bound_ms, bound_by) of one K9 call on the stack ``x``:
+    each input read once (poses, points, pixels, masks) and each output
+    written once; every point of every row evaluated at each of the call's
+    linearisations and two prunes (no step ends early), in float64, and one
+    6x6 step per linearisation in float32, each type over its own peak."""
+    q, t, pts, obs, valid = x
+    S, N = valid.shape
+    n_lin = (1 + iters) + (1 + max(1, iters - 2))
+    nbytes = S * (7 * 4 + N * (12 + 8 + 1)) + S * (7 * 4 + N + 8 + 4)
+    f64 = S * N * (n_lin * PNP_LIN_F64_PER_POINT + 2 * PNP_PRUNE_F64_PER_POINT)
+    f32 = S * n_lin * PNP_STEP_F32
+    tb = nbytes / H100_BYTES_PER_S
+    to = max(f64 / H100_F64_FLOP_PER_S, f32 / H100_F32_FLOP_PER_S)
+    return nbytes, f64 + f32, 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def phase_pnp_kernel(card):
+    """Phase 2c: K9 against its plain version and a float64 evaluation of
+    it on the card (``_pnp_checks``), then its times at the main path's
+    shapes.  Returns the kernel line's row for pnp_refine."""
+    import torch
+    from pnp_problems import stack
+    from alvaar_tpu_torch.geom.lie import SE3
+    from alvaar_tpu_torch.solvers import pnp_kernel
+    from alvaar_tpu_torch.solvers.pnp import CHI2_THRESH_2DOF, _pnp_refine_plain
+    dev = torch.device("cuda")
+    max_abs = _pnp_checks(dev)
+    delta = CHI2_THRESH_2DOF ** 0.5
+    shapes = []
+    cases = {c[0]: c for c in PNP_CASES}
+    # the tracking frame, the batched steps at 16 and 64 streams, FAST's and
+    # ACCURATE's widths, the loop's iterations; the plain composition timed
+    # where it is the main path's
+    for name, key, plain in (("N=192", "N=192 outliers 0.3", True),
+                             ("16 x 192", "16 x 192", True), ("64 x 240", "64 x 240", False),
+                             ("N=130", "N=130 outliers 0.3", False),
+                             ("N=352", "N=352 outliers 0.3", True),
+                             ("N=192 loop iterations", "N=192 loop iterations, outliers", False)):
+        case = cases[key]
+        rows, cam = _pnp_problems(case, dev)
+        iters = case[3]
+        x = stack(rows)
+        camt = (cam.fx, cam.fy, cam.cx, cam.cy)
+        fn = lambda: pnp_kernel.launch(*x, camt, iters, delta, CHI2_THRESH_2DOF, True)
+        ms = _time_ms(fn)
+        dev_ms, n_launch = _device_ms(fn, "pnp_refine_kernel")
+        nbytes, flops, bound_ms, bound_by = _pnp_bound(x, iters)
+        plain_ms = None
+        if plain:
+            kw = dict(iters=iters, huber_delta=delta)
+            if len(rows) == 1:
+                p = rows[0]
+                pfn = lambda: _pnp_refine_plain(p[0], cam, *p[1:], **kw)
+            else:
+                def one(q, t, pts, obs, valid):
+                    r = _pnp_refine_plain(SE3(q, t), cam, pts, obs, valid, **kw)
+                    return r.pose.q, r.pose.t, r.inliers, r.num_inliers, r.cost
+                pfn = lambda: torch.func.vmap(one)(*x)
+            plain_ms = _time_ms(pfn, reps=2, rounds=3, warmup=1)
+        row = dict(shape=name, S=len(rows), N=case[1], iters=iters, ms=ms, device_ms=dev_ms,
+                   launches_per_call=n_launch, bytes=nbytes, flops=flops, bound_ms=bound_ms,
+                   bound_by=bound_by, plain_ms=plain_ms)
+        shapes.append(row)
+        print(f"[pnp] {name}: {ms:.4f} ms per call (CUDA events), device {dev_ms:.4f} ms in "
+              f"{n_launch:g} launches (torch.profiler), plain composition "
+              + (f"{plain_ms:.3f} ms" if plain_ms is not None else "not measured")
+              + (" (under vmap)" if plain and len(rows) > 1 else "")
+              + f", bound {bound_ms * 1e3:.3f} us by {bound_by} ({nbytes / 1e3:.1f} KB, "
+              f"{flops / 1e6:.2f} MFLOP) [{card}]")
+    main = shapes[0]
+    return dict(max_abs_err=max_abs, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                device_ms=main["device_ms"], shape="N=192, S=1, 4 LM iterations",
+                shapes=shapes)
+
+
 BATCH_STREAMS = 16         # the multi-stream path's width (phase 6)
 WIDE_STREAMS = 48          # phase 6d's width
 
@@ -1173,26 +1425,31 @@ def _drive(slam, frames, tag, after=None, profile=()):
     frame, then ``after(slam)`` outside the timed and counted part.
     Returns per-frame lists: statuses, poses, ms, KLT kernel launches, host
     reads (``host_bool.syncs``, plus one for the packed result), keyframe
-    flags, and the bootstrap's kept model (None, or True where the
-    homography won); and for the frames in ``profile``, each run under
+    flags, the bootstrap's kept model (None, or True where the
+    homography won) and K9's launches; and for the frames in ``profile``, each run under
     ``torch.profiler`` (``_profile_counts``; their ms are None), (frame,
     status, keyframe, host waits, kernels, device busy share) under
     "prof".  Every frame at
     status 1 must have launched the fused KLT kernel exactly twice (stage 1
     and the full-width stage 2), and no frame launched it through
-    ``klt_pyramidal`` or the one-pass ``lk_level``."""
+    ``klt_pyramidal`` or the one-pass ``lk_level``; every frame at status 1
+    after a frame at status 1 (a tracking frame: the bootstrap frame reaches
+    status 1 by the 5-point solve) launched K9 exactly once."""
     import torch
     from alvaar_tpu_torch.frontend.step import _try_essential
     from alvaar_tpu_torch.ops.klt import fb_klt_track, klt_pyramidal
     from alvaar_tpu_torch.ops.lk_level import lk_level
     from alvaar_tpu_torch.solvers.homography import homography_ransac
+    from alvaar_tpu_torch.solvers.pnp import pnp_refine
     from alvaar_tpu_torch.worldmap.keyframe import host_bool
 
-    run = {k: [] for k in ("status", "pose", "ms", "launches", "syncs", "kf", "use_h", "prof")}
+    run = {k: [] for k in ("status", "pose", "ms", "launches", "syncs", "kf", "use_h", "prof",
+                           "pnp")}
     for i, frame in enumerate(frames):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         l0, s0, h0 = fb_klt_track.launches, host_bool.syncs, homography_ransac.calls
+        k0 = pnp_refine.launches
         p0 = lk_level.launches + klt_pyramidal.launches
         if i in profile:
             got = []
@@ -1206,6 +1463,7 @@ def _drive(slam, frames, tag, after=None, profile=()):
         torch.cuda.synchronize()
         run["ms"].append(None if i in profile else (time.perf_counter() - t0) * 1e3)
         run["launches"].append(fb_klt_track.launches - l0)
+        run["pnp"].append(pnp_refine.launches - k0)
         _check(lk_level.launches + klt_pyramidal.launches == p0,
                f"[{tag}] a KLT launch outside fb_klt_track on the main path")
         run["syncs"].append(host_bool.syncs - s0 + 1)     # + the packed readback
@@ -1220,13 +1478,17 @@ def _drive(slam, frames, tag, after=None, profile=()):
     tracked = [i for i, x in enumerate(st) if x == 1]
     _check(all(run["launches"][i] == 2 for i in tracked),
            f"[{tag}] a frame at status 1 did not launch the KLT kernel exactly twice")
+    tracking = [i for i in tracked if i > 0 and st[i - 1] == 1]
+    pnp_tr = sorted({run["pnp"][i] for i in tracking})
+    _check(pnp_tr == [1], f"[{tag}] K9 launches per tracking frame {pnp_tr}, not 1")
     print(f"[{tag}] statuses {''.join(str(x) for x in st)}; digest of statuses and poses "
           f"{_run_digest(run)}")
     print(f"[{tag}] first status 1 at frame {tracked[0] if tracked else None}, "
           f"{len(tracked)}/{len(st)} at status 1, {st.count(2)} resets, KLT launches "
           f"{sum(run['launches'])} ({statistics.median(run['launches'])} per frame; "
           f"{statistics.median([run['launches'][i] for i in tracked]) if tracked else 0} per "
-          f"tracking frame), host syncs per frame median {statistics.median(run['syncs'])}")
+          f"tracking frame), host syncs per frame median {statistics.median(run['syncs'])}; K9 "
+          f"launches {sum(run['pnp'])}, per tracking frame {pnp_tr} ({len(tracking)} frames)")
     return run
 
 
@@ -1258,22 +1520,27 @@ def _check_bars(run, tag, by_frame, min_tracked):
 
 
 MAIN_PROFILED = tuple(range(100, 108))   # phase 3's frames run under the profiler
+# phase 3's kernels per tracking frame under the profiler, the median over
+# its profiled tracking frames, by commit 14aa8df (PnP as eager torch) on an
+# NVIDIA H100 80GB HBM3 at 700 W, in two turns of tools/run_pnp_phase.py
+# --ab (this tree: 738); K9 must take at least PNP_KERNELS_SAVED of them away
+PARENT_TRACKING_KERNELS = 3568
+PNP_KERNELS_SAVED = 2000
 # ``_run_digest`` of phases 3 and 11a's golden runs on an NVIDIA H100 80GB
-# HBM3 with local BA's redesigned kernels (csrc/ba_kernels.cu: each
-# observation evaluated once, fixed-order warp sums): the runs stay bit-equal
-# to them
-RUN_DIGESTS = {"main": "e93db1c4301fcfa7", "preset FAST": "22656a9d8bd8ec3f",
-               "preset ACCURATE": "856fba5c53fd6e53"}
-# the same runs by commit 23c34e3, whose kernels summed in another order:
-# printed beside, a new order of summation changes BA's last bits by design
-PARENT_DIGESTS = {"main": "48bcdf6badf830c2", "preset FAST": "45be75e6c1d5b0ed",
-                  "preset ACCURATE": "0f8f8a12a7d91408"}
+# HBM3 with K9 (csrc/pnp_kernel.cu: PnP in one launch, each point evaluated
+# and summed in float64): the runs stay bit-equal to them
+RUN_DIGESTS = {"main": "39c3dca02a78826c", "preset FAST": "2deb8f787dfe1de2",
+               "preset ACCURATE": "593b24085d57ab2d"}
+# the same runs by commit 14aa8df, whose PnP ran as eager float32 torch:
+# printed beside, K9's sums change the poses' last bits by design
+PARENT_DIGESTS = {"main": "e93db1c4301fcfa7", "preset FAST": "22656a9d8bd8ec3f",
+                  "preset ACCURATE": "856fba5c53fd6e53"}
 
 
 def _check_run_digest(run, tag) -> None:
     digest = _run_digest(run)
     print(f"[{tag}] digest of statuses and poses {digest}, this tree's {RUN_DIGESTS[tag]}: "
-          f"bit-equal {digest == RUN_DIGESTS[tag]} (commit 23c34e3's, local BA's earlier kernels: "
+          f"bit-equal {digest == RUN_DIGESTS[tag]} (commit 14aa8df's, PnP eager: "
           f"{PARENT_DIGESTS[tag]})")
     _check(digest == RUN_DIGESTS[tag], f"[{tag}] statuses or poses differ from this tree's run")
 
@@ -1384,14 +1651,21 @@ def phase_main_path(frames, gt, card):
     prof = run["prof"]
     waits_tr = [p[3] for p in prof if p[1] == 1 and not p[2]]
     waits_kf = [p[3] for p in prof if p[2]]
+    kernels_tr = [p[4] for p in prof if p[1] == 1 and not p[2]]
     print(f"[main] under torch.profiler, frames {MAIN_PROFILED[0]}-{MAIN_PROFILED[-1]}: host waits "
           f"for the card (stream, event and device syncs) per tracking frame {waits_tr}, per "
-          f"keyframe frame {waits_kf}; kernels per tracking frame "
-          f"{[p[4] for p in prof if p[1] == 1 and not p[2]]}, device busy share per tracking "
-          f"frame median {statistics.median(p[5] for p in prof if p[1] == 1 and not p[2]):.3f} "
+          f"keyframe frame {waits_kf}; kernels per tracking frame {kernels_tr}, device busy "
+          f"share per tracking frame median "
+          f"{statistics.median(p[5] for p in prof if p[1] == 1 and not p[2]):.3f} "
           f"(the profiler on) [{card}]")
     _check(len(waits_tr) >= 3 and max(waits_tr) <= 2,
            f"host waits per tracking frame {waits_tr} (bar 2)")
+    bar = PARENT_TRACKING_KERNELS - PNP_KERNELS_SAVED
+    print(f"[main] kernels per tracking frame median {statistics.median(kernels_tr)}, bar {bar} "
+          f"(commit 14aa8df's median {PARENT_TRACKING_KERNELS}, eager PnP, less "
+          f"{PNP_KERNELS_SAVED})")
+    _check(statistics.median(kernels_tr) <= bar,
+           f"kernels per tracking frame median {statistics.median(kernels_tr)} > {bar}")
     _check(n5 > 0, "the 5-point RANSAC never ran on the card")
     _check(nh > 0, "the homography RANSAC never ran on the card")
 
@@ -1632,6 +1906,7 @@ def phase_loop_closure(card):
     from alvaar_tpu_torch.geom.lie import SE3
     from alvaar_tpu_torch.loopclosure import detector as det
     from alvaar_tpu_torch.ops.klt import fb_klt_track
+    from alvaar_tpu_torch.solvers.pnp import pnp_refine
     from render_scene_np import TwoPlaneScene, trajectory
 
     # (a) bench.py's shape: 256 keyframes x 192 descriptors, seed 3
@@ -1685,17 +1960,34 @@ def phase_loop_closure(card):
                   loop_delay=4)
     fb_klt_track.launches = 0
     loops, statuses = [], []
+    # K9's launches inside each geometric verification of a detected loop
+    verify, in_verify = det.verify_loop, []
+
+    def counted(*a, **kw):
+        k0 = pnp_refine.launches
+        out = verify(*a, **kw)
+        in_verify.append(pnp_refine.launches - k0)
+        return out
+
+    det.verify_loop = counted
     t0 = time.perf_counter()
-    for i in range(len(gt)):
-        slam.find_camera_pose(scene.render(gt[i]).astype(np.float32))
-        statuses.append(slam.last_status)
-        if slam.last_loop is not None:
-            loops.append((i, int(slam.last_loop.match_kf_id), slam.last_loop_correction is not None))
+    try:
+        for i in range(len(gt)):
+            slam.find_camera_pose(scene.render(gt[i]).astype(np.float32))
+            statuses.append(slam.last_status)
+            if slam.last_loop is not None:
+                loops.append((i, int(slam.last_loop.match_kf_id),
+                              slam.last_loop_correction is not None))
+    finally:
+        det.verify_loop = verify
     wall = time.perf_counter() - t0
     print(f"[loop] out-and-back 320x240, {len(gt)} frames: statuses {''.join(map(str, statuses))}")
     print(f"[loop] {statuses.count(1)} at status 1, loops (frame, matched kf, corrected) {loops}, "
-          f"KLT launches {fb_klt_track.launches}, {wall:.1f} s [{card}]")
+          f"KLT launches {fb_klt_track.launches}, {wall:.1f} s; verify_loop calls "
+          f"{len(in_verify)}, K9 launches in each {sorted(set(in_verify))} [{card}]")
     _check(fb_klt_track.launches > 0, "[loop] no KLT launch")
+    _check(bool(in_verify) and set(in_verify) == {1},
+           f"[loop] K9 launches per verify_loop call {sorted(set(in_verify))}, not 1")
     _check(statuses.count(1) > 40, "[loop] tracking broke")
     _check(any(i >= len(gt) // 2 for i, _, _ in loops), "[loop] no loop in the return half")
     _check(any(c for _, _, c in loops), "[loop] no correction applied")
@@ -1943,6 +2235,7 @@ def _multistream_run(frames_dev, cfg, cam, kf_slots, tag, card, row=None, of=BAT
     from alvaar_tpu_torch.ops.klt import fb_klt_track, klt_pyramidal
     from alvaar_tpu_torch.ops.lk_level import lk_level
     from alvaar_tpu_torch.parallel import multistream as ms
+    from alvaar_tpu_torch.solvers.pnp import pnp_refine
     from alvaar_tpu_torch.worldmap.keyframe import host_bool
     from alvaar_tpu_torch.worldmap.state import stack_states, state_row
 
@@ -1968,7 +2261,7 @@ def _multistream_run(frames_dev, cfg, cam, kf_slots, tag, card, row=None, of=BAT
         return call
 
     run = {k: [] for k in ("ms", "launches", "gate_syncs", "syncs", "kf", "served", "kf_ms",
-                           "status", "pose")}
+                           "status", "pose", "pnp")}
     dts = torch.ones(b, device="cuda")
     fb_klt_track.launches = klt_pyramidal.launches = lk_level.launches = 0
     ms.multistream_step_local.syncs = host_bool.syncs = 0
@@ -1980,7 +2273,7 @@ def _multistream_run(frames_dev, cfg, cam, kf_slots, tag, card, row=None, of=BAT
         for i in range(n):
             frames_i = frames_dev[i]
             l0, g0, h0 = fb_klt_track.launches, ms.multistream_step_local.syncs, host_bool.syncs
-            p0 = len(kf_passes)
+            p0, k0 = len(kf_passes), pnp_refine.launches
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             states, out = step(states, frames_i, dts)
@@ -1988,6 +2281,7 @@ def _multistream_run(frames_dev, cfg, cam, kf_slots, tag, card, row=None, of=BAT
             torch.cuda.synchronize()
             run["ms"].append((time.perf_counter() - t0) * 1e3)
             run["launches"].append(fb_klt_track.launches - l0)
+            run["pnp"].append(pnp_refine.launches - k0)
             run["gate_syncs"].append(ms.multistream_step_local.syncs - g0)
             run["syncs"].append(host_bool.syncs - h0 + 1)
             run["kf"].append(int(out.is_keyframe.sum()))
@@ -2038,6 +2332,8 @@ def _by_served(run, tag, card, kf_slots):
 def _check_steps(r, tag, kf_slots):
     _check(all(x == 2 for x in r["launches"][1:]),
            f"[{tag}] a step after the first did not launch the KLT kernel twice")
+    _check(set(r["pnp"]) == {1},
+           f"[{tag}] K9 launches per step {sorted(set(r['pnp']))}, not 1 (the batched track phase)")
     _check(r["other_launches"] == 0, f"[{tag}] a KLT launch outside fb_klt_track")
     _check(max(r["gate_syncs"]) == MS_GATE_SYNCS,
            f"[{tag}] election reads {max(r['gate_syncs'])} != {MS_GATE_SYNCS}")
@@ -2309,16 +2605,19 @@ def _mesh_drive(step, blocks, frames_dev, tag, shards):
     from alvaar_tpu_torch.ops.klt import fb_klt_track, klt_pyramidal
     from alvaar_tpu_torch.ops.lk_level import lk_level
     from alvaar_tpu_torch.parallel import multistream as ms
+    from alvaar_tpu_torch.solvers.pnp import pnp_refine
     from alvaar_tpu_torch.worldmap.keyframe import host_bool
 
-    run = {k: [] for k in ("ms", "launches", "gate_syncs", "syncs", "shard_ms", "outs")}
+    run = {k: [] for k in ("ms", "launches", "gate_syncs", "syncs", "shard_ms", "outs", "pnp")}
     t0 = time.perf_counter()
     fb_klt_track.launches = klt_pyramidal.launches = lk_level.launches = 0
     ms.multistream_step_local.syncs = host_bool.syncs = 0
     _ba_zero()
+    _pnp_zero()
     try:
         for i in range(frames_dev.shape[0]):
             l0, g0, h0 = fb_klt_track.launches, ms.multistream_step_local.syncs, host_bool.syncs
+            k0 = pnp_refine.launches
             _sync_all()
             t1 = time.perf_counter()
             blocks, out = step(blocks, frames_dev[i])
@@ -2326,12 +2625,14 @@ def _mesh_drive(step, blocks, frames_dev, tag, shards):
             _sync_all()
             run["ms"].append((time.perf_counter() - t1) * 1e3)
             run["launches"].append(fb_klt_track.launches - l0)
+            run["pnp"].append(pnp_refine.launches - k0)
             run["gate_syncs"].append(ms.multistream_step_local.syncs - g0)
             run["syncs"].append(host_bool.syncs - h0 + shards)
             run["shard_ms"].append(list(step.last_shard_ms))
             run["outs"].append(_host_outs(out))
         run["other_launches"] = klt_pyramidal.launches + lk_level.launches
         _ba_path(f"{tag}, the workers")      # their counts, added up in this process
+        _pnp_path(f"{tag}, the workers")
         state = ms.gather_states(blocks, "cuda:0")
     finally:
         alive = len(multiprocessing.active_children())
@@ -2406,7 +2707,8 @@ def _check_mesh(run, state, refs, tag, shards, card):
     print(f"[{tag}] against each block alone (outputs, final state and generators, bit for bit): "
           f"{'equal' if not bad else f'{len(bad)} differences, first {bad[:5]}'}; keyframes served "
           f"{int(sum(o['is_keyframe'].sum() for o in run['outs']))}; KLT launches per step "
-          f"{sorted(set(run['launches'][1:]))}, election reads per step "
+          f"{sorted(set(run['launches'][1:]))}, K9 launches per step {sorted(set(run['pnp']))}, "
+          f"election reads per step "
           f"{sorted(set(run['gate_syncs']))}, host syncs per step max {max(run['syncs'])} (bar "
           f"{MS_MAX_SYNCS * shards}); steps {MESH_TIMED_FROM}-{n_steps - 1}: {fps:.2f} frames/s, "
           f"median {statistics.median(run['ms'][MESH_TIMED_FROM:]):.1f} ms per step, each "
@@ -2415,6 +2717,8 @@ def _check_mesh(run, state, refs, tag, shards, card):
     _check(all(x == 2 * shards for x in run["launches"][1:]),
            f"[{tag}] a step after the first did not launch the KLT kernel twice per shard")
     _check(run["other_launches"] == 0, f"[{tag}] a KLT launch outside fb_klt_track")
+    _check(set(run["pnp"]) == {shards},
+           f"[{tag}] K9 launches per step {sorted(set(run['pnp']))}, not 1 per shard")
     _check(max(run["gate_syncs"]) == MS_GATE_SYNCS * shards,
            f"[{tag}] election reads {max(run['gate_syncs'])} != {MS_GATE_SYNCS} per shard")
     _check(max(run["syncs"]) <= MS_MAX_SYNCS * shards,
@@ -3459,54 +3763,82 @@ def main() -> int:
 
     max_err, shapes = phase_kernel(frames, card)
     lap("phases 1-2 (environment, golden frames, kernel build and checks)")
+    pnp_row = phase_pnp_kernel(card)
+    lap("phase 2c (motion-only PnP's kernel)")
     _ba_zero()
+    _pnp_zero()
     slam, launches, main_run = phase_main_path(frames, gt, card)
     _ba_path("main")
+    _pnp_path("main")
+    _pnp_zero()
     launches += phase_eight_point(frames, card)
+    _pnp_path("8pt")
     lap("phases 3, 3b")
     ba_rows = phase_ba_kernels(main_run["ba_problems"], card)
     lap("phase 2b (local BA's kernels)")
     gt_more = trajectory(n + 45, step=0.04)[n:n + 20]
     more = [scene.render(T).astype(np.float32) for T in gt_more]
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    _pnp_zero()
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         launches += phase_facade(slam, more, card, tmp, scene, gt, main_run)
+    _pnp_path("facade")
+    _pnp_zero()
     launches += phase_loop_closure(card)
+    _pnp_path("loop")
     lap("phases 4, 5")
     _ba_zero()
     launches += phase_subbatch_probe(frames, card)
     _ba_path("probe")
     lap("phase 6a")
     _ba_zero()
+    _pnp_zero()
     ms_launches, one0, multi_run = phase_multistream(frames, gt, card)
     _ba_path("multi")
+    _pnp_path("multi")
     lap("phase 6")
+    _pnp_zero()
     launches += ms_launches + phase_multistream_wide(frames, gt, one0, card)
+    _pnp_path("wide")
     lap("phase 6d")
+    _pnp_zero()
     launches += phase_multistream_loop(card)
     launches += phase_server(frames, card)
+    _pnp_path("multi loop, server")
     lap("phases 6b, 6c")
-    launches += phase_mesh(frames, multi_run, card)
+    launches += phase_mesh(frames, multi_run, card)     # K9 counted per mesh, in _mesh_drive
+    _pnp_zero()
     launches += phase_ingest(frames, card)
+    _pnp_path("ingest")
     lap("phases 6e, 7")
     _ba_zero()
+    _pnp_zero()
     hd_launches, hd_shapes = phase_hd_serving(card)
     _ba_path("hd")
+    _pnp_path("hd")
     lap("phase 8")
     shapes += hd_shapes
     max_err = max([max_err] + [row["max_abs_err"] for row in hd_shapes])
     _ba_zero()
+    _pnp_zero()
     launches += hd_launches + phase_map10k(frames, gt, main_run, card)
     _ba_path("map10k")
+    _pnp_path("map10k")
     lap("phase 9")
     check_scatter_order(card)
+    _pnp_zero()
     launches += phase_bench_loop(frames, card)
+    _pnp_path("bench loop")
     phase_bench_command(card)
     lap("phase 10")
     _ba_zero()
+    _pnp_zero()
     launches += phase_presets(frames, gt, card)
     _ba_path("presets")
+    _pnp_path("presets")
+    _pnp_zero()
     launches += phase_examples(card)
+    _pnp_path("examples")
     lap("phase 11")
 
     # the top-level numbers are at the heavier main-path call, stage 2 at N=192
@@ -3530,6 +3862,14 @@ def main() -> int:
             "name": name, "route": "cuda", "source": "alvaar_tpu_torch/csrc/ba_kernels.cu",
             "replaces": replaces, "replaces_what": f"XLA formulation, not a Pallas kernel: {what}",
             "launches": BA_PATH_LAUNCHES[name], "library_ms": None, "card": card, **r})
+    # K9 replaces the XLA fusion of the jitted step's pnp_refine, not a
+    # Pallas kernel; no single PyTorch call computes the function
+    kernels.append({
+        "name": "pnp_refine", "route": "cuda", "source": "alvaar_tpu_torch/csrc/pnp_kernel.cu",
+        "replaces": "alvaar_tpu/solvers/pnp.py:156",
+        "replaces_what": "XLA formulation, not a Pallas kernel: pnp_refine (:156-190), traced "
+                         "into the jitted step (alvaar_tpu/frontend/step.py:188)",
+        "launches": PNP_PATH_LAUNCHES[0], "library_ms": None, "card": card, **pnp_row})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

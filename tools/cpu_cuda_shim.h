@@ -1,5 +1,6 @@
 // Just enough of CUDA to run a kernel source of this repository on the CPU
-// (tools/rehearse_ba_kernels.py): no card, no nvcc.  Every CUDA thread of a
+// (tools/cuda_on_cpu.py, for tools/rehearse_ba_kernels.py and
+// tools/rehearse_pnp_kernel.py): no card, no nvcc.  Every CUDA thread of a
 // block is a fiber on one host thread (its own stack, switched with
 // _setjmp/_longjmp); blocks run one after another, so `__shared__` variables
 // are function statics.  `__syncthreads` is a barrier over the block's

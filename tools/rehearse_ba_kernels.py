@@ -5,11 +5,9 @@ card and no nvcc exist.
 
     python3 tools/rehearse_ba_kernels.py [--quick]
 
-The source is translated (``#include``s of the CUDA headers replaced by
-tools/cpu_cuda_shim.h, each ``kernel<<<grid, block, ...>>>(args)`` by
-``cpu_launch(kernel, grid, block, args)``) into ``build/rehearsal/`` and
-built with ``g++ -std=c++20 -O1 -ffp-contract=off`` (nvcc's ``--fmad=false``):
-every CUDA thread a fiber on one host thread.
+The source is translated and built into ``build/rehearsal/`` by
+tools/cuda_on_cpu.py (the CUDA includes replaced by tools/cpu_cuda_shim.h,
+every CUDA thread a fiber on one host thread).
 Then ``solvers/ba_kernels`` is pointed at that library with the CUDA
 calls around a launch stubbed, and local BA's wrappers launch the kernels
 on CPU tensors.  The checks are phase 2b's own functions
@@ -31,82 +29,41 @@ import argparse
 import contextlib
 import ctypes
 import os
-import re
-import subprocess
 import sys
 import time
-import types
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import cuda_on_cpu  # noqa: E402  (tools/, beside this file)
+
+ROOT = cuda_on_cpu.ROOT
 OUT = os.path.join(ROOT, "build", "rehearsal")
-
-
-def translate(src: str) -> str:
-    """The CUDA source with the shim's include and ``cpu_launch`` calls."""
-    src = re.sub(r"#include <cuda_(runtime|pipeline)\.h>\n", "", src)
-    src = '#include "cpu_cuda_shim.h"\n' + src
-    out, pos = [], 0
-    for m in re.finditer(r"(\w+)<<<", src):
-        if m.start() < pos:
-            continue
-        end = src.index(">>>(", m.end())
-        parts, depth, cur = [], 0, ""
-        for ch in src[m.end():end]:
-            if ch == "," and depth == 0:
-                parts.append(cur.strip())
-                cur = ""
-                continue
-            depth += ch in "(<"
-            depth -= ch in ")>"
-            cur += ch
-        parts.append(cur.strip())
-        out.append(src[pos:m.start()])
-        out.append(f"cpu_launch({m.group(1)}, {parts[0]}, {parts[1]}, ")
-        pos = end + 4
-    out.append(src[pos:])
-    return "".join(out)
 
 
 def build(out: str = OUT) -> str:
     """The translated source built into ``out``; returns the library's path."""
-    os.makedirs(out, exist_ok=True)
-    with open(os.path.join(ROOT, "alvaar_tpu_torch", "csrc", "ba_kernels.cu")) as f:
-        cpp = translate(f.read())
-    path = os.path.join(out, "ba_kernels_cpu.cpp")
-    with open(path, "w") as f:
-        f.write(cpp)
-    lib = os.path.join(out, "libba_kernels_cpu.so")
-    subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fno-strict-aliasing",
-                    "-U_FORTIFY_SOURCE", "-shared", "-fPIC", "-I", os.path.join(ROOT, "tools"),
-                    "-o", lib, path], check=True)
-    return lib
+    return cuda_on_cpu.build("ba_kernels.cu", out)
 
 
 @contextlib.contextmanager
 def on_cpu(lib_path):
     """Local BA's wrappers launch the CPU build on CPU tensors."""
-    import torch
     from alvaar_tpu_torch.solvers import ba, ba_kernels
     ops = ((ba._LINEARIZE_OP, ba._launch_linearize, ba._linearize_rows),
            (ba._RESIDUALS_OP, ba._launch_residuals, ba._residuals_rows),
            (ba._SCHUR_OP, ba._launch_schur, ba._schur_rows))
-    saved = (ba_kernels._lib, ba_kernels._cuda, ba._dispatch, torch.cuda.device,
-             torch.cuda.current_stream, torch.cuda.synchronize)
+    saved = (ba_kernels._lib, ba_kernels._cuda, ba._dispatch)
     ba_kernels._lib = ba_kernels.bind(ctypes.CDLL(lib_path))
     ba_kernels._cuda = lambda dev, what: None
     ba._dispatch = lambda x, name: True
-    torch.cuda.device = lambda dev: contextlib.nullcontext()
-    torch.cuda.current_stream = lambda dev=None: types.SimpleNamespace(cuda_stream=None)
-    torch.cuda.synchronize = lambda *a: None
     for op, launch, _ in ops:      # the custom ops' CPU kernels: the launchers
         op.register_kernel("cpu")(launch)
     try:
-        yield
+        with cuda_on_cpu.cuda_stubs():
+            yield
     finally:
         for op, _, plain in ops:
             op.register_kernel("cpu")(plain)
-        (ba_kernels._lib, ba_kernels._cuda, ba._dispatch, torch.cuda.device,
-         torch.cuda.current_stream, torch.cuda.synchronize) = saved
+        ba_kernels._lib, ba_kernels._cuda, ba._dispatch = saved
 
 
 def main() -> int:

@@ -1,0 +1,198 @@
+#!/usr/bin/env python3
+"""Run chip_smoke.py phase 2c (motion-only PnP's kernel K9) alone, and the
+end-to-end phases that K9 serves for two checkouts in turns.
+
+    python3 tools/run_pnp_phase.py [--ab OTHER_ROOT] [--turns 4]
+
+Prints the environment lines of phase 1, builds K9 (the compiler's
+register and spill lines printed), and runs ``chip_smoke.phase_pnp_kernel``:
+K9 against its plain version and a float64 evaluation of it at every case
+of ``PNP_CASES``, then its times at the main path's shapes; the last line
+before the turns is the smoke's kernel row for pnp_refine.  Exits non-zero
+when a bar fails.  Needs CUDA.
+
+With ``--ab OTHER_ROOT`` it then runs, in turns (other, this, this, other
+with four turns; other, this with two), a process per turn that imports
+only its own checkout's ``chip_smoke`` and package and runs phase 3 (the
+default config over the 120 golden frames), 6 (16 streams), 6d (48
+streams), 8 (1080p, B = 8 and 64) and 11a (the FAST and ACCURATE presets)
+as that checkout's smoke runs them, each phase's failure printed and the
+next phase run.  In these turns the run digests are printed, not held (a
+checkout that changes them on purpose sets its new ones from such a run),
+and this checkout's bar on phase 3's kernels per tracking frame is not
+held.  From each turn's lines: the tracking and keyframe frames' medians
+and the kernels per tracking frame of phase 3, the aggregate frames/s of
+phases 6, 6d and 8, the presets' tracking and keyframe frames' medians, and
+the digests; printed per turn and as medians per checkout, and written,
+with each turn's log, to ``--out`` (default ``build/pnp_ab/``).  Place
+the other checkout under the git-ignored ``build/`` before the call, e.g.
+``mkdir -p build/parent && git archive COMMIT | tar -x -C build/parent``:
+the checkout the chip runs is not a git repository.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+AB_DIR = os.path.join(ROOT, "build", "pnp_ab")
+
+# (key, pattern, groups): what each turn's lines give
+PATTERNS = (
+    ("track_ms", r"\[main\] frames 20-119 by kind: \d+ tracking frames median ([\d.]+) ms", float),
+    ("keyframe_ms", r"\[main\] frames 20-119 by kind: .* keyframes median ([\d.]+) ms", float),
+    ("kernels_per_tracking_frame", r"\[main\] under torch\.profiler.*kernels per tracking frame "
+                                   r"\[([\d, ]+)\]", lambda g: statistics.median(
+                                       int(x) for x in g.split(","))),
+    ("fps_16", r"\[multi\] steps 10-\d+: aggregate ([\d.]+) frames/s", float),
+    ("fps_48", r"\[wide\] steps 10-\d+: aggregate ([\d.]+) frames/s", float),
+    ("fps_1080p_8", r"\[hd B=8\] steps 10-\d+: aggregate ([\d.]+) frames/s", float),
+    ("fps_1080p_64", r"\[hd B=64\] steps 10-\d+: aggregate ([\d.]+) frames/s", float),
+    ("fast_track_ms", r"\[preset FAST\] cell .* frames 20-119: \d+ tracking frames median "
+                      r"([\d.]+) ms", float),
+    ("fast_keyframe_ms", r"\[preset FAST\] cell .* keyframes median ([\d.]+) ms", float),
+    ("accurate_track_ms", r"\[preset ACCURATE\] cell .* frames 20-119: \d+ tracking frames "
+                          r"median ([\d.]+) ms", float),
+    ("accurate_keyframe_ms", r"\[preset ACCURATE\] cell .* keyframes median ([\d.]+) ms", float),
+    ("digest_main", r"\[main\] statuses \d+; digest of statuses and poses (\w+)", str),
+    ("digest_fast", r"\[preset FAST\] statuses \d+; digest of statuses and poses (\w+)", str),
+    ("digest_accurate", r"\[preset ACCURATE\] statuses \d+; digest of statuses and poses (\w+)",
+     str),
+)
+
+
+def _turn(root: str) -> int:
+    """One turn, in a process that imports only ``root``'s checkout."""
+    sys.path.insert(0, root)
+    sys.path.insert(0, os.path.join(root, "tests"))
+    import numpy as np
+    import chip_smoke as cs
+    if not os.path.abspath(cs.__file__).startswith(os.path.abspath(root) + os.sep):
+        raise RuntimeError(f"imported {cs.__file__}, not {root}'s chip_smoke")
+    from render_scene_np import TwoPlaneScene, trajectory
+
+    cs._check_run_digest = lambda run, tag: print(
+        f"[{tag}] digest {cs._run_digest(run)} (printed, not held)")
+    cs.PARENT_TRACKING_KERNELS = 10 ** 9      # this checkout's bar: not held here
+    card = cs.phase_env()
+    golden = np.load(os.path.join(root, "tests", "golden", "ref_synthetic_640.npz"))
+    gt = golden["gt"]
+    scene = TwoPlaneScene(np.random.default_rng(int(golden["seed"])), width=640, height=480,
+                          fov=60.0, tex_scale=120.0)
+    frames = [scene.render(gt[i]).astype(np.float32) for i in range(int(golden["n_frames"]))]
+    failed = 0
+
+    def attempt(name, fn):
+        nonlocal failed
+        t0 = time.time()
+        try:
+            return fn()
+        except Exception as e:          # the next phase still runs
+            failed += 1
+            print(f"[turn] phase {name} failed: {type(e).__name__}: {e}")
+            return None
+        finally:
+            print(f"[time] phase {name}: {time.time() - t0:.1f} s", flush=True)
+
+    attempt("3", lambda: cs.phase_main_path(frames, gt, card))
+    multi = attempt("6", lambda: cs.phase_multistream(frames, gt, card))
+    if multi is not None:
+        attempt("6d", lambda: cs.phase_multistream_wide(frames, gt, multi[1], card))
+    attempt("8", lambda: cs.phase_hd_serving(card))
+    attempt("11a", lambda: cs.phase_presets(frames, gt, card))
+    return 1 if failed else 0
+
+
+def _parse(lines) -> dict:
+    out = {}
+    for key, pat, conv in PATTERNS:
+        for line in lines:
+            m = re.search(pat, line)
+            if m:
+                out[key] = conv(m.group(1))
+                break
+    return out
+
+
+def _ab(other: str, turns: int, out: str) -> int:
+    os.makedirs(out, exist_ok=True)
+    order = [("other", other), ("this", ROOT)] * (turns // 2)
+    if turns == 4:
+        order = [("other", other), ("this", ROOT), ("this", ROOT), ("other", other)]
+    results, rc = [], 0
+    for tag, root in order:
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn", root],
+                              capture_output=True, text=True, cwd=root)
+        lines = proc.stdout.splitlines()
+        with open(os.path.join(out, f"turn{len(results)}_{tag}.log"), "w") as f:
+            f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+        got = _parse(lines)
+        got.update(turn=tag, rc=proc.returncode, seconds=round(time.time() - t0, 1))
+        results.append(got)
+        rc |= proc.returncode != 0
+        for line in lines:
+            if line.startswith(("[turn]", "[time]", "NVIDIA")) or "Traceback" in line:
+                print(f"[ab {tag}] {line}")
+        if proc.returncode != 0:
+            print(f"[ab {tag}] stderr tail:\n" + "\n".join(proc.stderr.splitlines()[-15:]))
+        print(f"[ab] turn {len(results)} ({tag}, rc {proc.returncode}, {got['seconds']} s): "
+              + json.dumps({k: v for k, v in got.items() if k not in ("turn", "rc", "seconds")}),
+              flush=True)
+    summary = {}
+    for tag in ("other", "this"):
+        mine = [r for r in results if r["turn"] == tag]
+        summary[tag] = {}
+        for key, _, conv in PATTERNS:
+            vals = [r[key] for r in mine if key in r]
+            if vals:
+                summary[tag][key] = (statistics.median(vals) if conv is not str
+                                     else sorted(set(vals)))
+    for key, _, conv in PATTERNS:
+        a, b = summary["other"].get(key), summary["this"].get(key)
+        ratio = (f", other / this {a / b:.3f}" if conv is not str and a is not None and b
+                 else "")
+        print(f"[ab] {key}: other {a}, this {b}{ratio}")
+    with open(os.path.join(out, "ab.json"), "w") as f:
+        json.dump({"turns": results, "summary": summary}, f, indent=1)
+    return int(rc)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ab", metavar="OTHER_ROOT")
+    ap.add_argument("--turns", type=int, default=4, choices=(2, 4))
+    ap.add_argument("--out", default=AB_DIR, help="where the turns' logs and ab.json go")
+    ap.add_argument("--turn", metavar="ROOT", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.turn:
+        return _turn(os.path.abspath(args.turn))
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch
+    import chip_smoke
+    from alvaar_tpu_torch.solvers import pnp_kernel
+    if not torch.cuda.is_available():
+        print("run_pnp_phase: CUDA is not available", file=sys.stderr)
+        return 1
+    t0 = time.time()
+    card = chip_smoke.phase_env()
+    lib = pnp_kernel.build_kernel(verbose=True)
+    print(f"[pnp] built {os.path.relpath(lib, ROOT)} in {time.time() - t0:.2f} s")
+    row = chip_smoke.phase_pnp_kernel(card)
+    print(f"[time] phase 2c: {time.time() - t0:.1f} s")
+    print(json.dumps({"name": "pnp_refine", "card": card, **row}))
+    if args.ab:
+        return _ab(os.path.abspath(args.ab), args.turns, os.path.abspath(args.out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
