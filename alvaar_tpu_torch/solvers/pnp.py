@@ -10,9 +10,12 @@ XLA program that ``vmap`` batches across streams.  Here ``pnp_refine``
 dispatches on the device: CPU tensors run the plain version
 (``_pnp_refine_plain``, this module's eager torch); CUDA tensors launch
 K9 (csrc/pnp_kernel.cu, solvers/pnp_kernel.py), the whole function in
-one launch, through the custom op ``alvaar_tpu_torch::pnp_refine`` whose
-batching rule makes one launch over all the rows that ``torch.func.vmap``
-stacks; any other device raises.
+one launch; any other device raises.  Under ``torch.func.vmap`` the call
+goes through the custom op ``alvaar_tpu_torch::pnp_refine``, whose
+batching rule makes one launch over all the rows that vmap stacks; a
+call on plain tensors launches directly (the launcher's outputs are views
+of one buffer, which a custom op may not return, and the op's dispatch
+would be most of a lone call's host time).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 from alvaar_tpu_torch.geom.camera import Camera
 from alvaar_tpu_torch.geom.lie import SE3, so3_hat
 from alvaar_tpu_torch.solvers import pnp_kernel
-from alvaar_tpu_torch.utils.custom_ops import dispatch as _dispatch, one, rows_rule
+from alvaar_tpu_torch.utils.custom_ops import dispatch as _dispatch, one, rows_rule, wrapped
 from alvaar_tpu_torch.utils.stats import count
 
 CHI2_THRESH_2DOF = 5.9915
@@ -158,8 +161,9 @@ def _pnp_refine_plain(pose0: SE3, cam: Camera, points_w, px_obs, valid, *,
 
 
 # ---------------------------------------------------------------------------
-# K9's custom op: a leading S on every tensor, one launch over all S rows
-# (csrc/pnp_kernel.cu).  Its CPU implementation runs the plain version row
+# K9 on S rows at once (a leading S on every tensor, one launch over all S
+# rows; csrc/pnp_kernel.cu), and its custom op, which carries the batching
+# rule under vmap.  The op's CPU implementation runs the plain version row
 # by row; the main path on the CPU calls that directly.
 # ---------------------------------------------------------------------------
 
@@ -175,10 +179,21 @@ def _refine_rows(q, t, points_w, px_obs, valid, fx, fy, cx, cy, iters, huber_del
     return tuple(torch.stack(x) for x in zip(*rows))
 
 
-def _launch_refine(q, t, points_w, px_obs, valid, fx, fy, cx, cy, iters, huber_delta,
-                   chi2_thresh, refine_l2):
-    out = pnp_kernel.launch(q, t, points_w, px_obs, valid, (fx, fy, cx, cy), iters,
-                            huber_delta, chi2_thresh, refine_l2)
+def _refine_stack(q, t, points_w, px_obs, valid, fx, fy, cx, cy, iters, huber_delta,
+                  chi2_thresh, refine_l2):
+    """S rows on plain tensors, the op's batching rule's call once the rows
+    are merged: K9 in one launch on CUDA tensors, the plain version row by
+    row on CPU tensors."""
+    if not _dispatch(points_w, "pnp_refine"):
+        return _refine_rows(q, t, points_w, px_obs, valid, fx, fy, cx, cy, iters, huber_delta,
+                            chi2_thresh, refine_l2)
+    return _launch(q, t, points_w, px_obs, valid, (fx, fy, cx, cy), iters, huber_delta,
+                   chi2_thresh, refine_l2)
+
+
+def _launch(*args):
+    """K9's one launch (solvers/pnp_kernel.py ``launch``), counted."""
+    out = pnp_kernel.launch(*args)
     count(pnp_refine, "launches")
     return out
 
@@ -195,19 +210,8 @@ _REFINE_OP = torch.library.custom_op(
     schema="(Tensor q, Tensor t, Tensor points_w, Tensor px_obs, Tensor valid, float fx, "
            "float fy, float cx, float cy, int iters, float huber_delta, float chi2_thresh, "
            "bool refine_l2) -> (Tensor, Tensor, Tensor, Tensor, Tensor)")
-_REFINE_OP.register_kernel("cuda")(_launch_refine)
 _REFINE_OP.register_fake(_refine_fake)
-_REFINE_OP.register_vmap(rows_rule(_REFINE_OP))
-
-
-def pnp_refine_op(pose0: SE3, cam: Camera, points_w, px_obs, valid, *, iters: int,
-                  huber_delta: float, chi2_thresh: float, refine_l2: bool) -> PnPResult:
-    """K9's custom op on one problem (a leading S = 1 added and taken off)."""
-    outs = _REFINE_OP(*map(one, (pose0.q, pose0.t, points_w, px_obs, valid)),
-                      cam.fx, cam.fy, cam.cx, cam.cy, int(iters), float(huber_delta),
-                      float(chi2_thresh), bool(refine_l2))
-    q, t, inliers, num, cost = (o[0] for o in outs)
-    return PnPResult(pose=SE3(q, t), inliers=inliers, num_inliers=num, cost=cost)
+_REFINE_OP.register_vmap(rows_rule(_REFINE_OP, _refine_stack))
 
 
 def pnp_refine(pose0: SE3, cam: Camera, points_w, px_obs, valid, *,
@@ -220,9 +224,17 @@ def pnp_refine(pose0: SE3, cam: Camera, points_w, px_obs, valid, *,
     version on CPU tensors."""
     kw = dict(iters=iters, huber_delta=huber_delta, chi2_thresh=chi2_thresh,
               refine_l2=refine_l2)
-    if _dispatch(points_w, "pnp_refine"):
-        return pnp_refine_op(pose0, cam, points_w, px_obs, valid, **kw)
-    return _pnp_refine_plain(pose0, cam, points_w, px_obs, valid, **kw)
+    if not _dispatch(points_w, "pnp_refine"):
+        return _pnp_refine_plain(pose0, cam, points_w, px_obs, valid, **kw)
+    x = tuple(a.contiguous() for a in (pose0.q, pose0.t, points_w, px_obs, valid))
+    if any(map(wrapped, x)):      # under vmap: one launch over the rows, by the op's rule
+        outs = _REFINE_OP(*map(one, x), cam.fx, cam.fy, cam.cx, cam.cy, int(iters),
+                          float(huber_delta), float(chi2_thresh), bool(refine_l2))
+        q, t, inliers, num, cost = (o[0] for o in outs)
+    else:
+        q, t, inliers, num, cost = _launch(*x, (cam.fx, cam.fy, cam.cx, cam.cy), iters,
+                                           huber_delta, chi2_thresh, refine_l2)
+    return PnPResult(pose=SE3(q, t), inliers=inliers, num_inliers=num, cost=cost)
 
 
 pnp_refine.launches = 0

@@ -23,11 +23,19 @@ def one(x):
     return x.contiguous().unsqueeze(0)
 
 
-def rows_rule(op):
+def wrapped(x) -> bool:
+    """True for a tensor that a ``torch.func`` transform wraps (a batched
+    tensor under vmap)."""
+    return isinstance(x, torch.Tensor) and torch._C._functorch.is_functorch_wrapped_tensor(x)
+
+
+def rows_rule(op, impl=None):
     """The batching rule of a custom op whose tensors all lead with S rows:
     the vmapped dimension moved to the front and merged with S, one call
     over all the rows, the result split back.  An argument that is not
-    batched is repeated for every row."""
+    batched is repeated for every row.  ``impl``, where given, takes the
+    op's place once no transform wraps the merged rows (an implementation
+    whose outputs share one buffer, which the op itself may not return)."""
     def rule(info, in_dims, *args):
         b = info.batch_size
         flat = []
@@ -36,6 +44,6 @@ def rows_rule(op):
                 a = a.expand(b, *a.shape) if d is None else a.movedim(d, 0)
                 a = a.reshape((-1,) + tuple(a.shape[2:])).contiguous()
             flat.append(a)
-        outs = op(*flat)
+        outs = op(*flat) if impl is None or any(map(wrapped, flat)) else impl(*flat)
         return tuple(o.reshape((b, -1) + tuple(o.shape[1:])) for o in outs), (0,) * len(outs)
     return rule

@@ -77,7 +77,11 @@ Phases, each printed on its own lines:
    and each row to its launch alone; then its times at the main path's
    shapes (N = 192, 16 x 192, 64 x 240, 130, 352, 8 iterations) by CUDA
    events and ``torch.profiler``, beside the plain composition's (alone,
-   or under vmap as the batched track phase ran it) and the bound;
+   or under vmap as the batched track phase ran it), the bound and commit
+   3504313's kernel's device times (one block of 256 threads a row, the
+   6x6 step in one thread, two prune passes); and a lone ``pnp_refine``
+   call's host time (``time.perf_counter``) and CUDA-event time beside
+   that commit's 0.05-0.10 ms;
 3. the main path under the default config (5-point and homography
    bootstrap): ``AlvaAR.find_camera_pose`` over the 120-frame 640x480
    golden sequence on the card, held to the native reference's bars
@@ -1124,12 +1128,20 @@ PNP_CASES = tuple(
        ("4 x 192 with an all-masked row", 192, 4, PNP_ITERS, 0.3, 4, True)])
 # float64 operations per point of one linearisation (the point's rotation,
 # residual and 2x6 Jacobian ~66, the Huber weight ~12, the 21 + 6 sums
-# ~110) and of one prune (~75); float32 operations of one 6x6 step (damping,
-# Cholesky, two solves, the retraction ~320)
+# ~110), and of its inlier flag from the same residual and depth (the
+# comparisons, the flags' count and chi^2 sum ~5); float32 operations of one
+# 6x6 step (damping, Cholesky, two solves, the retraction ~320)
 PNP_LIN_F64_PER_POINT = 200
-PNP_PRUNE_F64_PER_POINT = 75
+PNP_FLAG_F64_PER_POINT = 5
 PNP_STEP_F32 = 320
 PNP_PATH_LAUNCHES = [0]            # K9's launches, summed over the paths
+# commit 3504313's K9 (one block of 256 threads a row, the 6x6 step in one
+# thread, two prune passes): device ms per call by torch.profiler in three
+# smoke runs on an NVIDIA H100 80GB HBM3 at 700 W, printed beside this
+# tree's; a lone pnp_refine call took 0.05-0.10 ms by CUDA events there
+PNP_3504313_DEVICE_MS = {"N=192": (0.0395, 0.0403), "16 x 192": (0.0404, 0.0408),
+                         "64 x 240": (0.0419, 0.0421), "N=130": (0.0397, 0.0405),
+                         "N=352": (0.0430, 0.0442), "N=192 loop iterations": (0.0692, 0.0717)}
 
 
 def _pnp_zero() -> None:
@@ -1244,17 +1256,20 @@ def _pnp_checks(dev):
 
 
 def _pnp_bound(x, iters: int):
-    """(bytes, flops, bound_ms, bound_by) of one K9 call on the stack ``x``:
-    each input read once (poses, points, pixels, masks) and each output
-    written once; every point of every row evaluated at each of the call's
-    linearisations and two prunes (no step ends early), in float64, and one
-    6x6 step per linearisation in float32, each type over its own peak."""
+    """(bytes, flops, bound_ms, bound_by) of one K9 call (with the L2 pass)
+    on the stack ``x``: each input read once (poses, points, pixels, masks)
+    and each output written once; every point of every row evaluated, with
+    its inlier flag, at each linearisation of the two LMs (no LM ends
+    early), in float64: the prunes at pose1 and pose2 are flags of poses
+    that a linearisation evaluated; and the 6x6 steps whose trials an LM
+    evaluates (none after an LM's last linearisation) in float32; each type
+    over its own peak."""
     q, t, pts, obs, valid = x
     S, N = valid.shape
     n_lin = (1 + iters) + (1 + max(1, iters - 2))
     nbytes = S * (7 * 4 + N * (12 + 8 + 1)) + S * (7 * 4 + N + 8 + 4)
-    f64 = S * N * (n_lin * PNP_LIN_F64_PER_POINT + 2 * PNP_PRUNE_F64_PER_POINT)
-    f32 = S * n_lin * PNP_STEP_F32
+    f64 = S * N * n_lin * (PNP_LIN_F64_PER_POINT + PNP_FLAG_F64_PER_POINT)
+    f32 = S * (n_lin - 2) * PNP_STEP_F32
     tb = nbytes / H100_BYTES_PER_S
     to = max(f64 / H100_F64_FLOP_PER_S, f32 / H100_F32_FLOP_PER_S)
     return nbytes, f64 + f32, 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
@@ -1267,7 +1282,7 @@ def phase_pnp_kernel(card):
     import torch
     from pnp_problems import stack
     from alvaar_tpu_torch.geom.lie import SE3
-    from alvaar_tpu_torch.solvers import pnp_kernel
+    from alvaar_tpu_torch.solvers import pnp, pnp_kernel
     from alvaar_tpu_torch.solvers.pnp import CHI2_THRESH_2DOF, _pnp_refine_plain
     dev = torch.device("cuda")
     max_abs = _pnp_checks(dev)
@@ -1307,17 +1322,48 @@ def phase_pnp_kernel(card):
                    launches_per_call=n_launch, bytes=nbytes, flops=flops, bound_ms=bound_ms,
                    bound_by=bound_by, plain_ms=plain_ms)
         shapes.append(row)
+        before = PNP_3504313_DEVICE_MS[name]
         print(f"[pnp] {name}: {ms:.4f} ms per call (CUDA events), device {dev_ms:.4f} ms in "
-              f"{n_launch:g} launches (torch.profiler), plain composition "
+              f"{n_launch:g} launches (torch.profiler; commit 3504313's kernel "
+              f"{before[0]:.4f}-{before[1]:.4f} ms), {bound_ms / dev_ms:.2%} of the bound "
+              f"(commit 3504313's kernel {bound_ms / before[1]:.2%}-{bound_ms / before[0]:.2%}), "
+              f"plain composition "
               + (f"{plain_ms:.3f} ms" if plain_ms is not None else "not measured")
               + (" (under vmap)" if plain and len(rows) > 1 else "")
               + f", bound {bound_ms * 1e3:.3f} us by {bound_by} ({nbytes / 1e3:.1f} KB, "
               f"{flops / 1e6:.2f} MFLOP) [{card}]")
+    lone, cam = _pnp_problems(cases["N=192 outliers 0.3"], dev)
+    host_ms, event_ms = _pnp_lone_ms(pnp.pnp_refine, lone[0], cam)
+    print(f"[pnp] a lone pnp_refine call at N=192: host {host_ms:.4f} ms (time.perf_counter, "
+          f"median), {event_ms:.4f} ms per call by CUDA events around back-to-back calls "
+          f"(commit 3504313's wrapper: 0.05-0.10 ms by CUDA events; tools/run_pnp_phase.py --ab "
+          f"times both in one call) [{card}]")
     main = shapes[0]
     return dict(max_abs_err=max_abs, ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                 device_ms=main["device_ms"], shape="N=192, S=1, 4 LM iterations",
-                shapes=shapes)
+                lone_host_ms=host_ms, lone_event_ms=event_ms, shapes=shapes)
+
+
+def _pnp_lone_ms(refine, problem, cam, calls: int = 200):
+    """A lone ``refine`` (``pnp_refine``) call on one problem, as a tracking
+    frame makes it: the host's milliseconds per call (``time.perf_counter``
+    around each call, not synchronised; the median of ``calls``), and CUDA
+    events' around ``calls`` back-to-back calls (the host's pace where it
+    is slower than the card)."""
+    import torch
+    pose0, pts, obs, valid = problem
+    call = lambda: refine(pose0, cam, pts, obs, valid, iters=PNP_ITERS)
+    for _ in range(10):
+        call()
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        call()
+        host.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e3 * statistics.median(host), _time_ms(call, reps=calls, rounds=3)
 
 
 BATCH_STREAMS = 16         # the multi-stream path's width (phase 6)
@@ -1528,7 +1574,8 @@ PARENT_TRACKING_KERNELS = 3568
 PNP_KERNELS_SAVED = 2000
 # ``_run_digest`` of phases 3 and 11a's golden runs on an NVIDIA H100 80GB
 # HBM3 with K9 (csrc/pnp_kernel.cu: PnP in one launch, each point evaluated
-# and summed in float64): the runs stay bit-equal to them
+# and summed in float64): the runs stay bit-equal to them (K9's redesign
+# after commit 3504313 left all three unchanged: tools/run_pnp_phase.py --ab)
 RUN_DIGESTS = {"main": "39c3dca02a78826c", "preset FAST": "2deb8f787dfe1de2",
                "preset ACCURATE": "593b24085d57ab2d"}
 # the same runs by commit 14aa8df, whose PnP ran as eager float32 torch:

@@ -1,9 +1,11 @@
 """Motion-only PnP's kernel K9 (csrc/pnp_kernel.cu, solvers/pnp_kernel.py):
 its CUDA source run on the CPU through tools/cpu_cuda_shim.h against the
 plain version, its float64 evaluation and the JAX package's
-``pnp_refine``; and, without building anything, the custom op's fake
-shapes and batching rule, the CPU path's independence of the library and
-the launcher's argument checks.  tests/test_torch_pnp_kernel_card.py holds
+``pnp_refine``: the prune carried by the linearisations, any N (0, 1, 33,
+past the points a thread keeps in registers), each block size; the shim's
+warp intrinsics against CUDA's semantics; and, without building anything, the custom op's fake shapes
+and batching rule, the CPU path's independence of the library and the
+launcher's argument checks.  tests/test_torch_pnp_kernel_card.py holds
 the kernel to its plain version on a card.
 
 Bars (chip_smoke.py phase 2c's): the pose's t within 1e-5 of the float64
@@ -219,6 +221,216 @@ def test_degenerate_rows(k9, n_valid):
         assert int(res.num_inliers) == 0 and float(res.cost) == 0.0
 
 
+def _prune64(pose, problem):
+    """A float64 prune at ``pose``: (flags, chi^2, points within 1e-5
+    (relative) of the chi^2 threshold)."""
+    _, pts, obs, valid = to_f64(problem)
+    p = SE3(pose.q.double(), pose.t.double())
+    r, _, z = pnp._residuals_jacobian(p, CAM, pts, obs)
+    chi2 = (r * r).sum(-1)
+    near = (chi2 - pnp.CHI2_THRESH_2DOF).abs() <= 1e-5 * pnp.CHI2_THRESH_2DOF
+    return valid & (chi2 <= pnp.CHI2_THRESH_2DOF) & (z > 0), chi2, near
+
+
+@pytest.mark.parametrize("refine_l2", [True, False])
+def test_carried_prune_equals_a_float64_prune(k9, refine_l2):
+    """The flags, their count and the cost that K9 carries from its
+    linearisations (no prune pass) equal a float64 prune at the pose it
+    reached: without the L2 pass the cost is the inliers' chi^2 sum at
+    pose1; with it, the L2 cost at pose2 over the flags at pose1 (pose1 and
+    its flags from the same problem without the L2 pass)."""
+    problem, _ = build_problem(np.random.default_rng(77), N=192, outlier_frac=0.3, behind=6)
+    res = _kernel(k9, problem, iters=4, refine_l2=refine_l2)
+    flags, chi2, near = _prune64(res.pose, problem)
+    assert not bool(((res.inliers != flags) & ~near).any())
+    assert int(res.num_inliers) == int(res.inliers.sum())
+    assert abs(int(res.num_inliers) - int(flags.sum())) <= int(near.sum())
+    if refine_l2:
+        pose1 = _kernel(k9, problem, iters=4, refine_l2=False)
+        want = float((chi2 * pose1.inliers).sum())
+    else:
+        want = float((chi2 * res.inliers).sum())
+    assert abs(float(res.cost) - want) <= 1e-5 * want
+    _hold_to_float64(res, problem, iters=4, refine_l2=refine_l2)
+
+
+@pytest.mark.parametrize("n", [0, 1, 32, 33, pnp_kernel.REG_POINTS * pnp_kernel.BLOCK_THREADS + 100])
+def test_any_n(k9, n):
+    """N = 0 (nothing to solve: the start pose, normalised, no inlier, cost
+    0), one point, 32 (one full warp), 33 (a second warp of one point), and
+    more points a row
+    than a block's threads keep as register bits (their flags in the spill
+    planes): at the bars of float64 wherever six points are valid, the
+    same bits twice."""
+    problem, _ = build_problem(np.random.default_rng(500 + n), N=n, outlier_frac=0.2,
+                               behind=2 if n > 10 else 0)
+    res = _kernel(k9, problem, iters=4)
+    again = _kernel(k9, problem, iters=4)
+    for a, b in ((res.pose.q, again.pose.q), (res.pose.t, again.pose.t),
+                 (res.inliers, again.inliers), (res.cost, again.cost)):
+        assert torch.equal(a, b)
+    assert tuple(res.inliers.shape) == (n,)
+    assert bool(torch.isfinite(res.pose.t).all() & torch.isfinite(res.pose.q).all())
+    if n == 0:
+        assert torch.equal(res.pose.t, problem[0].t)
+        torch.testing.assert_close(res.pose.q, problem[0].normalize().q, rtol=0, atol=2.4e-7)
+        assert int(res.num_inliers) == 0 and float(res.cost) == 0.0
+    elif int(problem[3].sum()) >= 6:
+        _hold_to_float64(res, problem, iters=4)
+    if n > pnp_kernel.REG_POINTS * pnp_kernel.BLOCK_THREADS:
+        flags, _, near = _prune64(res.pose, problem)
+        spilled = torch.arange(n) >= pnp_kernel.REG_POINTS * pnp_kernel.BLOCK_THREADS
+        assert not bool(((res.inliers != flags) & ~near)[spilled].any())
+        assert bool(flags[spilled].any())
+
+
+@pytest.mark.parametrize("n", [20, 50, 70, 200])
+def test_rows_bit_equal_at_every_block_size(k9, n):
+    """The block size follows N (a warp per 32 points, 32 to 128 threads):
+    at each, three rows under vmap are one launch and each row is bit-equal
+    to its launch alone."""
+    problems = [build_problem(np.random.default_rng(60 + i), N=n, outlier_frac=0.2)[0]
+                for i in range(3)]
+    x = stack(problems)
+    mod, lib = k9
+
+    def row(q, t, pts, obs, valid):
+        r = pnp.pnp_refine(SE3(q, t), CAM, pts, obs, valid, iters=4)
+        return r.pose.q, r.pose.t, r.inliers, r.num_inliers, r.cost
+
+    assert pnp_kernel.threads_for(n) == min(128, -(-n // 32) * 32)
+    with mod.on_cpu(lib):
+        pnp.pnp_refine.launches = 0
+        got = torch.func.vmap(row)(*x)
+        assert pnp.pnp_refine.launches == 1
+        alone = [row(*(c[i] for c in x)) for i in range(3)]
+    for i, one in enumerate(alone):
+        assert all(torch.equal(g[i], a) for g, a in zip(got, one)), i
+
+
+@pytest.mark.parametrize("n,refine_l2", [(33, True), (200, False)])
+def test_cuda_source_on_cpu_matches_jax_widths(k9, n, refine_l2):
+    """K9's source against the JAX package's ``pnp_refine`` on one numpy
+    seed at two more widths (33 points: two warps; 200: four), with and without
+    the L2 pass, at tests/test_torch_solvers.py's bars."""
+    rng = np.random.default_rng(1000 + n)
+    pose = random_pose(rng)
+    P = scene_points(rng, n)
+    px, _, _ = observe(pose, JCAM, P, noise_px=0.2, rng=rng)
+    px, _ = add_outliers(rng, px, 0.2)
+    pose0 = pose.retract(jnp.asarray(rng.normal(size=6) * 0.03, jnp.float32))
+    valid = np.ones(n, bool)
+    valid[::9] = False
+    j = jpnp.pnp_refine(pose0, JCAM, P, px, jnp.asarray(valid), iters=4, refine_l2=refine_l2)
+    mod, lib = k9
+    with mod.on_cpu(lib):
+        t = pnp.pnp_refine(_tse3(pose0), TCAM, _t(P), _t(px), _t(valid), iters=4,
+                           refine_l2=refine_l2)
+    _assert_pose(t.pose, j.pose)
+    np.testing.assert_array_equal(t.inliers.numpy(), np.asarray(j.inliers))
+    assert int(t.num_inliers) == int(np.asarray(j.num_inliers))
+
+
+@pytest.mark.parametrize("threads", [0, 48, pnp_kernel.BLOCK_THREADS + 32])
+def test_launch_refuses_other_block_sizes(k9, threads):
+    """The C entry takes a multiple of 32 threads up to the kernel's block
+    size (its shared scratch is sized for that) and refuses any other
+    before it launches."""
+    import ctypes
+    lib = pnp_kernel.bind(ctypes.CDLL(k9[1]))
+    rc = lib.pnp_refine_launch(*[None] * 5, 1, 8, threads, 1.0, 1.0, 0.0, 0.0, 4, DELTA,
+                               pnp.CHI2_THRESH_2DOF, 1, None, None)
+    assert rc != 0
+
+
+# ---------------------------------------------------------------------------
+# The CPU shim's warp intrinsics (tools/cpu_cuda_shim.h) against CUDA's
+# semantics
+# ---------------------------------------------------------------------------
+
+SHIM_PROBE = r"""
+#include <cuda_runtime.h>
+
+__global__ void shfl_kernel(int* out, int src, int width, unsigned delta) {
+  const int lane = threadIdx.x & 31;
+  out[threadIdx.x] = __shfl_sync(0xFFFFFFFFu, lane * 10, src, width);
+  out[64 + threadIdx.x] = __shfl_down_sync(0xFFFFFFFFu, lane * 10, delta, width);
+  const double d = __shfl_xor_sync(0xFFFFFFFFu, lane + 0.5, 3);
+  out[128 + threadIdx.x] = static_cast<int>(2.0 * d);
+}
+
+__global__ void syncwarp_kernel(int* out, int salt) {
+  __shared__ int buf[64];
+  const int t = threadIdx.x;
+  buf[t] = 3 * t + salt;
+  __syncwarp();
+  out[t] = buf[(t & ~31) + ((t + 1) & 31)];
+}
+
+__global__ void clock_kernel(long long* out) {
+  const long long a = clock64();
+  const long long b = clock64();
+  out[threadIdx.x] = b - a;
+}
+
+extern "C" void run_shfl(int* out, int src, int width, unsigned delta) {
+  shfl_kernel<<<1, 64>>>(out, src, width, delta);
+}
+extern "C" void run_syncwarp(int* out, int salt) { syncwarp_kernel<<<1, 64>>>(out, salt); }
+extern "C" void run_clock(long long* out) { clock_kernel<<<1, 64>>>(out); }
+"""
+
+
+@pytest.fixture(scope="module")
+def shim_probe(k9, tmp_path_factory):
+    import ctypes
+    mod = k9[0]
+    out = tmp_path_factory.mktemp("shim_probe")
+    src = out / "shim_probe.cu"
+    src.write_text(SHIM_PROBE)
+    lib = ctypes.CDLL(mod.cuda_on_cpu.build(str(src), str(out)))
+    for fn in (lib.run_shfl, lib.run_syncwarp, lib.run_clock):
+        fn.restype = None
+    lib.run_shfl.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint]
+    lib.run_syncwarp.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.run_clock.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+@pytest.mark.parametrize("src,width,delta", [(5, 32, 1), (37, 32, 7), (3, 16, 5), (1, 8, 6)])
+def test_shim_shfl_sync_and_shfl_down_sync(shim_probe, src, width, delta):
+    """``__shfl_sync``: lane l reads lane (l & -width) + src % width;
+    ``__shfl_down_sync``: lane l reads lane l + delta within its segment of
+    ``width`` lanes, its own value past the segment's end;
+    ``__shfl_xor_sync`` of a double: lane l ^ 3's."""
+    out = torch.zeros(192, dtype=torch.int32)
+    shim_probe.run_shfl(out.data_ptr(), src, width, delta)
+    lane = np.arange(64) % 32
+    want_bcast = ((lane & -width) + src % width) * 10
+    want_down = np.where(lane % width + delta < width, lane + delta, lane) * 10
+    np.testing.assert_array_equal(out[:64].numpy(), want_bcast)
+    np.testing.assert_array_equal(out[64:128].numpy(), want_down)
+    np.testing.assert_array_equal(out[128:].numpy(), 2 * (lane ^ 3) + 1)
+
+
+def test_shim_syncwarp_orders_the_warps_writes(shim_probe):
+    """After ``__syncwarp`` every lane reads what the next lane of its warp
+    wrote before it (the shim runs a block's threads one after another:
+    without the barrier the read comes first)."""
+    out = torch.zeros(64, dtype=torch.int32)
+    shim_probe.run_syncwarp(out.data_ptr(), 11)
+    t = np.arange(64)
+    np.testing.assert_array_equal(out.numpy(), 3 * ((t & ~31) + ((t + 1) & 31)) + 11)
+
+
+def test_shim_clock64_counts_up(shim_probe):
+    """``clock64`` is a stub: a later read is larger (it counts calls, it
+    times nothing)."""
+    out = torch.zeros(64, dtype=torch.int64)
+    shim_probe.run_clock(out.data_ptr())
+    assert bool((out > 0).all())
+
+
 # ---------------------------------------------------------------------------
 # Without building anything
 # ---------------------------------------------------------------------------
@@ -234,14 +446,12 @@ def test_op_cpu_implementation_is_the_plain_version():
     bit, and ``pnp_refine`` on CPU tensors is the plain version."""
     problem, _ = build_problem(np.random.default_rng(1), N=96, outlier_frac=0.2, behind=3)
     plain = pnp._pnp_refine_plain(problem[0], CAM, *problem[1:], iters=4)
-    op = pnp.pnp_refine_op(problem[0], CAM, *problem[1:], iters=4, huber_delta=DELTA,
-                           chi2_thresh=pnp.CHI2_THRESH_2DOF, refine_l2=True)
+    want = (plain.pose.q, plain.pose.t, plain.inliers, plain.num_inliers, plain.cost)
+    op = [o[0] for o in pnp._REFINE_OP(*_op_args(problem))]
     main = pnp.pnp_refine(problem[0], CAM, *problem[1:], iters=4)
+    main = (main.pose.q, main.pose.t, main.inliers, main.num_inliers, main.cost)
     for res in (op, main):
-        for a, b in ((res.pose.q, plain.pose.q), (res.pose.t, plain.pose.t),
-                     (res.inliers, plain.inliers), (res.num_inliers, plain.num_inliers),
-                     (res.cost, plain.cost)):
-            assert torch.equal(a, b)
+        assert all(torch.equal(a, b) for a, b in zip(res, want))
 
 
 def test_op_fake_shapes():
@@ -265,9 +475,9 @@ def test_op_vmap_rule_equals_rows():
     x = stack(problems)
 
     def row(q, t, pts, obs, valid):
-        r = pnp.pnp_refine_op(SE3(q, t), CAM, pts, obs, valid, iters=3, huber_delta=DELTA,
-                              chi2_thresh=pnp.CHI2_THRESH_2DOF, refine_l2=True)
-        return r.pose.q, r.pose.t, r.inliers, r.num_inliers, r.cost
+        outs = pnp._REFINE_OP(*(x[None] for x in (q, t, pts, obs, valid)), CAM.fx, CAM.fy,
+                              CAM.cx, CAM.cy, 3, DELTA, pnp.CHI2_THRESH_2DOF, True)
+        return tuple(o[0] for o in outs)
 
     got = torch.func.vmap(row)(*x)
     for i in range(3):

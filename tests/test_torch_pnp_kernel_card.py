@@ -80,6 +80,42 @@ def test_rows_in_one_launch_on_card(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 33, 4196])
+def test_any_n_on_card(card, n):
+    """N = 0 (the start pose, no inlier, cost 0), one point, 33 (a block of
+    two warps) and 4196 (past the 32 x 128 points whose flags stay in
+    registers: the spill planes): one launch, the same bits twice, within
+    the bars of float64 wherever six points are valid."""
+    problem, _ = build_problem(np.random.default_rng(500 + n), N=n, outlier_frac=0.2,
+                               behind=2 if n > 10 else 0, device=card)
+    pnp.pnp_refine.launches = 0
+    got = _row(problem[0].q, problem[0].t, *problem[1:])
+    assert pnp.pnp_refine.launches == 1
+    again = _row(problem[0].q, problem[0].t, *problem[1:])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if n == 0:
+        assert torch.equal(got[1], problem[0].t) and int(got[3]) == 0 and float(got[4]) == 0.0
+    elif int(problem[3].sum()) >= 6:
+        _hold(*got[:4], problem, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [20, 50, 70, 200])
+def test_rows_at_every_block_size_on_card(card, n):
+    """A warp per 32 points, 32 to 128 threads: three rows under vmap in
+    one launch, each bit-equal to its launch alone."""
+    problems = [build_problem(np.random.default_rng(60 + i), N=n, outlier_frac=0.2,
+                              device=card)[0] for i in range(3)]
+    x = stack(problems)
+    pnp.pnp_refine.launches = 0
+    got = torch.func.vmap(_row)(*x)
+    assert pnp.pnp_refine.launches == 1
+    for i in range(3):
+        alone = _row(*(c[i] for c in x))
+        assert all(torch.equal(g[i], a) for g, a in zip(got, alone)), i
+
+
+@pytest.mark.cuda
 def test_kernel_raises_on_float64_on_card(card):
     """No fallback: CUDA tensors the kernel does not take raise."""
     problem, _ = build_problem(np.random.default_rng(0), N=64, device=card)

@@ -4,10 +4,11 @@
 // block is a fiber on one host thread (its own stack, switched with
 // _setjmp/_longjmp); blocks run one after another, so `__shared__` variables
 // are function statics.  `__syncthreads` is a barrier over the block's
-// fibers, a warp's shuffles and votes an exchange array (two, used in turn)
-// behind a barrier over its lanes, `cp.async` (`__pipeline_memcpy_async`) a
-// plain copy.  A fiber that returns leaves its block's and its warp's
-// barriers.  Float arithmetic is the host's: build
+// fibers, `__syncwarp` one over the warp's lanes, a warp's shuffles and
+// votes an exchange array (two, used in turn) behind a barrier over its
+// lanes, `cp.async` (`__pipeline_memcpy_async`) a plain copy, `clock64` a
+// count of its calls (it times nothing).  A fiber that returns leaves its
+// block's and its warp's barriers.  Float arithmetic is the host's: build
 // with -ffp-contract=off, as nvcc's --fmad=false, and -U_FORTIFY_SOURCE
 // (the checked longjmp refuses to change stacks).
 #pragma once
@@ -30,6 +31,7 @@
 #define __restrict__ __restrict
 #define __shared__ static
 
+using std::fma;
 using std::sqrt;
 
 struct uint3 {
@@ -111,15 +113,16 @@ inline void drop(Barrier& b) {
 
 inline Warp& warp() { return g->warps[threadIdx.x / 32]; }
 
-template <class T>
-T exchange(T v, unsigned src_xor) {
+// Every lane offers v; each returns the value of lane src(lane).
+template <class T, class Src>
+T exchange(T v, Src src) {
   Warp& w = warp();
   Fiber& f = g->fibers[g->current];
   const unsigned lane = threadIdx.x % 32, k = f.exchanges++ & 1;
   std::memcpy(w.buf[k][lane], &v, sizeof(T));
   wait(w.bar);
   T out;
-  std::memcpy(&out, w.buf[k][lane ^ src_xor], sizeof(T));
+  std::memcpy(&out, w.buf[k][src(lane)], sizeof(T));
   return out;
 }
 
@@ -180,10 +183,34 @@ inline void run_block(int n, uint3 block_idx, void (*body)(void*), void* arg) {
 }  // namespace cpu_cuda
 
 inline void __syncthreads() { cpu_cuda::wait(cpu_cuda::g->block); }
+inline void __syncwarp(unsigned = 0xFFFFFFFFu) { cpu_cuda::wait(cpu_cuda::warp().bar); }
 
+// The shuffles over a full warp, `width` a power of two up to 32: the lanes
+// in segments of `width`, a source outside its lane's segment read as the
+// lane's own value (`__shfl_down_sync`) or wrapped into it (`__shfl_sync`).
 template <class T>
 T __shfl_xor_sync(unsigned, T v, int lane_mask) {
-  return cpu_cuda::exchange(v, static_cast<unsigned>(lane_mask));
+  return cpu_cuda::exchange(v, [&](unsigned l) { return l ^ static_cast<unsigned>(lane_mask); });
+}
+
+template <class T>
+T __shfl_sync(unsigned, T v, int src_lane, int width = 32) {
+  return cpu_cuda::exchange(v, [&](unsigned l) {
+    return (l & ~static_cast<unsigned>(width - 1)) + static_cast<unsigned>(src_lane % width);
+  });
+}
+
+template <class T>
+T __shfl_down_sync(unsigned, T v, unsigned delta, int width = 32) {
+  return cpu_cuda::exchange(v, [&](unsigned l) {
+    return (l % width) + delta < static_cast<unsigned>(width) ? l + delta : l;
+  });
+}
+
+// A stand-in for the SM's cycle counter: the calls so far, over every fiber.
+inline long long clock64() {
+  static long long ticks = 0;
+  return ++ticks;
 }
 
 inline bool __any_sync(unsigned, bool pred) {

@@ -50,10 +50,11 @@ def translate(src: str) -> str:
 
 
 def build(source: str, out: str) -> str:
-    """alvaar_tpu_torch/csrc/``source`` translated and built into ``out``;
-    returns the library's path."""
+    """alvaar_tpu_torch/csrc/``source`` (or the CUDA file at the absolute
+    path ``source``) translated and built into ``out``; returns the
+    library's path."""
     os.makedirs(out, exist_ok=True)
-    stem = os.path.splitext(source)[0]
+    stem = os.path.splitext(os.path.basename(source))[0]
     with open(os.path.join(ROOT, "alvaar_tpu_torch", "csrc", source)) as f:
         cpp = translate(f.read())
     path = os.path.join(out, f"{stem}_cpu.cpp")

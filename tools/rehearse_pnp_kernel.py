@@ -47,13 +47,11 @@ def on_cpu(lib_path):
     saved = (pnp_kernel._lib, pnp_kernel._cuda, pnp._dispatch)
     pnp_kernel._lib = pnp_kernel.bind(ctypes.CDLL(lib_path))
     pnp_kernel._cuda = lambda dev: None
-    pnp._dispatch = lambda x, name: True
-    pnp._REFINE_OP.register_kernel("cpu")(pnp._launch_refine)   # the op's CPU kernel: K9
+    pnp._dispatch = lambda x, name: True      # alone and under vmap's rule: K9
     try:
         with cuda_on_cpu.cuda_stubs():
             yield
     finally:
-        pnp._REFINE_OP.register_kernel("cpu")(pnp._refine_rows)
         pnp_kernel._lib, pnp_kernel._cuda, pnp._dispatch = saved
 
 
@@ -77,6 +75,10 @@ def main() -> int:
             for frac in (0.0, 0.3):
                 card_tests.test_kernel_matches_float64_on_card(cpu, n, frac)
         card_tests.test_rows_in_one_launch_on_card(cpu)
+        for n in (0, 1, 33, 4196):
+            card_tests.test_any_n_on_card(cpu, n)
+        for n in (20, 50, 70, 200):
+            card_tests.test_rows_at_every_block_size_on_card(cpu, n)
         print("[rehearsal] card tests: passed", flush=True)
     print(f"[rehearsal] every bar held in {time.time() - t0:.1f} s")
     return 0

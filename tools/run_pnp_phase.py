@@ -17,10 +17,13 @@ only its own checkout's ``chip_smoke`` and package and runs phase 3 (the
 default config over the 120 golden frames), 6 (16 streams), 6d (48
 streams), 8 (1080p, B = 8 and 64) and 11a (the FAST and ACCURATE presets)
 as that checkout's smoke runs them, each phase's failure printed and the
-next phase run.  In these turns the run digests are printed, not held (a
-checkout that changes them on purpose sets its new ones from such a run),
-and this checkout's bar on phase 3's kernels per tracking frame is not
-held.  From each turn's lines: the tracking and keyframe frames' medians
+next phase run; before them, a lone ``pnp_refine`` call at N = 192 (its
+host time and CUDA-event time, this checkout's ``chip_smoke._pnp_lone_ms``
+timing the turn's own ``pnp_refine``).  In these turns the run digests
+are printed, not held (a checkout that changes them on purpose sets its
+new ones from such a run), and this checkout's bar on phase 3's kernels
+per tracking frame is not held.  From each turn's lines: the lone call's
+times, the tracking and keyframe frames' medians
 and the kernels per tracking frame of phase 3, the aggregate frames/s of
 phases 6, 6d and 8, the presets' tracking and keyframe frames' medians, and
 the digests; printed per turn and as medians per checkout, and written,
@@ -61,6 +64,9 @@ PATTERNS = (
     ("accurate_track_ms", r"\[preset ACCURATE\] cell .* frames 20-119: \d+ tracking frames "
                           r"median ([\d.]+) ms", float),
     ("accurate_keyframe_ms", r"\[preset ACCURATE\] cell .* keyframes median ([\d.]+) ms", float),
+    ("lone_host_ms", r"\[lone\] pnp_refine at N=192: host ([\d.]+) ms", float),
+    ("lone_event_ms", r"\[lone\] pnp_refine at N=192: .* ([\d.]+) ms per call by CUDA events",
+     float),
     ("digest_main", r"\[main\] statuses \d+; digest of statuses and poses (\w+)", str),
     ("digest_fast", r"\[preset FAST\] statuses \d+; digest of statuses and poses (\w+)", str),
     ("digest_accurate", r"\[preset ACCURATE\] statuses \d+; digest of statuses and poses (\w+)",
@@ -101,6 +107,21 @@ def _turn(root: str) -> int:
         finally:
             print(f"[time] phase {name}: {time.time() - t0:.1f} s", flush=True)
 
+    def lone():
+        # this tool's checkout's timing (chip_smoke._pnp_lone_ms) of the turn's
+        # own pnp_refine: a lone call as a tracking frame makes it
+        import importlib.util
+        import torch
+        from alvaar_tpu_torch.solvers import pnp
+        spec = importlib.util.spec_from_file_location("timing", os.path.join(ROOT, "chip_smoke.py"))
+        timing = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(timing)
+        rows, cam = cs._pnp_problems(("lone", 192, 1, 4, 0.3, 4, False), torch.device("cuda"))
+        host, event = timing._pnp_lone_ms(pnp.pnp_refine, rows[0], cam)
+        print(f"[lone] pnp_refine at N=192: host {host:.4f} ms (time.perf_counter, median), "
+              f"{event:.4f} ms per call by CUDA events [{card}]")
+
+    attempt("lone", lone)
     attempt("3", lambda: cs.phase_main_path(frames, gt, card))
     multi = attempt("6", lambda: cs.phase_multistream(frames, gt, card))
     if multi is not None:
