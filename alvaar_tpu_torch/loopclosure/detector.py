@@ -11,7 +11,9 @@ stored 3D landmarks and solves P3P-LMedS.
 
 The JAX package keeps a ±1 int8 unpack of the database resident for its
 MXU contraction; the port keeps the packed words only and counts bits
-(``ops/hamming.hamming_matrix_chunked``).  The coarse per-entry signature
+(``ops/hamming.hamming_matrix_chunked``: one launch of K4 on CUDA tensors,
+also under ``torch.func.vmap``).  Every query's Hamming pass goes through
+``_distances``, whose ``calls`` count them.  The coarse per-entry signature
 ``sig`` (mean of the ±1 bits of the entry's valid descriptors) is computed
 from the packed words with shifts.
 """
@@ -25,10 +27,11 @@ import numpy as np
 import torch
 
 from alvaar_tpu_torch.geom.lie import SE3
-from alvaar_tpu_torch.ops.hamming import DESC_BITS, hamming_matrix, hamming_matrix_chunked
+from alvaar_tpu_torch.ops.hamming import DESC_BITS, hamming_matrix_chunked
 from alvaar_tpu_torch.ops.topk import top_k
 from alvaar_tpu_torch.solvers.absolute import AbsolutePoseResult, p3p_lmeds
 from alvaar_tpu_torch.solvers.pnp import pnp_refine
+from alvaar_tpu_torch.utils.stats import count
 
 _INT = torch.int64
 
@@ -123,6 +126,15 @@ def _top2_min(dist):
 _BIG = 1e9
 
 
+def _distances(desc_q, db_desc):
+    """A query's Hamming pass: [Kq, 8] x [M, 8] → [Kq, M] float32."""
+    count(_distances, "calls")
+    return hamming_matrix_chunked(desc_q, db_desc).to(torch.float32)
+
+
+_distances.calls = 0
+
+
 def detect_loop(db: LoopDB, desc_q, valid_q, query_kf_id, *, nndr: float = 0.8,
                 min_score: float = 0.3, island_r: int = 10, delay: int = 50,
                 min_votes: int = 8, prefilter: int = 16):
@@ -139,13 +151,13 @@ def detect_loop(db: LoopDB, desc_q, valid_q, query_kf_id, *, nndr: float = 0.8,
         qsig = _signature(desc_q, valid_q, db.sig.dtype)
         coarse = torch.where(entry_ok, db.sig @ qsig, -torch.inf)
         _, top_e = top_k(coarse, prefilter)               # [E]
-        dist = hamming_matrix_chunked(desc_q, db.desc[top_e].reshape(-1, 8)).to(torch.float32)
+        dist = _distances(desc_q, db.desc[top_e].reshape(-1, 8))
         sub_ok = db.kp_valid[top_e].reshape(-1) & entry_ok[top_e].repeat_interleave(K)
         dist = torch.where(sub_ok[None, :] & valid_q[:, None], dist, _BIG)
         best, second, bi = _top2_min(dist)
         match_img = top_e[bi // K]
     else:
-        dist = hamming_matrix_chunked(desc_q, db.desc.reshape(-1, 8)).to(torch.float32)
+        dist = _distances(desc_q, db.desc.reshape(-1, 8))
         db_ok = db.kp_valid.reshape(-1) & entry_ok.repeat_interleave(K)
         dist = torch.where(db_ok[None, :] & valid_q[:, None], dist, _BIG)
         best, second, bi = _top2_min(dist)
@@ -186,7 +198,7 @@ def _match_entry(db: LoopDB, entry, desc_q, valid_q, nndr: float):
     """NNDR matches of the query to one entry's stored 3D landmarks.
     Returns (matched world points [Kq, 3], match mask [Kq])."""
     ok_db = db.kp_valid[entry] & db.lm_is3d[entry]
-    dist = hamming_matrix(desc_q, db.desc[entry]).to(torch.float32)
+    dist = _distances(desc_q, db.desc[entry])
     dist = torch.where(ok_db[None, :] & valid_q[:, None], dist, _BIG)
     neg2, idx2 = top_k(-dist, 2)
     best, second = -neg2[:, 0], -neg2[:, 1]
@@ -228,7 +240,7 @@ def relocalize_topk(db: LoopDB, desc_q, bearings_q, valid_q, gen, *, focal,
     P3P-LMedS, and the solve with the most inliers wins.  ``samples``: a
     list of ``topk`` draws, one per entry, replacing the generator's."""
     D, K, _ = db.desc.shape
-    dist = hamming_matrix_chunked(desc_q, db.desc.reshape(-1, 8)).to(torch.float32)
+    dist = _distances(desc_q, db.desc.reshape(-1, 8))
     db_ok = (db.kp_valid & db.lm_is3d & (db.kf_id >= 0)[:, None]).reshape(-1)
     dist = torch.where(db_ok[None, :] & valid_q[:, None], dist, _BIG)
     best, second, bi = _top2_min(dist)

@@ -1,22 +1,31 @@
 """Hamming distance on packed 256-bit descriptors — the popcount path.
 
 Port of alvaar_tpu/ops/hamming.py (``hamming_matrix_popcount``,
-``hamming_rowwise``, ``hamming_min_crossbag``, ``best_two``).  Torch has
-no popcount op, so the XOR words are counted by SWAR arithmetic in int32
-on their two 16-bit halves: no byte view of the words (which
-``torch.func.vmap`` cannot batch) and no int64 widening.  Descriptor words
-are int32 tensors holding uint32 bits.
+``hamming_rowwise``, ``hamming_min_crossbag``, ``best_two``).  Descriptor
+words are int32 tensors holding uint32 bits.
 
-For the loop database's [queries × tens of thousands] passes,
-``hamming_matrix_chunked`` takes the database axis a chunk at a time, so
-its temporaries stay a few tens of MB.
+``hamming_min_crossbag`` (local-map matching) and ``hamming_matrix`` /
+``hamming_matrix_chunked`` (the loop queries) dispatch on the device: CUDA
+tensors launch K4 (csrc/hamming.cu, ops/hamming_kernel.py), the whole
+[N, M] result in one launch, through the custom ops
+``alvaar_tpu_torch::hamming_min_crossbag`` and ``::hamming_matrix``, whose
+batching rule makes one launch over all the rows that ``torch.func.vmap``
+stacks; CPU tensors run the plain versions; any other device raises.  The
+plain versions count the XOR words by SWAR arithmetic in int32 on their
+two 16-bit halves: no byte view of the words (which ``torch.func.vmap``
+cannot batch) and no int64 widening.  On the CPU ``hamming_matrix_chunked``
+takes the database axis a chunk at a time, so its temporaries stay a few
+tens of MB.
 """
 
 from __future__ import annotations
 
 import torch
 
+from alvaar_tpu_torch.ops import hamming_kernel
 from alvaar_tpu_torch.ops.topk import top_k
+from alvaar_tpu_torch.utils.custom_ops import dispatch as _dispatch, one, rows_rule
+from alvaar_tpu_torch.utils.stats import count
 
 DESC_BITS = 256
 
@@ -33,14 +42,17 @@ def popcount_words(x):
     return h.sum(dim=(-2, -1), dtype=torch.int32)
 
 
-def hamming_matrix(a, b):
+def _hamming_matrix_plain(a, b):
     """[N, 8] x [M, 8] → [N, M] int32 Hamming distances."""
     return popcount_words(a[:, None, :] ^ b[None, :, :])
 
 
 def hamming_matrix_chunked(a, b, chunk: int = 2048):
-    """[N, 8] x [M, 8] → [N, M] int32, equal to ``hamming_matrix``; the M
-    axis is taken ``chunk`` rows at a time."""
+    """[N, 8] x [M, 8] → [N, M] int32, equal to ``hamming_matrix``: one K4
+    launch on CUDA tensors; on CPU tensors the M axis is taken ``chunk``
+    rows at a time."""
+    if _dispatch(a, "hamming_matrix"):
+        return hamming_matrix(a, b)
     return torch.cat([popcount_words(a[:, None, :] ^ b[None, lo:lo + chunk, :])
                       for lo in range(0, b.shape[0], chunk)], dim=1)
 
@@ -50,7 +62,7 @@ def hamming_rowwise(a, b):
     return popcount_words(a ^ b)
 
 
-def hamming_min_crossbag(bag_a, filled_a, bag_b, filled_b):
+def _min_crossbag_plain(bag_a, filled_a, bag_b, filled_b):
     """Minimum Hamming distance over all (desc_a, desc_b) pairs of two
     descriptor bags.  bag_a [N, G, 8], filled_a [N, G]; bag_b [M, G, 8],
     filled_b [M, G].  Returns [N, M] float32 (257 where either bag is
@@ -62,10 +74,78 @@ def hamming_min_crossbag(bag_a, filled_a, bag_b, filled_b):
     best = torch.full((n, m), big, dtype=torch.float32, device=bag_a.device)
     for gi in range(g):
         for gj in range(gb):
-            d = hamming_matrix(bag_a[:, gi], bag_b[:, gj]).to(torch.float32)
+            d = _hamming_matrix_plain(bag_a[:, gi], bag_b[:, gj]).to(torch.float32)
             ok = filled_a[:, gi][:, None] & filled_b[:, gj][None, :]
             best = torch.minimum(best, torch.where(ok, d, big))
     return best
+
+
+# ---------------------------------------------------------------------------
+# K4's custom ops: the plain version row by row on CPU tensors, the kernel on
+# CUDA tensors, one launch over all the rows under vmap
+# ---------------------------------------------------------------------------
+
+def _min_crossbag_rows(bag_a, filled_a, bag_b, filled_b):
+    return torch.stack([_min_crossbag_plain(*(x[i] for x in (bag_a, filled_a, bag_b, filled_b)))
+                        for i in range(bag_a.shape[0])])
+
+
+def _launch_min_crossbag(bag_a, filled_a, bag_b, filled_b):
+    out = hamming_kernel.launch_min_crossbag(bag_a, filled_a, bag_b, filled_b)
+    if hamming_kernel.launched(out):
+        count(hamming_min_crossbag, "launches")
+    return out
+
+
+def _matrix_rows(a, b):
+    return torch.stack([_hamming_matrix_plain(a[i], b[i]) for i in range(a.shape[0])])
+
+
+def _launch_matrix(a, b):
+    out = hamming_kernel.launch_matrix(a, b)
+    if hamming_kernel.launched(out):
+        count(hamming_matrix, "launches")
+    return out
+
+
+_MIN_CROSSBAG_OP = torch.library.custom_op(
+    "alvaar_tpu_torch::hamming_min_crossbag", _min_crossbag_rows, mutates_args=(),
+    device_types="cpu",
+    schema="(Tensor bag_a, Tensor filled_a, Tensor bag_b, Tensor filled_b) -> Tensor")
+_MIN_CROSSBAG_OP.register_kernel("cuda")(_launch_min_crossbag)
+_MIN_CROSSBAG_OP.register_fake(
+    lambda bag_a, filled_a, bag_b, filled_b:
+    bag_a.new_empty((bag_a.shape[0], bag_a.shape[1], bag_b.shape[1]), dtype=torch.float32))
+_MIN_CROSSBAG_OP.register_vmap(rows_rule(_MIN_CROSSBAG_OP))
+
+_MATRIX_OP = torch.library.custom_op(
+    "alvaar_tpu_torch::hamming_matrix", _matrix_rows, mutates_args=(), device_types="cpu",
+    schema="(Tensor a, Tensor b) -> Tensor")
+_MATRIX_OP.register_kernel("cuda")(_launch_matrix)
+_MATRIX_OP.register_fake(lambda a, b: a.new_empty((a.shape[0], a.shape[1], b.shape[1])))
+_MATRIX_OP.register_vmap(rows_rule(_MATRIX_OP))
+
+
+def hamming_matrix(a, b):
+    """[N, 8] x [M, 8] → [N, M] int32 Hamming distances: K4 in one launch on
+    CUDA tensors, the plain version on CPU tensors."""
+    if not _dispatch(a, "hamming_matrix"):
+        return _hamming_matrix_plain(a, b)
+    return _MATRIX_OP(one(a), one(b))[0]
+
+
+def hamming_min_crossbag(bag_a, filled_a, bag_b, filled_b):
+    """Minimum Hamming distance over all (desc_a, desc_b) pairs of two
+    descriptor bags, bag_a [N, G, 8], filled_a [N, G]; bag_b [M, G, 8],
+    filled_b [M, G] → [N, M] float32 (257 where either bag is empty): K4
+    in one launch on CUDA tensors, the plain version on CPU tensors."""
+    if not _dispatch(bag_a, "hamming_min_crossbag"):
+        return _min_crossbag_plain(bag_a, filled_a, bag_b, filled_b)
+    return _MIN_CROSSBAG_OP(*map(one, (bag_a, filled_a, bag_b, filled_b)))[0]
+
+
+hamming_matrix.launches = 0
+hamming_min_crossbag.launches = 0
 
 
 def best_two(dists, valid_cols=None):

@@ -1,0 +1,172 @@
+"""Descriptor Hamming's kernel K4 (csrc/hamming.cu): its build, argument
+checks and launches.
+
+``launch_min_crossbag`` computes local-map matching's minimum cross-bag
+distance and ``launch_matrix`` the loop queries' dense distance matrix,
+each for S rows in one launch: one call serves every row that
+``torch.func.vmap`` batches (``ops/hamming.py`` registers the custom ops
+and their batching rule).  The plain versions and the wrappers that
+dispatch on the device are in ``ops/hamming.py``; this module only
+launches, on CUDA tensors.
+
+The library is compiled with ``nvcc`` at first use into ``build/`` at the
+repository root (one shared library with plain C entry points, loaded with
+``ctypes``; utils/build.py), and rebuilt when the source's hash changes.
+The launch runs on its tensors' device and that device's current stream.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from pathlib import Path
+
+import torch
+
+from alvaar_tpu_torch.utils.build import build_library, find_tool
+
+MAX_BAG = 8          # descriptors a bag at most (csrc/hamming.cu)
+MAX_ROWS = 65535     # S, a grid dimension
+MAX_N = 65535 * 32   # rows of A: 32 a block along a grid dimension
+WORDS = 8            # 32-bit words of a 256-bit descriptor
+
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "hamming.cu"
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_lib = None
+_LOAD_LOCK = threading.Lock()
+
+
+def build_kernel(verbose: bool = False) -> Path:
+    """Compile csrc/hamming.cu with nvcc into ``build/`` unless a library
+    built from the same source and flags is already there.  Returns its
+    path."""
+    nvcc = find_tool("nvcc", "/usr/local/cuda/bin/nvcc",
+                     "the CUDA toolkit is needed to build the Hamming kernel")
+    return build_library(_SRC, nvcc, _NVCC_FLAGS, verbose=verbose)
+
+
+def bind(lib):
+    """Declare the library's C entry points on the ``ctypes`` handle ``lib``
+    and check its largest bag against this module's.  Returns ``lib``."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.hamming_min_crossbag_launch.restype = i32
+    lib.hamming_min_crossbag_launch.argtypes = [ptr] * 4 + [i32] * 4 + [ptr] * 2
+    lib.hamming_matrix_launch.restype = i32
+    lib.hamming_matrix_launch.argtypes = [ptr] * 2 + [i32] * 3 + [ptr] * 2
+    lim = lib.hamming_kernel_limits
+    lim.restype = i32
+    lim.argtypes = [ctypes.POINTER(i32)]
+    max_bag = i32()
+    lim(ctypes.byref(max_bag))
+    if max_bag.value != MAX_BAG:
+        raise RuntimeError(f"kernel bag limit {max_bag.value} differs from {MAX_BAG}")
+    return lib
+
+
+def _load():
+    """The built library, bound and checked (built and opened once, by the
+    first thread that asks)."""
+    global _lib
+    with _LOAD_LOCK:
+        if _lib is None:
+            _lib = bind(ctypes.CDLL(str(build_kernel())))
+    return _lib
+
+
+def _check(name, x, dtype, shape, dev):
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name} is a {type(x).__name__}, expected a tensor")
+    if x.device != dev:
+        raise ValueError(f"{name} is on {x.device}, expected {dev}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _rows(s: int, n: int, m: int) -> None:
+    if not 1 <= s <= MAX_ROWS or n > MAX_N or m >= 2 ** 31:
+        raise ValueError(f"the kernel takes 1 <= S <= {MAX_ROWS} rows, N <= {MAX_N} and "
+                         f"M < 2^31; got S={s}, N={n}, M={m}")
+
+
+def check_min_crossbag_args(bag_a, filled_a, bag_b, filled_b):
+    """Raise unless K4 takes these: on one device, int32 words bag_a [S, N,
+    G, 8] and bag_b [S, M, G, 8], bool filled_a [S, N, G] and filled_b [S,
+    M, G], all contiguous, 1 <= G <= 8.  Returns (S, N, M, G)."""
+    if not isinstance(bag_a, torch.Tensor) or bag_a.dim() != 4:
+        raise ValueError("bag_a must be a [S, N, G, 8] tensor")
+    s, n, g, _ = bag_a.shape
+    if not 1 <= g <= MAX_BAG:
+        raise ValueError(f"the kernel takes bags of 1 to {MAX_BAG} descriptors, got G={g}")
+    m = bag_b.shape[1] if isinstance(bag_b, torch.Tensor) and bag_b.dim() == 4 else -1
+    dev = bag_a.device
+    _check("bag_a", bag_a, torch.int32, (s, n, g, WORDS), dev)
+    _check("filled_a", filled_a, torch.bool, (s, n, g), dev)
+    _check("bag_b", bag_b, torch.int32, (s, m, g, WORDS), dev)
+    _check("filled_b", filled_b, torch.bool, (s, m, g), dev)
+    _rows(s, n, m)
+    return s, n, m, g
+
+
+def check_matrix_args(a, b):
+    """Raise unless K4's dense matrix takes these: on one device, int32
+    words a [S, N, 8] and b [S, M, 8], contiguous.  Returns (S, N, M)."""
+    if not isinstance(a, torch.Tensor) or a.dim() != 3:
+        raise ValueError("a must be a [S, N, 8] tensor")
+    s, n, _ = a.shape
+    m = b.shape[1] if isinstance(b, torch.Tensor) and b.dim() == 3 else -1
+    _check("a", a, torch.int32, (s, n, WORDS), a.device)
+    _check("b", b, torch.int32, (s, m, WORDS), a.device)
+    _rows(s, n, m)
+    return s, n, m
+
+
+def _cuda(dev):
+    if dev.type != "cuda":
+        raise ValueError(f"the Hamming kernel runs on CUDA tensors, got {dev}")
+
+
+def _run(fn, args, dev, what: str) -> None:
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError_t {rc}")
+
+
+def launched(out) -> bool:
+    """Whether the launch that gave ``out`` ran the kernel (an empty output
+    needs none)."""
+    return out.numel() > 0
+
+
+def launch_min_crossbag(bag_a, filled_a, bag_b, filled_b):
+    """[S, N, M] float32: per row, the minimum Hamming distance over the
+    filled pairs of each A bag and each B bag, 257 where there is none."""
+    s, n, m, g = check_min_crossbag_args(bag_a, filled_a, bag_b, filled_b)
+    dev = bag_a.device
+    _cuda(dev)
+    lib = _lib or _load()
+    out = torch.empty((s, n, m), dtype=torch.float32, device=dev)
+    if launched(out):
+        _run(lib.hamming_min_crossbag_launch,
+             (bag_a.data_ptr(), filled_a.data_ptr(), bag_b.data_ptr(), filled_b.data_ptr(), s, n,
+              m, g, out.data_ptr()), dev, "hamming_min_crossbag")
+    return out
+
+
+def launch_matrix(a, b):
+    """[S, N, M] int32: per row, the Hamming distance of every A descriptor
+    to every B descriptor."""
+    s, n, m = check_matrix_args(a, b)
+    dev = a.device
+    _cuda(dev)
+    lib = _lib or _load()
+    out = torch.empty((s, n, m), dtype=torch.int32, device=dev)
+    if launched(out):
+        _run(lib.hamming_matrix_launch, (a.data_ptr(), b.data_ptr(), s, n, m, out.data_ptr()),
+             dev, "hamming_matrix")
+    return out

@@ -37,8 +37,9 @@ processes run it side by side.
 * The step returns light :class:`ShardHandle` s for the blocks (and
   databases); ``gather_states`` fetches the states they stand for.  Only
   the handles of the latest step of this mesh are accepted.
-* Each step's counter deltas (KLT launches, election reads, host reads)
-  come back from each worker and are added to the parent's counters.
+* Each step's counter deltas (kernel launches, local-map matching and
+  loop-query calls, election reads, host reads) come back from each
+  worker and are added to the parent's counters.
 * A worker that raises makes the call raise with its traceback; one that
   dies, or gives no answer within ``ANSWER_TIMEOUT_S`` seconds of the
   call's dispatch, makes the call raise.  Any such failure, and
@@ -63,7 +64,8 @@ import torch.multiprocessing
 from alvaar_tpu_torch.config import SlamConfig
 from alvaar_tpu_torch.frontend.step import StepOutput
 from alvaar_tpu_torch.geom.camera import Camera
-from alvaar_tpu_torch.loopclosure.detector import LoopDB
+from alvaar_tpu_torch.loopclosure.detector import LoopDB, _distances
+from alvaar_tpu_torch.ops.hamming import hamming_matrix, hamming_min_crossbag
 from alvaar_tpu_torch.ops.klt import fb_klt_track, klt_pyramidal
 from alvaar_tpu_torch.ops.lk_level import lk_level
 from alvaar_tpu_torch.solvers.ba import _residuals_jacobians, ba_linearize, ba_residuals, ba_schur
@@ -71,6 +73,7 @@ from alvaar_tpu_torch.solvers.pnp import pnp_refine
 from alvaar_tpu_torch.utils.pinned import UploadRing
 from alvaar_tpu_torch.utils.stats import count
 from alvaar_tpu_torch.worldmap.keyframe import host_bool
+from alvaar_tpu_torch.worldmap.matching import match_to_local_map
 from alvaar_tpu_torch.worldmap.state import from_tensors, num_streams
 
 ANSWER_TIMEOUT_S = 300.0   # a step, a load, a gather or a worker's start-up
@@ -85,6 +88,8 @@ def _counters():
     return ((fb_klt_track, "launches"), (klt_pyramidal, "launches"), (lk_level, "launches"),
             (ba_linearize, "launches"), (ba_residuals, "launches"), (ba_schur, "launches"),
             (pnp_refine, "launches"), (_residuals_jacobians, "calls"),
+            (hamming_min_crossbag, "launches"), (hamming_matrix, "launches"),
+            (match_to_local_map, "calls"), (_distances, "calls"),
             (multistream_step_local, "syncs"),
             (host_bool, "syncs"))
 

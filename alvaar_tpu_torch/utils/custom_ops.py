@@ -1,7 +1,7 @@
 """What the port's kernel-backed custom ops share (solvers/ba.py,
-solvers/pnp.py): the device dispatch of their wrappers and the batching
-rule that turns a ``torch.func.vmap`` of an op into one launch over all the
-rows."""
+solvers/pnp.py, ops/hamming.py): the device dispatch of their wrappers and
+the batching rule that turns a ``torch.func.vmap`` of an op into one launch
+over all the rows."""
 
 from __future__ import annotations
 
@@ -35,7 +35,8 @@ def rows_rule(op, impl=None):
     over all the rows, the result split back.  An argument that is not
     batched is repeated for every row.  ``impl``, where given, takes the
     op's place once no transform wraps the merged rows (an implementation
-    whose outputs share one buffer, which the op itself may not return)."""
+    whose outputs share one buffer, which the op itself may not return).
+    An op of one output tensor gives one batched tensor back."""
     def rule(info, in_dims, *args):
         b = info.batch_size
         flat = []
@@ -45,5 +46,7 @@ def rows_rule(op, impl=None):
                 a = a.reshape((-1,) + tuple(a.shape[2:])).contiguous()
             flat.append(a)
         outs = op(*flat) if impl is None or any(map(wrapped, flat)) else impl(*flat)
+        if isinstance(outs, torch.Tensor):
+            return outs.reshape((b, -1) + tuple(outs.shape[1:])), 0
         return tuple(o.reshape((b, -1) + tuple(o.shape[1:])) for o in outs), (0,) * len(outs)
     return rule

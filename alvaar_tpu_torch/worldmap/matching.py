@@ -6,7 +6,10 @@ within 2 px of a projection, with a close descriptor bag (NNDR 0.9,
 absolute gate 0.2·256 bits), never co-observed with the candidate, and
 consistent in its own observers, is merged into the established landmark.
 Three dense [L, K] passes (projection distance, Hamming, incidence
-overlap), then masked selection and vectorized merge scatters.
+overlap), then masked selection and vectorized merge scatters.  On CUDA
+tensors the Hamming pass is one launch of K4 (``ops/hamming.py``), also
+under ``torch.func.vmap``; ``match_to_local_map.calls`` counts the calls
+(once per batched call), against which a run holds K4's launches.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from alvaar_tpu_torch.geom.camera import Camera
 from alvaar_tpu_torch.ops.hamming import hamming_min_crossbag
 from alvaar_tpu_torch.ops.topk import top_k
 from alvaar_tpu_torch.ops.index import take_col
+from alvaar_tpu_torch.utils.stats import count
 from alvaar_tpu_torch.worldmap.state import MapState, masked_scatter_set
 
 MAX_PROJ_PX = 2.0
@@ -26,6 +30,7 @@ MAX_PROJ_PX = 2.0
 
 def match_to_local_map(state: MapState, cam: Camera, cfg: SlamConfig) -> MapState:
     """Match unobserved 3D landmarks into the new keyframe and merge."""
+    count(match_to_local_map, "calls")
     slot = state.cur_kf_slot
     K = state.kp_lm.shape[0]
     L = state.lm_valid.shape[0]
@@ -115,3 +120,6 @@ def match_to_local_map(state: MapState, cam: Camera, cfg: SlamConfig) -> MapStat
     # 4. rebind current-frame keypoints
     return state.replace(kp_lm=torch.where(merge, old_lm, kp_lm), kf_obs_lm=kf_obs_lm,
                          lm_obs=lm_obs, lm_valid=lm_valid)
+
+
+match_to_local_map.calls = 0

@@ -82,6 +82,24 @@ Phases, each printed on its own lines:
    6x6 step in one thread, two prune passes); and a lone ``pnp_refine``
    call's host time (``time.perf_counter``) and CUDA-event time beside
    that commit's 0.05-0.10 ms;
+2d. descriptor Hamming's kernel K4 (csrc/hamming.cu), built with the
+   others, right after phase 2c: ``hamming_min_crossbag`` (local-map
+   matching's minimum over descriptor-bag pairs) on tests/hamming_problems.py's
+   bags at L = 4096 landmarks against K = 192, 130, 240 and 352 keypoints
+   (the default's, FAST's, ``hd_serving()``'s, ACCURATE's), L = 10 240
+   (configuration 4), and S = 3 and 8 rows under ``torch.func.vmap``, every
+   kind of input at the first (bags filled in order with empty ones,
+   scattered masks, an all-empty side, all-ones and all-zero words); and
+   ``hamming_matrix_chunked`` (the loop queries' dense matrix) at 192 query
+   descriptors against 192, 3072 and 49 152 (one entry, ``detect_loop``
+   past its prefilter, ``relocalize_topk`` over 256 keyframes) and 4 x
+   192 x 3072 under vmap: bit-equal to the plain versions
+   (ops/hamming.py ``_min_crossbag_plain``, ``_hamming_matrix_plain``),
+   run to run and row by row, one launch per call.  Times at those shapes
+   by CUDA events and ``torch.profiler``, beside the bound (the JAX
+   package's ±1 formulation's int8 operations, or the bytes), the plain
+   versions' and the bf16 ±1 ``torch.matmul`` of the same pairs (the
+   library yardstick: it computes the products, not the minimum);
 3. the main path under the default config (5-point and homography
    bootstrap): ``AlvaAR.find_camera_pose`` over the 120-frame 640x480
    golden sequence on the card, held to the native reference's bars
@@ -100,8 +118,9 @@ Phases, each printed on its own lines:
    forward-mode AD never (so in phases 6a, 6, 6e's workers, 8, 9, 11a);
    host reads per tracking frame at most 2 at the median (the step's
    packed flags and the packed result); frames 100-107 run under
-   ``torch.profiler``: at most 2 host waits for the card (stream, event
-   and device syncs) in a tracking frame, the keyframe frames' printed;
+   ``torch.profiler`` (with frames 32 and 51, keyframes): at most 2 host
+   waits for the card (stream, event and device syncs) in a tracking
+   frame, the keyframe frames' printed;
    the two constants the keyframe path now makes on the host equal to the
    card's arithmetic.  Then the bootstrap solvers' and CLAHE's times at
    their main-path shapes.  The run is also scored by the port's own
@@ -139,9 +158,12 @@ Phases, each printed on its own lines:
    (``keyframe_phase`` per row, then ``write_rows``), timed in turns
    (rows, batched, batched, rows) and held to tests/test_torch_subbatch.py's
    bars; local BA's launches per batched pass equal at every S (one launch
-   over all rows); at S = 3 both under ``torch.profiler`` (kernels launched, device
-   time, host waits); the ops, if any, that fell back to a per-row
-   loop under ``vmap``;
+   over all rows), K4's one per pass; at S = 3 both under
+   ``torch.profiler`` (kernels launched, device time, host waits); the
+   ops, if any, that fell back to a per-row loop under ``vmap``; the
+   batched pass at S = 1 and 8 attributed under the profiler: its 15
+   longest kernels by total device time with their launches, the device
+   time inside local-map matching's Hamming pass, the device's busy share;
 6. multi-stream serving (parallel/multistream.py): 16 streams at 640x480
    under the default config with 3 keyframe slots, stream b on golden
    frames 3b .. 3b+47, staged on the card: every stream tracks and keeps
@@ -286,7 +308,11 @@ Every path is driven with the counters set to 0 just before it and read
 just after; the kernel line's ``launches`` sums the paths' launches (for
 local BA's kernels, phases 3, 6a, 6, 6e's workers, 8, 9 and 11a's; for K9
 every phase's from 3 on but 2b and 6a, which run no PnP, each of them
-held to at least one launch).  The batched steps of phases 6, 6d and 8
+held to at least one launch; for K4 every phase's from 3 on but 2b, each
+held to one launch per ``match_to_local_map`` call and per loop query's
+Hamming pass, with at least one matching call in phases 3, 5, 6a, 6, 6d,
+6b, 6e's workers, 8, 9, 10a and 11a and at least one loop query in 5, 6b
+and 10a).  The batched steps of phases 6, 6d and 8
 (``_check_steps``) launch K9 once per step.  Each
 group of phases prints its seconds on a ``[time]`` line.  Then
 one JSON line describing each kernel, and as the last line
@@ -590,11 +616,13 @@ def phase_kernel(frames, card):
 
     # every kernel source of the port at once, one nvcc each
     from concurrent.futures import ThreadPoolExecutor
+    from alvaar_tpu_torch.ops import hamming_kernel
     from alvaar_tpu_torch.solvers import ba_kernels, pnp_kernel
     t0 = time.time()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         builds = [pool.submit(b, verbose=True) for b in (lk.build_kernel, ba_kernels.build_kernel,
-                                                          pnp_kernel.build_kernel)]
+                                                          pnp_kernel.build_kernel,
+                                                          hamming_kernel.build_kernel)]
         libs = [b.result() for b in builds]
     print(f"[kernel] built {', '.join(os.path.relpath(lib, ROOT) for lib in libs)} in "
           f"{time.time() - t0:.2f} s")
@@ -1366,6 +1394,203 @@ def _pnp_lone_ms(refine, problem, cam, calls: int = 200):
     return 1e3 * statistics.median(host), _time_ms(call, reps=calls, rounds=3)
 
 
+# ---------------------------------------------------------------------------
+# Phase 2d: descriptor Hamming's kernel K4 (csrc/hamming.cu)
+# ---------------------------------------------------------------------------
+
+H100_INT8_OP_PER_S = 1979e12   # int8 on the tensor cores, dense, same sheet
+# (name, S, N, M, G): local-map matching's min cross-bag pass at the
+# default's L = 4096 landmarks and K = 192 keypoints, FAST's K = 130,
+# ACCURATE's 352, hd_serving()'s 240, configuration 4's L = 10 240, and the
+# batched keyframe phase's S = 3 and 8 rows under vmap
+HAMMING_CASES = (("L=4096 K=192", 1, 4096, 192, 6), ("L=4096 K=130", 1, 4096, 130, 6),
+                 ("L=4096 K=352", 1, 4096, 352, 6), ("L=4096 K=240", 1, 4096, 240, 6),
+                 ("L=10240 K=192", 1, 10240, 192, 6), ("3 x L=4096 K=192", 3, 4096, 192, 6),
+                 ("8 x L=4096 K=192", 8, 4096, 192, 6))
+# (name, S, N, M): the loop queries' dense pass, 192 query descriptors
+# against one entry (verify_loop, relocalize), 16 entries (detect_loop past
+# its prefilter), 256 (relocalize_topk's whole database); 4 rows under vmap
+# (the keyframe sub-batch's loop closure)
+HAMMING_LOOP_CASES = (("192 x 192", 1, 192, 192), ("192 x 3072", 1, 192, 3072),
+                      ("192 x 49152", 1, 192, 49152), ("4 x 192 x 3072", 4, 192, 3072))
+HAMMING_PATH_LAUNCHES = {"hamming_min_crossbag": 0, "hamming_matrix": 0}   # summed over the paths
+
+
+def _hamming_zero() -> None:
+    from alvaar_tpu_torch.loopclosure import detector
+    from alvaar_tpu_torch.ops import hamming
+    from alvaar_tpu_torch.worldmap import matching
+    hamming.hamming_min_crossbag.launches = hamming.hamming_matrix.launches = 0
+    matching.match_to_local_map.calls = detector._distances.calls = 0
+
+
+def _hamming_counts() -> dict:
+    from alvaar_tpu_torch.loopclosure import detector
+    from alvaar_tpu_torch.ops import hamming
+    from alvaar_tpu_torch.worldmap import matching
+    return dict(crossbag=hamming.hamming_min_crossbag.launches,
+                matching=matching.match_to_local_map.calls,
+                matrix=hamming.hamming_matrix.launches, queries=detector._distances.calls)
+
+
+def _hamming_path(tag: str, matching: bool = True, loop: bool = False) -> None:
+    """After a path driven from zeroed counters: K4 launched once per
+    ``match_to_local_map`` call (a batched keyframe phase makes one call for
+    all its rows) and once per loop query's Hamming pass; with ``matching``
+    (``loop``) at least one such call.  The launches go into the kernel
+    line."""
+    c = _hamming_counts()
+    print(f"[{tag}] descriptor Hamming on the path: hamming_min_crossbag {c['crossbag']} launches "
+          f"in {c['matching']} match_to_local_map calls, hamming_matrix {c['matrix']} launches "
+          f"in {c['queries']} loop-query passes")
+    _check(c["crossbag"] == c["matching"] and c["matrix"] == c["queries"],
+           f"[{tag}] K4's launches differ from one per call: {c}")
+    _check(c["matching"] > 0 or not matching, f"[{tag}] local-map matching never ran on the path")
+    _check(c["queries"] > 0 or not loop, f"[{tag}] no loop query on the path")
+    HAMMING_PATH_LAUNCHES["hamming_min_crossbag"] += c["crossbag"]
+    HAMMING_PATH_LAUNCHES["hamming_matrix"] += c["matrix"]
+
+
+def _hamming_case(name, S, N, M, G, kind, dev) -> None:
+    """K4's min cross-bag pass on one case: one launch (under
+    ``torch.func.vmap`` for S rows), bit-equal run to run, to each row's
+    launch alone and to the plain version."""
+    import torch
+    from hamming_problems import bag_problem
+    from alvaar_tpu_torch.ops import hamming
+    x = bag_problem(np.random.default_rng(N + M + G + S), S, N, M, G, kind, dev)
+    _hamming_zero()
+    got = torch.func.vmap(hamming.hamming_min_crossbag)(*x)
+    launched = hamming.hamming_min_crossbag.launches
+    again = torch.func.vmap(hamming.hamming_min_crossbag)(*x)
+    alone = [hamming.hamming_min_crossbag(*(c[i] for c in x)) for i in range(S)]
+    plain = [hamming._min_crossbag_plain(*(c[i] for c in x)) for i in range(S)]
+    rows_equal = all(torch.equal(got[i], a) for i, a in enumerate(alone))
+    plain_equal = all(torch.equal(got[i], p) for i, p in enumerate(plain))
+    lo, hi = float(got.min()), float(got.max())
+    print(f"[hamming] {name} ({kind}; S={S}, N={N}, M={M}, G={G}): bit-equal to the plain "
+          f"version {plain_equal}, run to run {torch.equal(got, again)}, rows to their launches "
+          f"alone {rows_equal}; launches under vmap {launched}; distances {lo:g}..{hi:g}")
+    _check(plain_equal, f"[hamming] {name} ({kind}): the kernel differs from the plain version")
+    _check(torch.equal(got, again), f"[hamming] {name} ({kind}): differs run to run")
+    _check(rows_equal, f"[hamming] {name} ({kind}): a row differs from its launch alone")
+    _check(launched == 1, f"[hamming] {name} ({kind}): {launched} launches under vmap")
+
+
+def _hamming_loop_case(name, S, N, M, dev) -> None:
+    """K4's dense matrix through ``hamming_matrix_chunked`` (the loop
+    queries' call): one launch over the whole M (under vmap for S rows),
+    bit-equal to the plain version."""
+    import torch
+    from hamming_problems import dense_problem
+    from alvaar_tpu_torch.ops import hamming
+    a, b = dense_problem(np.random.default_rng(N + M + S), S, N, M, dev)
+    _hamming_zero()
+    got = torch.func.vmap(hamming.hamming_matrix_chunked)(a, b)
+    launched = hamming.hamming_matrix.launches
+    equal = all(torch.equal(got[i], hamming._hamming_matrix_plain(a[i], b[i])) for i in range(S))
+    print(f"[hamming] {name} (S={S}, N={N}, M={M}): bit-equal to the plain version {equal}; "
+          f"launches {launched} (the plain path's chunks: {-(-M // 2048)})")
+    _check(equal, f"[hamming] {name}: the kernel differs from the plain version")
+    _check(launched == 1, f"[hamming] {name}: {launched} launches")
+
+
+def _hamming_checks(dev, cases=HAMMING_CASES, loop_cases=HAMMING_LOOP_CASES) -> float:
+    """Phase 2d's bars on ``dev`` (the card, or the CPU rehearsal of the
+    source): every case, and every kind of input of tests/hamming_problems.py
+    at the first.  Returns the largest |kernel - plain| (0: bit-equal)."""
+    from hamming_problems import KINDS
+    for i, case in enumerate(cases):
+        for kind in (KINDS if i == 0 else KINDS[:1]):
+            _hamming_case(*case, kind, dev)
+    for case in loop_cases:
+        _hamming_loop_case(*case, dev)
+    return 0.0
+
+
+def _hamming_bound(S, N, M, G, masked: bool):
+    """(bytes, operations, bound_ms, bound_by) of one K4 call: the JAX
+    package's formulation, 2 (N G) (M G) 256 int8 operations a row, at the
+    tensor cores' int8 rate; each input (the packed bags and, for the min
+    cross-bag pass, their masks) read once and the output written once."""
+    ops = 2.0 * S * (N * G) * (M * G) * 256
+    nbytes = S * ((N + M) * G * 32 + (N + M) * G * masked + N * M * 4)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_INT8_OP_PER_S
+    return nbytes, ops, 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _pm1_bf16(words):
+    """[..., 8] int32 words → [..., 256] bfloat16 in {-1, +1} (bit 1 → +1)."""
+    import torch
+    shifts = torch.arange(32, device=words.device, dtype=torch.int32)
+    bits = (words[..., None] >> shifts) & 1
+    return (bits.reshape(words.shape[:-1] + (256,)) * 2 - 1).to(torch.bfloat16)
+
+
+def _hamming_time(name, S, N, M, G, fn, plain_fn, kernel_name, lib_a, lib_b, card):
+    """K4's times at one shape beside the bound, the plain version and the
+    bf16 ±1 product the JAX package uses (one ``torch.matmul``)."""
+    import torch
+    ms = _time_ms(fn)
+    dev_ms, n_launch = _device_ms(fn, kernel_name)
+    masked = kernel_name == "hamming_min_crossbag_kernel"
+    nbytes, ops, bound_ms, bound_by = _hamming_bound(S, N, M, G, masked)
+    lib_ms = _time_ms(lambda: torch.matmul(lib_a, lib_b.transpose(-1, -2)))
+    plain_ms = _time_ms(plain_fn, reps=2, rounds=3, warmup=1)
+    print(f"[hamming] {name}: {ms:.4f} ms per call (CUDA events), device {dev_ms:.4f} ms in "
+          f"{n_launch:g} launches (torch.profiler), {bound_ms / dev_ms:.2%} of the bound "
+          f"{bound_ms * 1e3:.3f} us by {bound_by} ({nbytes / 1e6:.2f} MB, {ops / 1e9:.2f} G int8 "
+          f"operations); the bf16 ±1 torch.matmul [{S} x {lib_a.shape[-2]} x 256] x [256 x "
+          f"{lib_b.shape[-2]}] {lib_ms:.4f} ms; plain version {plain_ms:.3f} ms [{card}]")
+    return dict(shape=name, S=S, N=N, M=M, G=G, ms=ms, device_ms=dev_ms,
+                launches_per_call=n_launch, bytes=nbytes, ops=ops, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms, plain_ms=plain_ms)
+
+
+def phase_hamming_kernel(card):
+    """Phase 2d: K4 against its plain version on the card
+    (``_hamming_checks``), then its times at the main path's shapes.
+    Returns the kernel line's rows for hamming_min_crossbag and
+    hamming_matrix."""
+    import torch
+    from hamming_problems import bag_problem, dense_problem
+    from alvaar_tpu_torch.ops import hamming
+    dev = torch.device("cuda")
+    max_abs = _hamming_checks(dev)
+    rows = {"hamming_min_crossbag": [], "hamming_matrix": []}
+    # one call as local-map matching makes it: alone at S = 1, under vmap
+    # for the batched keyframe phase's rows
+    batched = lambda f, S: f if S == 1 else torch.func.vmap(f)
+    for name, S, N, M, G in HAMMING_CASES:
+        x = bag_problem(np.random.default_rng(N + M + G + S), S, N, M, G, "matching", dev)
+        args = tuple(c[0] for c in x) if S == 1 else x
+        fn = lambda: batched(hamming.hamming_min_crossbag, S)(*args)
+        plain = lambda: batched(hamming._min_crossbag_plain, S)(*args)
+        lib_a, lib_b = (_pm1_bf16(x[k].reshape(S, -1, 8)) for k in (0, 2))
+        rows["hamming_min_crossbag"].append(_hamming_time(
+            name, S, N, M, G, fn, plain, "hamming_min_crossbag_kernel", lib_a, lib_b, card))
+    for name, S, N, M in HAMMING_LOOP_CASES:
+        a, b = dense_problem(np.random.default_rng(N + M + S), S, N, M, dev)
+        args = (a[0], b[0]) if S == 1 else (a, b)
+        fn = lambda: batched(hamming.hamming_matrix_chunked, S)(*args)
+        plain = lambda: batched(hamming._hamming_matrix_plain, S)(*args)
+        lib_a, lib_b = _pm1_bf16(args[0]), _pm1_bf16(args[1])
+        dots = torch.matmul(lib_a, lib_b.transpose(-1, -2)).float()
+        same = torch.equal(((256 - dots) / 2).to(torch.int32), fn())
+        print(f"[hamming] {name}: the bf16 ±1 product's (256 - dot) / 2 equal to the kernel's "
+              f"{same}")
+        rows["hamming_matrix"].append(_hamming_time(
+            name, S, N, M, 1, fn, plain, "hamming_matrix_kernel", lib_a, lib_b, card))
+    out = {}
+    for key, main in (("hamming_min_crossbag", "L=4096 K=192"), ("hamming_matrix", "192 x 3072")):
+        r = next(r for r in rows[key] if r["shape"] == main)
+        out[key] = dict(max_abs_err=max_abs, ms=r["ms"], plain_ms=r["plain_ms"],
+                        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                        library_ms=r["library_ms"], device_ms=r["device_ms"], shape=main,
+                        shapes=rows[key])
+    return out
+
+
 BATCH_STREAMS = 16         # the multi-stream path's width (phase 6)
 WIDE_STREAMS = 48          # phase 6d's width
 
@@ -1565,13 +1790,22 @@ def _check_bars(run, tag, by_frame, min_tracked):
     return tracked
 
 
-MAIN_PROFILED = tuple(range(100, 108))   # phase 3's frames run under the profiler
+# phase 3's frames run under the profiler: two steady keyframe frames of the
+# golden run and eight tracking frames
+MAIN_PROFILED = (32, 51) + tuple(range(100, 108))
 # phase 3's kernels per tracking frame under the profiler, the median over
 # its profiled tracking frames, by commit 14aa8df (PnP as eager torch) on an
 # NVIDIA H100 80GB HBM3 at 700 W, in two turns of tools/run_pnp_phase.py
 # --ab (this tree: 738); K9 must take at least PNP_KERNELS_SAVED of them away
 PARENT_TRACKING_KERNELS = 3568
 PNP_KERNELS_SAVED = 2000
+# phase 3's kernels per keyframe frame under the profiler (frames 32 and 51),
+# the median, by commit 9a69178 (local-map matching's Hamming as 36 bag
+# pairs of eager torch) on an NVIDIA H100 80GB HBM3 at 700 W, in two turns
+# of tools/run_hamming_phase.py --ab (4795 on both frames in both; this
+# tree: 3929-3931); K4 must take at least HAMMING_KERNELS_SAVED of them away
+PARENT_KEYFRAME_KERNELS = 4795
+HAMMING_KERNELS_SAVED = 800
 # ``_run_digest`` of phases 3 and 11a's golden runs on an NVIDIA H100 80GB
 # HBM3 with K9 (csrc/pnp_kernel.cu: PnP in one launch, each point evaluated
 # and summed in float64): the runs stay bit-equal to them (K9's redesign
@@ -1675,7 +1909,8 @@ def phase_main_path(frames, gt, card):
           f"{par['parity_pass']}; RPE {par['rpe_trans']:.5f} / {par['rpe_rot_deg']:.4f} deg)")
     _check(abs(ate_parity - ate_cm) <= 1e-9,
            f"utils/parity's ATE {ate_parity} cm differs from {ate_cm} cm")
-    print(f"[main] frames 20-119 (not the {len(MAIN_PROFILED)} profiled): median {ms:.3f} "
+    print(f"[main] frames 20-119 (not the {len(MAIN_PROFILED)} profiled, {MAIN_PROFILED}): median "
+          f"{ms:.3f} "
           f"ms/frame ({1e3 / ms:.1f} fps), "
           f"mean {statistics.mean(steady):.3f} ms, max {max(steady):.3f} ms, "
           f"host syncs per frame median {statistics.median(syncs)} max {max(syncs)}; "
@@ -1699,12 +1934,13 @@ def phase_main_path(frames, gt, card):
     waits_tr = [p[3] for p in prof if p[1] == 1 and not p[2]]
     waits_kf = [p[3] for p in prof if p[2]]
     kernels_tr = [p[4] for p in prof if p[1] == 1 and not p[2]]
-    print(f"[main] under torch.profiler, frames {MAIN_PROFILED[0]}-{MAIN_PROFILED[-1]}: host waits "
+    kernels_kf = [p[4] for p in prof if p[2]]
+    print(f"[main] under torch.profiler, frames {MAIN_PROFILED}: host waits "
           f"for the card (stream, event and device syncs) per tracking frame {waits_tr}, per "
-          f"keyframe frame {waits_kf}; kernels per tracking frame {kernels_tr}, device busy "
-          f"share per tracking frame median "
-          f"{statistics.median(p[5] for p in prof if p[1] == 1 and not p[2]):.3f} "
-          f"(the profiler on) [{card}]")
+          f"keyframe frame {waits_kf}; kernels per tracking frame {kernels_tr}, per keyframe "
+          f"frame {kernels_kf}; device busy share per tracking frame median "
+          f"{statistics.median(p[5] for p in prof if p[1] == 1 and not p[2]):.3f}, per keyframe "
+          f"frame {[round(p[5], 3) for p in prof if p[2]]} (the profiler on) [{card}]")
     _check(len(waits_tr) >= 3 and max(waits_tr) <= 2,
            f"host waits per tracking frame {waits_tr} (bar 2)")
     bar = PARENT_TRACKING_KERNELS - PNP_KERNELS_SAVED
@@ -1713,6 +1949,13 @@ def phase_main_path(frames, gt, card):
           f"{PNP_KERNELS_SAVED})")
     _check(statistics.median(kernels_tr) <= bar,
            f"kernels per tracking frame median {statistics.median(kernels_tr)} > {bar}")
+    bar = PARENT_KEYFRAME_KERNELS - HAMMING_KERNELS_SAVED
+    _check(len(kernels_kf) > 0, "[main] no keyframe frame under the profiler")
+    print(f"[main] kernels per keyframe frame median {statistics.median(kernels_kf)}, bar {bar} "
+          f"(commit 9a69178's median {PARENT_KEYFRAME_KERNELS}, the plain Hamming, less "
+          f"{HAMMING_KERNELS_SAVED})")
+    _check(statistics.median(kernels_kf) <= bar,
+           f"kernels per keyframe frame median {statistics.median(kernels_kf)} > {bar}")
     _check(n5 > 0, "the 5-point RANSAC never ran on the card")
     _check(nh > 0, "the homography RANSAC never ran on the card")
 
@@ -2138,22 +2381,16 @@ def _profile_counts(fn):
     return kernels, device_us / 1e3, syncs - _HARNESS_WAITS[0], wall
 
 
-def phase_subbatch_probe(frames, card):
-    """Phase 6a: the keyframe phase on S keyframe-requesting rows at
-    640x480, one batched pass (``keyframe_phase_batched``) against the
-    composition of rows (``keyframe_phase`` on each row, then
-    ``write_rows``), at S = 1, 2, 3 and 8 in turns (rows, batched,
-    batched, rows); results held to the CPU tests' bars.  Rows are the
-    single stream's track-phase states on golden frames that asked for a
-    keyframe: a steady-state keyframe (local BA) first, then the first
-    keyframe, the bootstrap pair's second and later ones, repeated to 8."""
+def _probe_rows(frames):
+    """Phase 6a's rows: the single stream's track-phase states on golden
+    frames that asked for a keyframe (a steady-state keyframe with local BA
+    first, then the first keyframe, the bootstrap pair's second and later
+    ones, repeated to max(PROBE_SIZES)).  Returns (pool, cam, cfg, KLT
+    launches on the way, keyframe frames)."""
     import torch
     from alvaar_tpu_torch import AlvaAR, SlamConfig
-    from alvaar_tpu_torch.frontend.step import (keyframe_phase, keyframe_phase_batched,
-                                                track_phase)
+    from alvaar_tpu_torch.frontend.step import track_phase
     from alvaar_tpu_torch.ops.klt import fb_klt_track
-    from alvaar_tpu_torch.worldmap.keyframe import host_bool
-    from alvaar_tpu_torch.worldmap.state import stack_states, state_row, write_rows
 
     cfg = SlamConfig()
     h, w = frames[0].shape
@@ -2178,7 +2415,81 @@ def phase_subbatch_probe(frames, card):
 
     first, pair, later = kf_frames[0], kf_frames[1], kf_frames[2:]
     pool = [tracked(i) for i in [later[-1], first, pair] + later[:-1]]
-    pool = (pool * 3)[:max(PROBE_SIZES)]
+    return (pool * 3)[:max(PROBE_SIZES)], cam, cfg, launches, kf_frames
+
+
+ATTRIBUTION_TOP = 15            # phase 6a: the keyframe pass's longest device kernels printed
+_HAMMING_RANGE = "local-map matching's Hamming pass"
+
+
+def _pass_attribution(fn, tag: str, card: str) -> dict:
+    """One call of ``fn`` (a keyframe pass, after a warm-up call) under
+    ``torch.profiler``: its device kernels grouped by name, the
+    ATTRIBUTION_TOP longest by total device time with their launches; the
+    device time inside local-map matching's Hamming pass (a
+    ``record_function`` range around ``matching.hamming_min_crossbag``,
+    whatever computes it); the device's busy share of the call's wall
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from alvaar_tpu_torch.worldmap import matching
+
+    ham = matching.hamming_min_crossbag
+
+    def ranged(*a):
+        with record_function(_HAMMING_RANGE):
+            return ham(*a)
+
+    matching.hamming_min_crossbag = ranged
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        matching.hamming_min_crossbag = ham
+    by_name, ham_us = {}, 0.0
+    for e in prof.events():
+        if e.name == _HAMMING_RANGE:
+            if e.device_type == DeviceType.CPU:
+                ham_us += e.device_time_total
+        elif e.device_type == DeviceType.CUDA:
+            t, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.device_time_total, n + 1)
+    device_ms = sum(t for t, _ in by_name.values()) / 1e3
+    kernels = sum(n for _, n in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:ATTRIBUTION_TOP]
+    share = ham_us / 1e3 / device_ms if device_ms else float("nan")
+    print(f"[{tag}] under torch.profiler: {kernels} kernels, {device_ms:.2f} ms device time in "
+          f"{wall:.1f} ms (busy {device_ms / wall:.3f}); {_HAMMING_RANGE} {ham_us / 1e3:.2f} ms of "
+          f"the device time ({share:.1%}); the {len(top)} longest kernels by total device time "
+          f"[{card}]:")
+    for name, (us, n) in top:
+        print(f"[{tag}]   {us / 1e3:8.3f} ms {n:5d} launches  {name[:110]}")
+    return dict(kernels=kernels, device_ms=device_ms, wall_ms=wall, hamming_ms=ham_us / 1e3,
+                top=[(name, us / 1e3, n) for name, (us, n) in top])
+
+
+def phase_subbatch_probe(frames, card):
+    """Phase 6a: the keyframe phase on S keyframe-requesting rows at
+    640x480 (``_probe_rows``), one batched pass
+    (``keyframe_phase_batched``) against the composition of rows
+    (``keyframe_phase`` on each row, then ``write_rows``), at S = 1, 2, 3
+    and 8 in turns (rows, batched, batched, rows); results held to the CPU
+    tests' bars; local BA's and K4's launches per batched pass; the batched
+    pass at S = 1 and 8 attributed under ``torch.profiler``
+    (``_pass_attribution``)."""
+    import torch
+    from alvaar_tpu_torch.frontend.step import keyframe_phase, keyframe_phase_batched
+    from alvaar_tpu_torch.worldmap.keyframe import host_bool
+    from alvaar_tpu_torch.worldmap.state import stack_states, state_row, write_rows
+
+    pool, cam, cfg, launches, kf_frames = _probe_rows(frames)
+    first, pair, later = kf_frames[0], kf_frames[1], kf_frames[2:]
     print(f"[probe] rows from golden frames: steady keyframe {later[-1]} (next_kf_id "
           f"{int(pool[0].next_kf_id)}), first keyframe {first}, bootstrap pair {pair}, later "
           f"{later[:-1]}; repeated to {max(PROBE_SIZES)}")
@@ -2204,13 +2515,14 @@ def phase_subbatch_probe(frames, card):
                         if "batching rule" in str(c.message)})
     print(f"[probe] ops that fell back to a per-row loop under vmap: {fallbacks or 'none'}")
     out, worst = {}, dict(lm_valid=0, ints=0, q=0.0, t=0.0, lm_pos=0.0)
-    ba_launched = {}
+    ba_launched, ham_launched = {}, {}
     for S in PROBE_SIZES:
         rows = pool[:S]
         r_fn, b_fn = rows_fn(rows), batched_fn(rows)
-        s0, c0 = host_bool.syncs, _ba_counts()
+        s0, c0, h0 = host_bool.syncs, _ba_counts(), _hamming_counts()["crossbag"]
         got = b_fn()
         ba_launched[S] = tuple(v - c0[k] for k, v in _ba_counts().items() if k != "jacfwd")
+        ham_launched[S] = _hamming_counts()["crossbag"] - h0
         _check(host_bool.syncs == s0, "[probe] a host read in the batched pass")
         ref = r_fn()
         for j in range(S):
@@ -2234,6 +2546,10 @@ def phase_subbatch_probe(frames, card):
           + " (one launch over all S rows each)")
     _check(len(set(ba_launched.values())) == 1 and min(ba_launched[1]) > 0,
            f"[probe] local BA's launches per batched pass vary with S: {ba_launched}")
+    print("[probe] K4 (hamming_min_crossbag) launches per batched pass: " + ", ".join(
+        f"S={S}: {n}" for S, n in ham_launched.items()) + " (one launch over all S rows)")
+    _check(set(ham_launched.values()) == {1},
+           f"[probe] K4's launches per batched pass are not 1: {ham_launched}")
     print(f"[probe] batched against rows, largest over all S: lm_valid differs on {worst['lm_valid']} "
           f"landmarks, {worst['ints']} int/bool entries differ outside them, pose q {worst['q']:.3e}, "
           f"pose t {worst['t']:.3e}, lm_pos {worst['lm_pos']:.3e} (bars {LM_VALID_SLACK}, 0, "
@@ -2244,6 +2560,8 @@ def phase_subbatch_probe(frames, card):
     print("[probe] S=3 under torch.profiler: " + "; ".join(
         f"{tag} {k} kernels, {dev:.1f} ms device time in {wall:.1f} ms (busy {dev / wall:.3f}), "
         f"{syncs} host waits" for tag, (k, dev, syncs, wall) in prof.items()) + f" [{card}]")
+    for S in (1, max(PROBE_SIZES)):
+        _pass_attribution(batched_fn(pool[:S]), f"probe S={S}", card)
     _check(worst["lm_valid"] <= LM_VALID_SLACK and worst["ints"] == 0,
            "[probe] batched and row integer fields differ")
     _check(worst["q"] <= POSE_Q_TOL and worst["t"] <= POSE_T_TOL and worst["lm_pos"] <= LM_POS_TOL,
@@ -2661,6 +2979,7 @@ def _mesh_drive(step, blocks, frames_dev, tag, shards):
     ms.multistream_step_local.syncs = host_bool.syncs = 0
     _ba_zero()
     _pnp_zero()
+    _hamming_zero()
     try:
         for i in range(frames_dev.shape[0]):
             l0, g0, h0 = fb_klt_track.launches, ms.multistream_step_local.syncs, host_bool.syncs
@@ -2680,6 +2999,7 @@ def _mesh_drive(step, blocks, frames_dev, tag, shards):
         run["other_launches"] = klt_pyramidal.launches + lk_level.launches
         _ba_path(f"{tag}, the workers")      # their counts, added up in this process
         _pnp_path(f"{tag}, the workers")
+        _hamming_path(f"{tag}, the workers")
         state = ms.gather_states(blocks, "cuda:0")
     finally:
         alive = len(multiprocessing.active_children())
@@ -3812,80 +4132,97 @@ def main() -> int:
     lap("phases 1-2 (environment, golden frames, kernel build and checks)")
     pnp_row = phase_pnp_kernel(card)
     lap("phase 2c (motion-only PnP's kernel)")
-    _ba_zero()
-    _pnp_zero()
+    hamming_rows = phase_hamming_kernel(card)
+    lap("phase 2d (descriptor Hamming's kernel)")
+
+    def zero():
+        _ba_zero()
+        _pnp_zero()
+        _hamming_zero()
+
+    zero()
     slam, launches, main_run = phase_main_path(frames, gt, card)
     _ba_path("main")
     _pnp_path("main")
-    _pnp_zero()
+    _hamming_path("main")
+    zero()
     launches += phase_eight_point(frames, card)
     _pnp_path("8pt")
+    _hamming_path("8pt", matching=False)
     lap("phases 3, 3b")
     ba_rows = phase_ba_kernels(main_run["ba_problems"], card)
     lap("phase 2b (local BA's kernels)")
     gt_more = trajectory(n + 45, step=0.04)[n:n + 20]
     more = [scene.render(T).astype(np.float32) for T in gt_more]
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    _pnp_zero()
+    zero()
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         launches += phase_facade(slam, more, card, tmp, scene, gt, main_run)
     _pnp_path("facade")
-    _pnp_zero()
+    _hamming_path("facade", matching=False)
+    zero()
     launches += phase_loop_closure(card)
     _pnp_path("loop")
+    _hamming_path("loop", loop=True)
     lap("phases 4, 5")
-    _ba_zero()
+    zero()
     launches += phase_subbatch_probe(frames, card)
     _ba_path("probe")
+    _hamming_path("probe")
     lap("phase 6a")
-    _ba_zero()
-    _pnp_zero()
+    zero()
     ms_launches, one0, multi_run = phase_multistream(frames, gt, card)
     _ba_path("multi")
     _pnp_path("multi")
+    _hamming_path("multi")
     lap("phase 6")
-    _pnp_zero()
+    zero()
     launches += ms_launches + phase_multistream_wide(frames, gt, one0, card)
     _pnp_path("wide")
+    _hamming_path("wide")
     lap("phase 6d")
-    _pnp_zero()
+    zero()
     launches += phase_multistream_loop(card)
     launches += phase_server(frames, card)
     _pnp_path("multi loop, server")
+    _hamming_path("multi loop, server", loop=True)
     lap("phases 6b, 6c")
-    launches += phase_mesh(frames, multi_run, card)     # K9 counted per mesh, in _mesh_drive
-    _pnp_zero()
+    launches += phase_mesh(frames, multi_run, card)     # K9, K4 counted per mesh, in _mesh_drive
+    zero()
     launches += phase_ingest(frames, card)
     _pnp_path("ingest")
+    _hamming_path("ingest", matching=False)
     lap("phases 6e, 7")
-    _ba_zero()
-    _pnp_zero()
+    zero()
     hd_launches, hd_shapes = phase_hd_serving(card)
     _ba_path("hd")
     _pnp_path("hd")
+    _hamming_path("hd")
     lap("phase 8")
     shapes += hd_shapes
     max_err = max([max_err] + [row["max_abs_err"] for row in hd_shapes])
-    _ba_zero()
-    _pnp_zero()
+    zero()
     launches += hd_launches + phase_map10k(frames, gt, main_run, card)
     _ba_path("map10k")
     _pnp_path("map10k")
+    _hamming_path("map10k")
     lap("phase 9")
     check_scatter_order(card)
-    _pnp_zero()
+    zero()
     launches += phase_bench_loop(frames, card)
     _pnp_path("bench loop")
+    _hamming_path("bench loop", loop=True)
     phase_bench_command(card)
     lap("phase 10")
-    _ba_zero()
-    _pnp_zero()
+    zero()
     launches += phase_presets(frames, gt, card)
     _ba_path("presets")
     _pnp_path("presets")
-    _pnp_zero()
+    _hamming_path("presets")
+    zero()
     launches += phase_examples(card)
     _pnp_path("examples")
+    _hamming_path("examples", matching=False)
     lap("phase 11")
 
     # the top-level numbers are at the heavier main-path call, stage 2 at N=192
@@ -3917,6 +4254,19 @@ def main() -> int:
         "replaces_what": "XLA formulation, not a Pallas kernel: pnp_refine (:156-190), traced "
                          "into the jitted step (alvaar_tpu/frontend/step.py:188)",
         "launches": PNP_PATH_LAUNCHES[0], "library_ms": None, "card": card, **pnp_row})
+    # K4 replaces XLA formulations too: the JAX package's ±1 products on the
+    # MXU; library_ms is the bf16 ±1 torch.matmul of the same pairs
+    for name, replaces, what in (
+            ("hamming_min_crossbag", "alvaar_tpu/ops/hamming.py:81",
+             "hamming_min_crossbag (:81-107), traced into the jitted keyframe pipeline "
+             "(alvaar_tpu/worldmap/matching.py:78)"),
+            ("hamming_matrix", "alvaar_tpu/ops/hamming.py:60",
+             "hamming_matrix_matmul (:60-66) and hamming_vs_pm1 (:45-51), the loop queries "
+             "(alvaar_tpu/loopclosure/detector.py:246, 273, 299)")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "alvaar_tpu_torch/csrc/hamming.cu",
+            "replaces": replaces, "replaces_what": f"XLA formulation, not a Pallas kernel: {what}",
+            "launches": HAMMING_PATH_LAUNCHES[name], "card": card, **hamming_rows[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,274 @@
+"""Descriptor Hamming's kernel K4 (csrc/hamming.cu, ops/hamming_kernel.py):
+its CUDA source run on the CPU through tools/cpu_cuda_shim.h, bit-equal to
+the plain versions (ops/hamming.py) and to the JAX package's
+``hamming_min_crossbag`` and ``hamming_matrix_popcount`` /
+``hamming_matrix_matmul``: L and K off the block's 32, bags of 1 and 6
+descriptors (8, the kernel's most), empty bags and an all-empty side,
+all-ones and all-zero words, S rows in one launch each equal to its row
+alone; local-map matching and the loop queries through the source, equal
+to the plain path.  Without building: the custom ops' CPU implementation
+(the plain version), fake shapes and batching rule, the CPU path's
+independence of the library, the launchers' argument checks, and the
+slice's outputs on the CPU unchanged from commit 9a69178's (before K4).
+tests/test_torch_hamming_kernel_card.py holds the kernel to its plain
+versions on a card.
+
+Every bar is bit-equality: a distance is an exact integer (a minimum of
+popcounts, or 257 where no pair of the two bags is filled)."""
+
+import ctypes
+import importlib.util
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from alvaar_tpu.ops import hamming as jham
+from alvaar_tpu_torch.loopclosure import detector
+from alvaar_tpu_torch.ops import hamming, hamming_kernel
+from alvaar_tpu_torch.utils import custom_ops
+from alvaar_tpu_torch.worldmap import matching
+from alvaar_tpu_torch.worldmap.state import map_rows, stack_states
+import hamming_problems as hp
+
+# hamming_problems.slice_outputs on the CPU by the port of commit 9a69178,
+# whose local-map matching and loop queries ran the plain Hamming passes
+SLICE_DIGEST_9A69178 = "65c4e520d4dcf281"
+
+
+@pytest.fixture(scope="module")
+def k4(tmp_path_factory):
+    """tools/rehearse_hamming_kernel.py, and csrc/hamming.cu built with it
+    for the CPU (every CUDA thread a fiber)."""
+    path = Path(__file__).resolve().parents[1] / "tools" / "rehearse_hamming_kernel.py"
+    spec = importlib.util.spec_from_file_location("rehearse_hamming_kernel", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod, mod.build(str(tmp_path_factory.mktemp("hamming_cpu")))
+
+
+def _zero():
+    hamming.hamming_min_crossbag.launches = hamming.hamming_matrix.launches = 0
+    matching.match_to_local_map.calls = detector._distances.calls = 0
+
+
+def _u32(x):
+    return jnp.asarray(x.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("S, N, M, G", [(1, 70, 45, 6), (1, 33, 97, 1), (3, 41, 29, 6),
+                                        (1, 64, 32, 6), (2, 5, 1, 8), (1, 1, 40, 6)])
+@pytest.mark.parametrize("kind", hp.KINDS)
+def test_min_crossbag_source_matches_plain_and_jax(k4, S, N, M, G, kind):
+    """The source's min cross-bag pass on S rows in one launch, bit-equal to
+    the plain version and to the JAX package's function row by row."""
+    mod, lib = k4
+    x = hp.bag_problem(np.random.default_rng(N * M + G), S, N, M, G, kind)
+    with mod.on_cpu(lib):
+        got = hamming_kernel.launch_min_crossbag(*x)
+    assert got.shape == (S, N, M) and got.dtype == torch.float32
+    for i in range(S):
+        row = [c[i] for c in x]
+        assert torch.equal(got[i], hamming._min_crossbag_plain(*row)), i
+        j = jham.hamming_min_crossbag(_u32(row[0]), jnp.asarray(row[1].numpy()), _u32(row[2]),
+                                      jnp.asarray(row[3].numpy()))
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(j))
+    if kind == "all-empty side":
+        assert bool((got == 257).all())
+    if kind == "extreme words" and M >= 4:
+        d = got[0]
+        assert float(d.min()) == 0.0 and 256.0 in d
+
+
+@pytest.mark.parametrize("S, N, M", [(1, 37, 301), (3, 19, 70), (1, 192, 2100), (1, 1, 1)])
+def test_dense_matrix_source_matches_plain_and_jax(k4, S, N, M):
+    """The source's dense matrix, bit-equal to the plain version and to the
+    JAX package's popcount and ±1 matrix-product formulations."""
+    mod, lib = k4
+    a, b = hp.dense_problem(np.random.default_rng(N + M), S, N, M)
+    with mod.on_cpu(lib):
+        got = hamming_kernel.launch_matrix(a, b)
+    assert got.shape == (S, N, M) and got.dtype == torch.int32
+    for i in range(S):
+        assert torch.equal(got[i], hamming._hamming_matrix_plain(a[i], b[i])), i
+        for jfn in (jham.hamming_matrix_popcount, jham.hamming_matrix_matmul):
+            np.testing.assert_array_equal(got[i].numpy(), np.asarray(jfn(_u32(a[i]), _u32(b[i]))))
+    if M > 1:
+        assert int(got[:, 0, 0].max()) == 256    # an all-ones row against an all-zero one
+
+
+def test_rows_in_one_launch_equal_rows_alone(k4):
+    """The wrappers under ``torch.func.vmap`` on S = 3 rows: one launch each
+    (the op's batching rule), each row bit-equal to its launch alone, an
+    unbatched argument repeated for every row; bits equal run to run."""
+    mod, lib = k4
+    x = hp.bag_problem(np.random.default_rng(5), 3, 70, 45, 6)
+    a, b = hp.dense_problem(np.random.default_rng(6), 3, 40, 2200)
+    with mod.on_cpu(lib):
+        _zero()
+        got = torch.func.vmap(hamming.hamming_min_crossbag)(*x)
+        dense = torch.func.vmap(hamming.hamming_matrix_chunked)(a, b)
+        shared = torch.func.vmap(hamming.hamming_matrix, in_dims=(0, None))(a, b[0])
+        assert hamming.hamming_min_crossbag.launches == 1
+        assert hamming.hamming_matrix.launches == 2
+        again = torch.func.vmap(hamming.hamming_min_crossbag)(*x)
+        for i in range(3):
+            assert torch.equal(got[i], hamming.hamming_min_crossbag(*(c[i] for c in x))), i
+            assert torch.equal(dense[i], hamming.hamming_matrix_chunked(a[i], b[i])), i
+            assert torch.equal(shared[i], hamming.hamming_matrix(a[i], b[0])), i
+    assert torch.equal(got, again)
+
+
+def test_slice_through_the_source_equals_the_plain_path(k4):
+    """Local-map matching and the loop queries (tests/hamming_problems.py's
+    seeded states) with K4's source launched on CPU tensors: every output
+    bit-equal to the plain path's, one launch per matching call and per
+    loop query's Hamming pass; two maps under ``map_rows`` (the batched
+    keyframe phase's vmap) in one launch, each row equal to its call
+    alone."""
+    mod, lib = k4
+    plain = hp.slice_outputs()
+    with mod.on_cpu(lib):
+        _zero()
+        got = hp.slice_outputs()
+        assert hamming.hamming_min_crossbag.launches == matching.match_to_local_map.calls == 2
+        assert hamming.hamming_matrix.launches == detector._distances.calls > 0
+        maps = [hp.seeded_map(seed) for seed in (0, 1)]
+        cam, cfg = maps[0][1], maps[0][2]
+        _zero()
+        rows = map_rows(lambda s: matching.match_to_local_map(s, cam, cfg),
+                        stack_states([m[0] for m in maps]))
+        assert hamming.hamming_min_crossbag.launches == 1
+    assert got.keys() == plain.keys()
+    for name in got:
+        assert torch.equal(got[name], plain[name]), name
+    for i in range(2):
+        for name, x in rows.tensors():
+            assert torch.equal(x[i], plain[f"match {i} {name}"]), (i, name)
+
+
+def test_c_entries_refuse_bad_shapes(k4):
+    """The C entries take 1 to 8 descriptors a bag and 1 to 65535 rows, and
+    refuse anything else before they launch."""
+    lib = hamming_kernel.bind(ctypes.CDLL(k4[1]))
+    for S, G in ((1, 0), (1, 9), (0, 6), (65536, 6)):
+        assert lib.hamming_min_crossbag_launch(None, None, None, None, S, 4, 4, G, None,
+                                               None) != 0
+    assert lib.hamming_matrix_launch(None, None, 0, 4, 4, None, None) != 0
+    assert lib.hamming_matrix_launch(None, None, 1, 0, 4, None, None) == 0      # nothing to do
+
+
+# ---------------------------------------------------------------------------
+# Without building anything
+# ---------------------------------------------------------------------------
+
+def test_slice_on_the_cpu_is_unchanged():
+    """On CPU tensors local-map matching and the loop queries take the plain
+    versions, whose outputs on the seeded states are commit 9a69178's bit
+    for bit (the digest of everything they return), and the wrappers never
+    load the library or count a launch."""
+    _zero()
+    lib, load = hamming_kernel._lib, hamming_kernel._load
+    hamming_kernel._load = lambda: pytest.fail("the CPU path loaded the kernel's library")
+    try:
+        out = hp.slice_outputs()
+    finally:
+        hamming_kernel._load = load
+    assert hamming_kernel._lib is lib is None
+    assert hp.digest(out) == SLICE_DIGEST_9A69178
+    assert hamming.hamming_min_crossbag.launches == hamming.hamming_matrix.launches == 0
+    assert matching.match_to_local_map.calls == 2 and detector._distances.calls > 0
+
+
+def test_op_cpu_implementation_is_the_plain_version():
+    """The custom ops on CPU tensors equal the plain versions row by row,
+    and the wrappers on CPU tensors are the plain versions."""
+    x = hp.bag_problem(np.random.default_rng(1), 2, 50, 37, 6)
+    a, b = hp.dense_problem(np.random.default_rng(2), 2, 30, 41)
+    op = hamming._MIN_CROSSBAG_OP(*x)
+    dense = hamming._MATRIX_OP(a, b)
+    for i in range(2):
+        row = [c[i] for c in x]
+        assert torch.equal(op[i], hamming._min_crossbag_plain(*row))
+        assert torch.equal(op[i], hamming.hamming_min_crossbag(*row))
+        assert torch.equal(dense[i], hamming._hamming_matrix_plain(a[i], b[i]))
+        assert torch.equal(dense[i], hamming.hamming_matrix(a[i], b[i]))
+        assert torch.equal(dense[i], hamming.hamming_matrix_chunked(a[i], b[i], 16))
+
+
+def test_op_fake_shapes():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    x = hp.bag_problem(np.random.default_rng(3), 2, 20, 11, 6)
+    a, b = hp.dense_problem(np.random.default_rng(4), 2, 9, 13)
+    mode = FakeTensorMode()
+    for op, args in ((hamming._MIN_CROSSBAG_OP, x), (hamming._MATRIX_OP, (a, b))):
+        real = op(*args)
+        with mode:
+            got = op(*(mode.from_tensor(t) for t in args))
+        assert (tuple(got.shape), got.dtype) == (tuple(real.shape), real.dtype)
+
+
+def test_op_vmap_rule_equals_rows():
+    """Under ``torch.func.vmap`` the ops run once over the rows (their
+    batching rule); the result equals single calls bit for bit, an unbatched
+    argument (B's bags shared by every row) included."""
+    x = hp.bag_problem(np.random.default_rng(7), 3, 25, 19, 6)
+    a, b = hp.dense_problem(np.random.default_rng(8), 3, 12, 17)
+
+    def crossbag(bag_a, filled_a, bag_b, filled_b):
+        return hamming._MIN_CROSSBAG_OP(*(t[None] for t in (bag_a, filled_a, bag_b,
+                                                             filled_b)))[0]
+
+    def dense(p, q):
+        return hamming._MATRIX_OP(p[None], q[None])[0]
+
+    got = torch.func.vmap(crossbag, in_dims=(0, 0, None, None))(x[0], x[1], x[2][0], x[3][0])
+    got_d = torch.func.vmap(dense)(a, b)
+    for i in range(3):
+        assert torch.equal(got[i], crossbag(x[0][i], x[1][i], x[2][0], x[3][0])), i
+        assert torch.equal(got_d[i], dense(a[i], b[i])), i
+
+
+def test_launchers_refuse_cpu_tensors_and_bad_arguments():
+    """The launchers run on CUDA tensors only and check dtypes, shapes,
+    contiguity, devices and the bag size before anything is built."""
+    a, fa, b, fb = (t[0] for t in hp.bag_problem(np.random.default_rng(9), 1, 8, 6, 6))
+    one = custom_ops.one
+    with pytest.raises(ValueError, match="CUDA"):
+        hamming_kernel.launch_min_crossbag(one(a), one(fa), one(b), one(fb))
+    with pytest.raises(ValueError, match="CUDA"):
+        hamming_kernel.launch_matrix(one(a[:, 0]), one(b[:, 0]))
+    bad = [
+        ((one(a).long(), one(fa), one(b), one(fb)), TypeError),                 # int64 words
+        ((one(a), one(fa).int(), one(b), one(fb)), TypeError),                  # int masks
+        ((one(a[..., :7].contiguous()), one(fa), one(b), one(fb)), ValueError), # 7 words
+        ((one(a), one(fa), one(b[:, :5]), one(fb[:, :5])), ValueError),         # G differs
+        ((one(a), one(fa), one(b).transpose(1, 2).contiguous().transpose(1, 2), one(fb)),
+         ValueError),                                                           # strided
+        ((one(a), one(fa), one(b).to("meta"), one(fb)), ValueError),            # two devices
+        ((a, fa, b, fb), ValueError),                                           # no S
+        ((a.new_zeros(0, 8, 6, 8), fa.new_zeros(0, 8, 6), b.new_zeros(0, 6, 6, 8),
+          fb.new_zeros(0, 6, 6)), ValueError),                                  # S = 0
+        ((one(a.repeat(1, 2, 1)[:, :9]), one(fa.repeat(1, 2)[:, :9]), one(b.repeat(1, 2, 1)[:, :9]),
+          one(fb.repeat(1, 2)[:, :9])), ValueError),                            # G = 9
+    ]
+    for args, err in bad:
+        with pytest.raises(err):
+            hamming_kernel.launch_min_crossbag(*args)
+    for args, err in (((one(a[:, 0]).long(), one(b[:, 0])), TypeError),
+                      ((one(a[:, 0]), b[:, 0]), ValueError),
+                      ((one(a[:, 0]), one(b[:, 0, :4].contiguous())), ValueError)):
+        with pytest.raises(err):
+            hamming_kernel.launch_matrix(*args)
+    assert hamming_kernel._lib is None
+
+
+def test_dispatch_raises_on_other_devices():
+    a, fa, b, fb = (t[0].to("meta") for t in hp.bag_problem(np.random.default_rng(10), 1, 4, 3,
+                                                              6))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        hamming.hamming_min_crossbag(a, fa, b, fb)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        hamming.hamming_matrix_chunked(a[:, 0], b[:, 0])

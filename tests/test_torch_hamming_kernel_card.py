@@ -1,0 +1,90 @@
+"""Descriptor Hamming's kernel K4 on a card against its plain versions
+(skipped without one: a CUDA kernel has no CPU mode).  This file imports
+neither JAX nor the JAX package, so that it runs where the card is:
+
+    python -m pytest --noconftest tests/test_torch_hamming_kernel_card.py -q
+
+(tests/conftest.py sets JAX up for the CPU tests.)  chip_smoke.py phase 2d
+holds the same bars at more shapes; tools/rehearse_hamming_kernel.py runs
+these cases on the CPU through the CUDA source."""
+
+import numpy as np
+import pytest
+import torch
+
+from alvaar_tpu_torch.loopclosure import detector
+from alvaar_tpu_torch.ops import hamming
+from alvaar_tpu_torch.worldmap import matching
+from hamming_problems import bag_problem, dense_problem, slice_outputs
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _zero():
+    hamming.hamming_min_crossbag.launches = hamming.hamming_matrix.launches = 0
+    matching.match_to_local_map.calls = detector._distances.calls = 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["matching", "scattered", "all-empty side", "extreme words"])
+def test_min_crossbag_on_card(card, kind):
+    """One launch at a ragged L x K (neither a multiple of the block's 32),
+    bit-equal to the plain version, run to run; three rows under vmap in one
+    launch, each bit-equal to its launch alone."""
+    a, fa, b, fb = bag_problem(np.random.default_rng(17), 1, 1037, 201, 6, kind, card)
+    _zero()
+    got = hamming.hamming_min_crossbag(a[0], fa[0], b[0], fb[0])
+    assert hamming.hamming_min_crossbag.launches == 1
+    assert torch.equal(got, hamming._min_crossbag_plain(a[0], fa[0], b[0], fb[0]))
+    assert torch.equal(got, hamming.hamming_min_crossbag(a[0], fa[0], b[0], fb[0]))
+    x = bag_problem(np.random.default_rng(18), 3, 300, 130, 6, kind, card)
+    _zero()
+    rows = torch.func.vmap(hamming.hamming_min_crossbag)(*x)
+    assert hamming.hamming_min_crossbag.launches == 1
+    for i in range(3):
+        assert torch.equal(rows[i], hamming.hamming_min_crossbag(*(c[i] for c in x))), i
+
+
+@pytest.mark.cuda
+def test_loop_queries_on_card(card):
+    """The loop queries' dense pass over a 256-keyframe database (49 152
+    descriptors, 24 chunks on the plain path) in one launch, bit-equal to
+    the plain version; four rows under vmap in one launch."""
+    a, b = dense_problem(np.random.default_rng(19), 1, 192, 49152, card)
+    _zero()
+    got = hamming.hamming_matrix_chunked(a[0], b[0])
+    assert hamming.hamming_matrix.launches == 1
+    assert torch.equal(got, hamming._hamming_matrix_plain(a[0], b[0]))
+    a, b = dense_problem(np.random.default_rng(20), 4, 192, 3072, card)
+    _zero()
+    rows = torch.func.vmap(hamming.hamming_matrix_chunked)(a, b)
+    assert hamming.hamming_matrix.launches == 1
+    for i in range(4):
+        assert torch.equal(rows[i], hamming._hamming_matrix_plain(a[i], b[i])), i
+
+
+@pytest.mark.cuda
+def test_slice_on_card(card):
+    """``match_to_local_map``, ``detect_loop``, ``verify_loop`` and
+    ``relocalize_topk`` on seeded states (tests/hamming_problems.py): the
+    same outputs bit for bit with the kernel as with the plain versions, one
+    launch per matching call and per loop query's Hamming pass."""
+    _zero()
+    got = slice_outputs(card)
+    c = (hamming.hamming_min_crossbag.launches, matching.match_to_local_map.calls,
+         hamming.hamming_matrix.launches, detector._distances.calls)
+    assert c[0] == c[1] == 2 and c[2] == c[3] > 0, c
+    dispatch = hamming._dispatch
+    hamming._dispatch = lambda x, name: False          # the plain versions on the card
+    try:
+        plain = slice_outputs(card)
+    finally:
+        hamming._dispatch = dispatch
+    assert got.keys() == plain.keys()
+    for name in got:
+        assert torch.equal(got[name], plain[name]), name

@@ -1,16 +1,17 @@
 // Just enough of CUDA to run a kernel source of this repository on the CPU
-// (tools/cuda_on_cpu.py, for tools/rehearse_ba_kernels.py and
-// tools/rehearse_pnp_kernel.py): no card, no nvcc.  Every CUDA thread of a
-// block is a fiber on one host thread (its own stack, switched with
-// _setjmp/_longjmp); blocks run one after another, so `__shared__` variables
-// are function statics.  `__syncthreads` is a barrier over the block's
-// fibers, `__syncwarp` one over the warp's lanes, a warp's shuffles and
-// votes an exchange array (two, used in turn) behind a barrier over its
-// lanes, `cp.async` (`__pipeline_memcpy_async`) a plain copy, `clock64` a
-// count of its calls (it times nothing).  A fiber that returns leaves its
-// block's and its warp's barriers.  Float arithmetic is the host's: build
-// with -ffp-contract=off, as nvcc's --fmad=false, and -U_FORTIFY_SOURCE
-// (the checked longjmp refuses to change stacks).
+// (tools/cuda_on_cpu.py, for tools/rehearse_ba_kernels.py,
+// tools/rehearse_pnp_kernel.py and tools/rehearse_hamming_kernel.py): no
+// card, no nvcc.  Every CUDA thread of a block is a fiber on one host
+// thread (its own stack, switched with _setjmp/_longjmp); blocks run one
+// after another, so `__shared__` variables are function statics.
+// `__syncthreads` is a barrier over the block's fibers, `__syncwarp` one
+// over the warp's lanes, a warp's shuffles and votes an exchange array (two,
+// used in turn) behind a barrier over its lanes, `cp.async`
+// (`__pipeline_memcpy_async`) a plain copy, `clock64` a count of its calls
+// (it times nothing), `__popc` the compiler's popcount.  A fiber that
+// returns leaves its block's and its warp's barriers.  Float arithmetic is
+// the host's: build with -ffp-contract=off, as nvcc's --fmad=false, and
+// -U_FORTIFY_SOURCE (the checked longjmp refuses to change stacks).
 #pragma once
 
 #include <setjmp.h>
@@ -206,6 +207,8 @@ T __shfl_down_sync(unsigned, T v, unsigned delta, int width = 32) {
     return (l % width) + delta < static_cast<unsigned>(width) ? l + delta : l;
   });
 }
+
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 
 // A stand-in for the SM's cycle counter: the calls so far, over every fiber.
 inline long long clock64() {

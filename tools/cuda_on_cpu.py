@@ -1,7 +1,7 @@
 """Run a CUDA source of the port (alvaar_tpu_torch/csrc/*.cu) on the CPU,
 where no card and no nvcc exist: the rehearsals before a chip call
-(tools/rehearse_ba_kernels.py, tools/rehearse_pnp_kernel.py) and their
-tier-1 tests share these.
+(tools/rehearse_ba_kernels.py, tools/rehearse_pnp_kernel.py,
+tools/rehearse_hamming_kernel.py) and their tier-1 tests share these.
 
 ``translate`` replaces the CUDA includes by tools/cpu_cuda_shim.h and each
 ``kernel<<<grid, block, ...>>>(args)`` by ``cpu_launch(kernel, grid,

@@ -26,9 +26,10 @@ per tracking frame is not held.  From each turn's lines: the lone call's
 times, the tracking and keyframe frames' medians
 and the kernels per tracking frame of phase 3, the aggregate frames/s of
 phases 6, 6d and 8, the presets' tracking and keyframe frames' medians, and
-the digests; printed per turn and as medians per checkout, and written,
-with each turn's log, to ``--out`` (default ``build/pnp_ab/``).  Place
-the other checkout under the git-ignored ``build/`` before the call, e.g.
+the digests; printed per turn and as medians per checkout
+(tools/ab_turns.py), and written, with each turn's log, to ``--out``
+(default ``build/pnp_ab/``).  Place the other checkout under the
+git-ignored ``build/`` before the call, e.g.
 ``mkdir -p build/parent && git archive COMMIT | tar -x -C build/parent``:
 the checkout the chip runs is not a git repository.
 """
@@ -38,13 +39,14 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import re
 import statistics
-import subprocess
 import sys
 import time
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import ab_turns  # noqa: E402  (tools/, beside this file)
+
+ROOT = ab_turns.ROOT
 AB_DIR = os.path.join(ROOT, "build", "pnp_ab")
 
 # (key, pattern, groups): what each turn's lines give
@@ -131,61 +133,6 @@ def _turn(root: str) -> int:
     return 1 if failed else 0
 
 
-def _parse(lines) -> dict:
-    out = {}
-    for key, pat, conv in PATTERNS:
-        for line in lines:
-            m = re.search(pat, line)
-            if m:
-                out[key] = conv(m.group(1))
-                break
-    return out
-
-
-def _ab(other: str, turns: int, out: str) -> int:
-    os.makedirs(out, exist_ok=True)
-    order = [("other", other), ("this", ROOT)] * (turns // 2)
-    if turns == 4:
-        order = [("other", other), ("this", ROOT), ("this", ROOT), ("other", other)]
-    results, rc = [], 0
-    for tag, root in order:
-        t0 = time.time()
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn", root],
-                              capture_output=True, text=True, cwd=root)
-        lines = proc.stdout.splitlines()
-        with open(os.path.join(out, f"turn{len(results)}_{tag}.log"), "w") as f:
-            f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
-        got = _parse(lines)
-        got.update(turn=tag, rc=proc.returncode, seconds=round(time.time() - t0, 1))
-        results.append(got)
-        rc |= proc.returncode != 0
-        for line in lines:
-            if line.startswith(("[turn]", "[time]", "NVIDIA")) or "Traceback" in line:
-                print(f"[ab {tag}] {line}")
-        if proc.returncode != 0:
-            print(f"[ab {tag}] stderr tail:\n" + "\n".join(proc.stderr.splitlines()[-15:]))
-        print(f"[ab] turn {len(results)} ({tag}, rc {proc.returncode}, {got['seconds']} s): "
-              + json.dumps({k: v for k, v in got.items() if k not in ("turn", "rc", "seconds")}),
-              flush=True)
-    summary = {}
-    for tag in ("other", "this"):
-        mine = [r for r in results if r["turn"] == tag]
-        summary[tag] = {}
-        for key, _, conv in PATTERNS:
-            vals = [r[key] for r in mine if key in r]
-            if vals:
-                summary[tag][key] = (statistics.median(vals) if conv is not str
-                                     else sorted(set(vals)))
-    for key, _, conv in PATTERNS:
-        a, b = summary["other"].get(key), summary["this"].get(key)
-        ratio = (f", other / this {a / b:.3f}" if conv is not str and a is not None and b
-                 else "")
-        print(f"[ab] {key}: other {a}, this {b}{ratio}")
-    with open(os.path.join(out, "ab.json"), "w") as f:
-        json.dump({"turns": results, "summary": summary}, f, indent=1)
-    return int(rc)
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ab", metavar="OTHER_ROOT")
@@ -211,7 +158,8 @@ def main() -> int:
     print(f"[time] phase 2c: {time.time() - t0:.1f} s")
     print(json.dumps({"name": "pnp_refine", "card": card, **row}))
     if args.ab:
-        return _ab(os.path.abspath(args.ab), args.turns, os.path.abspath(args.out))
+        return ab_turns.run(__file__, os.path.abspath(args.ab), args.turns,
+                            os.path.abspath(args.out), PATTERNS)
     return 0
 
 
