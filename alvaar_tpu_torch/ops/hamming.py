@@ -10,7 +10,9 @@ tensors launch K4 (csrc/hamming.cu, ops/hamming_kernel.py), the whole
 [N, M] result in one launch, through the custom ops
 ``alvaar_tpu_torch::hamming_min_crossbag`` and ``::hamming_matrix``, whose
 batching rule makes one launch over all the rows that ``torch.func.vmap``
-stacks; CPU tensors run the plain versions; any other device raises.  The
+stacks (a lone ``hamming_min_crossbag`` call, outside any transform, goes
+straight to the launcher); CPU tensors run the plain versions; any other
+device raises.  The
 plain versions count the XOR words by SWAR arithmetic in int32 on their
 two 16-bit halves: no byte view of the words (which ``torch.func.vmap``
 cannot batch) and no int64 widening.  On the CPU ``hamming_matrix_chunked``
@@ -24,7 +26,7 @@ import torch
 
 from alvaar_tpu_torch.ops import hamming_kernel
 from alvaar_tpu_torch.ops.topk import top_k
-from alvaar_tpu_torch.utils.custom_ops import dispatch as _dispatch, one, rows_rule
+from alvaar_tpu_torch.utils.custom_ops import dispatch as _dispatch, one, rows_rule, wrapped
 from alvaar_tpu_torch.utils.stats import count
 
 DESC_BITS = 256
@@ -141,7 +143,10 @@ def hamming_min_crossbag(bag_a, filled_a, bag_b, filled_b):
     in one launch on CUDA tensors, the plain version on CPU tensors."""
     if not _dispatch(bag_a, "hamming_min_crossbag"):
         return _min_crossbag_plain(bag_a, filled_a, bag_b, filled_b)
-    return _MIN_CROSSBAG_OP(*map(one, (bag_a, filled_a, bag_b, filled_b)))[0]
+    x = tuple(map(one, (bag_a, filled_a, bag_b, filled_b)))
+    if any(map(wrapped, x)):      # under vmap: one launch over the rows, by the op's rule
+        return _MIN_CROSSBAG_OP(*x)[0]
+    return _launch_min_crossbag(*x)[0]
 
 
 hamming_matrix.launches = 0

@@ -25,10 +25,12 @@ import torch
 
 from alvaar_tpu_torch.utils.build import build_library, find_tool
 
-MAX_BAG = 8          # descriptors a bag at most (csrc/hamming.cu)
-MAX_ROWS = 65535     # S, a grid dimension
-MAX_N = 65535 * 32   # rows of A: 32 a block along a grid dimension
-WORDS = 8            # 32-bit words of a 256-bit descriptor
+# csrc/hamming.cu's limits (``bind`` checks that the library has these)
+MAX_BAG = 8                    # descriptors a bag at most
+MAX_ROWS = 65535               # S: the dense kernel's grid.z
+MAX_N_CROSSBAG = 0x7FFFFFF0    # rows of A of the min cross-bag pass: its row walk's ints
+MAX_N_MATRIX = 65535 * 32      # rows of A of the dense matrix: 32 a block along grid.y
+WORDS = 8                      # 32-bit words of a 256-bit descriptor
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "hamming.cu"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
@@ -48,7 +50,8 @@ def build_kernel(verbose: bool = False) -> Path:
 
 def bind(lib):
     """Declare the library's C entry points on the ``ctypes`` handle ``lib``
-    and check its largest bag against this module's.  Returns ``lib``."""
+    and check each limit the wrappers rely on (largest bag, S, N of either
+    kernel) against this module's.  Returns ``lib``."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.hamming_min_crossbag_launch.restype = i32
     lib.hamming_min_crossbag_launch.argtypes = [ptr] * 4 + [i32] * 4 + [ptr] * 2
@@ -56,11 +59,14 @@ def bind(lib):
     lib.hamming_matrix_launch.argtypes = [ptr] * 2 + [i32] * 3 + [ptr] * 2
     lim = lib.hamming_kernel_limits
     lim.restype = i32
-    lim.argtypes = [ctypes.POINTER(i32)]
-    max_bag = i32()
-    lim(ctypes.byref(max_bag))
-    if max_bag.value != MAX_BAG:
-        raise RuntimeError(f"kernel bag limit {max_bag.value} differs from {MAX_BAG}")
+    lim.argtypes = [ctypes.POINTER(i32)] * 4
+    want = dict(max_bag=MAX_BAG, max_rows=MAX_ROWS, max_n_crossbag=MAX_N_CROSSBAG,
+                max_n_matrix=MAX_N_MATRIX)
+    got = {k: i32() for k in want}
+    lim(*map(ctypes.byref, got.values()))
+    for k, v in want.items():
+        if got[k].value != v:
+            raise RuntimeError(f"kernel limit {k} {got[k].value} differs from {v}")
     return lib
 
 
@@ -87,16 +93,17 @@ def _check(name, x, dtype, shape, dev):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _rows(s: int, n: int, m: int) -> None:
-    if not 1 <= s <= MAX_ROWS or n > MAX_N or m >= 2 ** 31:
-        raise ValueError(f"the kernel takes 1 <= S <= {MAX_ROWS} rows, N <= {MAX_N} and "
+def _rows(s: int, n: int, m: int, max_n: int) -> None:
+    if not 1 <= s <= MAX_ROWS or n > max_n or m >= 2 ** 31:
+        raise ValueError(f"the kernel takes 1 <= S <= {MAX_ROWS} rows, N <= {max_n} and "
                          f"M < 2^31; got S={s}, N={n}, M={m}")
 
 
 def check_min_crossbag_args(bag_a, filled_a, bag_b, filled_b):
     """Raise unless K4 takes these: on one device, int32 words bag_a [S, N,
-    G, 8] and bag_b [S, M, G, 8], bool filled_a [S, N, G] and filled_b [S,
-    M, G], all contiguous, 1 <= G <= 8.  Returns (S, N, M, G)."""
+    G, 8] and bag_b [S, M, G, 8] (16-byte aligned: the kernel reads them a
+    16-byte piece at a time), bool filled_a [S, N, G] and filled_b [S, M,
+    G], all contiguous, 1 <= G <= 8.  Returns (S, N, M, G)."""
     if not isinstance(bag_a, torch.Tensor) or bag_a.dim() != 4:
         raise ValueError("bag_a must be a [S, N, G, 8] tensor")
     s, n, g, _ = bag_a.shape
@@ -108,7 +115,10 @@ def check_min_crossbag_args(bag_a, filled_a, bag_b, filled_b):
     _check("filled_a", filled_a, torch.bool, (s, n, g), dev)
     _check("bag_b", bag_b, torch.int32, (s, m, g, WORDS), dev)
     _check("filled_b", filled_b, torch.bool, (s, m, g), dev)
-    _rows(s, n, m)
+    for name, x in (("bag_a", bag_a), ("bag_b", bag_b)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    _rows(s, n, m, MAX_N_CROSSBAG)
     return s, n, m, g
 
 
@@ -121,7 +131,7 @@ def check_matrix_args(a, b):
     m = b.shape[1] if isinstance(b, torch.Tensor) and b.dim() == 3 else -1
     _check("a", a, torch.int32, (s, n, WORDS), a.device)
     _check("b", b, torch.int32, (s, m, WORDS), a.device)
-    _rows(s, n, m)
+    _rows(s, n, m, MAX_N_MATRIX)
     return s, n, m
 
 

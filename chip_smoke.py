@@ -96,10 +96,16 @@ Phases, each printed on its own lines:
    192 x 3072 under vmap: bit-equal to the plain versions
    (ops/hamming.py ``_min_crossbag_plain``, ``_hamming_matrix_plain``),
    run to run and row by row, one launch per call.  Times at those shapes
-   by CUDA events and ``torch.profiler``, beside the bound (the JAX
-   package's ±1 formulation's int8 operations, or the bytes), the plain
-   versions' and the bf16 ±1 ``torch.matmul`` of the same pairs (the
-   library yardstick: it computes the products, not the minimum);
+   by CUDA events and ``torch.profiler``, beside the bound (every bit
+   pair's AND and popcount at the tensor cores' binary rate, or the bytes;
+   the same count at the int8 rate, PR 17's bound, printed beside), the
+   plain versions', the bf16 ±1 ``torch.matmul`` of the same pairs (the
+   library yardstick: it computes the products, not the minimum) and, for
+   the min cross-bag pass, ``torch._int_mm`` of 0/1 x ±1 int8 operands
+   (the int8 products alone; the minimum over filled pairs of popc(b) plus
+   them is checked against the kernel's, printed) and commit c513ebb's
+   kernel's device times (``HAMMING_C513EBB_DEVICE_MS``); a lone
+   ``hamming_min_crossbag`` call's host and CUDA-event times;
 3. the main path under the default config (5-point and homography
    bootstrap): ``AlvaAR.find_camera_pose`` over the 120-frame 640x480
    golden sequence on the card, held to the native reference's bars
@@ -1375,13 +1381,17 @@ def phase_pnp_kernel(card):
 
 def _pnp_lone_ms(refine, problem, cam, calls: int = 200):
     """A lone ``refine`` (``pnp_refine``) call on one problem, as a tracking
-    frame makes it: the host's milliseconds per call (``time.perf_counter``
-    around each call, not synchronised; the median of ``calls``), and CUDA
-    events' around ``calls`` back-to-back calls (the host's pace where it
-    is slower than the card)."""
-    import torch
+    frame makes it: ``_lone_ms``."""
     pose0, pts, obs, valid = problem
-    call = lambda: refine(pose0, cam, pts, obs, valid, iters=PNP_ITERS)
+    return _lone_ms(lambda: refine(pose0, cam, pts, obs, valid, iters=PNP_ITERS), calls)
+
+
+def _lone_ms(call, calls: int = 200):
+    """A lone call of ``call``: the host's milliseconds per call
+    (``time.perf_counter`` around each call, not synchronised; the median
+    of ``calls``), and CUDA events' around ``calls`` back-to-back calls (the
+    host's pace where it is slower than the card)."""
+    import torch
     for _ in range(10):
         call()
     torch.cuda.synchronize()
@@ -1399,6 +1409,11 @@ def _pnp_lone_ms(refine, problem, cam, calls: int = 200):
 # ---------------------------------------------------------------------------
 
 H100_INT8_OP_PER_S = 1979e12   # int8 on the tensor cores, dense, same sheet
+# the tensor cores' binary form (AND and popcount, K4's min cross-bag pass):
+# the sheet gives no figure; on the card mma.sync's m16n8k256 .b1 form
+# issues at its m16n8k32 int8 form's rate, 8 times the bits
+# (tools/hamming_tuning.py --rate), so 8 times the int8 figure
+H100_B1_OP_PER_S = 8 * H100_INT8_OP_PER_S
 # (name, S, N, M, G): local-map matching's min cross-bag pass at the
 # default's L = 4096 landmarks and K = 192 keypoints, FAST's K = 130,
 # ACCURATE's 352, hd_serving()'s 240, configuration 4's L = 10 240, and the
@@ -1414,6 +1429,16 @@ HAMMING_CASES = (("L=4096 K=192", 1, 4096, 192, 6), ("L=4096 K=130", 1, 4096, 13
 HAMMING_LOOP_CASES = (("192 x 192", 1, 192, 192), ("192 x 3072", 1, 192, 3072),
                       ("192 x 49152", 1, 192, 49152), ("4 x 192 x 3072", 4, 192, 3072))
 HAMMING_PATH_LAUNCHES = {"hamming_min_crossbag": 0, "hamming_matrix": 0}   # summed over the paths
+# commit c513ebb's min cross-bag kernel (PR 17's popcount design): device ms
+# per call by torch.profiler, the median of its two turns of
+# tools/run_hamming_phase.py --ab in one call on an NVIDIA H100 80GB HBM3 at
+# 700 W, printed beside this tree's; a lone call (through the custom op's
+# dispatch) took 0.081-0.098 ms by CUDA events in those turns
+HAMMING_C513EBB_DEVICE_MS = {"L=4096 K=192": 0.0513, "L=4096 K=130": 0.0437,
+                             "L=4096 K=352": 0.0812, "L=4096 K=240": 0.0621,
+                             "L=10240 K=192": 0.1036, "3 x L=4096 K=192": 0.1213,
+                             "8 x L=4096 K=192": 0.2926}
+HAMMING_C513EBB_LONE_MS = "0.081-0.098"
 
 
 def _hamming_zero() -> None:
@@ -1509,42 +1534,99 @@ def _hamming_checks(dev, cases=HAMMING_CASES, loop_cases=HAMMING_LOOP_CASES) -> 
 
 
 def _hamming_bound(S, N, M, G, masked: bool):
-    """(bytes, operations, bound_ms, bound_by) of one K4 call: the JAX
-    package's formulation, 2 (N G) (M G) 256 int8 operations a row, at the
-    tensor cores' int8 rate; each input (the packed bags and, for the min
-    cross-bag pass, their masks) read once and the output written once."""
+    """(bytes, operations, bound_ms, bound_by, int8_ms) of one K4 call: 2 (N
+    G) (M G) 256 binary operations a row (AND and popcount of every bit
+    pair) at the tensor cores' binary rate, each input (the packed bags
+    and, for the min cross-bag pass, their masks) read once and the output
+    written once; ``int8_ms``: the same count as the JAX package's int8
+    operations at the int8 rate (PR 17's bound)."""
     ops = 2.0 * S * (N * G) * (M * G) * 256
     nbytes = S * ((N + M) * G * 32 + (N + M) * G * masked + N * M * 4)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_INT8_OP_PER_S
-    return nbytes, ops, 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_B1_OP_PER_S
+    return (nbytes, ops, 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            1e3 * max(t_bytes, ops / H100_INT8_OP_PER_S))
+
+
+def _bits(words):
+    """[..., 8] int32 words → [..., 256] int32 bits (bit b of word w at
+    32 w + b)."""
+    import torch
+    shifts = torch.arange(32, device=words.device, dtype=torch.int32)
+    return ((words[..., None] >> shifts) & 1).reshape(words.shape[:-1] + (256,))
 
 
 def _pm1_bf16(words):
     """[..., 8] int32 words → [..., 256] bfloat16 in {-1, +1} (bit 1 → +1)."""
     import torch
-    shifts = torch.arange(32, device=words.device, dtype=torch.int32)
-    bits = (words[..., None] >> shifts) & 1
-    return (bits.reshape(words.shape[:-1] + (256,)) * 2 - 1).to(torch.bfloat16)
+    return (_bits(words) * 2 - 1).to(torch.bfloat16)
 
 
-def _hamming_time(name, S, N, M, G, fn, plain_fn, kernel_name, lib_a, lib_b, card):
-    """K4's times at one shape beside the bound, the plain version and the
-    bf16 ±1 product the JAX package uses (one ``torch.matmul``)."""
+def _int8_operands(bag_a, bag_b):
+    """The int8 operands of K4's min cross-bag product for each row s:
+    A's bits as 0/1 [N G, 256] and B's as +1 (bit 0) / -1 (bit 1) [256, M G
+    rounded up to 8 with zero columns] (``torch._int_mm`` takes a multiple
+    of 8), whose product is popc(a) - 2 popc(a & b)."""
+    import torch
+    S, N, G, _ = bag_a.shape
+    M = bag_b.shape[1]
+    a01 = _bits(bag_a).reshape(S, N * G, 256).to(torch.int8)
+    pad = -(M * G) % 8
+    b = (1 - 2 * _bits(bag_b)).reshape(S, M * G, 256).to(torch.int8)
+    b = torch.cat([b, b.new_zeros(S, pad, 256)], 1)
+    return a01, b
+
+
+def _int8_product_min(a01, b_pm1, x):
+    """The minimum over the filled bag pairs of popc(b) + the int8
+    product's popc(a) - 2 popc(a & b), 257 where none: K4's function from
+    ``torch._int_mm``'s products ([S, N, M] float32)."""
+    import torch
+    a, fa, bag_b, fb = x
+    S, N, G, _ = a.shape
+    M = bag_b.shape[1]
+    out = []
+    for s in range(S):
+        prod = torch._int_mm(a01[s], b_pm1[s].t())[:, :M * G].reshape(N, G, M, G)
+        pb = _bits(bag_b[s]).sum(-1)                                   # [M, G]
+        d = prod + pb[None, None]
+        ok = fa[s][:, :, None, None] & fb[s][None, None]
+        d = torch.where(ok, d, 257).amin(dim=(1, 3)).clamp_max(257)
+        out.append(d.to(torch.float32))
+    return torch.stack(out)
+
+
+def _hamming_time(name, S, N, M, G, fn, plain_fn, kernel_name, lib_a, lib_b, card,
+                  int8=None):
+    """K4's times at one shape beside the bound, the plain version, the
+    bf16 ±1 product the JAX package uses (one ``torch.matmul``) and, for the
+    min cross-bag pass, ``int8``'s ``torch._int_mm`` of the kernel's 0/1 and
+    ±1 int8 operands (one call a row; the products alone) and commit
+    c513ebb's kernel."""
     import torch
     ms = _time_ms(fn)
     dev_ms, n_launch = _device_ms(fn, kernel_name)
     masked = kernel_name == "hamming_min_crossbag_kernel"
-    nbytes, ops, bound_ms, bound_by = _hamming_bound(S, N, M, G, masked)
+    nbytes, ops, bound_ms, bound_by, int8_bound_ms = _hamming_bound(S, N, M, G, masked)
     lib_ms = _time_ms(lambda: torch.matmul(lib_a, lib_b.transpose(-1, -2)))
     plain_ms = _time_ms(plain_fn, reps=2, rounds=3, warmup=1)
+    int8_ms, extra = None, ""
+    if int8 is not None:
+        a01, b_pm1 = int8
+        int8_ms = _time_ms(lambda: [torch._int_mm(a01[s], b_pm1[s].t()) for s in range(S)])
+        before = HAMMING_C513EBB_DEVICE_MS[name]
+        extra = (f"; torch._int_mm of the 0/1 x ±1 int8 operands ({S} call{'s' * (S > 1)} of "
+                 f"[{a01.shape[-2]} x 256] x [256 x {b_pm1.shape[-2]}]) {int8_ms:.4f} ms; commit "
+                 f"c513ebb's kernel {before:.4f} ms, {bound_ms / before:.2%} of the bound")
     print(f"[hamming] {name}: {ms:.4f} ms per call (CUDA events), device {dev_ms:.4f} ms in "
           f"{n_launch:g} launches (torch.profiler), {bound_ms / dev_ms:.2%} of the bound "
-          f"{bound_ms * 1e3:.3f} us by {bound_by} ({nbytes / 1e6:.2f} MB, {ops / 1e9:.2f} G int8 "
-          f"operations); the bf16 ±1 torch.matmul [{S} x {lib_a.shape[-2]} x 256] x [256 x "
-          f"{lib_b.shape[-2]}] {lib_ms:.4f} ms; plain version {plain_ms:.3f} ms [{card}]")
+          f"{bound_ms * 1e3:.3f} us by {bound_by} ({nbytes / 1e6:.2f} MB, {ops / 1e9:.2f} G binary "
+          f"operations; at the int8 rate, PR 17's bound, {int8_bound_ms * 1e3:.3f} us); the bf16 "
+          f"±1 torch.matmul [{S} x {lib_a.shape[-2]} x 256] x [256 x {lib_b.shape[-2]}] "
+          f"{lib_ms:.4f} ms{extra}; plain version {plain_ms:.3f} ms [{card}]")
     return dict(shape=name, S=S, N=N, M=M, G=G, ms=ms, device_ms=dev_ms,
                 launches_per_call=n_launch, bytes=nbytes, ops=ops, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=lib_ms, plain_ms=plain_ms)
+                bound_by=bound_by, int8_bound_ms=int8_bound_ms, library_ms=lib_ms,
+                int8_mm_ms=int8_ms, plain_ms=plain_ms)
 
 
 def phase_hamming_kernel(card):
@@ -1567,8 +1649,21 @@ def phase_hamming_kernel(card):
         fn = lambda: batched(hamming.hamming_min_crossbag, S)(*args)
         plain = lambda: batched(hamming._min_crossbag_plain, S)(*args)
         lib_a, lib_b = (_pm1_bf16(x[k].reshape(S, -1, 8)) for k in (0, 2))
+        int8 = _int8_operands(x[0], x[2])
+        got = fn()
+        same = torch.equal(_int8_product_min(*int8, x), got if S > 1 else got[None])
+        print(f"[hamming] {name}: the minimum over filled pairs of popc(b) + torch._int_mm's "
+              f"0/1 x ±1 int8 products equal to the kernel's {same}")
+        if name == "L=4096 K=192":      # before this phase's profiler sessions
+            host_ms, event_ms = _lone_ms(fn)
+            print(f"[hamming] a lone hamming_min_crossbag call at {name}: host {host_ms:.4f} ms "
+                  f"(time.perf_counter, median), {event_ms:.4f} ms per call by CUDA events "
+                  f"around back-to-back calls (commit c513ebb's, through the custom op's "
+                  f"dispatch: {HAMMING_C513EBB_LONE_MS} ms by CUDA events) [{card}]")
+            lone = dict(lone_host_ms=host_ms, lone_event_ms=event_ms)
         rows["hamming_min_crossbag"].append(_hamming_time(
-            name, S, N, M, G, fn, plain, "hamming_min_crossbag_kernel", lib_a, lib_b, card))
+            name, S, N, M, G, fn, plain, "hamming_min_crossbag_kernel", lib_a, lib_b, card,
+            int8))
     for name, S, N, M in HAMMING_LOOP_CASES:
         a, b = dense_problem(np.random.default_rng(N + M + S), S, N, M, dev)
         args = (a[0], b[0]) if S == 1 else (a, b)
@@ -1588,6 +1683,7 @@ def phase_hamming_kernel(card):
                         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                         library_ms=r["library_ms"], device_ms=r["device_ms"], shape=main,
                         shapes=rows[key])
+    out["hamming_min_crossbag"].update(lone)
     return out
 
 

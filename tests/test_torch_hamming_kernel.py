@@ -2,14 +2,19 @@
 its CUDA source run on the CPU through tools/cpu_cuda_shim.h, bit-equal to
 the plain versions (ops/hamming.py) and to the JAX package's
 ``hamming_min_crossbag`` and ``hamming_matrix_popcount`` /
-``hamming_matrix_matmul``: L and K off the block's 32, bags of 1 and 6
-descriptors (8, the kernel's most), empty bags and an all-empty side,
+``hamming_matrix_matmul``: L and K off the tiles (16 and 32 rows, 8 and
+32 columns), bags of 1 to 8 descriptors, empty bags and an all-empty side,
 all-ones and all-zero words, S rows in one launch each equal to its row
-alone; local-map matching and the loop queries through the source, equal
-to the plain path.  Without building: the custom ops' CPU implementation
-(the plain version), fake shapes and batching rule, the CPU path's
-independence of the library, the launchers' argument checks, and the
-slice's outputs on the CPU unchanged from commit 9a69178's (before K4).
+alone, the persistent blocks' schedules at several multiprocessor counts;
+local-map matching and the loop queries through the source, equal to the
+plain path.  The min cross-bag pass's tensor-core arithmetic: the
+kernel's words as ``mma.sync m16n8k256 .b1 .and.popc`` fragments, laid
+out by the PTX ISA, give the Hamming distance (in numpy), and the shim's
+emulation of that ``mma`` equals an int64 product of the bits.  Without building: the
+custom ops' CPU implementation (the plain version), fake shapes and
+batching rule, the CPU path's independence of the library, the launchers'
+argument checks, and the slice's outputs on the CPU unchanged from commit
+9a69178's (before K4).
 tests/test_torch_hamming_kernel_card.py holds the kernel to its plain
 versions on a card.
 
@@ -59,7 +64,8 @@ def _u32(x):
 
 
 @pytest.mark.parametrize("S, N, M, G", [(1, 70, 45, 6), (1, 33, 97, 1), (3, 41, 29, 6),
-                                        (1, 64, 32, 6), (2, 5, 1, 8), (1, 1, 40, 6)])
+                                        (1, 64, 32, 6), (2, 5, 1, 8), (1, 1, 40, 6),
+                                        (1, 37, 13, 7), (2, 23, 50, 8)])
 @pytest.mark.parametrize("kind", hp.KINDS)
 def test_min_crossbag_source_matches_plain_and_jax(k4, S, N, M, G, kind):
     """The source's min cross-bag pass on S rows in one launch, bit-equal to
@@ -80,6 +86,32 @@ def test_min_crossbag_source_matches_plain_and_jax(k4, S, N, M, G, kind):
     if kind == "extreme words" and M >= 4:
         d = got[0]
         assert float(d.min()) == 0.0 and 256.0 in d
+
+
+@pytest.mark.parametrize("sms", [1, 3, 200])
+def test_min_crossbag_schedules_and_empty_bags(k4, sms):
+    """The persistent blocks' schedule at 1, 3 and 200 multiprocessors (a
+    block's run of stages crossing from one row s to the next, or one stage
+    a block): S = 3 rows with N off the 16-row tile and the 64-row stage and
+    M off the warp's 8 columns, bit-equal to the plain version; an A bag
+    and a B bag with no filled slot give 257 along their whole row and
+    column."""
+    mod, lib = k4
+    a, fa, b, fb = hp.bag_problem(np.random.default_rng(sms), 3, 53, 21, 6)
+    fa[1, 17] = False
+    fb[2, 4] = False
+    fb[0, 20] = False
+    set_sms = ctypes.CDLL(lib).cpu_cuda_set_sm_count
+    set_sms(sms)
+    try:
+        with mod.on_cpu(lib):
+            got = hamming_kernel.launch_min_crossbag(a, fa, b, fb)
+    finally:
+        set_sms(2)
+    for i in range(3):
+        assert torch.equal(got[i], hamming._min_crossbag_plain(a[i], fa[i], b[i], fb[i])), i
+    assert bool((got[1, 17] == 257).all()) and bool((got[2, :, 4] == 257).all())
+    assert bool((got[0, :, 20] == 257).all()) and float(got.min()) < 100
 
 
 @pytest.mark.parametrize("S, N, M", [(1, 37, 301), (3, 19, 70), (1, 192, 2100), (1, 1, 1)])
@@ -150,14 +182,157 @@ def test_slice_through_the_source_equals_the_plain_path(k4):
 
 
 def test_c_entries_refuse_bad_shapes(k4):
-    """The C entries take 1 to 8 descriptors a bag and 1 to 65535 rows, and
-    refuse anything else before they launch."""
+    """The C entries take 1 to 8 descriptors a bag, 1 to 65535 rows and
+    16-byte aligned bags, and refuse anything else before they launch;
+    ``bind`` checks the library's limits against the wrapper's."""
     lib = hamming_kernel.bind(ctypes.CDLL(k4[1]))
     for S, G in ((1, 0), (1, 9), (0, 6), (65536, 6)):
         assert lib.hamming_min_crossbag_launch(None, None, None, None, S, 4, 4, G, None,
                                                None) != 0
+    words = torch.zeros(64, dtype=torch.int32)
+    p = words.data_ptr()
+    assert p % 16 == 0
+    for off_a, off_b in ((4, 0), (0, 8), (4, 12)):
+        assert lib.hamming_min_crossbag_launch(p + off_a, None, p + off_b, None, 1, 1, 1, 1,
+                                               None, None) != 0
+    assert lib.hamming_min_crossbag_launch(None, None, None, None, 1, 0, 4, 6, None, None) == 0
     assert lib.hamming_matrix_launch(None, None, 0, 4, 4, None, None) != 0
     assert lib.hamming_matrix_launch(None, None, 1, 0, 4, None, None) == 0      # nothing to do
+    assert lib.hamming_matrix_launch(None, None, 1, hamming_kernel.MAX_N_MATRIX + 1, 4, None,
+                                     None) != 0
+
+
+def test_bind_refuses_other_limits(k4, monkeypatch):
+    """A library whose limits differ from the wrapper's is refused."""
+    for name in ("MAX_BAG", "MAX_ROWS", "MAX_N_CROSSBAG", "MAX_N_MATRIX"):
+        with monkeypatch.context() as m:
+            m.setattr(hamming_kernel, name, getattr(hamming_kernel, name) - 1)
+            with pytest.raises(RuntimeError, match="limit"):
+                hamming_kernel.bind(ctypes.CDLL(k4[1]))
+
+
+# ---------------------------------------------------------------------------
+# The tensor cores' arithmetic: the fragments of mma.sync m16n8k256 .b1
+# .and.popc and the shim's emulation of it
+# ---------------------------------------------------------------------------
+
+def _tiles(frags):
+    """The PTX ISA's m16n8k256 .b1 layout of one warp's fragments:
+    ``frags`` [32, 6] uint32 (a0-a3, b0, b1 of each lane, lane = 4 groupID
+    + t) → A [16, 256] and B [256, 8] as their bits (int64)."""
+    bits = lambda w: (int(w) >> np.arange(32)) & 1
+    A = np.zeros((16, 256), np.int64)
+    B = np.zeros((256, 8), np.int64)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for r in range(4):          # a0 / a1: rows g / g + 8 at k = 32t..; a2 / a3 at k + 128
+            k = 32 * t + 128 * (r // 2)
+            A[g + 8 * (r % 2), k:k + 32] = bits(frags[lane, r])
+        for r in range(2):          # b0 / b1: column g at k = 32t.. and k + 128
+            k = 32 * t + 128 * r
+            B[k:k + 32, g] = bits(frags[lane, 4 + r])
+    return A, B
+
+
+def _lane_d(D):
+    """[16, 8] → [32, 4]: each lane's c0-c3 (row groupID at columns 2t, 2t
+    + 1, then row groupID + 8)."""
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    return np.stack([D[g, 2 * t], D[g, 2 * t + 1], D[g + 8, 2 * t], D[g + 8, 2 * t + 1]], 1)
+
+
+def _kernel_frags(a, b):
+    """The fragments csrc/hamming.cu gives each lane for rows a [16, 8] and
+    columns b [8, 8] (uint32 words): words t and t + 4 of rows groupID and
+    groupID + 8, and of column groupID, as they are."""
+    frags = np.zeros((32, 6), np.uint32)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        frags[lane] = [a[g, t], a[g + 8, t], a[g, t + 4], a[g + 8, t + 4], b[g, t], b[g, t + 4]]
+    return frags
+
+
+def test_fragment_layout_gives_the_hamming_distance():
+    """The kernel's fragments of random words, laid out by the PTX ISA's
+    m16n8k256 .b1 layout: A B counts popc(a & b) of every row and column,
+    and popc(a) + popc(b) - 2 A B equals popc(a ^ b) and the JAX package's
+    ``hamming_matrix_matmul``."""
+    rng = np.random.default_rng(31)
+    a = hp.words(rng, 16, 8).view(np.uint32)
+    b = hp.words(rng, 8, 8).view(np.uint32)
+    a[3] = 0xFFFFFFFF
+    b[5] = a[7]
+    popc = lambda w: np.unpackbits(w.view(np.uint8), axis=-1).sum(-1).astype(np.int64)
+    A, B = _tiles(_kernel_frags(a, b))
+    dot = A @ B
+    np.testing.assert_array_equal(dot, popc(a[:, None, :] & b[None, :, :]))
+    got = popc(a)[:, None] + popc(b)[None, :] - 2 * dot
+    np.testing.assert_array_equal(got, popc(a[:, None, :] ^ b[None, :, :]))
+    jax_d = jham.hamming_matrix_matmul(jnp.asarray(a), jnp.asarray(b))
+    np.testing.assert_array_equal(np.asarray(jax_d), got)
+    assert got[3].max() <= 256 and got[7, 5] == 0
+
+
+MMA_PROBE = r"""
+#include <cuda_runtime.h>
+
+// One m16n8k256 .b1 .and.popc product a warp: lane l's a0-a3, b0, b1 at
+// frags[6 l ..], its c0-c3 at c[4 l ..], its d0-d3 to d[4 l ..]; in place
+// (d = c) when `alias`.
+__global__ void mma_kernel(const unsigned* frags, const int* c, int* d, int alias) {
+  const unsigned* f = frags + 6 * threadIdx.x;
+  const unsigned a[4] = {f[0], f[1], f[2], f[3]};
+  const unsigned b[2] = {f[4], f[5]};
+  int acc[4] = {c[4 * threadIdx.x], c[4 * threadIdx.x + 1], c[4 * threadIdx.x + 2],
+                c[4 * threadIdx.x + 3]};
+  int out[4];
+  if (alias) {
+    cpu_cuda::mma_m16n8k256_and_popc(acc, a, b, acc);
+    for (int i = 0; i < 4; ++i) out[i] = acc[i];
+  } else {
+    cpu_cuda::mma_m16n8k256_and_popc(out, a, b, acc);
+  }
+  for (int i = 0; i < 4; ++i) d[4 * threadIdx.x + i] = out[i];
+}
+
+extern "C" void run_mma(const unsigned* frags, const int* c, int* d, int warps, int alias) {
+  for (int w = 0; w < warps; ++w)
+    mma_kernel<<<1, 32>>>(frags + 6 * 32 * w, c + 4 * 32 * w, d + 4 * 32 * w, alias);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def mma_probe(k4, tmp_path_factory):
+    out = tmp_path_factory.mktemp("mma_probe")
+    src = out / "mma_probe.cu"
+    src.write_text(MMA_PROBE)
+    mod = k4[0]
+    lib = ctypes.CDLL(mod.cuda_on_cpu.build(str(src), str(out)))
+    lib.run_mma.restype = None
+    lib.run_mma.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    return lib
+
+
+@pytest.mark.parametrize("kind", ["random", "aliased", "all ones"])
+def test_shim_mma_matches_an_int64_product(mma_probe, kind):
+    """The shim's ``mma.sync m16n8k256 .b1 .and.popc``
+    (tools/cpu_cuda_shim.h) on the fragments of three warps: each lane's d
+    equals c + A B by an int64 product of the bits the PTX ISA's layout puts
+    in A and B (random words; d in c's registers; every bit set, 256)."""
+    rng = np.random.default_rng(41 + len(kind))
+    frags = rng.integers(0, 2 ** 32, size=(3, 32, 6), dtype=np.uint64).astype(np.uint32)
+    if kind == "all ones":
+        frags[:] = 0xFFFFFFFF
+    c = rng.integers(-2 ** 20, 2 ** 20, size=(3, 32, 4)).astype(np.int32)
+    d = np.zeros((3, 32, 4), np.int32)
+    mma_probe.run_mma(frags.ctypes.data, c.ctypes.data, d.ctypes.data, 3, int(kind == "aliased"))
+    for w in range(3):
+        A, B = _tiles(frags[w])
+        np.testing.assert_array_equal(d[w], _lane_d(A @ B) + c[w])
+    if kind == "all ones":
+        assert bool((d == c + 256).all())
 
 
 # ---------------------------------------------------------------------------
@@ -233,7 +408,8 @@ def test_op_vmap_rule_equals_rows():
 
 def test_launchers_refuse_cpu_tensors_and_bad_arguments():
     """The launchers run on CUDA tensors only and check dtypes, shapes,
-    contiguity, devices and the bag size before anything is built."""
+    contiguity, devices, the bag size and the bags' 16-byte alignment
+    before anything is built."""
     a, fa, b, fb = (t[0] for t in hp.bag_problem(np.random.default_rng(9), 1, 8, 6, 6))
     one = custom_ops.one
     with pytest.raises(ValueError, match="CUDA"):
@@ -253,6 +429,8 @@ def test_launchers_refuse_cpu_tensors_and_bad_arguments():
           fb.new_zeros(0, 6, 6)), ValueError),                                  # S = 0
         ((one(a.repeat(1, 2, 1)[:, :9]), one(fa.repeat(1, 2)[:, :9]), one(b.repeat(1, 2, 1)[:, :9]),
           one(fb.repeat(1, 2)[:, :9])), ValueError),                            # G = 9
+        ((a.new_zeros(a.numel() + 1)[1:].view(1, *a.shape), one(fa), one(b), one(fb)),
+         ValueError),                                                           # 4-byte aligned
     ]
     for args, err in bad:
         with pytest.raises(err):

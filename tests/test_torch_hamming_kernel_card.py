@@ -6,7 +6,8 @@ neither JAX nor the JAX package, so that it runs where the card is:
 
 (tests/conftest.py sets JAX up for the CPU tests.)  chip_smoke.py phase 2d
 holds the same bars at more shapes; tools/rehearse_hamming_kernel.py runs
-these cases on the CPU through the CUDA source."""
+these cases on the CPU through the CUDA source.  Every bar is
+bit-equality."""
 
 import numpy as np
 import pytest
@@ -48,6 +49,62 @@ def test_min_crossbag_on_card(card, kind):
     assert hamming.hamming_min_crossbag.launches == 1
     for i in range(3):
         assert torch.equal(rows[i], hamming.hamming_min_crossbag(*(c[i] for c in x))), i
+
+
+def _one_bit_bags(flip: bool, device):
+    """256 descriptors, descriptor p with only bit p set (word p // 32, bit
+    p % 32), or with every bit but p when ``flip``: [1, 256, 1, 8] int32."""
+    w = np.zeros((256, 8), np.uint32)
+    p = np.arange(256)
+    w[p, p // 32] = np.uint32(1) << (p % 32).astype(np.uint32)
+    if flip:
+        w = ~w
+    return torch.from_numpy(w.view(np.int32).reshape(1, 256, 1, 8).copy()).to(device)
+
+
+@pytest.mark.cuda
+def test_min_crossbag_fragment_layout_on_card(card):
+    """Single-bit descriptors pin the tensor cores' k mapping: A's bit p
+    against B's bit q is 0 apart where p = q and 2 apart elsewhere, and 256
+    or 254 against B's complements; a row or column read from the wrong
+    fragment register, or a bit taken for another, moves a 0 or a 256."""
+    a = _one_bit_bags(False, card)
+    filled = torch.ones((1, 256, 1), dtype=torch.bool, device=card)
+    eye = torch.eye(256, device=card)
+    for flip, want in ((False, 2 - 2 * eye), (True, 254 + 2 * eye)):
+        b = _one_bit_bags(flip, card)
+        got = hamming.hamming_min_crossbag(a[0], filled[0], b[0], filled[0])
+        assert torch.equal(got, want), flip
+        assert torch.equal(got, hamming._min_crossbag_plain(a[0], filled[0], b[0], filled[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", range(1, 9))
+def test_min_crossbag_bag_sizes_on_card(card, G):
+    """Every bag size the kernel has an instance for, bit-equal to the plain
+    version, alone and as two rows under vmap in one launch."""
+    x = bag_problem(np.random.default_rng(30 + G), 2, 300, 77, G, "matching", card)
+    _zero()
+    rows = torch.func.vmap(hamming.hamming_min_crossbag)(*x)
+    assert hamming.hamming_min_crossbag.launches == 1
+    for i in range(2):
+        row = [c[i] for c in x]
+        assert torch.equal(rows[i], hamming._min_crossbag_plain(*row)), i
+        assert torch.equal(rows[i], hamming.hamming_min_crossbag(*row)), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N, M", [(1, 1), (15, 7), (17, 9), (1037, 201), (4099, 130)])
+def test_min_crossbag_ragged_on_card(card, N, M):
+    """N off the 16-row tile and M off the warp's 8 columns and the block's
+    32, with an A bag and a B bag that have no filled slot (257 along their
+    row and column), bit-equal to the plain version."""
+    a, fa, b, fb = bag_problem(np.random.default_rng(N + M), 1, N, M, 6, "scattered", card)
+    fa[0, N // 2] = False
+    fb[0, M - 1] = False
+    got = hamming.hamming_min_crossbag(a[0], fa[0], b[0], fb[0])
+    assert torch.equal(got, hamming._min_crossbag_plain(a[0], fa[0], b[0], fb[0]))
+    assert bool((got[N // 2] == 257).all()) and bool((got[:, M - 1] == 257).all())
 
 
 @pytest.mark.cuda

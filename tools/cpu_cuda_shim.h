@@ -5,14 +5,19 @@
 // thread (its own stack, switched with _setjmp/_longjmp); blocks run one
 // after another, so `__shared__` variables are function statics.
 // `__syncthreads` is a barrier over the block's fibers, `__syncwarp` one
-// over the warp's lanes, a warp's shuffles and votes an exchange array (two,
-// used in turn) behind a barrier over its lanes, `cp.async`
-// (`__pipeline_memcpy_async`) a plain copy, `clock64` a count of its calls
-// (it times nothing), `__popc` the compiler's popcount.  A fiber that
-// returns leaves its block's and its warp's barriers.  Float arithmetic is
-// the host's: build with -ffp-contract=off, as nvcc's --fmad=false, and
-// -U_FORTIFY_SOURCE (the checked longjmp refuses to change stacks).
+// over the warp's lanes, a warp's shuffles, votes and `mma.sync` an
+// exchange array (two, used in turn) behind a barrier over its lanes,
+// `cp.async` (`__pipeline_memcpy_async`) a plain copy, `clock64` a count of
+// its calls (it times nothing), `__popc` the compiler's popcount.  A
+// fiber that returns leaves its block's and its warp's barriers.  Float
+// arithmetic is the host's: build with -ffp-contract=off, as nvcc's
+// --fmad=false, and -U_FORTIFY_SOURCE (the checked longjmp refuses to
+// change stacks).  A kernel source names inline PTX through a helper that
+// takes the shim's emulation under `#ifdef CPU_CUDA_SHIM`, which only this
+// header defines.
 #pragma once
+
+#define CPU_CUDA_SHIM 1
 
 #include <setjmp.h>
 #include <ucontext.h>
@@ -45,11 +50,29 @@ struct dim3 {
 struct float4 {
   float x, y, z, w;
 };
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
 inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
 
 using cudaStream_t = void*;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+
+// One device with `cpu_cuda_sm_count` multiprocessors (2 unless a caller
+// sets another through the library's `cpu_cuda_set_sm_count`).
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline int cpu_cuda_sm_count = 2;
+extern "C" void cpu_cuda_set_sm_count(int n) { cpu_cuda_sm_count = n; }
+inline cudaError_t cudaGetDevice(int* device) {
+  *device = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr attr, int device) {
+  if (attr != cudaDevAttrMultiProcessorCount || device != 0) return cudaErrorInvalidValue;
+  *value = cpu_cuda_sm_count;
+  return cudaSuccess;
+}
 
 // the running fiber's indices (one host thread runs every fiber)
 inline uint3 threadIdx;
@@ -73,9 +96,13 @@ struct Fiber {
   unsigned exchanges = 0;   // a lane's shuffles and votes so far: picks the buffer
 };
 
+constexpr int kLaneBytes = 24;    // what a lane offers at most: an mma's a0-a3 and b0, b1
+
 struct Warp {
   Barrier bar;
-  alignas(8) unsigned char buf[2][32][8];
+  alignas(8) unsigned char buf[2][32][kLaneBytes];
+  int product[2][16][8];         // an mma's A B, by the first lane past the barrier
+  unsigned product_gen[2] = {~0u, ~0u};
 };
 
 struct Sched {
@@ -117,6 +144,7 @@ inline Warp& warp() { return g->warps[threadIdx.x / 32]; }
 // Every lane offers v; each returns the value of lane src(lane).
 template <class T, class Src>
 T exchange(T v, Src src) {
+  static_assert(sizeof(T) <= kLaneBytes);
   Warp& w = warp();
   Fiber& f = g->fibers[g->current];
   const unsigned lane = threadIdx.x % 32, k = f.exchanges++ & 1;
@@ -125,6 +153,51 @@ T exchange(T v, Src src) {
   T out;
   std::memcpy(&out, w.buf[k][src(lane)], sizeof(T));
   return out;
+}
+
+// mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc for the
+// calling lane, once every lane of its warp has offered its fragments, in
+// the PTX ISA's layout (lane = 4 groupID + t): A's a0 / a1 hold rows
+// groupID / groupID + 8 at k = 32t..32t+31, a2 / a3 the same rows at
+// k = 128+32t..128+32t+31 (bit i at k + i); B's b0 / b1 column groupID at
+// the same k; the lane's d0, d1 are row groupID at columns 2t, 2t + 1 and
+// d2, d3 row groupID + 8.  d = c + popc(A & B) over k (d may alias c).
+inline void mma_m16n8k256_and_popc(int (&d)[4], const unsigned (&a)[4],
+                                   const unsigned (&b)[2], const int (&c)[4]) {
+  struct Frag {
+    unsigned a[4], b[2];
+  };
+  static_assert(sizeof(Frag) <= kLaneBytes);
+  Warp& w = warp();
+  Fiber& f = g->fibers[g->current];
+  const unsigned lane = threadIdx.x % 32, k = f.exchanges++ & 1;
+  const Frag mine{{a[0], a[1], a[2], a[3]}, {b[0], b[1]}};
+  std::memcpy(w.buf[k][lane], &mine, sizeof(Frag));
+  wait(w.bar);
+  if (w.product_gen[k] != w.bar.gen) {   // the first lane here: the whole 16 x 8 product
+    w.product_gen[k] = w.bar.gen;
+    unsigned A[16][8], B[8][8];           // [row][k / 32], [column][k / 32]
+    for (unsigned l = 0; l < 32; ++l) {
+      Frag x;
+      std::memcpy(&x, w.buf[k][l], sizeof(Frag));
+      const unsigned group = l / 4, t = l % 4;
+      for (unsigned half = 0; half < 2; ++half) {
+        A[group][4 * half + t] = x.a[2 * half];
+        A[group + 8][4 * half + t] = x.a[2 * half + 1];
+        B[group][4 * half + t] = x.b[half];
+      }
+    }
+    for (int r = 0; r < 16; ++r)
+      for (int n = 0; n < 8; ++n) {
+        int sum = 0;
+        for (int j = 0; j < 8; ++j) sum += __builtin_popcount(A[r][j] & B[n][j]);
+        w.product[k][r][n] = sum;
+      }
+  }
+  int out[4];
+  for (int i = 0; i < 4; ++i)
+    out[i] = c[i] + w.product[k][lane / 4 + 8 * (i / 2)][2 * (lane % 4) + i % 2];
+  for (int i = 0; i < 4; ++i) d[i] = out[i];
 }
 
 inline void entry() {

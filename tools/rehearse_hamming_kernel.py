@@ -16,7 +16,8 @@ the plain versions, run to run and row by row, one launch per call under
 vmap.  Without ``--full`` the min cross-bag cases keep their K, G and S
 with L cut to 520 landmarks (the plain version at L = 4096 takes ~14 s a
 call on the CPU; ``--full`` ~8 min); the loop cases run at their sizes.
-Then the card tests' cases (tests/test_torch_hamming_kernel_card.py).
+Then the card tests' cases (tests/test_torch_hamming_kernel_card.py; the
+ragged shapes up to 1037 x 201).
 Exits non-zero when a bar fails.
 """
 
@@ -87,6 +88,11 @@ def main() -> int:
         import test_torch_hamming_kernel_card as card_tests
         card_tests.test_min_crossbag_on_card(cpu, "matching")
         card_tests.test_min_crossbag_on_card(cpu, "extreme words")
+        card_tests.test_min_crossbag_fragment_layout_on_card(cpu)
+        for g in range(1, 9):
+            card_tests.test_min_crossbag_bag_sizes_on_card(cpu, g)
+        for n, m in ((1, 1), (15, 7), (17, 9), (1037, 201)):
+            card_tests.test_min_crossbag_ragged_on_card(cpu, n, m)
         card_tests.test_loop_queries_on_card(cpu)
         card_tests.test_slice_on_card(cpu)
         print("[rehearsal] card tests: passed", flush=True)

@@ -14,8 +14,11 @@ bar fails.  Needs CUDA.
 
 With ``--ab OTHER_ROOT`` it then runs, in turns (other, this, this, other
 with four turns; other, this with two), a process per turn that imports
-only its own checkout's ``chip_smoke`` and package and runs, as that
-checkout's smoke runs them: phase 3 with this checkout's profiled frames
+only its own checkout's ``chip_smoke`` and package and runs: a lone
+``hamming_min_crossbag`` call at L = 4096 x K = 192 timed by this
+checkout's ``chip_smoke._lone_ms`` (host and CUDA events); then, as that
+checkout's smoke runs them, phase 2d (K4's checks and its device time
+per shape); phase 3 with this checkout's profiled frames
 (``MAIN_PROFILED``: two keyframe frames among them), whose kernels per
 keyframe frame it prints; the keyframe pass of phase 6a at S = 1 and 8
 attributed by this checkout's ``_probe_rows`` and ``_pass_attribution``
@@ -26,7 +29,8 @@ and 64).  Each phase's failure is printed and the next phase run; the run
 digests are printed, not held, and this checkout's bars on phase 3's
 kernels are not held.  From each turn's lines: phase 3's frame medians and
 kernels, the attribution's numbers, the loop queries' ms, the aggregate
-frames/s, the digests; printed per turn and as medians per checkout
+frames/s, the digests, K4's device time per shape and the lone call's
+times; printed per turn and as medians per checkout
 (tools/ab_turns.py), and written, with each turn's log, to ``--out``
 (default ``build/hamming_ab/``).  Place the other checkout under the git-ignored
 ``build/`` before the call, e.g. ``mkdir -p build/parent && git archive
@@ -39,6 +43,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import sys
 import time
@@ -72,7 +77,15 @@ PATTERNS = (
     ("fps_1080p_8", r"\[hd B=8\] steps 10-\d+: aggregate ([\d.]+) frames/s", float),
     ("fps_1080p_64", r"\[hd B=64\] steps 10-\d+: aggregate ([\d.]+) frames/s", float),
     ("digest_main", r"\[main\] statuses \d+; digest of statuses and poses (\w+)", str),
-)
+    ("lone_host_ms", r"\[turn\] a lone hamming_min_crossbag call .*: host ([\d.]+) ms", float),
+    ("lone_event_ms", r"\[turn\] a lone hamming_min_crossbag call .*, ([\d.]+) ms by CUDA",
+     float),
+) + tuple(  # phase 2d's device time per shape, as both checkouts' smokes print it
+    (f"device_ms {name}", re.escape(f"[hamming] {name}: ")
+     + r"[\d.]+ ms per call \(CUDA events\), device ([\d.]+) ms", float)
+    for name in ("L=4096 K=192", "L=4096 K=130", "L=4096 K=352", "L=4096 K=240",
+                 "L=10240 K=192", "3 x L=4096 K=192", "8 x L=4096 K=192", "192 x 192",
+                 "192 x 3072", "192 x 49152", "4 x 192 x 3072"))
 
 
 def _this_smoke():
@@ -137,6 +150,17 @@ def _turn(root: str) -> int:
             this._pass_attribution(lambda: keyframe_phase_batched(stack, cam, cfg),
                                    f"probe S={S}", card)
 
+    def lone():
+        from hamming_problems import bag_problem
+        from alvaar_tpu_torch.ops import hamming
+        x = bag_problem(np.random.default_rng(7), 1, 4096, 192, 6, "matching", "cuda")
+        args = [c[0] for c in x]
+        host, event = this._lone_ms(lambda: hamming.hamming_min_crossbag(*args))
+        print(f"[turn] a lone hamming_min_crossbag call at L=4096 K=192: host {host:.4f} ms "
+              f"(median), {event:.4f} ms by CUDA events around back-to-back calls")
+
+    attempt("lone call", lone)
+    attempt("2d", lambda: cs.phase_hamming_kernel(card))
     attempt("3", main_path)
     attempt("6a attribution", attribution)
     attempt("5", lambda: cs.phase_loop_closure(card))
@@ -175,7 +199,7 @@ def main() -> int:
     if args.ab:
         return ab_turns.run(__file__, os.path.abspath(args.ab), args.turns,
                             os.path.abspath(args.out), PATTERNS,
-                            echo=("[turn]", "[time]", "[probe S=", "NVIDIA"))
+                            echo=("[turn]", "[time]", "[probe S=", "[hamming]", "NVIDIA"))
     return 0
 
 
