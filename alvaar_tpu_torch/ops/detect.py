@@ -5,6 +5,14 @@ the image, the best and second peak of every grid cell, occupancy and
 quality gates with the 5-rung adaptive threshold ladder, a priority
 selection that ranks first peaks before second ones, and a closed-form
 quadratic subpixel fit.
+
+``detect_grid`` dispatches on the device: CUDA tensors launch K5
+(csrc/image_kernels.cu, ops/image_kernels.py), the whole detection in
+three launches, bit-equal to the plain version, through the custom op
+``alvaar_tpu_torch::detect_grid``, whose batching rule makes one call over
+all the rows that ``torch.func.vmap`` stacks (a lone call, outside any
+transform, goes straight to the launcher); CPU tensors run the plain
+version; any other device raises.
 """
 
 from __future__ import annotations
@@ -13,6 +21,7 @@ import dataclasses
 
 import torch
 
+from alvaar_tpu_torch.ops import image_kernels
 from alvaar_tpu_torch.ops.image import (
     _sep_conv,
     gather_patches,
@@ -21,6 +30,8 @@ from alvaar_tpu_torch.ops.image import (
 )
 from alvaar_tpu_torch.ops.index import take_row
 from alvaar_tpu_torch.ops.topk import top_k
+from alvaar_tpu_torch.utils.custom_ops import dispatch as _dispatch, one, rows_rule, wrapped
+from alvaar_tpu_torch.utils.stats import count
 
 # cv::cornerMinEigenVal units for 8-bit input (see alvaar_tpu/ops/detect.py)
 _CV_NORM = 9.0 / (3060.0 ** 2)
@@ -106,12 +117,8 @@ def subpix_refine(resp, xy_int):
     return torch.stack([x + ox, y + oy], dim=-1).to(torch.float32)
 
 
-def detect_grid(img, existing_xy, existing_valid, *, cell: int, border: int,
-                quality=0.001) -> Detections:
-    """Response → per-cell peaks → occupancy and quality gates →
-    deficit-fill priority selection → subpixel positions → threshold
-    adaptation.  ``quality`` may be a 0-d tensor (the adaptive threshold
-    carried in the map state)."""
+def _detect_grid_plain(img, existing_xy, existing_valid, *, cell: int, border: int,
+                       quality=0.001) -> Detections:
     h, w = img.shape
     dev = img.device
     resp = shi_tomasi_response(img)
@@ -156,3 +163,68 @@ def detect_grid(img, existing_xy, existing_valid, *, cell: int, border: int,
     return Detections(xy=xy[sel],
                       score=torch.where(valid[sel], score[sel], 0.0),
                       valid=valid[sel], new_quality=new_quality)
+
+
+# ---------------------------------------------------------------------------
+# K5's custom op: the plain version row by row on CPU tensors, the kernel on
+# CUDA tensors, one call over all the rows under vmap
+# ---------------------------------------------------------------------------
+
+def _detect_rows(img, existing_xy, existing_valid, quality, cell: int, border: int):
+    rows = [_detect_grid_plain(img[i], existing_xy[i], existing_valid[i], cell=cell,
+                               border=border, quality=quality[i])
+            for i in range(img.shape[0])]
+    return tuple(torch.stack([getattr(d, f.name) for d in rows])
+                 for f in dataclasses.fields(Detections))
+
+
+def _launch_detect(img, existing_xy, existing_valid, quality, cell: int, border: int):
+    xy, score, valid, new_quality, _ = image_kernels.launch_detect(
+        img, existing_xy, existing_valid, quality, cell, border)
+    count(detect_grid, "launches", image_kernels.DETECT_LAUNCHES)
+    return xy, score, valid, new_quality
+
+
+def _detect_fake(img, existing_xy, existing_valid, quality, cell: int, border: int):
+    s, h, w = img.shape
+    c = image_kernels.num_cells(h, w, cell)
+    return (img.new_empty((s, c, 2)), img.new_empty((s, c)),
+            img.new_empty((s, c), dtype=torch.bool), img.new_empty((s,)))
+
+
+_DETECT_OP = torch.library.custom_op(
+    "alvaar_tpu_torch::detect_grid", _detect_rows, mutates_args=(), device_types="cpu",
+    schema="(Tensor img, Tensor existing_xy, Tensor existing_valid, Tensor quality, int cell, "
+           "int border) -> (Tensor, Tensor, Tensor, Tensor)")
+_DETECT_OP.register_kernel("cuda")(_launch_detect)
+_DETECT_OP.register_fake(_detect_fake)
+_DETECT_OP.register_vmap(rows_rule(_DETECT_OP))
+
+
+def detect_grid(img, existing_xy, existing_valid, *, cell: int, border: int,
+                quality=0.001) -> Detections:
+    """Response → per-cell peaks → occupancy and quality gates →
+    deficit-fill priority selection → subpixel positions → threshold
+    adaptation.  ``quality`` may be a 0-d tensor (the adaptive threshold
+    carried in the map state).  K5 in three launches on CUDA tensors, the
+    plain version on CPU tensors."""
+    if not _dispatch(img, "detect_grid"):
+        return _detect_grid_plain(img, existing_xy, existing_valid, cell=cell, border=border,
+                                  quality=quality)
+    count(detect_grid, "calls")
+    x = tuple(map(one, (img, existing_xy, existing_valid)))
+    if isinstance(quality, torch.Tensor):
+        q = one(quality.to(device=img.device, dtype=torch.float32))
+    else:
+        q = float(quality)
+    if any(map(wrapped, x + (q,))):      # under vmap: one call over the rows, by the op's rule
+        if not isinstance(q, torch.Tensor):
+            q = torch.full((1,), q, dtype=torch.float32, device=img.device)
+        out = _DETECT_OP(*x, q, int(cell), int(border))
+    else:
+        out = _launch_detect(*x, q, int(cell), int(border))
+    return Detections(*(o[0] for o in out))
+
+
+detect_grid.launches = 0
+detect_grid.calls = 0

@@ -9,6 +9,12 @@ JAX package's one-hot matmul is exact, so the gather returns the same
 values.  CLAHE counts its per-tile histograms with ``scatter_add_``
 where the JAX package sums a one-hot tensor; the counts are exact
 integers either way.
+
+``rgba_to_gray`` and ``pyr_down`` (so ``build_pyramid``) dispatch on the
+device: CUDA tensors launch K7 (csrc/image_kernels.cu,
+ops/image_kernels.py), one launch per conversion and per pyramid level,
+bit-equal to the plain versions; CPU tensors run the plain versions; any
+other device raises.
 """
 
 from __future__ import annotations
@@ -17,11 +23,29 @@ from typing import Tuple
 
 import torch
 
+from alvaar_tpu_torch.ops import image_kernels
+from alvaar_tpu_torch.utils.custom_ops import dispatch as _dispatch
+from alvaar_tpu_torch.utils.stats import count
 
-def rgba_to_gray(frame):
-    """[H, W, 4] (or [H, W, 3]) → [H, W] float32 luma (BT.601)."""
+
+def _rgba_to_gray_plain(frame):
     f = frame.to(torch.float32)
     return f[..., 0] * 0.299 + f[..., 1] * 0.587 + f[..., 2] * 0.114
+
+
+def rgba_to_gray(frame):
+    """[..., H, W, 4] (or [..., H, W, 3]) → [..., H, W] float32 luma
+    (BT.601): K7's gray kernel in one launch on CUDA tensors (u8 and
+    float32 as they are, other dtypes converted to float32 first), the
+    plain version on CPU tensors."""
+    if not _dispatch(frame, "rgba_to_gray"):
+        return _rgba_to_gray_plain(frame)
+    if frame.dtype not in (torch.uint8, torch.float32):
+        frame = frame.to(torch.float32)
+    out = image_kernels.launch_gray(frame.contiguous())
+    if out.numel():
+        count(rgba_to_gray, "launches")
+    return out
 
 
 def _edge_index(n: int, r: int, device):
@@ -46,20 +70,36 @@ def gaussian_blur3(img):
     return _sep_conv(img, [0.25, 0.5, 0.25])
 
 
-def pyr_down(img):
-    """5-tap binomial blur [1, 4, 6, 4, 1] / 16 + 2x decimation of
-    [..., H, W]."""
+def _pyr_down_plain(img):
     blurred = _sep_conv(img, [0.0625, 0.25, 0.375, 0.25, 0.0625])
     return blurred[..., ::2, ::2].contiguous()   # the KLT kernel reads it densely
+
+
+def pyr_down(img):
+    """5-tap binomial blur [1, 4, 6, 4, 1] / 16 + 2x decimation of float32
+    [H, W] or [B, H, W]: K7's level kernel in one launch on CUDA tensors,
+    the plain version on CPU tensors.  The result is contiguous."""
+    if not _dispatch(img, "pyr_down"):
+        return _pyr_down_plain(img)
+    out = image_kernels.launch_pyr_down(img.contiguous())
+    if out.numel():
+        count(pyr_down, "launches")
+    return out
 
 
 def build_pyramid(img, levels: int) -> Tuple[torch.Tensor, ...]:
     """Image pyramid of [H, W] or a stack [B, H, W], level 0 = full
     resolution."""
+    count(build_pyramid, "calls")
     pyr = [img]
     for _ in range(levels - 1):
         pyr.append(pyr_down(pyr[-1]))
     return tuple(pyr)
+
+
+rgba_to_gray.launches = 0
+pyr_down.launches = 0
+build_pyramid.calls = 0
 
 
 def sobel_gradients(img):

@@ -11,6 +11,17 @@ compares as ``bf16(v1) - bf16(v0) > 0`` (the f32 accumulation of two bf16
 values is exact).  Here each pair is a direct gather, with the two values
 rounded to bf16 first, which gives the same bits.  Descriptor words are
 int32 tensors holding the uint32 bits.
+
+``describe`` dispatches on the device: CUDA tensors launch K3
+(csrc/image_kernels.cu, ops/image_kernels.py), every keypoint in one
+launch, through the custom op ``alvaar_tpu_torch::describe``, whose
+batching rule makes one launch over all the rows that ``torch.func.vmap``
+stacks (a lone call, outside any transform, goes straight to the
+launcher); CPU tensors run the plain version; any other device raises.
+K3 sums the moments in float64 where the plain version's ``torch.sum``
+takes float32 in its own order, so its angles are within a few float32
+ulps of the plain ones, and its bits equal but where an angle lies on a
+steering-bin boundary.
 """
 
 from __future__ import annotations
@@ -20,7 +31,10 @@ import math
 import numpy as np
 import torch
 
+from alvaar_tpu_torch.ops import image_kernels
 from alvaar_tpu_torch.ops.image import _sep_conv, gather_patches
+from alvaar_tpu_torch.utils.custom_ops import dispatch as _dispatch, one, rows_rule, wrapped
+from alvaar_tpu_torch.utils.stats import count
 from alvaar_tpu_torch.utils.tables import device_table
 
 PATCH_RADIUS = 15
@@ -66,6 +80,7 @@ def _circle_masks():
 
 
 _TAP_LUTS = _make_tap_luts()          # [30, 256, 2] int64
+_TAP_LUTS_I32 = _TAP_LUTS.astype(np.int32)    # K3's copy
 _MASK_X, _MASK_Y = _circle_masks()    # [31, 31] float32
 
 
@@ -100,9 +115,7 @@ def pack_bits(bits):
     return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
 
 
-def describe(img, xy, valid, *, blur: bool = True):
-    """Oriented 256-bit descriptors at keypoints.
-    Returns (desc [N, 8] int32 — zeros where invalid, angle [N])."""
+def _describe_plain(img, xy, valid, *, blur: bool = True):
     if blur:
         img = _sep_conv(img, [0.2] * 5)
     patches = gather_patches(img, _patch_centers(img, xy), _PSZ, _PLO)
@@ -118,3 +131,50 @@ def describe(img, xy, valid, *, blur: bool = True):
     v1 = torch.gather(flat, 1, taps[..., 1])
     desc = pack_bits(v1 - v0 > 0)
     return torch.where(valid[:, None], desc, 0), angle
+
+
+# ---------------------------------------------------------------------------
+# K3's custom op: the plain version row by row on CPU tensors, the kernel on
+# CUDA tensors, one launch over all the rows under vmap
+# ---------------------------------------------------------------------------
+
+def _describe_rows(img, xy, valid, blur: bool):
+    rows = [_describe_plain(img[i], xy[i], valid[i], blur=blur) for i in range(img.shape[0])]
+    return torch.stack([r[0] for r in rows]), torch.stack([r[1] for r in rows])
+
+
+def _launch_describe(img, xy, valid, blur: bool):
+    desc, angle = image_kernels.launch_describe(
+        img, xy, valid, device_table(_TAP_LUTS_I32, img.device), blur)
+    if desc.numel():
+        count(describe, "launches")
+    return desc, angle
+
+
+_DESCRIBE_OP = torch.library.custom_op(
+    "alvaar_tpu_torch::describe", _describe_rows, mutates_args=(), device_types="cpu",
+    schema="(Tensor img, Tensor xy, Tensor valid, bool blur) -> (Tensor, Tensor)")
+_DESCRIBE_OP.register_kernel("cuda")(_launch_describe)
+_DESCRIBE_OP.register_fake(
+    lambda img, xy, valid, blur: (xy.new_empty(xy.shape[:2] + (DESC_WORDS,), dtype=torch.int32),
+                                  xy.new_empty(xy.shape[:2])))
+_DESCRIBE_OP.register_vmap(rows_rule(_DESCRIBE_OP))
+
+
+def describe(img, xy, valid, *, blur: bool = True):
+    """Oriented 256-bit descriptors at keypoints.
+    Returns (desc [N, 8] int32 — zeros where invalid, angle [N]): K3 in one
+    launch on CUDA tensors, the plain version on CPU tensors."""
+    if not _dispatch(img, "describe"):
+        return _describe_plain(img, xy, valid, blur=blur)
+    count(describe, "calls")
+    x = tuple(map(one, (img, xy, valid)))
+    if any(map(wrapped, x)):      # under vmap: one launch over the rows, by the op's rule
+        desc, angle = _DESCRIBE_OP(*x, bool(blur))
+    else:
+        desc, angle = _launch_describe(*x, bool(blur))
+    return desc[0], angle[0]
+
+
+describe.launches = 0
+describe.calls = 0

@@ -65,9 +65,12 @@ from alvaar_tpu_torch.config import SlamConfig
 from alvaar_tpu_torch.frontend.step import StepOutput
 from alvaar_tpu_torch.geom.camera import Camera
 from alvaar_tpu_torch.loopclosure.detector import LoopDB, _distances
+from alvaar_tpu_torch.ops.detect import detect_grid
 from alvaar_tpu_torch.ops.hamming import hamming_matrix, hamming_min_crossbag
+from alvaar_tpu_torch.ops.image import build_pyramid, pyr_down, rgba_to_gray
 from alvaar_tpu_torch.ops.klt import fb_klt_track, klt_pyramidal
 from alvaar_tpu_torch.ops.lk_level import lk_level
+from alvaar_tpu_torch.ops.orb import describe
 from alvaar_tpu_torch.solvers.ba import _residuals_jacobians, ba_linearize, ba_residuals, ba_schur
 from alvaar_tpu_torch.solvers.pnp import pnp_refine
 from alvaar_tpu_torch.utils.pinned import UploadRing
@@ -90,7 +93,9 @@ def _counters():
             (pnp_refine, "launches"), (_residuals_jacobians, "calls"),
             (hamming_min_crossbag, "launches"), (hamming_matrix, "launches"),
             (match_to_local_map, "calls"), (_distances, "calls"),
-            (multistream_step_local, "syncs"),
+            (rgba_to_gray, "launches"), (pyr_down, "launches"), (build_pyramid, "calls"),
+            (detect_grid, "launches"), (detect_grid, "calls"), (describe, "launches"),
+            (describe, "calls"), (multistream_step_local, "syncs"),
             (host_bool, "syncs"))
 
 

@@ -106,6 +106,27 @@ Phases, each printed on its own lines:
    them is checked against the kernel's, printed) and commit c513ebb's
    kernel's device times (``HAMMING_C513EBB_DEVICE_MS``); a lone
    ``hamming_min_crossbag`` call's host and CUDA-event times;
+2e. the image kernels (csrc/image_kernels.cu), built with the others,
+   right after phase 2d: K7's gray conversion (u8 RGBA, and float32 RGB)
+   and 3-level pyramid on one 640x480 frame, 16 x 640x480 and 64 x
+   1920x1080 stacks (one launch, two); K5 (``detect_grid``, three
+   launches) at the default's cell 40 with 0 and 120 live keypoints,
+   FAST's 50, ACCURATE's 30, ``hd_serving()``'s 96 at 1920x1080, and S = 3
+   and 8 rows under ``torch.func.vmap``; K3 (``describe``, one launch) at
+   K = 192, 130, 352, 240 at 960x540, and S = 3 and 8 rows: K7 and K5
+   bit-equal to their plain versions (ops/image.py ``_rgba_to_gray_plain``,
+   ``_pyr_down_plain``; ops/detect.py ``_detect_grid_plain`` and the
+   response), K3's angles within 2e-5 rad and its words bit-equal at every
+   keypoint whose plain angle lies more than 1e-4 rad from a steering
+   bin's edge (those inside printed), run to run and row by row.  Times at
+   those shapes by CUDA events and ``torch.profiler`` beside the plain
+   versions', the bound (the bytes at 3.35 TB/s or the function's float32
+   operations at 67 TFLOP/s) and, for a pyramid level, ``F.conv2d`` with
+   stride 2 on a replicate-padded input (TF32 off).  Then ``AlvaAR`` on
+   golden frames 0-29 as u8 RGBA: one gray launch and two pyramid launches
+   a frame.  Every later path checks K5's three launches per
+   ``detect_grid`` call, K3's one per ``describe`` call and at most two
+   pyramid launches per pyramid (``_image_path``);
 3. the main path under the default config (5-point and homography
    bootstrap): ``AlvaAR.find_camera_pose`` over the 120-frame 640x480
    golden sequence on the card, held to the native reference's bars
@@ -117,7 +138,10 @@ Phases, each printed on its own lines:
    none through ``klt_pyramidal`` or ``lk_level``, and every tracking
    frame (at status 1 after a frame at status 1) K9 exactly once; the
    kernels per tracking frame under the profiler at least 2000 under commit
-   14aa8df's median (``PARENT_TRACKING_KERNELS``, PnP eager there);
+   14aa8df's median (``PARENT_TRACKING_KERNELS``, PnP eager there), and at
+   least 40 under commit 7178a79's 737 per tracking frame and 350 under its
+   3929 per keyframe frame (``IMAGE_PARENT_*_KERNELS``: the image ops eager
+   there);
    statuses and poses
    bit-equal to this tree's earlier runs (``RUN_DIGESTS``; commit 14aa8df's,
    PnP eager, printed beside); local BA's kernels launched and
@@ -622,13 +646,14 @@ def phase_kernel(frames, card):
 
     # every kernel source of the port at once, one nvcc each
     from concurrent.futures import ThreadPoolExecutor
-    from alvaar_tpu_torch.ops import hamming_kernel
+    from alvaar_tpu_torch.ops import hamming_kernel, image_kernels
     from alvaar_tpu_torch.solvers import ba_kernels, pnp_kernel
     t0 = time.time()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         builds = [pool.submit(b, verbose=True) for b in (lk.build_kernel, ba_kernels.build_kernel,
                                                           pnp_kernel.build_kernel,
-                                                          hamming_kernel.build_kernel)]
+                                                          hamming_kernel.build_kernel,
+                                                          image_kernels.build_kernel)]
         libs = [b.result() for b in builds]
     print(f"[kernel] built {', '.join(os.path.relpath(lib, ROOT) for lib in libs)} in "
           f"{time.time() - t0:.2f} s")
@@ -1687,6 +1712,460 @@ def phase_hamming_kernel(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 2e: the image kernels K7, K5 and K3 (csrc/image_kernels.cu)
+# ---------------------------------------------------------------------------
+
+# (name, W, H, cell, live keypoints, S): the default's grid (cell 40, C =
+# 192), with the keyframe pass's live keypoints, FAST's (cell 50, C = 130)
+# and ACCURATE's (cell 30, C = 352), hd_serving()'s at 1920x1080 (cell 96,
+# C = 240; partial cells at FAST's, ACCURATE's and hd_serving()'s), and the
+# batched keyframe pass's S = 3 and 8 rows under vmap
+IMAGE_DETECT_CASES = (("640x480 cell 40", 640, 480, 40, 0, 1),
+                      ("640x480 cell 40, 120 live", 640, 480, 40, 120, 1),
+                      ("640x480 cell 50 (FAST), 60 live", 640, 480, 50, 60, 1),
+                      ("640x480 cell 30 (ACCURATE), 200 live", 640, 480, 30, 200, 1),
+                      ("1920x1080 cell 96 (hd_serving), 100 live", 1920, 1080, 96, 100, 1),
+                      ("3 x 640x480 cell 40, 120 live", 640, 480, 40, 120, 3),
+                      ("8 x 640x480 cell 40, 120 live", 640, 480, 40, 120, 8))
+# (name, W, H, N, S): describe at the default's K = 192, FAST's 130,
+# ACCURATE's 352, hd_serving()'s 240 at level 1 (960x540), S = 3 and 8 rows
+IMAGE_DESCRIBE_CASES = (("640x480 K=192", 640, 480, 192, 1), ("640x480 K=130", 640, 480, 130, 1),
+                        ("640x480 K=352", 640, 480, 352, 1),
+                        ("960x540 K=240 (hd_serving level 1)", 960, 540, 240, 1),
+                        ("3 x 640x480 K=192", 640, 480, 192, 3),
+                        ("8 x 640x480 K=192", 640, 480, 192, 8))
+# (name, W, H, B): K7 on one frame, the 16-stream step's stack and the
+# 1080p B = 64 step's
+IMAGE_STACK_CASES = (("640x480", 640, 480, 1), ("16 x 640x480", 640, 480, 16),
+                     ("64 x 1920x1080", 1920, 1080, 64))
+IMAGE_QUICK_STACKS = (("640x480", 640, 480, 1), ("3 x 640x480", 640, 480, 3),
+                      ("2 x 1920x1080", 1920, 1080, 2))     # the CPU rehearsal's cut
+IMAGE_RGBA_FRAMES = 30     # 2e's RGBA path: golden frames 0-29 as u8 RGBA through AlvaAR
+# the function's float32 operations per pixel of detect_grid's response,
+# evaluated separably (each stencil's taps once a pixel): the 3x3 blur 10,
+# Sobel's two gradients 8, their three products 3, the three box means 30,
+# the min-eig 10
+DETECT_FLOPS_PER_PIXEL = 61
+IMAGE_PATH_LAUNCHES = {"rgba_to_gray": 0, "pyr_down": 0, "detect_grid": 0, "describe": 0}
+_IMAGE_FRAMES = {}
+
+
+def _image_zero() -> None:
+    from alvaar_tpu_torch.ops import detect, image, orb
+    image.rgba_to_gray.launches = image.pyr_down.launches = image.build_pyramid.calls = 0
+    detect.detect_grid.launches = detect.detect_grid.calls = 0
+    orb.describe.launches = orb.describe.calls = 0
+
+
+def _image_counts() -> dict:
+    from alvaar_tpu_torch.ops import detect, image, orb
+    return dict(gray=image.rgba_to_gray.launches, pyr=image.pyr_down.launches,
+                pyramids=image.build_pyramid.calls, detect=detect.detect_grid.launches,
+                detect_calls=detect.detect_grid.calls, describe=orb.describe.launches,
+                describe_calls=orb.describe.calls)
+
+
+def _image_path(tag: str, keyframes: bool = True, gray: bool = False) -> None:
+    """After a path driven from zeroed counters: K5 launched three times
+    per ``detect_grid`` call (a batched keyframe pass makes one call for
+    all its rows), K3 once per ``describe`` call, K7 at most twice per
+    pyramid (once a level past the first) and, with ``gray``, at least once
+    for a gray conversion; with ``keyframes`` at least one detection.  The
+    launches go into the kernel line."""
+    from alvaar_tpu_torch.ops.image_kernels import DETECT_LAUNCHES
+    c = _image_counts()
+    print(f"[{tag}] image kernels on the path: rgba_to_gray {c['gray']} launches, pyr_down "
+          f"{c['pyr']} launches in {c['pyramids']} pyramids, detect_grid {c['detect']} launches "
+          f"in {c['detect_calls']} calls, describe {c['describe']} launches in "
+          f"{c['describe_calls']} calls")
+    _check(c["detect"] == DETECT_LAUNCHES * c["detect_calls"],
+           f"[{tag}] K5's launches differ from {DETECT_LAUNCHES} per call: {c}")
+    _check(c["describe"] == c["describe_calls"], f"[{tag}] K3's launches differ from one per "
+                                                 f"call: {c}")
+    _check(c["pyr"] <= 2 * c["pyramids"] and (c["pyr"] > 0 or c["pyramids"] == 0),
+           f"[{tag}] K7's pyramid launches {c['pyr']} for {c['pyramids']} pyramids")
+    _check(c["detect_calls"] > 0 and c["describe_calls"] > 0 or not keyframes,
+           f"[{tag}] no detection or description on the path")
+    _check(c["gray"] > 0 or not gray, f"[{tag}] no gray conversion on the path")
+    for key, name in (("gray", "rgba_to_gray"), ("pyr", "pyr_down"), ("detect", "detect_grid"),
+                      ("describe", "describe")):
+        IMAGE_PATH_LAUNCHES[name] += c[key]
+
+
+def _image_frames(w: int, h: int, n: int, dev):
+    """[n, h, w] float32 on ``dev``: the two-plane scene's 640x480 frames at
+    the golden trajectory's poses 1..n (tests/image_problems.py), resized
+    bilinearly to w x h where that differs."""
+    import torch
+    import image_problems as ip
+    key = (w, h, n, str(dev))
+    if key not in _IMAGE_FRAMES:
+        base = [_IMAGE_FRAMES.setdefault((640, 480, i), ip.frame(640, 480, index=i + 1))
+                for i in range(n)]
+        x = torch.as_tensor(np.stack(base), device=dev)
+        if (w, h) != (640, 480):
+            x = torch.nn.functional.interpolate(x[:, None], size=(h, w), mode="bilinear",
+                                                align_corners=False)[:, 0].contiguous()
+        _IMAGE_FRAMES[key] = x
+    return _IMAGE_FRAMES[key]
+
+
+def _image_stack(w: int, h: int, b: int, dev):
+    """[b, h, w] float32: one frame rolled by (3 i, 5 i) pixels in row i."""
+    import torch
+    x = _image_frames(w, h, 1, dev)[0]
+    return torch.stack([torch.roll(x, (3 * i, 5 * i), (0, 1)) for i in range(b)])
+
+
+def _rows(f, S: int):
+    """``f`` as one call (S = 1, its outputs given a leading row) or under
+    ``torch.func.vmap`` over S rows (the batched keyframe pass's call)."""
+    import torch
+    if S > 1:
+        return torch.func.vmap(f)
+    return lambda *a: tuple(o[None] for o in f(*(x[0] for x in a)))
+
+
+def _image_detect_case(name, W, H, cell, n_live, S, dev, border=20) -> None:
+    """K5 on one case: three launches per call (under vmap for S rows),
+    every output and the response bit-equal to the plain version's (with
+    IEEE's square root on the CPU, as on the card), run to run and row by
+    row."""
+    import torch
+    import image_problems as ip
+    from alvaar_tpu_torch.ops import detect, image_kernels
+    imgs = _image_frames(W, H, S, dev)
+    rng = np.random.default_rng(W + H + cell + n_live + S)
+    live = [ip.existing(rng, n_live, W, H) for _ in range(S)]
+    ex_xy = torch.as_tensor(np.stack([e[0] for e in live]), device=dev)
+    ex_valid = torch.as_tensor(np.stack([e[1] for e in live]), device=dev)
+    q = torch.tensor([0.001 * 2.0 ** (s % 3 - 1) for s in range(S)], device=dev)
+    fields = ("xy", "score", "valid", "new_quality")
+
+    def call(i, x, v, qq):
+        d = detect.detect_grid(i, x, v, cell=cell, border=border,
+                               quality=qq if S > 1 else float(qq))
+        return tuple(getattr(d, f) for f in fields)
+
+    fn = _rows(call, S)
+    _image_zero()
+    got = fn(imgs, ex_xy, ex_valid, q)
+    launched = detect.detect_grid.launches
+    again = fn(imgs, ex_xy, ex_valid, q)
+    *_, resp = image_kernels.launch_detect(imgs, ex_xy, ex_valid, q, cell, border)
+    with ip.ieee_sqrt():
+        plain = [detect._detect_grid_plain(imgs[s], ex_xy[s], ex_valid[s], cell=cell,
+                                           border=border, quality=q[s]) for s in range(S)]
+        plain_resp = [detect.shi_tomasi_response(imgs[s]) for s in range(S)]
+    alone = [call(imgs[s], ex_xy[s], ex_valid[s], q[s]) for s in range(S)] if S > 1 else None
+    plain_equal = all(torch.equal(got[k][s], getattr(plain[s], f)) for s in range(S)
+                      for k, f in enumerate(fields))
+    resp_equal = all(torch.equal(resp[s], plain_resp[s]) for s in range(S))
+    resp_err = max(float((resp[s] - plain_resp[s]).abs().max()) for s in range(S))
+    rows_equal = alone is None or all(torch.equal(got[k][s], alone[s][k]) for s in range(S)
+                                      for k in range(4))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    C = got[0].shape[1]
+    print(f"[image] detect_grid {name} (S={S}, C={C}, {n_live} live keypoints): xy, score, "
+          f"valid and new_quality bit-equal to the plain version {plain_equal}, the response "
+          f"{resp_equal} (max |diff| {resp_err:.3e}), run to run {same}, rows to their calls "
+          f"alone {rows_equal}; launches {launched}; {int(got[2].sum())} valid, new quality "
+          f"{[round(float(x), 8) for x in got[3]]}")
+    _check(plain_equal and resp_equal, f"[image] detect_grid {name}: differs from the plain "
+                                       f"version")
+    _check(same and rows_equal, f"[image] detect_grid {name}: differs run to run or by row")
+    _check(launched == image_kernels.DETECT_LAUNCHES,
+           f"[image] detect_grid {name}: {launched} launches")
+
+
+def _image_describe_case(name, W, H, N, S, dev):
+    """K3 on one case: one launch per call (under vmap for S rows); angles
+    within ``ANGLE_BAR`` of the plain version's and words bit-equal but
+    where the plain angle lies within ``BIN_MARGIN`` of a steering bin's
+    edge; run to run and row by row equal.  The keypoints: half the
+    image's detections at the default cell, half tests/image_problems.py's
+    (edges, past them, half-pixel ties, uniform).  Returns (the largest
+    angle difference, keypoints inside the margin)."""
+    import torch
+    import image_problems as ip
+    from alvaar_tpu_torch.ops import detect, orb
+    imgs = _image_frames(W, H, S, dev)
+    rng = np.random.default_rng(W + H + N + S)
+    xy = []
+    for s in range(S):
+        d = detect._detect_grid_plain(imgs[s], torch.zeros((0, 2), device=dev),
+                                      torch.zeros(0, dtype=torch.bool, device=dev), cell=40,
+                                      border=20)
+        det = d.xy[d.valid][:N // 2].cpu().numpy()
+        xy.append(np.concatenate([det, ip.keypoints(rng, N - len(det), W, H)]))
+    xy = torch.as_tensor(np.stack(xy), device=dev)
+    valid = torch.as_tensor(rng.random((S, N)) < 0.9, device=dev)
+    fn = _rows(lambda i, p, v: orb.describe(i, p, v), S)
+    _image_zero()
+    desc, angle = fn(imgs, xy, valid)
+    launched = orb.describe.launches
+    again = fn(imgs, xy, valid)
+    plain = [orb._describe_plain(imgs[s], xy[s], valid[s]) for s in range(S)]
+    pd = torch.stack([p[0] for p in plain])
+    pa = torch.stack([p[1] for p in plain])
+    alone = [orb.describe(imgs[s], xy[s], valid[s]) for s in range(S)] if S > 1 else None
+    err = float((angle - pa).abs().max())
+    inside, off, off_in = ip.words_outside_margin(desc, pd, pa)
+    rows_equal = alone is None or all(torch.equal(desc[s], alone[s][0])
+                                      and torch.equal(angle[s], alone[s][1]) for s in range(S))
+    same = torch.equal(desc, again[0]) and torch.equal(angle, again[1])
+    print(f"[image] describe {name} (S={S}, N={N}): angles within {err:.3e} rad of the plain "
+          f"version's (bar {ip.ANGLE_BAR}); {inside} keypoints within {ip.BIN_MARGIN} rad of a "
+          f"bin edge, descriptors differing outside that margin {off}, inside it {off_in}; "
+          f"invalid ones zero {bool((desc[~valid] == 0).all())}; run to run {same}, rows to "
+          f"their calls alone {rows_equal}; launches {launched}")
+    _check(err <= ip.ANGLE_BAR, f"[image] describe {name}: angles {err} rad from the plain ones")
+    _check(off == 0, f"[image] describe {name}: {off} descriptors differ outside the margin")
+    _check(same and rows_equal, f"[image] describe {name}: differs run to run or by row")
+    _check(launched == 1, f"[image] describe {name}: {launched} launches")
+    return err, inside
+
+
+def _image_rgba_stack(W, H, B, dev):
+    """[B, H, W, 4] u8 RGBA (tests/image_problems.py's channels) of
+    ``_image_stack``'s rows, rolled on the card."""
+    import torch
+    import image_problems as ip
+    x = torch.as_tensor(ip.rgba(_image_frames(W, H, 1, dev)[0].cpu().numpy()), device=dev)
+    return torch.stack([torch.roll(x, (3 * i, 5 * i), (0, 1)) for i in range(B)])
+
+
+def _image_stack_case(name, W, H, B, dev) -> None:
+    """K7 on one stack: the gray conversion of u8 RGBA [B, H, W, 4] (and of
+    float32 RGB at B = 1) in one launch and the 3-level pyramid of [B, H,
+    W] in two, bit-equal to the plain versions."""
+    import torch
+    from alvaar_tpu_torch.ops import image
+    x = _image_stack(W, H, B, dev)
+    rgba = _image_rgba_stack(W, H, B, dev)
+    _image_zero()
+    gray = image.rgba_to_gray(rgba if B > 1 else rgba[0])
+    pyr = image.build_pyramid(x if B > 1 else x[0], 3)
+    c = _image_counts()
+    gray_equal = torch.equal(gray, image._rgba_to_gray_plain(rgba if B > 1 else rgba[0]))
+    plain = [x if B > 1 else x[0]]
+    for _ in range(2):
+        plain.append(image._pyr_down_plain(plain[-1]))
+    pyr_equal = all(torch.equal(a, b) for a, b in zip(pyr, plain))
+    extra = ""
+    if B == 1:
+        rgb = rgba[0, ..., :3].to(torch.float32) + 0.25
+        f32_equal = torch.equal(image.rgba_to_gray(rgb), image._rgba_to_gray_plain(rgb))
+        extra = f", float32 RGB {f32_equal}"
+        _check(f32_equal, f"[image] rgba_to_gray {name}: float32 RGB differs")
+    print(f"[image] K7 {name}: gray from u8 RGBA bit-equal to the plain version {gray_equal}"
+          f"{extra}; the 3-level pyramid {pyr_equal} (levels {[tuple(p.shape) for p in pyr]}); "
+          f"launches: gray {c['gray']}, pyramid {c['pyr']}")
+    _check(gray_equal and pyr_equal, f"[image] K7 {name}: differs from the plain version")
+    _check(c["gray"] == 1 and c["pyr"] == 2, f"[image] K7 {name}: launches {c}")
+
+
+def _image_checks(dev, quick: bool = False) -> dict:
+    """Phase 2e's bars on ``dev`` (the card, or the CPU rehearsal of the
+    source; ``quick``: its cut stacks).  Returns K3's largest angle
+    difference and the keypoints inside the bin margin per case."""
+    for case in (IMAGE_QUICK_STACKS if quick else IMAGE_STACK_CASES):
+        _image_stack_case(*case, dev)
+    for case in IMAGE_DETECT_CASES:
+        _image_detect_case(*case, dev)
+    out = {}
+    for case in IMAGE_DESCRIBE_CASES:
+        out[case[0]] = _image_describe_case(*case, dev)
+    return out
+
+
+def _image_bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the larger of the bytes at 3.35 TB/s and the
+    float32 operations at 67 TFLOP/s."""
+    t_b, t_o = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOP_PER_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def _describe_bytes(img, xy) -> float:
+    """The bytes K3's function needs on this run's keypoints: the union of
+    their 40 x 40 blur windows (the image's pixels, clamped at its edges),
+    the keypoints, their flags, the steering tables (all 30 bins' rows) and
+    the outputs."""
+    S, H, W = img.shape
+    N = xy.shape[1]
+    c = np.floor(xy.cpu().numpy() + 0.5).astype(np.int64)
+    cx = np.clip(c[..., 0], 17, W - 19)
+    cy = np.clip(c[..., 1], 17, H - 19)
+    mask = np.zeros((S, H, W), bool)
+    for s in range(S):
+        for x0, y0 in zip(cx[s] - 19, cy[s] - 19):
+            mask[s, max(y0, 0):y0 + 40, max(x0, 0):x0 + 40] = True
+    return float(mask.sum()) * 4 + S * N * (8 + 1) + 30 * 256 * 2 * 4 + S * N * (32 + 4)
+
+
+def _image_time(name, fn, plain_fn, kernel_name, nbytes, flops, card, library=None):
+    """One kernel's times at one shape beside the bound, the plain version
+    and (``library``) one PyTorch call of the same function."""
+    ms = _time_ms(fn)
+    dev_ms, n_launch = _device_ms(fn, kernel_name)
+    bound_ms, bound_by = _image_bound(nbytes, flops)
+    plain_ms = _time_ms(plain_fn, reps=3, rounds=3, warmup=1)
+    lib_ms = _time_ms(library) if library is not None else None
+    lib = f"; the library call {lib_ms:.4f} ms" if lib_ms is not None else ""
+    print(f"[image] {name}: {ms:.4f} ms per call (CUDA events), device {dev_ms:.4f} ms in "
+          f"{n_launch:g} launches (torch.profiler), {bound_ms / dev_ms:.2%} of the bound "
+          f"{bound_ms * 1e3:.3f} us by {bound_by} ({nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} "
+          f"MFLOP){lib}; plain version {plain_ms:.3f} ms [{card}]")
+    return dict(shape=name, ms=ms, device_ms=dev_ms, launches_per_call=n_launch, bytes=nbytes,
+                flops=flops, bound_ms=bound_ms, bound_by=bound_by, plain_ms=plain_ms,
+                library_ms=lib_ms)
+
+
+def _conv_level(x):
+    """One pyramid level as one PyTorch call: ``F.conv2d`` with stride 2 of
+    the binomial's 5 x 5 outer product on a replicate-padded [B, 1, H + 4,
+    W + 4] input (padded outside the call), TF32 off."""
+    import torch
+    import torch.nn.functional as F
+    k = torch.tensor([0.0625, 0.25, 0.375, 0.25, 0.0625], device=x.device)
+    weight = (k[:, None] * k[None, :])[None, None]
+    padded = F.pad(x.reshape(-1, 1, *x.shape[-2:]), (2, 2, 2, 2), mode="replicate")
+    return lambda: F.conv2d(padded, weight, stride=2)
+
+
+def _image_timing(card) -> dict:
+    """Phase 2e's times at the main path's shapes: K7's gray conversion and
+    pyramid levels, K5, K3.  Returns the kernel line's rows."""
+    import torch
+    import image_problems as ip
+    from alvaar_tpu_torch.ops import detect, image, orb
+    dev = torch.device("cuda")
+    rows = {k: [] for k in IMAGE_PATH_LAUNCHES}
+    for name, W, H, B in IMAGE_STACK_CASES:
+        x = _image_stack(W, H, B, dev)
+        x = x if B > 1 else x[0]
+        rgba = _image_rgba_stack(W, H, B, dev)
+        rgba = rgba if B > 1 else rgba[0]
+        px = B * H * W
+        rows["rgba_to_gray"].append(_image_time(
+            f"rgba_to_gray {name} u8 RGBA", lambda: image.rgba_to_gray(rgba),
+            lambda: image._rgba_to_gray_plain(rgba), "gray_kernel", px * 4 + px * 4, px * 5,
+            card))
+        ho, wo = (H + 1) // 2, (W + 1) // 2
+        allow = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            conv = _conv_level(x)
+            got = image.pyr_down(x)
+            lib_err = float((conv().reshape(got.shape) - got).abs().max())
+            rows["pyr_down"].append(_image_time(
+                f"pyr_down {name} -> {wo}x{ho}", lambda: image.pyr_down(x),
+                lambda: image._pyr_down_plain(x), "pyr_down_kernel", (px + B * ho * wo) * 4,
+                B * (ho * W + ho * wo) * 9, card, library=conv))
+        finally:
+            torch.backends.cudnn.allow_tf32 = allow
+        print(f"[image] pyr_down {name}: the conv2d level against the kernel's, max |diff| "
+              f"{lib_err:.3e} (another order of summation)")
+    for name, W, H, cell, n_live, S in IMAGE_DETECT_CASES:
+        imgs = _image_frames(W, H, S, dev)
+        rng = np.random.default_rng(W + H + cell + n_live + S)
+        live = [ip.existing(rng, n_live, W, H) for _ in range(S)]
+        ex_xy = torch.as_tensor(np.stack([e[0] for e in live]), device=dev)
+        ex_valid = torch.as_tensor(np.stack([e[1] for e in live]), device=dev)
+        q = torch.full((S,), 0.001, device=dev)
+        K = ex_xy.shape[1]
+        C = -(-H // cell) * -(-W // cell)
+        fields = lambda d: (d.xy, d.score, d.valid, d.new_quality)
+        call = lambda i, x, v, qq: fields(detect.detect_grid(i, x, v, cell=cell, border=20,
+                                                             quality=qq))
+        plain = lambda i, x, v, qq: fields(detect._detect_grid_plain(i, x, v, cell=cell,
+                                                                     border=20, quality=qq))
+        if S == 1:
+            fn = lambda: call(imgs[0], ex_xy[0], ex_valid[0], q[0])
+            pfn = lambda: plain(imgs[0], ex_xy[0], ex_valid[0], q[0])
+        else:
+            fn = lambda: torch.func.vmap(call)(imgs, ex_xy, ex_valid, q)
+            pfn = lambda: torch.func.vmap(plain)(imgs, ex_xy, ex_valid, q)
+        nbytes = S * (H * W * 4 + K * 9 + 4 + C * 13 + 4)
+        flops = S * (H * W * DETECT_FLOPS_PER_PIXEL + 2 * C * (30 + 5 * n_live)
+                     + 2 * C * np.log2(2 * C))
+        rows["detect_grid"].append(_image_time(f"detect_grid {name}", fn, pfn, "detect_", nbytes,
+                                               flops, card))
+    for name, W, H, N, S in IMAGE_DESCRIBE_CASES:
+        imgs = _image_frames(W, H, S, dev)
+        rng = np.random.default_rng(W + H + N + S)
+        xy = torch.as_tensor(np.stack([ip.keypoints(rng, N, W, H) for _ in range(S)]),
+                             device=dev)
+        valid = torch.ones((S, N), dtype=torch.bool, device=dev)
+        if S == 1:
+            fn = lambda: orb.describe(imgs[0], xy[0], valid[0])
+            pfn = lambda: orb._describe_plain(imgs[0], xy[0], valid[0])
+        else:
+            fn = lambda: torch.func.vmap(orb.describe)(imgs, xy, valid)
+            pfn = lambda: torch.func.vmap(orb._describe_plain)(imgs, xy, valid)
+        flops = S * N * (36 * 40 * 9 + 36 * 36 * 9 + 709 * 4 + 256 * 3)
+        rows["describe"].append(_image_time(f"describe {name}", fn, pfn, "describe_kernel",
+                                            _describe_bytes(imgs, xy), flops, card))
+    return rows
+
+
+def _image_rgba_path(frames, card) -> None:
+    """2e's RGBA path: ``AlvaAR.find_camera_pose`` on golden frames 0-29
+    as u8 RGBA (tests/image_problems.py's channels): each frame's gray
+    conversion one K7 launch, its pyramid two, detection and description
+    through K5 and K3; finite poses."""
+    import torch
+    import image_problems as ip
+    from alvaar_tpu_torch import AlvaAR, SlamConfig
+    slam = AlvaAR(640, 480, fov=60.0, config=SlamConfig(), device="cuda")
+    rgba = ip.rgba(np.stack(frames[:IMAGE_RGBA_FRAMES]))
+    _image_zero()
+    statuses, finite = [], True
+    for f in rgba:
+        T = slam.find_camera_pose(f)
+        statuses.append(slam.last_status)
+        finite &= T is None or bool(np.isfinite(T).all())
+    torch.cuda.synchronize()
+    c = _image_counts()
+    print(f"[rgba] AlvaAR on {len(rgba)} u8 RGBA golden frames: statuses "
+          f"{''.join(map(str, statuses))}, poses finite {finite} [{card}]")
+    _check(finite, "[rgba] a pose is not finite")
+    _check(c["gray"] == len(rgba), f"[rgba] {c['gray']} gray launches for {len(rgba)} frames")
+    _check(c["pyr"] == 2 * len(rgba), f"[rgba] {c['pyr']} pyramid launches for {len(rgba)} "
+                                      f"frames")
+    _image_path("rgba", gray=True)
+
+
+def phase_image_kernels(frames, card):
+    """Phase 2e: K7, K5 and K3 against their plain versions on the card
+    (``_image_checks``), their times at the main path's shapes, and the RGBA
+    path.  Returns the kernel line's rows."""
+    import torch
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    margins = _image_checks(dev)
+    t1 = time.perf_counter()
+    rows = _image_timing(card)
+    t2 = time.perf_counter()
+    _image_rgba_path(frames, card)
+    print(f"[time] phase 2e: checks {t1 - t0:.1f} s, timing {t2 - t1:.1f} s, RGBA path "
+          f"{time.perf_counter() - t2:.1f} s")
+    out = {}
+    for key, main in (("rgba_to_gray", "rgba_to_gray 640x480 u8 RGBA"),
+                      ("pyr_down", "pyr_down 640x480 -> 320x240"),
+                      ("detect_grid", "detect_grid 640x480 cell 40, 120 live"),
+                      ("describe", "describe 640x480 K=192")):
+        r = next(r for r in rows[key] if r["shape"] == main)
+        out[key] = dict(max_abs_err=0.0, ms=r["ms"], plain_ms=r["plain_ms"],
+                        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                        library_ms=r["library_ms"], device_ms=r["device_ms"], shape=main,
+                        shapes=rows[key])
+    out["describe"].update(max_abs_err=max(e for e, _ in margins.values()),
+                           keypoints_in_bin_margin={k: n for k, (_, n) in margins.items()})
+    return out
+
+
 BATCH_STREAMS = 16         # the multi-stream path's width (phase 6)
 WIDE_STREAMS = 48          # phase 6d's width
 
@@ -1902,6 +2381,15 @@ PNP_KERNELS_SAVED = 2000
 # tree: 3929-3931); K4 must take at least HAMMING_KERNELS_SAVED of them away
 PARENT_KEYFRAME_KERNELS = 4795
 HAMMING_KERNELS_SAVED = 800
+# the same medians by commit 7178a79 (detection, description, the gray
+# conversion and the pyramid as eager torch) on an NVIDIA H100 80GB HBM3 at
+# 700 W, in that commit's own smoke and A/B turns (per tracking frame 737,
+# per keyframe frame 3929-3930); K7, K5 and K3 must take at least
+# IMAGE_TRACKING_SAVED and IMAGE_KEYFRAME_SAVED of them away
+IMAGE_PARENT_TRACKING_KERNELS = 737
+IMAGE_PARENT_KEYFRAME_KERNELS = 3929
+IMAGE_TRACKING_SAVED = 40
+IMAGE_KEYFRAME_SAVED = 350
 # ``_run_digest`` of phases 3 and 11a's golden runs on an NVIDIA H100 80GB
 # HBM3 with K9 (csrc/pnp_kernel.cu: PnP in one launch, each point evaluated
 # and summed in float64): the runs stay bit-equal to them (K9's redesign
@@ -2052,6 +2540,14 @@ def phase_main_path(frames, gt, card):
           f"{HAMMING_KERNELS_SAVED})")
     _check(statistics.median(kernels_kf) <= bar,
            f"kernels per keyframe frame median {statistics.median(kernels_kf)} > {bar}")
+    for kind, got, parent, saved in (
+            ("tracking", kernels_tr, IMAGE_PARENT_TRACKING_KERNELS, IMAGE_TRACKING_SAVED),
+            ("keyframe", kernels_kf, IMAGE_PARENT_KEYFRAME_KERNELS, IMAGE_KEYFRAME_SAVED)):
+        med = statistics.median(got)
+        print(f"[main] kernels per {kind} frame median {med}: {parent - med} fewer than commit "
+              f"7178a79's {parent} (eager image ops; bar {saved} fewer) [{card}]")
+        _check(med <= parent - saved,
+               f"kernels per {kind} frame median {med} > {parent} - {saved}")
     _check(n5 > 0, "the 5-point RANSAC never ran on the card")
     _check(nh > 0, "the homography RANSAC never ran on the card")
 
@@ -3076,6 +3572,7 @@ def _mesh_drive(step, blocks, frames_dev, tag, shards):
     _ba_zero()
     _pnp_zero()
     _hamming_zero()
+    _image_zero()
     try:
         for i in range(frames_dev.shape[0]):
             l0, g0, h0 = fb_klt_track.launches, ms.multistream_step_local.syncs, host_bool.syncs
@@ -3096,6 +3593,7 @@ def _mesh_drive(step, blocks, frames_dev, tag, shards):
         _ba_path(f"{tag}, the workers")      # their counts, added up in this process
         _pnp_path(f"{tag}, the workers")
         _hamming_path(f"{tag}, the workers")
+        _image_path(f"{tag}, the workers")
         state = ms.gather_states(blocks, "cuda:0")
     finally:
         alive = len(multiprocessing.active_children())
@@ -4230,21 +4728,26 @@ def main() -> int:
     lap("phase 2c (motion-only PnP's kernel)")
     hamming_rows = phase_hamming_kernel(card)
     lap("phase 2d (descriptor Hamming's kernel)")
+    image_rows = phase_image_kernels(frames, card)
+    lap("phase 2e (the image kernels)")
 
     def zero():
         _ba_zero()
         _pnp_zero()
         _hamming_zero()
+        _image_zero()
 
     zero()
     slam, launches, main_run = phase_main_path(frames, gt, card)
     _ba_path("main")
     _pnp_path("main")
     _hamming_path("main")
+    _image_path("main")
     zero()
     launches += phase_eight_point(frames, card)
     _pnp_path("8pt")
     _hamming_path("8pt", matching=False)
+    _image_path("8pt", keyframes=False)
     lap("phases 3, 3b")
     ba_rows = phase_ba_kernels(main_run["ba_problems"], card)
     lap("phase 2b (local BA's kernels)")
@@ -4256,44 +4759,52 @@ def main() -> int:
         launches += phase_facade(slam, more, card, tmp, scene, gt, main_run)
     _pnp_path("facade")
     _hamming_path("facade", matching=False)
+    _image_path("facade", keyframes=False)
     zero()
     launches += phase_loop_closure(card)
     _pnp_path("loop")
     _hamming_path("loop", loop=True)
+    _image_path("loop")
     lap("phases 4, 5")
     zero()
     launches += phase_subbatch_probe(frames, card)
     _ba_path("probe")
     _hamming_path("probe")
+    _image_path("probe")
     lap("phase 6a")
     zero()
     ms_launches, one0, multi_run = phase_multistream(frames, gt, card)
     _ba_path("multi")
     _pnp_path("multi")
     _hamming_path("multi")
+    _image_path("multi")
     lap("phase 6")
     zero()
     launches += ms_launches + phase_multistream_wide(frames, gt, one0, card)
     _pnp_path("wide")
     _hamming_path("wide")
+    _image_path("wide")
     lap("phase 6d")
     zero()
     launches += phase_multistream_loop(card)
     launches += phase_server(frames, card)
     _pnp_path("multi loop, server")
     _hamming_path("multi loop, server", loop=True)
+    _image_path("multi loop, server")
     lap("phases 6b, 6c")
     launches += phase_mesh(frames, multi_run, card)     # K9, K4 counted per mesh, in _mesh_drive
     zero()
     launches += phase_ingest(frames, card)
     _pnp_path("ingest")
     _hamming_path("ingest", matching=False)
+    _image_path("ingest", keyframes=False)
     lap("phases 6e, 7")
     zero()
     hd_launches, hd_shapes = phase_hd_serving(card)
     _ba_path("hd")
     _pnp_path("hd")
     _hamming_path("hd")
+    _image_path("hd")
     lap("phase 8")
     shapes += hd_shapes
     max_err = max([max_err] + [row["max_abs_err"] for row in hd_shapes])
@@ -4302,12 +4813,14 @@ def main() -> int:
     _ba_path("map10k")
     _pnp_path("map10k")
     _hamming_path("map10k")
+    _image_path("map10k")
     lap("phase 9")
     check_scatter_order(card)
     zero()
     launches += phase_bench_loop(frames, card)
     _pnp_path("bench loop")
     _hamming_path("bench loop", loop=True)
+    _image_path("bench loop")
     phase_bench_command(card)
     lap("phase 10")
     zero()
@@ -4315,10 +4828,12 @@ def main() -> int:
     _ba_path("presets")
     _pnp_path("presets")
     _hamming_path("presets")
+    _image_path("presets")
     zero()
     launches += phase_examples(card)
     _pnp_path("examples")
     _hamming_path("examples", matching=False)
+    _image_path("examples", keyframes=False)
     lap("phase 11")
 
     # the top-level numbers are at the heavier main-path call, stage 2 at N=192
@@ -4363,6 +4878,25 @@ def main() -> int:
             "name": name, "route": "cuda", "source": "alvaar_tpu_torch/csrc/hamming.cu",
             "replaces": replaces, "replaces_what": f"XLA formulation, not a Pallas kernel: {what}",
             "launches": HAMMING_PATH_LAUNCHES[name], "card": card, **hamming_rows[name]})
+    # K7, K5 and K3 replace XLA formulations of the jitted step; library_ms
+    # is F.conv2d's level for pyr_down, and no single PyTorch call computes
+    # the others
+    for name, replaces, what in (
+            ("rgba_to_gray", "alvaar_tpu/ops/image.py:23",
+             "rgba_to_gray (:23-29), K7's gray conversion (alvaar_tpu/system.py:194)"),
+            ("pyr_down", "alvaar_tpu/ops/image.py:49",
+             "pyr_down and build_pyramid (:49-63), K7's pyramid, traced into the jitted step "
+             "(alvaar_tpu/frontend/step.py:55)"),
+            ("detect_grid", "alvaar_tpu/ops/detect.py:159",
+             "detect_grid (:159-252) with shi_tomasi_response, grid_argmax2 and subpix_refine, "
+             "K5, traced into the jitted keyframe pipeline (alvaar_tpu/worldmap/keyframe.py:183)"),
+            ("describe", "alvaar_tpu/ops/orb.py:96",
+             "describe (:96-149), K3's oriented BRIEF, traced into the jitted keyframe "
+             "pipeline (alvaar_tpu/worldmap/keyframe.py:176, 187)")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "alvaar_tpu_torch/csrc/image_kernels.cu",
+            "replaces": replaces, "replaces_what": f"XLA formulation, not a Pallas kernel: {what}",
+            "launches": IMAGE_PATH_LAUNCHES[name], "card": card, **image_rows[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

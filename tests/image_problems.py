@@ -1,0 +1,115 @@
+"""Seeded inputs and bars for the image kernels K7, K5 and K3
+(csrc/image_kernels.cu), in numpy and the port only (no JAX): the CPU
+tests (tests/test_torch_image_kernels.py), the card's tests
+(tests/test_torch_image_kernels_card.py) and chip_smoke.py phase 2e use
+them.
+
+``frame`` renders the synthetic two-plane scene (tests/render_scene_np.py)
+at any size; ``rgba`` makes u8 RGBA frames of it; ``keypoints`` places
+keypoints inside an image, on its edges and past them; ``existing`` makes
+the live keypoints that detection's occupancy and proximity gates read.
+
+``ieee_sqrt`` is the plain versions' reference on the CPU.  A CPU build of
+torch with MKL takes ``torch.sqrt`` of float32 through MKL's vector math,
+which is not correctly rounded (the root of 204692.25 comes out
+452.42926, one ulp under IEEE's 452.42929); on the card ``torch.sqrt`` is
+IEEE's, as the kernels' ``sqrtf`` is.  Within the context a CPU float32
+``torch.sqrt`` is numpy's, which is IEEE's, so the plain versions
+compute on the CPU what they compute on the card; on CUDA tensors it
+changes nothing.
+
+K3's bar: angles within ``ANGLE_BAR`` rad of the plain version's (which
+sums its 961-term moments with ``torch.sum`` in an order no kernel
+reproduces), and the words bit-equal at every keypoint whose plain angle
+lies more than ``BIN_MARGIN`` rad from a steering bin's edge
+(``bin_margin``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import math
+
+import numpy as np
+import torch
+
+ANGLE_BAR = 2e-5
+BIN_MARGIN = 1e-4
+ANGLE_BINS = 30
+
+
+@functools.lru_cache(maxsize=None)
+def _scene(w: int, h: int, seed: int):
+    from render_scene_np import TwoPlaneScene
+    return TwoPlaneScene(np.random.default_rng(seed), w, h, fov=60.0)
+
+
+def frame(w: int, h: int, seed: int = 42, index: int = 1) -> np.ndarray:
+    """[h, w] float32 0..255: the two-plane scene at pose ``index`` of the
+    golden trajectory (the scene's texture from ``seed``)."""
+    from render_scene_np import trajectory
+    pose = trajectory(index + 2, step=0.04)[index]
+    return _scene(w, h, seed).render(pose).astype(np.float32)
+
+
+def rgba(gray: np.ndarray) -> np.ndarray:
+    """[..., h, w, 4] u8 RGBA whose channels differ: gray, 0.9 gray, 0.7
+    gray + 20, 255."""
+    g = np.asarray(gray, np.float32)
+    ch = [g, 0.9 * g, 0.7 * g + 20.0, np.full_like(g, 255.0)]
+    return np.clip(np.rint(np.stack(ch, -1)), 0, 255).astype(np.uint8)
+
+
+def keypoints(rng, n: int, w: int, h: int) -> np.ndarray:
+    """[n, 2] float32 (x, y): the image's corners and edge midpoints, a few
+    points past the edges and at half-pixel ties, the rest uniform inside."""
+    edge = np.array([[0, 0], [w - 1, h - 1], [w - 1, 0], [0, h - 1], [w / 2, 0], [0, h / 2],
+                     [-2.5, h + 1.0], [w + 3.0, -1.0], [17.5, 17.5], [w - 18.5, h - 19.5]],
+                    np.float32)
+    inside = rng.uniform([0, 0], [w - 1, h - 1], size=(max(n - len(edge), 0), 2))
+    return np.concatenate([edge, inside.astype(np.float32)])[:n]
+
+
+def existing(rng, n: int, w: int, h: int):
+    """Live keypoints for detection's gates: (xy [max(n, 1), 2] float32,
+    valid [max(n, 1)] bool, n of them valid; one invalid slot sits past the
+    image, whose cell must not count)."""
+    xy = rng.uniform([2, 2], [w - 2, h - 2], size=(max(n, 1) + 1, 2)).astype(np.float32)
+    valid = np.arange(len(xy)) < n
+    xy[-1] = [w + 50.0, -30.0]
+    return xy, valid
+
+
+@contextlib.contextmanager
+def ieee_sqrt():
+    """Within: ``torch.sqrt`` of a CPU float32 tensor is correctly rounded
+    (numpy's), as the card's is."""
+    orig = torch.sqrt
+
+    def sqrt(x, *args, **kwargs):
+        if (isinstance(x, torch.Tensor) and x.device.type == "cpu" and x.dtype == torch.float32
+                and not args and not kwargs):
+            return torch.from_numpy(np.sqrt(x.detach().numpy()))
+        return orig(x, *args, **kwargs)
+
+    torch.sqrt = sqrt
+    try:
+        yield
+    finally:
+        torch.sqrt = orig
+
+
+def bin_margin(angle) -> np.ndarray:
+    """Each angle's distance in rad from the nearest edge of ``describe``'s
+    30 steering bins (bin floor(a / (2 pi) 30 + 0.5) mod 30, in float64)."""
+    a = np.mod(np.asarray(angle, np.float64), 2 * math.pi) / (2 * math.pi) * ANGLE_BINS + 0.5
+    return np.abs(a - np.rint(a)) * (2 * math.pi / ANGLE_BINS)
+
+
+def words_outside_margin(desc, plain_desc, plain_angle):
+    """(keypoints inside the margin, words differing outside it, words
+    differing inside it) of K3's descriptors against the plain version's."""
+    inside = bin_margin(plain_angle.detach().cpu().numpy().reshape(-1)) <= BIN_MARGIN
+    diff = (desc != plain_desc).reshape(len(inside), -1).any(-1).cpu().numpy()
+    return int(inside.sum()), int((diff & ~inside).sum()), int((diff & inside).sum())

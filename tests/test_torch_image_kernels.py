@@ -1,0 +1,487 @@
+"""The image kernels K7 (gray conversion, pyramid), K5 (grid Shi-Tomasi
+detection) and K3 (ORB describe) of csrc/image_kernels.cu
+(ops/image_kernels.py): the CUDA source run on the CPU through
+tools/cpu_cuda_shim.h, held to the plain versions (ops/image.py,
+ops/detect.py, ops/orb.py) and to the JAX package's functions at
+tests/test_torch_features.py's and tests/test_torch_geom_image.py's bars:
+96x128, 97x121 and 240x320 frames, cells 24 / 40 / 50 with partial cells
+(a one-pixel corner cell whose second peak is -inf), 0 and 40 live
+keypoints, a constant image and 8 x 8 blocks (ties), keypoints on and past
+the image's edges, S rows in one launch each equal to its row alone,
+``describe_and_detect`` on a seeded keyframe through the source; the
+shim's ``__ballot_sync`` and bf16 rounding.  Without building: the custom
+ops' CPU implementation (the plain version), fake shapes and batching
+rule, the CPU path's independence of the library (the golden run's first
+16 frames, tests/golden/torch_step_320.npz, unchanged), the launchers'
+argument checks.  tests/test_torch_image_kernels_card.py holds the kernels
+to their plain versions on a card.
+
+The bars: K7 and K5 bit-equal to their plain versions, K5's response too
+(on the CPU with IEEE's square root, tests/image_problems.py ``ieee_sqrt``:
+a CPU torch with MKL rounds ``torch.sqrt`` otherwise, the card does not);
+K3's angles within 2e-5 rad and its words bit-equal at every keypoint
+whose plain angle lies more than 1e-4 rad from a steering bin's edge."""
+
+import ctypes
+import importlib.util
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import image_problems as ip
+import test_torch_image_kernels_card as card_tests
+from alvaar_tpu.ops import detect as jdet
+from alvaar_tpu.ops import image as jimg
+from alvaar_tpu.ops import orb as jorb
+from alvaar_tpu_torch.ops import detect, image, image_kernels, orb
+from alvaar_tpu_torch.utils import custom_ops
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module")
+def k357(tmp_path_factory):
+    """tools/rehearse_image_kernels.py, and csrc/image_kernels.cu built with
+    it for the CPU (every CUDA thread a fiber)."""
+    path = Path(__file__).resolve().parents[1] / "tools" / "rehearse_image_kernels.py"
+    spec = importlib.util.spec_from_file_location("rehearse_image_kernels", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod, mod.build(str(tmp_path_factory.mktemp("image_cpu")))
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _u32(desc):
+    return desc.numpy().view(np.uint32)
+
+
+# (W, H, cell, live keypoints, image, against JAX too):
+# tests/test_torch_image_kernels_card.py's ``image_of`` kinds; the JAX
+# package's detect_grid compiles op by op for each shape (~7 s), so two
+# shapes with partial cells are held to it
+DETECT_CASES = [(128, 96, 24, 0, "scene", False), (128, 96, 24, 40, "scene", False),
+                (121, 97, 24, 10, "scene", True), (128, 96, 40, 40, "scene", False),
+                (320, 240, 40, 0, "scene", False), (320, 240, 50, 40, "scene", True),
+                (320, 240, 24, 40, "scene", False), (128, 96, 40, 0, "constant", False),
+                (121, 97, 24, 10, "blocks", False)]
+
+
+@pytest.mark.parametrize("W, H, cell, n_live, kind, against_jax", DETECT_CASES)
+def test_detect_source_matches_plain_and_jax(k357, W, H, cell, n_live, kind, against_jax):
+    """The source's three launches bit-equal to the plain version (xy,
+    score, valid, new quality and the response); where marked, the JAX
+    package's ``detect_grid`` at tests/test_torch_features.py's bars."""
+    mod, lib = k357
+    img = card_tests.image_of(kind, W, H)
+    ex, exv = ip.existing(np.random.default_rng(W + n_live), n_live, W, H)
+    args = dict(cell=cell, border=8, quality=0.001)
+    with mod.on_cpu(lib):
+        xy, score, valid, nq, resp = image_kernels.launch_detect(
+            _t(img)[None], _t(ex)[None], _t(exv)[None], 0.001, cell, 8)
+    with ip.ieee_sqrt():
+        plain = detect._detect_grid_plain(_t(img), _t(ex), _t(exv), **args)
+        plain_resp = detect.shi_tomasi_response(_t(img))
+    C = -(-H // cell) * -(-W // cell)
+    assert xy.shape == (1, C, 2) and valid.dtype == torch.bool and nq.shape == (1,)
+    for got, want in ((xy, plain.xy), (score, plain.score), (valid, plain.valid),
+                      (nq[0], plain.new_quality), (resp[0], plain_resp)):
+        assert torch.equal(got[0] if got.dim() > want.dim() else got, want)
+    if kind == "constant":
+        assert not bool(valid.any())            # every response 0: no corner passes
+    if not against_jax:
+        return
+    j = jdet.detect_grid(jnp.asarray(img), jnp.asarray(ex), jnp.asarray(exv), **args)
+    jv = np.asarray(j.valid)
+    np.testing.assert_array_equal(valid[0].numpy(), jv)
+    np.testing.assert_allclose(xy[0].numpy()[jv], np.asarray(j.xy)[jv], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(score[0].numpy(), np.asarray(j.score), rtol=1e-4, atol=1e-9)
+    assert float(nq[0]) == pytest.approx(float(j.new_quality), rel=1e-6)
+
+
+@pytest.mark.parametrize("W, H", [(128, 96), (320, 240), (121, 97)])
+@pytest.mark.parametrize("blur", [True, False])
+def test_describe_source_matches_plain_and_jax(k357, W, H, blur):
+    """The source in one launch at the frame's detections and at keypoints
+    on, near and past its edges: K3's bar against the plain version, and
+    the JAX package's ``describe``: words bit-equal outside the bin margin,
+    angles within 1e-4 (tests/test_torch_features.py's bar for the plain
+    version) or, where the plain version itself is farther from JAX's (its
+    moments summed in another order: 1.1e-4 rad at one unblurred keypoint
+    of the 121x97 frame, moments ~1e3), within the plain version's
+    distance plus K3's bar."""
+    mod, lib = k357
+    img = ip.frame(W, H, seed=5)
+    d = detect._detect_grid_plain(_t(img), torch.zeros(0, 2), torch.zeros(0, dtype=torch.bool),
+                                  cell=24, border=8)
+    rng = np.random.default_rng(W)
+    xy = np.concatenate([d.xy[d.valid].numpy(), ip.keypoints(rng, 40, W, H)])
+    valid = rng.random(len(xy)) < 0.9
+    with mod.on_cpu(lib):
+        desc, angle = image_kernels.launch_describe(
+            _t(img)[None], _t(xy)[None], _t(valid)[None],
+            _t(orb._TAP_LUTS_I32), blur)
+    pd, pa = orb._describe_plain(_t(img), _t(xy), _t(valid), blur=blur)
+    assert float((angle[0] - pa).abs().max()) <= ip.ANGLE_BAR
+    inside, off, _ = ip.words_outside_margin(desc[0], pd, pa)
+    assert off == 0
+    assert bool((desc[0][~_t(valid)] == 0).all())
+    jd, ja = jorb.describe(jnp.asarray(img), jnp.asarray(xy), jnp.asarray(valid), blur=blur)
+    ja = np.asarray(ja)
+    bar = np.maximum(1e-4, np.abs(pa.numpy() - ja) + ip.ANGLE_BAR)
+    assert (np.abs(angle[0].numpy() - ja) <= bar).all()
+    far = ip.bin_margin(pa.numpy()) > ip.BIN_MARGIN
+    np.testing.assert_array_equal(_u32(desc[0])[far], np.asarray(jd)[far])
+
+
+@pytest.mark.parametrize("shape", [(120, 160), (61, 83), (1, 5)])
+def test_pyramid_and_gray_source_match_plain_and_jax(k357, shape):
+    """K7's two pyramid launches and its gray conversion (u8 RGBA, u8 RGB,
+    float32 RGBA) bit-equal to the plain versions, and to the JAX
+    package's ``build_pyramid`` and ``rgba_to_gray`` at
+    tests/test_torch_geom_image.py's bar (1e-4)."""
+    mod, lib = k357
+    rng = np.random.default_rng(shape[1])
+    img = rng.uniform(0, 255, shape).astype(np.float32)
+    rgba = rng.integers(0, 256, shape + (4,)).astype(np.uint8)
+    with mod.on_cpu(lib):
+        card_tests._zero()
+        pyr = image.build_pyramid(_t(img), 3)
+        grays = [image.rgba_to_gray(x) for x in (_t(rgba), _t(rgba[..., :3]),
+                                                  _t(rgba).float() + 0.5)]
+        assert image.pyr_down.launches == 2 and image.rgba_to_gray.launches == 3
+    want = [_t(img)]
+    for _ in range(2):
+        want.append(image._pyr_down_plain(want[-1]))
+    for a, b, j in zip(pyr, want, jimg.build_pyramid(jnp.asarray(img), 3)):
+        assert a.shape == b.shape == j.shape and torch.equal(a, b)
+        np.testing.assert_allclose(a.numpy(), np.asarray(j), atol=1e-4, rtol=0)
+    for g, x in zip(grays, (_t(rgba), _t(rgba[..., :3]), _t(rgba).float() + 0.5)):
+        assert torch.equal(g, image._rgba_to_gray_plain(x))
+    np.testing.assert_allclose(grays[0].numpy(), np.asarray(jimg.rgba_to_gray(jnp.asarray(rgba))),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("name", list(card_tests.CARD_CASES))
+def test_card_cases_through_the_source(k357, name):
+    """The card tests' cases with the source launched on CPU tensors:
+    ``detect_grid``, ``describe`` (blurred and not) through the wrappers,
+    lone calls straight to the launcher."""
+    mod, lib = k357
+    with mod.on_cpu(lib):
+        card_tests.test_detect_and_describe_on_card(CPU, name)
+
+
+def test_rows_in_one_launch_equal_rows_alone(k357):
+    """The wrappers under ``torch.func.vmap`` on S = 3 rows: K5's three
+    launches and K3's one for all the rows (the ops' batching rule), each
+    row bit-equal to its call alone, an unbatched argument repeated; and
+    K7 on stacks."""
+    mod, lib = k357
+    with mod.on_cpu(lib):
+        card_tests.test_rows_under_vmap_on_card(CPU)
+        card_tests.test_pyramid_and_gray_on_card(CPU)
+
+
+def test_describe_and_detect_through_the_source(k357):
+    """``describe_and_detect`` (the keyframe pass's detection and both
+    descriptions) on a seeded keyframe (tests/hamming_problems.py's map
+    over a rendered 320x240 frame's pyramid) with the sources launched:
+    every field of the state bit-equal to the plain path's; two maps under
+    ``map_rows`` (the batched keyframe pass's vmap) in one launch of each
+    kernel, each row equal to its call alone."""
+    import hamming_problems as hp
+    from alvaar_tpu_torch.worldmap.keyframe import describe_and_detect
+    from alvaar_tpu_torch.worldmap.state import map_rows, stack_states
+    mod, lib = k357
+    maps = [hp.seeded_map(seed) for seed in (0, 1)]
+    cam, cfg = maps[0][1], maps[0][2]
+    pyrs = [image.build_pyramid(_t(ip.frame(320, 240, index=i)), cfg.pyramid_levels)
+            for i in (1, 2)]
+    with ip.ieee_sqrt():
+        plain = [describe_and_detect(m[0], p, cam, cfg) for m, p in zip(maps, pyrs)]
+    with mod.on_cpu(lib):
+        card_tests._zero()
+        got = [describe_and_detect(m[0], p, cam, cfg) for m, p in zip(maps, pyrs)]
+        assert detect.detect_grid.launches == 2 * image_kernels.DETECT_LAUNCHES
+        assert orb.describe.launches == 4
+        card_tests._zero()
+        stack = torch.stack(pyrs[0][0:1] + pyrs[1][0:1])
+        rows = map_rows(lambda s, img: describe_and_detect(s, (img,), cam, cfg),
+                        stack_states([m[0] for m in maps]), stack)
+        assert detect.detect_grid.launches == image_kernels.DETECT_LAUNCHES
+        assert orb.describe.launches == 2
+    for g, p in zip(got, plain):
+        for (name, x), (_, y) in zip(g.tensors(), p.tensors()):
+            assert torch.equal(x, y), name
+    for i in range(2):
+        for (name, x), (_, y) in zip(rows.tensors(), got[i].tensors()):
+            assert torch.equal(x[i], y), (i, name)
+
+
+PROBE = r"""
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+// Lane l of a warp of `lanes` votes pred[l]; lanes past `early` return
+// before the vote's result is read by the others.
+__global__ void ballot_kernel(const int* pred, unsigned* out) {
+  const unsigned v = __ballot_sync(0xFFFFFFFFu, pred[threadIdx.x] != 0);
+  out[threadIdx.x] = v;
+}
+
+__global__ void bf16_kernel(const float* x, float* y, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    y[i] = __bfloat162float(__float2bfloat16_rn(x[i]));
+}
+
+extern "C" void run_ballot(const int* pred, unsigned* out, int lanes) {
+  ballot_kernel<<<1, lanes>>>(pred, out);
+}
+
+extern "C" void run_bf16(const float* x, float* y, int n) { bf16_kernel<<<1, 64>>>(x, y, n); }
+"""
+
+
+@pytest.fixture(scope="module")
+def probe(k357, tmp_path_factory):
+    out = tmp_path_factory.mktemp("image_probe")
+    src = out / "image_probe.cu"
+    src.write_text(PROBE)
+    lib = ctypes.CDLL(k357[0].cuda_on_cpu.build(str(src), str(out)))
+    lib.run_ballot.restype = lib.run_bf16.restype = None
+    lib.run_ballot.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    lib.run_bf16.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    return lib
+
+
+@pytest.mark.parametrize("lanes", [32, 64, 48])
+def test_shim_ballot(probe, lanes):
+    """The shim's ``__ballot_sync``: every lane of a warp gets the warp's
+    votes, bit l from lane l (a partial last warp: its lanes only), though
+    lanes return as soon as they have voted."""
+    rng = np.random.default_rng(lanes)
+    pred = (rng.random(lanes) < 0.5).astype(np.int32)
+    out = np.zeros(lanes, np.uint32)
+    probe.run_ballot(pred.ctypes.data, out.ctypes.data, lanes)
+    for w in range(0, lanes, 32):
+        p = pred[w:w + 32]
+        want = sum(int(b) << i for i, b in enumerate(p))
+        assert (out[w:w + 32] == want).all(), w
+
+
+def test_shim_bf16_rounding_is_torchs(probe):
+    """The shim's ``__float2bfloat16_rn``: torch's bf16 rounding (nearest,
+    ties to even) on random floats, exact ties, the largest finite floats,
+    infinities and subnormals; NaN stays NaN."""
+    rng = np.random.default_rng(9)
+    x = np.concatenate([rng.uniform(-300, 300, 2000), rng.normal(0, 1e-3, 500)]).astype(np.float32)
+    ties = (np.arange(1, 200, dtype=np.uint32) << 16) | 0x8000
+    special = np.array([np.inf, -np.inf, 3.3895314e38, -3.4028235e38, 1e-40, -1e-42, 0.0, -0.0],
+                       np.float32)
+    x = np.concatenate([x, ties.view(np.float32), special, [np.nan]]).astype(np.float32)
+    y = np.zeros_like(x)
+    probe.run_bf16(x.ctypes.data, y.ctypes.data, len(x))
+    want = torch.from_numpy(x).to(torch.bfloat16).to(torch.float32).numpy()
+    np.testing.assert_array_equal(y[:-1].view(np.uint32), want[:-1].view(np.uint32))
+    assert np.isnan(y[-1])
+
+
+def test_c_entries_refuse_bad_shapes(k357):
+    """The C entries refuse what the kernels do not take before they
+    launch; ``bind`` checks the library's limits against the wrapper's."""
+    lib = image_kernels.bind(ctypes.CDLL(k357[1]))
+    assert lib.image_gray_launch(None, 0, 2, 4, None, None) != 0
+    assert lib.image_gray_launch(None, 0, 4, 0, None, None) == 0           # nothing to do
+    assert lib.image_pyr_down_launch(None, 1, 0, 4, None, None) != 0
+    assert lib.image_pyr_down_launch(None, 0, 4, 4, None, None) == 0
+    bad = [(0, 10, 10, 4), (65536, 10, 10, 4), (1, 2, 10, 4), (1, 10, 10, 0),
+           (1, 10, 10, 46341)]
+    for S, H, W, cell in bad:
+        assert lib.detect_grid_launch(None, None, None, None, 0.0, S, H, W, 0, cell, 0,
+                                      *[None] * 9) != 0, (S, H, W, cell)
+    for S, H, W, N in ((0, 40, 40, 1), (1, 35, 40, 1), (1, 40, 35, 1), (1, 40, 40, -1)):
+        assert lib.describe_launch(None, None, None, None, S, H, W, N, 1, None, None,
+                                   None) != 0
+    assert lib.describe_launch(None, None, None, None, 1, 40, 40, 0, 1, None, None, None) == 0
+
+
+def test_bind_refuses_other_limits(k357, monkeypatch):
+    for name in ("MAX_ROWS", "PATCH", "BITS", "ANGLE_BINS", "SCRATCH_F", "SCRATCH_I"):
+        with monkeypatch.context() as m:
+            m.setattr(image_kernels, name, getattr(image_kernels, name) - 1)
+            with pytest.raises(RuntimeError, match="limit"):
+                image_kernels.bind(ctypes.CDLL(k357[1]))
+
+
+# ---------------------------------------------------------------------------
+# Without building anything
+# ---------------------------------------------------------------------------
+
+def test_cpu_path_is_the_plain_version_and_loads_nothing():
+    """On CPU tensors the wrappers are the plain versions, count no launch
+    and never load the library; the golden run's first 16 frames (the
+    first keyframe and the bootstrap keyframe at frame 15) through
+    ``slam_step`` are tests/golden/torch_step_320.npz's bit for bit."""
+    import test_torch_async as ta
+    from alvaar_tpu_torch.frontend import step as tstep
+    from alvaar_tpu_torch.worldmap.state import init_map_state
+    card_tests._zero()
+    lib, load = image_kernels._lib, image_kernels._load
+    image_kernels._load = lambda: pytest.fail("the CPU path loaded the kernels' library")
+    try:
+        frames = ta.render_frames(16)
+        golden = np.load(ta.GOLDEN)
+        state, cam = init_map_state(ta.CFG, "cpu"), ta.camera()
+        for i, f in enumerate(frames):
+            state, out = tstep.slam_step(state, torch.from_numpy(f), cam, ta.CFG)
+            assert int(out.status) == golden["status"][i], i
+            assert ta.state_digests(state)[0] == golden["digest"][i], i
+        img = torch.from_numpy(frames[0])
+        rgba = torch.from_numpy(ip.rgba(frames[0]))
+        assert torch.equal(image.rgba_to_gray(rgba), image._rgba_to_gray_plain(rgba))
+        assert torch.equal(image.pyr_down(img), image._pyr_down_plain(img))
+    finally:
+        image_kernels._load = load
+    assert image_kernels._lib is lib is None
+    assert image.rgba_to_gray.launches == image.pyr_down.launches == 0
+    assert detect.detect_grid.launches == orb.describe.launches == 0
+    assert detect.detect_grid.calls == orb.describe.calls == 0   # counted on the card only
+
+
+def test_op_cpu_implementation_is_the_plain_version():
+    """The custom ops on CPU tensors equal the plain versions row by row."""
+    imgs = torch.stack([_t(ip.frame(128, 96, index=i)) for i in (1, 2)])
+    ex, exv = (_t(a) for a in ip.existing(np.random.default_rng(1), 10, 128, 96))
+    q = torch.tensor([0.001, 0.002])
+    out = detect._DETECT_OP(imgs, ex.expand(2, -1, -1).contiguous(),
+                            exv.expand(2, -1).contiguous(), q, 24, 8)
+    xy = _t(ip.keypoints(np.random.default_rng(2), 30, 128, 96))
+    valid = torch.ones(30, dtype=torch.bool)
+    desc, angle = orb._DESCRIBE_OP(imgs, torch.stack([xy, xy]), torch.stack([valid, valid]),
+                                   True)
+    for i in range(2):
+        d = detect.detect_grid(imgs[i], ex, exv, cell=24, border=8, quality=q[i])
+        for k, f in enumerate(("xy", "score", "valid", "new_quality")):
+            assert torch.equal(out[k][i], getattr(d, f)), (i, f)
+        pd, pa = orb.describe(imgs[i], xy, valid)
+        assert torch.equal(desc[i], pd) and torch.equal(angle[i], pa)
+
+
+def test_op_fake_shapes():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    imgs = torch.stack([_t(ip.frame(121, 97, index=i)) for i in (1, 2)])
+    ex = torch.zeros(2, 3, 2)
+    exv = torch.zeros(2, 3, dtype=torch.bool)
+    q = torch.full((2,), 0.001)
+    xy = torch.rand(2, 7, 2) * 90
+    valid = torch.ones(2, 7, dtype=torch.bool)
+    mode = FakeTensorMode()
+    for op, args in ((detect._DETECT_OP, (imgs, ex, exv, q, 24, 8)),
+                     (orb._DESCRIBE_OP, (imgs, xy, valid, True))):
+        real = op(*args)
+        with mode:
+            got = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args))
+        for r, g in zip(real, got):
+            assert (tuple(g.shape), g.dtype) == (tuple(r.shape), r.dtype)
+
+
+def test_op_vmap_rule_equals_rows():
+    """Under ``torch.func.vmap`` the ops run once over the rows (their
+    batching rule); the result equals single calls bit for bit, an
+    unbatched argument (one live-keypoint table for every row) included."""
+    imgs = torch.stack([_t(ip.frame(128, 96, index=i)) for i in (1, 2, 3)])
+    ex, exv = (_t(a) for a in ip.existing(np.random.default_rng(3), 6, 128, 96))
+    q = torch.tensor([0.001, 0.0005, 0.002])
+
+    def det(i, x, v, qq):
+        return detect._DETECT_OP(i[None], x[None], v[None], qq[None], 24, 8)
+
+    def desc(i, p, v):
+        return orb._DESCRIBE_OP(i[None], p[None], v[None], True)
+
+    got = torch.func.vmap(det, in_dims=(0, None, None, 0))(imgs, ex, exv, q)
+    xy = got[0][:, 0].contiguous()
+    got_d = torch.func.vmap(desc)(imgs, xy, got[2][:, 0])
+    for i in range(3):
+        one = det(imgs[i], ex, exv, q[i])
+        for a, b in zip(got, one):
+            assert torch.equal(a[i], b), i
+        for a, b in zip(got_d, desc(imgs[i], xy[i], got[2][i, 0])):
+            assert torch.equal(a[i], b), i
+
+
+def test_launchers_refuse_cpu_tensors_and_bad_arguments():
+    """The launchers run on CUDA tensors only and check dtypes, shapes,
+    contiguity, devices and sizes before anything is built."""
+    img = torch.zeros(1, 48, 64)
+    ex, exv, q = torch.zeros(1, 3, 2), torch.zeros(1, 3, dtype=torch.bool), torch.zeros(1)
+    xy, valid = torch.zeros(1, 5, 2), torch.zeros(1, 5, dtype=torch.bool)
+    taps = _t(orb._TAP_LUTS_I32)
+    with pytest.raises(ValueError, match="CUDA"):
+        image_kernels.launch_gray(torch.zeros(4, 4, 4, dtype=torch.uint8))
+    with pytest.raises(ValueError, match="CUDA"):
+        image_kernels.launch_pyr_down(img[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        image_kernels.launch_detect(img, ex, exv, q, 16, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        image_kernels.launch_describe(img, xy, valid, taps)
+    gray_bad = [(torch.zeros(4, 4, 2, dtype=torch.uint8), ValueError),      # 2 channels
+                (torch.zeros(4, 4, 4, dtype=torch.int32), TypeError),
+                (torch.zeros(4, 4, 4, dtype=torch.uint8).transpose(0, 1), ValueError),
+                (torch.zeros(4, 4), ValueError)]
+    for x, err in gray_bad:
+        with pytest.raises(err):
+            image_kernels.launch_gray(x)
+    for x, err in ((img[0].double(), TypeError), (img[0].t(), ValueError),
+                   (torch.zeros(2, 2, 4, 4), ValueError)):
+        with pytest.raises(err):
+            image_kernels.launch_pyr_down(x)
+    detect_bad = [
+        ((img[0], ex, exv, q, 16, 4), ValueError),                       # no S
+        ((img.double(), ex, exv, q, 16, 4), TypeError),
+        ((img, ex[:, :2], exv, q, 16, 4), ValueError),                   # K differs
+        ((img, ex.double(), exv, q, 16, 4), TypeError),
+        ((img, ex, exv.int(), q, 16, 4), TypeError),
+        ((img, ex, exv, q.repeat(2), 16, 4), ValueError),                # S differs
+        ((img, ex, exv, "0.1", 16, 4), TypeError),
+        ((img, ex, exv, q, 16.0, 4), TypeError),
+        ((img, ex, exv, q, 0, 4), ValueError),
+        ((img, ex.to("meta"), exv, q, 16, 4), ValueError),               # two devices
+        ((img[:, :2], ex, exv, q, 16, 4), ValueError),                   # H < 3
+        ((img.new_zeros(0, 48, 64), ex[:0], exv[:0], q[:0], 16, 4), ValueError),   # S = 0
+    ]
+    for args, err in detect_bad:
+        with pytest.raises(err):
+            image_kernels.launch_detect(*args)
+    describe_bad = [
+        ((img[:, :30], xy, valid, taps), ValueError),                    # under 36 rows
+        ((img, xy.double(), valid, taps), TypeError),
+        ((img, xy, valid[:, :4], taps), ValueError),
+        ((img, xy, valid, taps.long()), TypeError),
+        ((img, xy, valid, taps[:29]), ValueError),
+        ((img, xy.transpose(1, 2).contiguous().transpose(1, 2), valid, taps), ValueError),
+    ]
+    for args, err in describe_bad:
+        with pytest.raises(err):
+            image_kernels.launch_describe(*args)
+    assert image_kernels._lib is None
+
+
+def test_dispatch_raises_on_other_devices():
+    img = torch.zeros(48, 64, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        image.rgba_to_gray(torch.zeros(4, 4, 4, device="meta"))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        image.pyr_down(img)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        detect.detect_grid(img, img.new_zeros(1, 2), img.new_zeros(1, dtype=torch.bool), cell=16,
+                           border=4)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        orb.describe(img, img.new_zeros(3, 2), img.new_zeros(3, dtype=torch.bool))
+    assert custom_ops.dispatch(torch.zeros(1), "x") is False

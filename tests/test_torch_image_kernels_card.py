@@ -1,0 +1,174 @@
+"""The image kernels K7, K5 and K3 on a card against their plain versions
+(skipped without one: a CUDA kernel has no CPU mode).  This file imports
+neither JAX nor the JAX package, so that it runs where the card is:
+
+    python -m pytest --noconftest tests/test_torch_image_kernels_card.py -q
+
+(tests/conftest.py sets JAX up for the CPU tests.)  chip_smoke.py phase 2e
+holds the same bars at the main path's shapes;
+tools/rehearse_image_kernels.py runs these cases on the CPU through the
+CUDA source.  K7 and K5 are bit-equal to their plain versions (on the CPU
+with IEEE's square root, tests/image_problems.py ``ieee_sqrt``); K3's
+angles are within 2e-5 rad of the plain ones and its words bit-equal at
+every keypoint whose plain angle lies more than 1e-4 rad from a steering
+bin's edge."""
+
+import numpy as np
+import pytest
+import torch
+
+import image_problems as ip
+from alvaar_tpu_torch.ops import detect, image, image_kernels, orb
+
+# name → (W, H, cell, live keypoints, image): cells off the image's size
+# (partial cells; at 121 x 97 a one-pixel corner cell whose second peak
+# has nothing outside its disc: -inf, index 0), a constant image (every
+# response 0: ties to the first index), 8 x 8 blocks (repeated equal
+# corners: ties across cells)
+CARD_CASES = {
+    "scene 128x96 cell 24": (128, 96, 24, 0, "scene"),
+    "scene 121x97 cell 24, 10 live": (121, 97, 24, 10, "scene"),
+    "scene 320x240 cell 50, 40 live": (320, 240, 50, 40, "scene"),
+    "constant 128x96 cell 40": (128, 96, 40, 0, "constant"),
+    "blocks 121x97 cell 24, 10 live": (121, 97, 24, 10, "blocks"),
+}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def image_of(kind: str, w: int, h: int) -> np.ndarray:
+    """[h, w] float32 of one kind: the rendered scene, a constant, or 8 x 8
+    blocks of 40 and 215."""
+    if kind == "scene":
+        return ip.frame(w, h)
+    if kind == "constant":
+        return np.full((h, w), 77.0, np.float32)
+    y, x = np.mgrid[:h, :w]
+    return np.where((y // 8 + x // 8) % 2 == 0, 40.0, 215.0).astype(np.float32)
+
+
+def _zero():
+    image.rgba_to_gray.launches = image.pyr_down.launches = image.build_pyramid.calls = 0
+    detect.detect_grid.launches = detect.detect_grid.calls = 0
+    orb.describe.launches = orb.describe.calls = 0
+
+
+def detect_case(name, dev):
+    """(img, live xy, live flags, cell) of a case of ``CARD_CASES`` on
+    ``dev``."""
+    W, H, cell, n_live, kind = CARD_CASES[name]
+    rng = np.random.default_rng(W * H + n_live)
+    ex, exv = ip.existing(rng, n_live, W, H)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return t(image_of(kind, W, H)), t(ex), t(exv), cell
+
+
+def assert_detection_equal(got, plain):
+    for f in ("xy", "score", "valid", "new_quality"):
+        assert torch.equal(getattr(got, f), getattr(plain, f)), f
+
+
+def assert_describe_close(desc, angle, plain_desc, plain_angle):
+    """K3's bar: angles within ANGLE_BAR, words bit-equal outside the bin
+    margin.  Returns the keypoints inside the margin."""
+    assert float((angle - plain_angle).abs().max()) <= ip.ANGLE_BAR
+    inside, off, _ = ip.words_outside_margin(desc, plain_desc, plain_angle)
+    assert off == 0
+    return inside
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CARD_CASES))
+def test_detect_and_describe_on_card(card, name):
+    """K5 in three launches bit-equal to the plain version (its response
+    too) with a float and a tensor threshold; K3 in one launch at the
+    detections and at keypoints on and past the image's edges, at its
+    bar, invalid keypoints zero."""
+    img, ex, exv, cell = detect_case(name, card)
+    args = dict(cell=cell, border=8)
+    _zero()
+    got = detect.detect_grid(img, ex, exv, quality=0.001, **args)
+    assert detect.detect_grid.launches == image_kernels.DETECT_LAUNCHES
+    q = torch.tensor(0.004, device=card)
+    got_q = detect.detect_grid(img, ex, exv, quality=q, **args)
+    *_, resp = image_kernels.launch_detect(img[None], ex[None], exv[None], 0.001, cell, 8)
+    with ip.ieee_sqrt():
+        plain = detect._detect_grid_plain(img, ex, exv, quality=0.001, **args)
+        plain_q = detect._detect_grid_plain(img, ex, exv, quality=q, **args)
+        plain_resp = detect.shi_tomasi_response(img)
+    assert_detection_equal(got, plain)
+    assert_detection_equal(got_q, plain_q)
+    assert torch.equal(resp[0], plain_resp)
+    rng = np.random.default_rng(len(name))
+    H, W = img.shape
+    xy = torch.cat([got.xy, torch.as_tensor(ip.keypoints(rng, 30, W, H), device=card)])
+    valid = torch.cat([got.valid, torch.as_tensor(rng.random(30) < 0.8, device=card)])
+    _zero()
+    desc, angle = orb.describe(img, xy, valid)
+    assert orb.describe.launches == 1
+    plain_desc, plain_angle = orb._describe_plain(img, xy, valid)
+    assert_describe_close(desc, angle, plain_desc, plain_angle)
+    assert bool((desc[~valid] == 0).all())
+    raw, raw_angle = orb.describe(img, xy, valid, blur=False)
+    plain_raw, plain_raw_angle = orb._describe_plain(img, xy, valid, blur=False)
+    assert_describe_close(raw, raw_angle, plain_raw, plain_raw_angle)
+
+
+@pytest.mark.cuda
+def test_pyramid_and_gray_on_card(card):
+    """K7 bit-equal to its plain versions: the gray conversion of u8 RGBA,
+    u8 RGB and float32 RGBA (one launch each, a stack of 3 included) and
+    3-level pyramids of odd sizes (two launches), alone and stacked."""
+    rng = np.random.default_rng(3)
+    g = ip.frame(83, 61)
+    rgba = torch.as_tensor(ip.rgba(np.stack([g, g[::-1].copy(), 255 - g])), device=card)
+    for x in (rgba[0], rgba[0, ..., :3].contiguous(), rgba, rgba[0].float() + 0.5):
+        _zero()
+        got = image.rgba_to_gray(x)
+        assert image.rgba_to_gray.launches == 1
+        assert torch.equal(got, image._rgba_to_gray_plain(x))
+    noise = torch.as_tensor(rng.uniform(0, 255, (3, 61, 83)).astype(np.float32), device=card)
+    for x in (noise[0], noise, noise[:, :1, :1].contiguous(), noise[:, :2, :37].contiguous()):
+        _zero()
+        pyr = image.build_pyramid(x, 3)
+        assert image.pyr_down.launches == 2
+        want = [x]
+        for _ in range(2):
+            want.append(image._pyr_down_plain(want[-1]))
+        for a, b in zip(pyr, want):
+            assert a.shape == b.shape and a.is_contiguous() and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_rows_under_vmap_on_card(card):
+    """S = 3 rows under ``torch.func.vmap``: K5's three launches and K3's
+    one for all of them, each row bit-equal to its call alone (per-row
+    thresholds; a live-keypoint table shared by every row)."""
+    imgs = torch.as_tensor(np.stack([ip.frame(160, 120, index=i) for i in range(3)]),
+                           device=card)
+    rng = np.random.default_rng(5)
+    ex, exv = (torch.as_tensor(a, device=card) for a in ip.existing(rng, 12, 160, 120))
+    q = torch.tensor([0.001, 0.0005, 0.003], device=card)
+    fields = ("xy", "score", "valid", "new_quality")
+
+    def call(i, x, v, qq):
+        d = detect.detect_grid(i, x, v, cell=24, border=8, quality=qq)
+        return tuple(getattr(d, f) for f in fields)
+
+    _zero()
+    rows = torch.func.vmap(call, in_dims=(0, None, None, 0))(imgs, ex, exv, q)
+    assert detect.detect_grid.launches == image_kernels.DETECT_LAUNCHES
+    xy, valid = rows[0].contiguous(), rows[2]
+    desc, angle = torch.func.vmap(orb.describe)(imgs, xy, valid)
+    assert orb.describe.launches == 1
+    for s in range(3):
+        alone = call(imgs[s], ex, exv, q[s])
+        for k, f in enumerate(fields):
+            assert torch.equal(rows[k][s], alone[k]), (s, f)
+        d, a = orb.describe(imgs[s], xy[s], valid[s])
+        assert torch.equal(desc[s], d) and torch.equal(angle[s], a), s

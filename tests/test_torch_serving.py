@@ -166,8 +166,8 @@ def test_port_and_chip_smoke_import_without_jax():
     for m in ("parallel.multistream", "io.frame_ring", "io.video", "io.capture", "io.camera",
               "io.imu", "utils.parity", "utils.stats", "utils.view", "utils.build",
               "utils.custom_ops", "solvers.pnp_kernel", "solvers.ba_kernels", "ops.hamming_kernel",
-              "bench", "examples", "examples.demo", "examples.imu_demo", "examples.live_client",
-              "examples.preproc_sandbox", "examples.video_demo"):
+              "ops.image_kernels", "bench", "examples", "examples.demo", "examples.imu_demo",
+              "examples.live_client", "examples.preproc_sandbox", "examples.video_demo"):
         assert "alvaar_tpu_torch." + m in mods, m
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'alvaar_tpu'):\n"

@@ -1,12 +1,14 @@
 // Just enough of CUDA to run a kernel source of this repository on the CPU
 // (tools/cuda_on_cpu.py, for tools/rehearse_ba_kernels.py,
-// tools/rehearse_pnp_kernel.py and tools/rehearse_hamming_kernel.py): no
-// card, no nvcc.  Every CUDA thread of a block is a fiber on one host
+// tools/rehearse_pnp_kernel.py, tools/rehearse_hamming_kernel.py and
+// tools/rehearse_image_kernels.py): no card, no nvcc.  Every CUDA thread of a block is a fiber on one host
 // thread (its own stack, switched with _setjmp/_longjmp); blocks run one
 // after another, so `__shared__` variables are function statics.
 // `__syncthreads` is a barrier over the block's fibers, `__syncwarp` one
 // over the warp's lanes, a warp's shuffles, votes and `mma.sync` an
 // exchange array (two, used in turn) behind a barrier over its lanes,
+// `__ballot_sync` a vote of that kind, bf16 rounding torch's (nearest,
+// ties to even),
 // `cp.async` (`__pipeline_memcpy_async`) a plain copy, `clock64` a count of
 // its calls (it times nothing), `__popc` the compiler's popcount.  A
 // fiber that returns leaves its block's and its warp's barriers.  Float
@@ -287,6 +289,36 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline long long clock64() {
   static long long ticks = 0;
   return ++ticks;
+}
+
+inline unsigned __ballot_sync(unsigned, bool pred) {
+  cpu_cuda::Warp& w = cpu_cuda::warp();
+  cpu_cuda::Fiber& f = cpu_cuda::g->fibers[cpu_cuda::g->current];
+  const unsigned lane = threadIdx.x % 32, k = f.exchanges++ & 1;
+  const int lanes = w.bar.expected;    // before the wait: a lane past it may return
+  w.buf[k][lane][0] = pred;
+  cpu_cuda::wait(w.bar);
+  unsigned bits = 0;
+  for (int l = 0; l < lanes; ++l) bits |= static_cast<unsigned>(w.buf[k][l][0] != 0) << l;
+  return bits;
+}
+
+// bfloat16 as torch rounds a float to it (to nearest, ties to even; NaN
+// to a quiet NaN) and back.
+struct __nv_bfloat16 {
+  std::uint16_t x;
+};
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  std::uint32_t u;
+  std::memcpy(&u, &f, 4);
+  if (f != f) return __nv_bfloat16{0x7FC0};
+  return __nv_bfloat16{static_cast<std::uint16_t>((u + 0x7FFFu + ((u >> 16) & 1u)) >> 16)};
+}
+inline float __bfloat162float(__nv_bfloat16 b) {
+  const std::uint32_t u = static_cast<std::uint32_t>(b.x) << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
 }
 
 inline bool __any_sync(unsigned, bool pred) {

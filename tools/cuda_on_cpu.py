@@ -1,7 +1,8 @@
 """Run a CUDA source of the port (alvaar_tpu_torch/csrc/*.cu) on the CPU,
 where no card and no nvcc exist: the rehearsals before a chip call
 (tools/rehearse_ba_kernels.py, tools/rehearse_pnp_kernel.py,
-tools/rehearse_hamming_kernel.py) and their tier-1 tests share these.
+tools/rehearse_hamming_kernel.py, tools/rehearse_image_kernels.py) and
+their tier-1 tests share these.
 
 ``translate`` replaces the CUDA includes by tools/cpu_cuda_shim.h and each
 ``kernel<<<grid, block, ...>>>(args)`` by ``cpu_launch(kernel, grid,
@@ -25,7 +26,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def translate(src: str) -> str:
     """The CUDA source with the shim's include and ``cpu_launch`` calls."""
-    src = re.sub(r"#include <cuda_(runtime|pipeline)\.h>\n", "", src)
+    src = re.sub(r"#include <cuda_(runtime|pipeline|bf16)\.h>\n", "", src)
     src = '#include "cpu_cuda_shim.h"\n' + src
     out, pos = [], 0
     for m in re.finditer(r"(\w+)<<<", src):
