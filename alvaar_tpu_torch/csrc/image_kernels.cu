@@ -3,17 +3,37 @@
 // Pallas kernel; the JAX package compiles them into its jitted step):
 //
 // * K7, alvaar_tpu/ops/image.py:23-63: `rgba_to_gray` (BT.601 luma of an
-//   RGB(A) frame, u8 or float32) as `gray_kernel`, and `pyr_down` (the
-//   5-tap binomial blur and 2x decimation of one pyramid level) as
-//   `pyr_down_kernel`, over a stack of B images in one launch.
+//   RGB(A) frame, u8 or float32) as `gray_kernel`, and `build_pyramid` /
+//   `pyr_down` (the 5-tap binomial blur and 2x decimation) as
+//   `pyramid_kernel`, over a stack of B images in one launch.  One launch
+//   writes two levels (so every preset's 3-level pyramid is one launch; 4
+//   levels take two, the second writing one level) or one (`pyr_down`).
+//   A block owns an 8 x 32 tile of the second level: it stages the 41 x 137
+//   pixels of level 0 that tile needs, computes the 19 x 67 level-1 values
+//   around it in shared memory (each at its own clamped level-1
+//   coordinate), writes the 16 x 64 of them it owns, and takes level 2
+//   from the shared tile.  Level 0 is read once (its halo from L2), the
+//   levels written once: bound by bytes.
 // * K5, alvaar_tpu/ops/detect.py:159-252: the whole of `detect_grid` in
-//   three launches: `detect_blur_kernel` (the 3x3 Gaussian pre-blur),
-//   `detect_cells_kernel` (a block per grid cell: the Shi-Tomasi response
-//   of every pixel of the cell, written out, then the cell's best and
-//   second peak), `detect_select_kernel` (a block per row: the subpixel
-//   fit of the 2C peaks, the occupancy, proximity, border and finiteness
-//   gates, the 5-rung threshold ladder, the new threshold, and the
-//   priority selection of C of the 2C candidates).
+//   two launches.  `detect_cells_kernel`, a block per (grid cell, row):
+//   the cell's Shi-Tomasi response and a 2-pixel ring around it (the
+//   subpixel fit's neighbourhood), computed in sub-tiles of at most 54 x
+//   54 with every stage staged once in shared memory (the image, the 3x3
+//   pre-blur, Sobel's dx and dy, the box means' vertical pass, then their
+//   horizontal pass and the min-eig) into a response tile that stays
+//   resident (in global scratch where it does not fit beside them); the
+//   cell's best peak (tracked as the response is computed) and second
+//   peak; their subpixel fit, border and finiteness gates; the cell's
+//   occupancy and the peaks' proximity to the live keypoints (the block's
+//   strided scan, a ballot a warp, one barrier).  A block of 256 threads,
+//   four of them a multiprocessor.  `detect_rank_kernel`, blocks of 16
+//   candidates a row: the 5-rung threshold ladder's counts, the rung, the
+//   new threshold, the priorities, and each candidate's stable rank by a
+//   warp's strided count over the row's 2C priorities, staged in shared
+//   memory 1024 at a time.  Bound by the image's bytes; what holds it back
+//   is latency: a cell's block runs its dependent stages one after another
+//   (~10-14 us at 640x480, tools/image_kernel_timeline.py), and one row has
+//   only 130-352 cells to spread over 132 multiprocessors.
 // * K3, alvaar_tpu/ops/orb.py:96-149: `describe`, a block per keypoint:
 //   the 0.2 box blur of the 40 x 40 window the keypoint's 36 x 36 patch
 //   needs, the intensity-centroid angle over the 31-px circle, its
@@ -25,13 +45,15 @@
 // taps in `_sep_conv`'s order (rows first, then columns, ((0 + k0 x0) +
 // k1 x1) + ...), edge-clamped indices at every stage, Sobel's difference
 // first, the box means, the min-eig; build with --fmad=false, so that no
-// multiply-add is contracted.  So K7 and K5 are bit-equal to their plain
-// versions.  K3's moments are 961-term sums, which the plain version takes
-// with torch.sum in an order no kernel reproduces: here each term is the
-// plain version's float32 product, summed in float64 and rounded once, so
-// the angle is within a few float32 ulps of the plain one and a
-// descriptor can differ only where that angle lies on a steering-bin
-// boundary.
+// multiply-add is contracted.  A tile in shared memory holds each stage's
+// value at the clamped coordinate of every entry, so that the next stage
+// reads its clamped neighbours from it as the plain version does.  So K7
+// and K5 are bit-equal to their plain versions.  K3's moments are
+// 961-term sums, which the plain version takes with torch.sum in an order
+// no kernel reproduces: here each term is the plain version's float32
+// product, summed in float64 and rounded once, so the angle is within a
+// few float32 ulps of the plain one and a descriptor can differ only where
+// that angle lies on a steering-bin boundary.
 //
 // The per-cell argmax follows torch.argmax: NaN above every number, ties
 // to the first index, cells past the image's edge padded with -inf (an
@@ -48,11 +70,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;         // the pixel kernels, the cell kernel, K3 (one per bit)
-constexpr int kSelectThreads = 512;   // the selection: a block per row
+constexpr int kThreads = 256;         // the gray kernel's block; K3's (one thread per bit)
 constexpr int kWarps = kThreads / 32;
-constexpr int kSelectWarps = kSelectThreads / 32;
-constexpr int kMaxRows = 65535;       // S: grid.y of the cell and describe kernels
+constexpr int kMaxRows = 65535;       // S: grid.y of the cell, rank and describe kernels
 
 // The plain versions' constants, rounded to float32 as torch rounds a
 // Python float it multiplies a float32 tensor by.
@@ -69,11 +89,38 @@ constexpr float kQualityMin = static_cast<float>(1e-9);
 constexpr float kFill = static_cast<float>(0.9);      // the ladder's target fill
 constexpr float kStarve = static_cast<float>(0.33);   // below it the threshold halves
 constexpr int kRungs = 5;
-// K5's scratch per row, in units of C: floats (the peaks' scores, x, y,
-// priorities, 2C each) and ints (the peaks' tile indices 2C, the occupied
-// cells C, the candidates' flags 2C)
-constexpr int kScratchF = 8;
-constexpr int kScratchI = 5;
+
+// K7's tile: the second level's rows and columns a block owns
+constexpr int kPyrTileY = 8;
+constexpr int kPyrTileX = 32;
+constexpr int kPyr0Y = 4 * kPyrTileY + 9, kPyr0X = 4 * kPyrTileX + 9;   // level 0 staged
+constexpr int kPyr1Y = 2 * kPyrTileY + 3, kPyr1X = 2 * kPyrTileX + 3;   // level 1 with its halo
+constexpr int kPyrThreads = 256;
+constexpr int kPyrLoads = (kPyr0Y * kPyr0X + kPyrThreads - 1) / kPyrThreads;   // a thread's loads
+
+// K5: a response sub-tile's side at most; the shared memory a cell block
+// may take (the stages of its sub-tiles and, where they fit beside them,
+// its response tile: up to 175 x 175 floats beside a 54 x 54 sub-tile's
+// stages); the candidates a rank block ranks and the priorities it stages
+// at a time.  K5's scratch per row, in units of C: floats (the candidates'
+// x, y and score, 2C each) and ints (the candidates passing the gates 2C,
+// the occupied cells C).
+constexpr int kMaxChunk = 54;
+constexpr int kCellSmemBytes = 180 * 1024;
+constexpr int kCellThreads = 256;                 // the cell kernel's block: kCellRows rows
+constexpr int kCellBlocks = 4;                    // its blocks a multiprocessor holds at least
+constexpr int kStageUnroll = 4;                   // rows of a stage a thread overlaps
+constexpr int kCellCols = 64;                     // of kCellCols, a column of every stage each
+constexpr int kCellRows = kCellThreads / kCellCols;
+constexpr int kCellWarps = kCellThreads / 32;
+constexpr int kCellLoads = (kMaxChunk + 6 + kCellRows - 1) / kCellRows;   // image rows a thread loads
+static_assert(kMaxChunk + 6 <= kCellCols, "a sub-tile's stages are one column a thread wide");
+constexpr int kRankThreads = 256;
+constexpr int kRankWarps = kRankThreads / 32;
+constexpr int kRankPer = 16;
+constexpr int kRankTile = 1024;
+constexpr int kScratchF = 6;
+constexpr int kScratchI = 3;
 
 // ORB's geometry (ops/orb.py)
 constexpr int kPatch = 36;            // _PSZ: the patch covers [-17, +18] around its centre
@@ -101,9 +148,23 @@ __device__ __forceinline__ float tap5(float x0, float x1, float x2, float x3, fl
                                       float k1, float k2) {
   return ((((0.0f + k0 * x0) + k1 * x1) + k2 * x2) + k1 * x3) + k0 * x4;
 }
+// tap5 of p[0], p[step], ..., p[4 step] with the binomial's taps
+__device__ __forceinline__ float binomial(const float* p, int step) {
+  return tap5(p[0], p[step], p[2 * step], p[3 * step], p[4 * step], kBin0, kBin1, kBin2);
+}
+
+// The block's dynamic shared memory (the shim's buffer on the CPU).
+__device__ __forceinline__ float* dynamic_smem() {
+#ifdef CPU_CUDA_SHIM
+  return cpu_cuda::dynamic_shared<float>();
+#else
+  extern __shared__ float smem[];
+  return smem;
+#endif
+}
 
 // ---------------------------------------------------------------------------
-// K7: gray conversion and one pyramid level
+// K7: gray conversion and the pyramid
 // ---------------------------------------------------------------------------
 
 // rgba [pixels, channels] (channels 3 or 4) → out [pixels]: the plain
@@ -118,98 +179,79 @@ __global__ void __launch_bounds__(kThreads)
            static_cast<float>(p[2]) * kGrayB;
 }
 
-// img [B, H, W] → out [B, Ho, Wo], Ho = ceil(H / 2): the binomial blur at
-// the even rows and columns (rows first, then columns, edge-clamped).
-__global__ void __launch_bounds__(kThreads)
-    pyr_down_kernel(const float* img, int H, int W, int Ho, int Wo, long long outputs,
-                    float* out) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= outputs) return;
-  const long long b = i / (static_cast<long long>(Ho) * Wo);
-  const int rem = static_cast<int>(i - b * Ho * Wo);
-  const int r = 2 * (rem / Wo), c = 2 * (rem % Wo);
+// img [B, H, W] → out1 [B, H1, W1] (H1 = ceil(H / 2)) and, unless out2 is
+// null, out2 [B, H2, W2] (H2 = ceil(H1 / 2)): the binomial blur at the even
+// rows and columns of each level (rows first, then columns, edge-clamped
+// at that level's size).  Block (tile, b) owns level-2 rows R0..R0 + 7 and
+// columns C0..C0 + 31, so level-1 rows 2 R0..2 R0 + 15 and columns
+// 2 C0..2 C0 + 63; the grid is B x ceil(H2 / 8) x ceil(W2 / 32) in x.
+__global__ void __launch_bounds__(kPyrThreads)
+    pyramid_kernel(const float* img, int H, int W, int H1, int W1, int H2, int W2, float* out1,
+                   float* out2) {
+  __shared__ float s0[kPyr0Y * kPyr0X];   // level 0 at rows 4 R0 - 6 + i, clamped
+  __shared__ float v1[kPyr1Y * kPyr0X];   // level 1's vertical pass
+  __shared__ float s1[kPyr1Y * kPyr1X];   // level 1 at rows 2 R0 - 2 + a, clamped to level 1
+  __shared__ float v2[kPyrTileY * kPyr1X];
+  const int tiles_x = (W2 + kPyrTileX - 1) / kPyrTileX;
+  const int tiles = tiles_x * ((H2 + kPyrTileY - 1) / kPyrTileY);
+  const long long b = blockIdx.x / tiles;
+  const int t = static_cast<int>(blockIdx.x - b * tiles);
+  const int R0 = (t / tiles_x) * kPyrTileY, C0 = (t % tiles_x) * kPyrTileX;
   const float* im = img + b * H * W;
-  int rows[5];
+  {
+    float v[kPyrLoads];              // every load issued before the first store
 #pragma unroll
-  for (int d = 0; d < 5; ++d) rows[d] = clampi(r + d - 2, 0, H - 1) * W;
-  float x[5];
+    for (int k = 0; k < kPyrLoads; ++k) {
+      const int i = threadIdx.x + k * kPyrThreads;
+      const int y = clampi(4 * R0 - 6 + i / kPyr0X, 0, H - 1);
+      const int x = clampi(4 * C0 - 6 + i % kPyr0X, 0, W - 1);
+      v[k] = i < kPyr0Y * kPyr0X ? im[static_cast<long long>(y) * W + x] : 0.0f;
+    }
 #pragma unroll
-  for (int d = 0; d < 5; ++d) {
-    const int col = clampi(c + d - 2, 0, W - 1);
-    x[d] = tap5(im[rows[0] + col], im[rows[1] + col], im[rows[2] + col], im[rows[3] + col],
-                im[rows[4] + col], kBin0, kBin1, kBin2);
+    for (int k = 0; k < kPyrLoads; ++k) {
+      const int i = threadIdx.x + k * kPyrThreads;
+      if (i < kPyr0Y * kPyr0X) s0[i] = v[k];
+    }
   }
-  out[i] = tap5(x[0], x[1], x[2], x[3], x[4], kBin0, kBin1, kBin2);
+  __syncthreads();
+  // level-1 row a is clamp(2 R0 - 2 + a) of level 1, whose taps are level-0
+  // rows 2 r1 - 2 + d: staged rows 2 r1 - 4 R0 + 4 + d
+  for (int i = threadIdx.x; i < kPyr1Y * kPyr0X; i += kPyrThreads) {
+    const int a = i / kPyr0X, j = i % kPyr0X;
+    const int r1 = clampi(2 * R0 - 2 + a, 0, H1 - 1);
+    v1[i] = binomial(s0 + (2 * r1 - 4 * R0 + 4) * kPyr0X + j, kPyr0X);
+  }
+  __syncthreads();
+  float* o1 = out1 + b * H1 * W1;
+  for (int i = threadIdx.x; i < kPyr1Y * kPyr1X; i += kPyrThreads) {
+    const int a = i / kPyr1X, c = i % kPyr1X;
+    const int c1 = clampi(2 * C0 - 2 + c, 0, W1 - 1);
+    const float v = binomial(v1 + a * kPyr0X + 2 * c1 - 4 * C0 + 4, 1);
+    s1[i] = v;
+    const int y = 2 * R0 - 2 + a, x = 2 * C0 - 2 + c;     // owned: the tile's own, inside
+    if (a >= 2 && a < 2 + 2 * kPyrTileY && c >= 2 && c < 2 + 2 * kPyrTileX && y < H1 && x < W1)
+      o1[static_cast<long long>(y) * W1 + x] = v;
+  }
+  if (out2 == nullptr) return;        // one level: every thread of every block returns here
+  __syncthreads();
+  // level-2 row R0 + a2 takes level-1 rows 2 (R0 + a2) - 2 + d, shared row 2 a2 + d
+  for (int i = threadIdx.x; i < kPyrTileY * kPyr1X; i += kPyrThreads) {
+    const int a2 = i / kPyr1X, c = i % kPyr1X;
+    v2[i] = binomial(s1 + 2 * a2 * kPyr1X + c, kPyr1X);
+  }
+  __syncthreads();
+  float* o2 = out2 + b * H2 * W2;
+  for (int i = threadIdx.x; i < kPyrTileY * kPyrTileX; i += kPyrThreads) {
+    const int a2 = i / kPyrTileX, c2 = i % kPyrTileX;
+    const int y = R0 + a2, x = C0 + c2;
+    if (y < H2 && x < W2)
+      o2[static_cast<long long>(y) * W2 + x] = binomial(v2 + a2 * kPyr1X + 2 * c2, 1);
+  }
 }
 
 // ---------------------------------------------------------------------------
 // K5: grid Shi-Tomasi detection
 // ---------------------------------------------------------------------------
-
-// img [S, H, W] → g [S, H, W]: `gaussian_blur3`, [0.25, 0.5, 0.25] rows
-// first, then columns.
-__global__ void __launch_bounds__(kThreads)
-    detect_blur_kernel(const float* img, int H, int W, long long pixels, float* g) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= pixels) return;
-  const long long s = i / (static_cast<long long>(H) * W);
-  const int rem = static_cast<int>(i - s * H * W);
-  const int r = rem / W, c = rem % W;
-  const float* im = img + s * H * W;
-  const int r0 = clampi(r - 1, 0, H - 1) * W, r1 = r * W, r2 = clampi(r + 1, 0, H - 1) * W;
-  const int cols[3] = {clampi(c - 1, 0, W - 1), c, clampi(c + 1, 0, W - 1)};
-  float x[3];
-#pragma unroll
-  for (int d = 0; d < 3; ++d)
-    x[d] = tap3(im[r0 + cols[d]], im[r1 + cols[d]], im[r2 + cols[d]], 0.25f, 0.5f);
-  g[i] = tap3(x[0], x[1], x[2], 0.25f, 0.5f);
-}
-
-// `sobel_gradients` of g at (y, x): the central difference first, then
-// the [1, 2, 1] smoothing across it, each index clamped to the image.
-__device__ __forceinline__ void sobel(const float* g, int H, int W, int y, int x, float& dx,
-                                      float& dy) {
-  const int ym = clampi(y - 1, 0, H - 1) * W, y0 = y * W, yp = clampi(y + 1, 0, H - 1) * W;
-  const int xm = clampi(x - 1, 0, W - 1), xp = clampi(x + 1, 0, W - 1);
-  const float d0 = g[ym + xp] - g[ym + xm], d1 = g[y0 + xp] - g[y0 + xm];
-  const float d2 = g[yp + xp] - g[yp + xm];
-  dx = (d0 + 2.0f * d1) + d2;
-  const float e0 = g[yp + xm] - g[ym + xm], e1 = g[yp + x] - g[ym + x];
-  const float e2 = g[yp + xp] - g[ym + xp];
-  dy = (e0 + 2.0f * e1) + e2;
-}
-
-// `_sep_conv(p, [1/3] * 3)` at the centre of p[row][col], the 3 x 3
-// neighbourhood at clamped indices: rows first, then columns.
-__device__ __forceinline__ float box3(const float (&p)[3][3]) {
-  float x[3];
-#pragma unroll
-  for (int b = 0; b < 3; ++b) x[b] = tap3(p[0][b], p[1][b], p[2][b], kThird, kThird);
-  return tap3(x[0], x[1], x[2], kThird, kThird);
-}
-
-// `shi_tomasi_response` at (r, c) from the blurred image g.
-__device__ float response(const float* g, int H, int W, int r, int c) {
-  const int ys[3] = {clampi(r - 1, 0, H - 1), r, clampi(r + 1, 0, H - 1)};
-  const int xs[3] = {clampi(c - 1, 0, W - 1), c, clampi(c + 1, 0, W - 1)};
-  float pxx[3][3], pyy[3][3], pxy[3][3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      float dx, dy;
-      sobel(g, H, W, ys[a], xs[b], dx, dy);
-      pxx[a][b] = dx * dx;
-      pyy[a][b] = dy * dy;
-      pxy[a][b] = dx * dy;
-    }
-  }
-  const float sxx = box3(pxx), syy = box3(pyy), sxy = box3(pxy);
-  const float half_trace = 0.5f * (sxx + syy);
-  const float t = (sxx - syy) * 0.5f;
-  const float disc = sqrtf(t * t + sxy * sxy);
-  return (half_trace - disc) * kCvNorm;
-}
 
 // torch.argmax's order: NaN above every number, ties to the lower index.
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
@@ -218,8 +260,9 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-// The block's argmax of (v, i): every thread gets it.  `sv` and `si`
-// hold kWarps entries.
+// The block's argmax of (v, i) over its kW warps: every thread gets it.
+// `sv` and `si` hold kW entries.
+template <int kW>
 __device__ __forceinline__ void block_argmax(float& v, int& i, float* sv, int* si) {
 #pragma unroll
   for (int m = 16; m > 0; m >>= 1) {
@@ -235,79 +278,322 @@ __device__ __forceinline__ void block_argmax(float& v, int& i, float* sv, int* s
     si[threadIdx.x / 32] = i;
   }
   __syncthreads();
+  if (threadIdx.x < 32) {             // warp 0 reduces the warps' (v, i) the same way
+    v = threadIdx.x < kW ? sv[threadIdx.x] : neg_inf();
+    i = threadIdx.x < kW ? si[threadIdx.x] : 0x7FFFFFFF;
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) {
+      const float ov = __shfl_xor_sync(0xFFFFFFFFu, v, m);
+      const int oi = __shfl_xor_sync(0xFFFFFFFFu, i, m);
+      if (better(ov, oi, v, i)) {
+        v = ov;
+        i = oi;
+      }
+    }
+    if (threadIdx.x == 0) {
+      sv[0] = v;
+      si[0] = i;
+    }
+  }
+  __syncthreads();
   v = sv[0];
   i = si[0];
-  for (int w = 1; w < kWarps; ++w)
-    if (better(sv[w], si[w], v, i)) {
-      v = sv[w];
-      i = si[w];
-    }
   __syncthreads();
 }
 
-// Block (cell, s): the response of the cell's pixels into resp [S, H, W],
-// then `grid_argmax2`'s best peak over the cell x cell tile (-inf past the
-// image) and its second peak outside the disc of radius cell / 4 around
-// the best: their scores to the first 2C floats of the row's scratch
-// (best at cid, second at C + cid), their tile indices to its first 2C
-// ints.
-__global__ void __launch_bounds__(kThreads)
-    detect_cells_kernel(const float* g, int H, int W, int cell, int gw, int C, float* resp,
-                        float* score, int* peak) {
-  __shared__ float sv[kWarps];
-  __shared__ int si[kWarps];
-  const long long s = blockIdx.y;
-  const int cid = blockIdx.x;
-  const int y0 = (cid / gw) * cell, x0 = (cid % gw) * cell;
-  const int n = cell * cell;
-  const float* gs = g + s * H * W;
-  float* rs = resp + s * H * W;
+// Floats of shared memory the stages of a chunk x chunk sub-tile take: the
+// image (chunk + 6)^2 and the blur (chunk + 4)^2, which the box means'
+// three vertical passes, chunk (chunk + 2) each, overwrite; then Sobel's
+// dx and dy, (chunk + 2)^2 each.
+__host__ __device__ __forceinline__ int stage_floats(int chunk) {
+  const int a = (chunk + 6) * (chunk + 6) + (chunk + 4) * (chunk + 4);
+  const int v = 3 * chunk * (chunk + 2);
+  return (a > v ? a : v) + 2 * (chunk + 2) * (chunk + 2);
+}
 
-  float v1 = neg_inf();
-  int i1 = n;
-  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-    const int y = y0 + idx / cell, x = x0 + idx % cell;
-    float v = neg_inf();
-    if (y < H && x < W) {
-      v = response(gs, H, W, y, x);
-      rs[y * W + x] = v;
-    }
-    if (better(v, idx, v1, i1)) {
-      v1 = v;
-      i1 = idx;
-    }
-  }
-  block_argmax(v1, i1, sv, si);       // its barriers also publish the responses written
+// The stages of one sub-tile of the response (`response_chunk`), each a
+// pass over a tile in shared memory whose entry (i, j) is the stage's value
+// at the clamped coordinate of (origin + i, origin + j).  The block's
+// threads are kCellRows rows of kCellCols columns: column lx of a stage (at
+// most chunk + 6 <= kCellCols wide) is thread lx's, its rows ly, ly +
+// kCellRows, ...; the loops are unrolled so that a thread's rows overlap,
+// which the restrict-qualified tiles allow.
 
-  const int iy = i1 / cell, ix = i1 % cell, r = cell / 4;
-  float v2 = neg_inf();
-  int i2 = n;
-  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-    const int dy = idx / cell, dx = idx % cell;
-    const int y = y0 + dy, x = x0 + dx;
-    const long long d2 = static_cast<long long>(dy - iy) * (dy - iy) +
-                         static_cast<long long>(dx - ix) * (dx - ix);
-    const float v = d2 <= static_cast<long long>(r) * r || y >= H || x >= W ? neg_inf()
-                                                                           : rs[y * W + x];
-    if (better(v, idx, v2, i2)) {
-      v2 = v;
-      i2 = idx;
-    }
-  }
-  block_argmax(v2, i2, sv, si);
-  if (threadIdx.x == 0) {
-    float* sc = score + s * kScratchF * C;
-    int* pk = peak + s * kScratchI * C;
-    sc[cid] = v1;
-    sc[C + cid] = v2;
-    pk[cid] = i1;
-    pk[C + cid] = i2;
+// `gaussian_blur3` of the image tile (origin (a - 3, b - 3), stride iw)
+// into g (origin (a - 2, b - 2), gh x gw): [0.25, 0.5, 0.25] rows first.
+__device__ __forceinline__ void blur_stage(const float* __restrict__ si, float* __restrict__ sg,
+                                           int H, int W, int a, int b, int iw, int gh, int gw,
+                                           int lx, int ly) {
+  if (lx >= gw) return;
+  const int x = clampi(b - 2 + lx, 0, W - 1);
+  const int c0 = clampi(x - 1, 0, W - 1) - b + 3, c1 = x - b + 3;
+  const int c2 = clampi(x + 1, 0, W - 1) - b + 3;
+#pragma unroll kStageUnroll
+  for (int r = ly; r < gh; r += kCellRows) {
+    const int y = clampi(a - 2 + r, 0, H - 1);
+    const float* r0 = si + (clampi(y - 1, 0, H - 1) - a + 3) * iw;
+    const float* r1 = si + (y - a + 3) * iw;
+    const float* r2 = si + (clampi(y + 1, 0, H - 1) - a + 3) * iw;
+    const float v0 = tap3(r0[c0], r1[c0], r2[c0], 0.25f, 0.5f);
+    const float v1 = tap3(r0[c1], r1[c1], r2[c1], 0.25f, 0.5f);
+    const float v2 = tap3(r0[c2], r1[c2], r2[c2], 0.25f, 0.5f);
+    sg[r * gw + lx] = tap3(v0, v1, v2, 0.25f, 0.5f);
   }
 }
 
-// Sums of kN ints over the block, into tot (shared, kN), every thread's
-// `v` its share; `part` holds kSelectWarps * kN ints.
-template <int kN>
+// `sobel_gradients` of g (origin (a - 2, b - 2), stride gw) into dx and dy
+// (origin (a - 1, b - 1), dh x dw): the central difference first, then the
+// [1, 2, 1] smoothing across it.
+__device__ __forceinline__ void sobel_stage(const float* __restrict__ sg, float* __restrict__ sdx,
+                                            float* __restrict__ sdy, int H, int W, int a, int b,
+                                            int gw, int dh, int dw, int lx, int ly) {
+  if (lx >= dw) return;
+  const int x = clampi(b - 1 + lx, 0, W - 1);
+  const int xm = clampi(x - 1, 0, W - 1) - b + 2, xc = x - b + 2;
+  const int xp = clampi(x + 1, 0, W - 1) - b + 2;
+#pragma unroll kStageUnroll
+  for (int r = ly; r < dh; r += kCellRows) {
+    const int y = clampi(a - 1 + r, 0, H - 1);
+    const float* gm = sg + (clampi(y - 1, 0, H - 1) - a + 2) * gw;
+    const float* gc = sg + (y - a + 2) * gw;
+    const float* gp = sg + (clampi(y + 1, 0, H - 1) - a + 2) * gw;
+    const float d0 = gm[xp] - gm[xm], d1 = gc[xp] - gc[xm], d2 = gp[xp] - gp[xm];
+    sdx[r * dw + lx] = (d0 + 2.0f * d1) + d2;
+    const float e0 = gp[xm] - gm[xm], e1 = gp[xc] - gm[xc], e2 = gp[xp] - gm[xp];
+    sdy[r * dw + lx] = (e0 + 2.0f * e1) + e2;
+  }
+}
+
+// The box means' vertical pass over dx dx, dy dy, dx dy (dx, dy at origin
+// (a - 1, b - 1), stride dw) at rows [a, a + ty), columns from b - 1 (vw
+// wide): into v[0], v[1], v[2].
+__device__ __forceinline__ void vertical_stage(const float* __restrict__ sdx,
+                                               const float* __restrict__ sdy,
+                                               float* __restrict__ vxx, float* __restrict__ vyy,
+                                               float* __restrict__ vxy, int H, int a, int ty,
+                                               int dw, int vw, int lx, int ly) {
+  if (lx >= vw) return;
+#pragma unroll kStageUnroll
+  for (int r = ly; r < ty; r += kCellRows) {
+    const int y = a + r;
+    const int i0 = (clampi(y - 1, 0, H - 1) - a + 1) * dw + lx, i1 = (r + 1) * dw + lx;
+    const int i2 = (clampi(y + 1, 0, H - 1) - a + 1) * dw + lx;
+    const float x0 = sdx[i0], x1 = sdx[i1], x2 = sdx[i2];
+    const float y0 = sdy[i0], y1 = sdy[i1], y2 = sdy[i2];
+    vxx[r * vw + lx] = tap3(x0 * x0, x1 * x1, x2 * x2, kThird, kThird);
+    vyy[r * vw + lx] = tap3(y0 * y0, y1 * y1, y2 * y2, kThird, kThird);
+    vxy[r * vw + lx] = tap3(x0 * y0, x1 * y1, x2 * y2, kThird, kThird);
+  }
+}
+
+// The response of rows [a, a + ty) x columns [b, b + tx) (inside the
+// image) into the tile rt (stride rw, origin (ry, rx)) and, for the pixels
+// of the cell [y0, y0 + cell) x [x0, x0 + cell), into rs [H, W] and the
+// thread's running best (bv, bi) in `better`'s order (tile index dy cell +
+// dx).
+__device__ void response_chunk(const float* im, int H, int W, int a, int b, int ty, int tx,
+                               float* sa, float* sdx, float* sdy, float* rt, int rw, int ry,
+                               int rx, int y0, int x0, int cell, float* rs, float& bv, int& bi) {
+  const int lx = threadIdx.x % kCellCols, ly = threadIdx.x / kCellCols;
+  // the image at origin (a - 3, b - 3): every load issued before the first store
+  const int iw = tx + 6, ih = ty + 6;
+  {
+    const int x = clampi(b - 3 + lx, 0, W - 1);
+    float v[kCellLoads];
+#pragma unroll
+    for (int k = 0; k < kCellLoads; ++k) {
+      const int r = ly + k * kCellRows;
+      v[k] = r < ih && lx < iw ? im[static_cast<long long>(clampi(a - 3 + r, 0, H - 1)) * W + x]
+                               : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < kCellLoads; ++k) {
+      const int r = ly + k * kCellRows;
+      if (r < ih && lx < iw) sa[r * iw + lx] = v[k];
+    }
+  }
+  __syncthreads();
+  const int gw = tx + 4, gh = ty + 4, dw = tx + 2, dh = ty + 2, vw = tx + 2;
+  blur_stage(sa, sa + ih * iw, H, W, a, b, iw, gh, gw, lx, ly);
+  __syncthreads();
+  sobel_stage(sa + ih * iw, sdx, sdy, H, W, a, b, gw, dh, dw, lx, ly);
+  __syncthreads();
+  // (overwriting the image and the blur)
+  float* vxx = sa;
+  float* vyy = vxx + ty * vw;
+  float* vxy = vyy + ty * vw;
+  vertical_stage(sdx, sdy, vxx, vyy, vxy, H, a, ty, dw, vw, lx, ly);
+  __syncthreads();
+  // their horizontal pass and the min-eig
+  if (lx < tx) {
+    const int x = b + lx;
+    const int cm = clampi(x - 1, 0, W - 1) - b + 1, cc = lx + 1;
+    const int cp = clampi(x + 1, 0, W - 1) - b + 1;
+    const bool own_x = x >= x0 && x < x0 + cell;
+#pragma unroll kStageUnroll
+    for (int r = ly; r < ty; r += kCellRows) {
+      const int y = a + r, row = r * vw;
+      const float sxx = tap3(vxx[row + cm], vxx[row + cc], vxx[row + cp], kThird, kThird);
+      const float syy = tap3(vyy[row + cm], vyy[row + cc], vyy[row + cp], kThird, kThird);
+      const float sxy = tap3(vxy[row + cm], vxy[row + cc], vxy[row + cp], kThird, kThird);
+      const float half_trace = 0.5f * (sxx + syy);
+      const float t = (sxx - syy) * 0.5f;
+      const float v = (half_trace - sqrtf(t * t + sxy * sxy)) * kCvNorm;
+      rt[(y - ry) * rw + x - rx] = v;
+      if (own_x && y >= y0 && y < y0 + cell) {
+        rs[static_cast<long long>(y) * W + x] = v;
+        const int idx = (y - y0) * cell + x - x0;
+        if (better(v, idx, bv, bi)) {
+          bv = v;
+          bi = idx;
+        }
+      }
+    }
+  }
+  __syncthreads();      // the next chunk's image overwrites the vertical passes
+}
+
+// Block (cell, s): the response of the cell's pixels into resp [S, H, W]
+// and of them and a 2-pixel ring into the tile (min(cell, H) + 4) x
+// (min(cell, W) + 4) (dynamic shared memory, or `tiles` [S, C, that
+// tile] when not null), in sub-tiles of at most chunk x chunk;
+// `grid_argmax2`'s best peak over the cell x cell tile (-inf past the
+// image: an in-image pixel, index 0 at worst, always wins over those, so
+// the best is taken over the in-image pixels as the response is computed)
+// and its second peak outside the disc of radius cell / 4 around the
+// best; each peak's subpixel fit and gates; the cell's occupancy and the
+// peaks' proximity (each thread the live keypoints k = thread, thread +
+// kCellThreads, ..., the first loaded before the response, then the
+// block's OR).  kSharedTile: the tile is in shared memory (else `tiles`).  Writes the row's scratch: cand [S, 6C] (x at j, y at 2C +
+// j, score at 4C + j, with j = cid for the best peak and C + cid for the
+// second) and flags [S, 3C] (the peak passing the border, occupancy,
+// proximity and finiteness gates at j, the cell occupied at 2C + cid).
+template <bool kSharedTile>
+__global__ void __launch_bounds__(kCellThreads, kCellBlocks)
+    detect_cells_kernel(const float* img, const float* ex_xy, const bool* ex_valid, int H, int W,
+                        int K, int cell, int border, int gw, int C, int chunk, float* tiles,
+                        float* resp, float* cand, int* flags) {
+  __shared__ float sv[kCellWarps];
+  __shared__ int si[kCellWarps];
+  __shared__ int votes[kCellWarps];
+  const long long s = blockIdx.y;
+  const int cid = blockIdx.x;
+  const int y0 = (cid / gw) * cell, x0 = (cid % gw) * cell;
+  const int rh = imin(cell, H) + 4, rw = imin(cell, W) + 4;
+  const float* im = img + s * H * W;
+  float* const sa = dynamic_smem();
+  const int dn = (chunk + 2) * (chunk + 2);
+  float* const sdx = sa + stage_floats(chunk) - 2 * dn;
+  float* const sdy = sdx + dn;
+  float* const rt = kSharedTile ? sdy + dn : tiles + (s * C + cid) * (rh * rw);
+  const float* ex = ex_xy + s * K * 2;
+  const bool* exv = ex_valid + s * K;
+  // this thread's first live keypoint, loaded while the image comes in
+  const int k0 = threadIdx.x;
+  const bool live0 = k0 < K && exv[k0];
+  const float ex0 = k0 < K ? ex[2 * k0] : 0.0f, ey0 = k0 < K ? ex[2 * k0 + 1] : 0.0f;
+
+  const int ry = y0 - 2, rx = x0 - 2;
+  const int ya = imax(ry, 0), yb = imin(y0 + cell + 2, H);
+  const int xa = imax(rx, 0), xb = imin(x0 + cell + 2, W);
+  const int n = cell * cell;
+  float v1 = neg_inf();
+  int i1 = n;
+  for (int a = ya; a < yb; a += chunk)
+    for (int b = xa; b < xb; b += chunk)
+      response_chunk(im, H, W, a, b, imin(chunk, yb - a), imin(chunk, xb - b), sa, sdx, sdy, rt,
+                     rw, ry, rx, y0, x0, cell, resp + s * H * W, v1, i1);
+  block_argmax<kCellWarps>(v1, i1, sv, si);
+
+  // the second peak, thread (ly, lx) taking rows ly + kCellRows k, columns
+  // lx + kCellCols m of the cell
+  const int lx = threadIdx.x % kCellCols, ly = threadIdx.x / kCellCols;
+  const int iy = i1 / cell, ix = i1 % cell, r = cell / 4;
+  float v2 = neg_inf();
+  int i2 = n;
+  for (int dy = ly; dy < cell; dy += kCellRows)
+    for (int dx = lx; dx < cell; dx += kCellCols) {
+      const long long d2 = static_cast<long long>(dy - iy) * (dy - iy) +
+                           static_cast<long long>(dx - ix) * (dx - ix);
+      const float v = d2 <= static_cast<long long>(r) * r || y0 + dy >= H || x0 + dx >= W
+                          ? neg_inf()
+                          : rt[(dy + 2) * rw + dx + 2];
+      if (better(v, dy * cell + dx, v2, i2)) {
+        v2 = v;
+        i2 = dy * cell + dx;
+      }
+    }
+  block_argmax<kCellWarps>(v2, i2, sv, si);
+
+  // each peak's subpixel fit on the tile (every thread alike)
+  float px[2], py[2];
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int t = p == 0 ? i1 : i2;
+    const int x = clampi(x0 + t % cell, 1, W - 2), y = clampi(y0 + t / cell, 1, H - 2);
+    const float* at = rt + (y - ry) * rw + x - rx;    // at[dy * rw + dx]: the 3 x 3 neighbourhood
+    const float c0 = at[0];
+    const float dxx = (at[1] + at[-1]) - 2.0f * c0;
+    const float dyy = (at[rw] + at[-rw]) - 2.0f * c0;
+    const float dxy = 0.25f * (((at[rw + 1] - at[rw - 1]) - at[-rw + 1]) + at[-rw - 1]);
+    const float gx = 0.5f * (at[1] - at[-1]);
+    const float gy = 0.5f * (at[rw] - at[-rw]);
+    float det = dxx * dyy - dxy * dxy;
+    det = fabsf(det) < kDetFloor ? kDetFloor : det;
+    float ox = -(dyy * gx - dxy * gy) / det;
+    float oy = -(dxx * gy - dxy * gx) / det;
+    const bool good = fabsf(ox) <= 1.0f && fabsf(oy) <= 1.0f;
+    px[p] = static_cast<float>(x) + (good ? ox : 0.0f);
+    py[p] = static_cast<float>(y) + (good ? oy : 0.0f);
+  }
+  // the cell's occupancy and each peak's proximity over the live keypoints
+  const double q4 = cell / 4.0;
+  const float near2 = static_cast<float>(q4 * q4);
+  bool occ = false, close1 = false, close2 = false;
+  for (int k = k0; k < K; k += kCellThreads) {
+    const bool live = k == k0 ? live0 : exv[k];
+    const float ex_x = k == k0 ? ex0 : ex[2 * k], ex_y = k == k0 ? ey0 : ex[2 * k + 1];
+    if (!live) continue;
+    const long long kx = clampll(static_cast<long long>(ex_x), 0, W - 1);
+    const long long ky = clampll(static_cast<long long>(ex_y), 0, H - 1);
+    occ = occ || (ky / cell) * gw + kx / cell == cid;
+    const float ax = px[0] - ex_x, ay = py[0] - ex_y, bx = px[1] - ex_x, by = py[1] - ex_y;
+    close1 = close1 || ax * ax + ay * ay < near2;
+    close2 = close2 || bx * bx + by * by < near2;
+  }
+  // the block's OR of the three flags: a ballot a warp, one barrier
+  const unsigned bits = (__ballot_sync(0xFFFFFFFFu, occ) != 0 ? 1u : 0u) |
+                        (__ballot_sync(0xFFFFFFFFu, close1) != 0 ? 2u : 0u) |
+                        (__ballot_sync(0xFFFFFFFFu, close2) != 0 ? 4u : 0u);
+  if (threadIdx.x % 32 == 0) votes[threadIdx.x / 32] = static_cast<int>(bits);
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  unsigned any = 0;
+  for (int w = 0; w < kCellWarps; ++w) any |= static_cast<unsigned>(votes[w]);
+  occ = any & 1u;
+  close1 = any & 2u;
+  close2 = any & 4u;
+  float* cf = cand + s * kScratchF * C;
+  int* fl = flags + s * kScratchI * C;
+  fl[2 * C + cid] = occ;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int j = p * C + cid;
+    const float sc = p == 0 ? v1 : v2;
+    const bool in_border = px[p] >= static_cast<float>(border) &&
+                           px[p] < static_cast<float>(W - border) &&
+                           py[p] >= static_cast<float>(border) &&
+                           py[p] < static_cast<float>(H - border);
+    cf[j] = px[p];
+    cf[2 * C + j] = py[p];
+    cf[4 * C + j] = sc;
+    fl[j] = in_border && !occ && !(p == 0 ? close1 : close2) && fabsf(sc) < INFINITY;
+  }
+}
+
+// Sums of kN ints over the block's kW warps, into tot (shared, kN), every
+// thread's `v` its share; `part` holds kW * kN ints.
+template <int kW, int kN>
 __device__ __forceinline__ void block_sums(int (&v)[kN], int* part, int* tot) {
 #pragma unroll
   for (int k = 0; k < kN; ++k) {
@@ -319,94 +605,62 @@ __device__ __forceinline__ void block_sums(int (&v)[kN], int* part, int* tot) {
   __syncthreads();
   if (threadIdx.x < kN) {
     int t = 0;
-    for (int w = 0; w < kSelectWarps; ++w) t += part[w * kN + threadIdx.x];
+    for (int w = 0; w < kW; ++w) t += part[w * kN + threadIdx.x];
     tot[threadIdx.x] = t;
   }
   __syncthreads();
 }
 
-// Block s: the rest of `detect_grid` on row s, from the responses and the
-// cells' peaks.  wsf [S, kScratchF C] (the peaks' scores as the cell
-// kernel left them; x, y after the subpixel fit; priorities) and wsi [S,
-// kScratchI C] (the peaks' tile indices; the occupied cells; the
-// candidates passing the gates) are the launch's scratch.  Writes xy [S,
-// C, 2], score [S, C], valid [S, C] and new_quality [S].
-__global__ void __launch_bounds__(kSelectThreads)
-    detect_select_kernel(const float* resp, const float* ex_xy, const bool* ex_valid,
-                         const float* quality, float quality_value, int H, int W, int K,
-                         int cell, int border, int gw, int C, float* wsf, int* wsi, float* xy,
-                         float* score_out, bool* valid_out, float* new_quality) {
-  __shared__ int part[kSelectWarps * (1 + 2 * kRungs)];
+// Candidate j's priority at threshold `thresh`: first peaks before second
+// ones, then by score; -inf where it fails.
+__device__ __forceinline__ float priority(const int* ok, const float* score, int j, int C,
+                                          float thresh) {
+  const float sc = score[j];
+  if (!ok[j] || !(sc >= thresh)) return neg_inf();
+  const float clipped = sc < 0.0f ? 0.0f : sc > 999.0f ? 999.0f : sc;
+  return (j < C ? 1000.0f : 0.0f) + clipped;
+}
+
+// Block (x, s): the rest of `detect_grid` on row s from the cell kernel's
+// scratch: the ladder's counts (every block of the row alike, each thread's
+// loads issued at once), the rung and the new threshold (new_quality [S],
+// from block 0), and the stable rank of candidates kRankPer x .. kRankPer x
+// + kRankPer - 1 among the row's 2C, a warp per candidate counting over
+// the priorities a tile of kRankTile at a time; a candidate of rank r < C
+// goes to xy [S, C, 2], score [S, C] and valid [S, C] at r.
+__global__ void __launch_bounds__(kRankThreads)
+    detect_rank_kernel(const float* cand, const int* flags, const float* quality,
+                       float quality_value, int C, float* xy, float* score_out, bool* valid_out,
+                       float* new_quality) {
+  constexpr int kPerWarp = kRankPer / kRankWarps;
+  static_assert(kPerWarp * kRankWarps == kRankPer, "whole candidates a warp");
+  __shared__ int part[kRankWarps * (1 + 2 * kRungs)];
   __shared__ int tot[1 + 2 * kRungs];
-  const long long s = blockIdx.x;
+  __shared__ float tile[kRankTile];
+  const long long s = blockIdx.y;
   const int C2 = 2 * C;
-  float* score = wsf + s * kScratchF * C;
-  float* cx = score + C2;
-  float* cy = cx + C2;
-  float* prio = cy + C2;
-  const int* peak = wsi + s * kScratchI * C;
-  int* occ = wsi + s * kScratchI * C + C2;
-  int* ok = occ + C;
-  const float* rs = resp + s * H * W;
-  const float* ex = ex_xy + s * K * 2;
-  const bool* exv = ex_valid + s * K;
+  const float* cf = cand + s * kScratchF * C;
+  const float* score = cf + 4 * C;
+  const int* ok = flags + s * kScratchI * C;
+  const int* occ = ok + C2;
   const float q0 = quality != nullptr ? quality[s] : quality_value;
 
-  // the cells holding a live keypoint
-  for (int c = threadIdx.x; c < C; c += kSelectThreads) occ[c] = 0;
-  __syncthreads();
-  for (int k = threadIdx.x; k < K; k += kSelectThreads) {
-    if (!exv[k]) continue;
-    const long long kx = clampll(static_cast<long long>(ex[2 * k]), 0, W - 1);
-    const long long ky = clampll(static_cast<long long>(ex[2 * k + 1]), 0, H - 1);
-    occ[(ky / cell) * gw + kx / cell] = 1;   // every writer writes 1
-  }
-  __syncthreads();
-
-  // each candidate's subpixel fit and gates; the counts per rung
-  const double q4 = cell / 4.0;
-  const float near2 = static_cast<float>(q4 * q4);
   float ladder[kRungs];
   for (int r = 0; r < kRungs; ++r) ladder[r] = q0 * static_cast<float>(1.0 / (1 << r));
   int counts[1 + 2 * kRungs] = {};
-  for (int c = threadIdx.x; c < C; c += kSelectThreads) counts[0] += occ[c];
-  for (int j = threadIdx.x; j < C2; j += kSelectThreads) {
-    const int cid = j < C ? j : j - C;
-    const int t = peak[j];
-    const int xi = (cid % gw) * cell + t % cell, yi = (cid / gw) * cell + t / cell;
-    const int x = clampi(xi, 1, W - 2), y = clampi(yi, 1, H - 2);
-    const float* at = rs + y * W + x;      // at[dy * W + dx]: the 3 x 3 neighbourhood
-    const float c0 = at[0];
-    const float dxx = (at[1] + at[-1]) - 2.0f * c0;
-    const float dyy = (at[W] + at[-W]) - 2.0f * c0;
-    const float dxy = 0.25f * (((at[W + 1] - at[W - 1]) - at[-W + 1]) + at[-W - 1]);
-    const float gx = 0.5f * (at[1] - at[-1]);
-    const float gy = 0.5f * (at[W] - at[-W]);
-    float det = dxx * dyy - dxy * dxy;
-    det = fabsf(det) < kDetFloor ? kDetFloor : det;
-    float ox = -(dyy * gx - dxy * gy) / det;
-    float oy = -(dxx * gy - dxy * gx) / det;
-    const bool good = fabsf(ox) <= 1.0f && fabsf(oy) <= 1.0f;
-    ox = good ? ox : 0.0f;
-    oy = good ? oy : 0.0f;
-    const float px = static_cast<float>(x) + ox, py = static_cast<float>(y) + oy;
-    cx[j] = px;
-    cy[j] = py;
-    bool close = false;
-    for (int k = 0; k < K && !close; ++k) {
-      const float ddx = px - ex[2 * k], ddy = py - ex[2 * k + 1];
-      close = exv[k] && ddx * ddx + ddy * ddy < near2;
-    }
+  for (int j = threadIdx.x; j < C2; j += kRankThreads) {
+    const int okj = ok[j], oc = j < C ? occ[j] : 0;
     const float sc = score[j];
-    const bool in_border = px >= static_cast<float>(border) &&
-                           px < static_cast<float>(W - border) &&
-                           py >= static_cast<float>(border) && py < static_cast<float>(H - border);
-    const bool base = in_border && !occ[cid] && !close && fabsf(sc) < INFINITY;
-    ok[j] = base;
-    int* n = counts + 1 + (j < C ? 0 : kRungs);     // first peaks' counts, then second ones'
-    for (int r = 0; r < kRungs; ++r) n[r] += base && sc >= ladder[r];
+    const int first = j < C;
+    counts[0] += oc;
+#pragma unroll
+    for (int r = 0; r < kRungs; ++r) {       // first peaks' counts, then second ones'
+      const int hit = okj && sc >= ladder[r];
+      counts[1 + r] += hit & first;
+      counts[1 + kRungs + r] += hit & !first;
+    }
   }
-  block_sums(counts, part, tot);
+  block_sums<kRankWarps>(counts, part, tot);
 
   // the ladder's rung and the new threshold
   const float empty = static_cast<float>(C - tot[0]);
@@ -418,7 +672,7 @@ __global__ void __launch_bounds__(kSelectThreads)
     n_eff[r] = n1 + (n2 < spare ? n2 : spare);
     if (n_eff[r] >= kFill * empty) rung = r;
   }
-  if (threadIdx.x == 0) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
     const float factor = n_eff[kRungs - 1] < kStarve * empty ? 0.5f
                          : n_eff[0] > kFill * empty          ? 1.5f
                                                              : 1.0f;
@@ -426,31 +680,44 @@ __global__ void __launch_bounds__(kSelectThreads)
     new_quality[s] = q < kQualityMin ? kQualityMin : q > 1.0f ? 1.0f : q;
   }
 
-  // priorities: first peaks before second ones, then by score
+  // ops/topk.py's stable descending sort: the block's candidates' ranks
   const float thresh = ladder[rung];
-  for (int j = threadIdx.x; j < C2; j += kSelectThreads) {
-    const float sc = score[j];
-    const bool v = ok[j] && sc >= thresh;
-    ok[j] = v;
-    const float clipped = sc < 0.0f ? 0.0f : sc > 999.0f ? 999.0f : sc;
-    prio[j] = v ? (j < C ? 1000.0f : 0.0f) + clipped : neg_inf();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int js[kPerWarp], rank[kPerWarp];
+  float pj[kPerWarp];
+#pragma unroll
+  for (int m = 0; m < kPerWarp; ++m) {
+    js[m] = blockIdx.x * kRankPer + m * kRankWarps + warp;
+    pj[m] = js[m] < C2 ? priority(ok, score, js[m], C, thresh) : 0.0f;
+    rank[m] = 0;
   }
-  __syncthreads();
-
-  // ops/topk.py's stable descending sort: the first C ranks are written
-  for (int j = threadIdx.x; j < C2; j += kSelectThreads) {
-    const float p = prio[j];
-    int rank = 0;
-    for (int i = 0; i < C2; ++i) {
-      const float q = prio[i];
-      rank += q > p || (q == p && i < j);
+  for (int t0 = 0; t0 < C2; t0 += kRankTile) {
+    const int n = imin(kRankTile, C2 - t0);
+    for (int i = threadIdx.x; i < n; i += kRankThreads)
+      tile[i] = priority(ok, score, t0 + i, C, thresh);
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < kPerWarp; ++m) {
+      if (js[m] >= C2) continue;
+      for (int i = lane; i < n; i += 32) {
+        const float q = tile[i];
+        rank[m] += q > pj[m] || (q == pj[m] && t0 + i < js[m]);
+      }
     }
-    if (rank >= C) continue;
-    const long long o = s * C + rank;
-    xy[2 * o] = cx[j];
-    xy[2 * o + 1] = cy[j];
-    score_out[o] = ok[j] ? score[j] : 0.0f;
-    valid_out[o] = ok[j] != 0;
+    __syncthreads();
+  }
+#pragma unroll
+  for (int m = 0; m < kPerWarp; ++m) {
+#pragma unroll
+    for (int k = 16; k > 0; k >>= 1) rank[m] += __shfl_xor_sync(0xFFFFFFFFu, rank[m], k);
+    const int j = js[m];
+    if (lane != 0 || j >= C2 || rank[m] >= C) continue;
+    const long long o = s * C + rank[m];
+    const bool v = pj[m] != neg_inf();
+    xy[2 * o] = cf[j];
+    xy[2 * o + 1] = cf[C2 + j];
+    score_out[o] = v ? score[j] : 0.0f;
+    valid_out[o] = v;
   }
 }
 
@@ -546,8 +813,30 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x % 32 == 0) desc[n * 8 + threadIdx.x / 32] = valid[n] ? word : 0u;
 }
 
+
 unsigned blocks(long long n, int threads) {
   return static_cast<unsigned>((n + threads - 1) / threads);
+}
+
+// K5's launch for H x W images at `cell`: the sub-tiles' side (the
+// response region's larger side split evenly into pieces of at most
+// kMaxChunk), the cell kernel's dynamic shared memory, and the response
+// tile's floats, which stay in shared memory where they fit.
+struct DetectPlan {
+  int chunk;
+  int smem_bytes;
+  bool shared_tile;
+  long long tile_floats;
+};
+
+DetectPlan detect_plan(int H, int W, int cell) {
+  const int rh = (cell < H ? cell : H) + 4, rw = (cell < W ? cell : W) + 4;
+  const int side = rh > rw ? rh : rw;
+  const int pieces = (side + kMaxChunk - 1) / kMaxChunk;
+  const int chunk = (side + pieces - 1) / pieces;
+  const long long stage = stage_floats(chunk), tile = static_cast<long long>(rh) * rw;
+  const bool shared = (stage + tile) * 4 <= kCellSmemBytes;
+  return {chunk, static_cast<int>((stage + (shared ? tile : 0)) * 4), shared, tile};
 }
 
 }  // namespace
@@ -573,52 +862,72 @@ extern "C" int image_gray_launch(const void* rgba, int is_float, int channels, l
   return static_cast<int>(cudaGetLastError());
 }
 
-// out [B, ceil(H / 2), ceil(W / 2)] from img [B, H, W] float32 on `stream`.
-extern "C" int image_pyr_down_launch(const void* img, int B, int H, int W, void* out,
-                                     void* stream) {
-  if (B < 0 || H < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int Ho = (H + 1) / 2, Wo = (W + 1) / 2;
-  const long long outputs = static_cast<long long>(B) * Ho * Wo;
-  if (outputs == 0) return 0;
-  pyr_down_kernel<<<blocks(outputs, kThreads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(img), H, W, Ho, Wo, outputs, static_cast<float*>(out));
+// The next `levels` (1 or 2) pyramid levels of img [B, H, W] float32 on
+// `stream`: out1 [B, ceil(H / 2), ceil(W / 2)] and, with 2, out2 [B,
+// ceil(H1 / 2), ceil(W1 / 2)] from it.
+extern "C" int image_pyramid_launch(const void* img, int B, int H, int W, int levels, void* out1,
+                                    void* out2, void* stream) {
+  if (B < 0 || H < 1 || W < 1 || levels < 1 || levels > 2 || (levels == 2 && out2 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int H1 = (H + 1) / 2, W1 = (W + 1) / 2, H2 = (H1 + 1) / 2, W2 = (W1 + 1) / 2;
+  const long long tiles = static_cast<long long>((H2 + kPyrTileY - 1) / kPyrTileY) *
+                          ((W2 + kPyrTileX - 1) / kPyrTileX);
+  const long long n = tiles * B;
+  if (n > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  pyramid_kernel<<<static_cast<unsigned>(n), kPyrThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(img), H, W, H1, W1, H2, W2, static_cast<float*>(out1),
+      levels == 2 ? static_cast<float*>(out2) : nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
-// `detect_grid` on S rows in three launches: img [S, H, W] float32,
-// ex_xy [S, K, 2] float32, ex_valid [S, K] bool, quality [S] float32 or
-// null (then `quality_value` for every row); g and resp [S, H, W] float32,
-// wsf [S, kScratchF C] float32 and wsi [S, kScratchI C] int32 are scratch
-// (resp keeps the response); xy [S, C, 2] float32, score [S, C] float32, valid [S, C]
+// The floats of global scratch per row and cell that `detect_grid_launch`
+// needs for the response tiles at H x W and `cell`: 0 where each tile
+// fits in its block's shared memory.
+extern "C" long long detect_tile_floats(int H, int W, int cell) {
+  if (H < 1 || W < 1 || cell < 1) return -1;
+  const DetectPlan p = detect_plan(H, W, cell);
+  return p.shared_tile ? 0 : p.tile_floats;
+}
+
+// `detect_grid` on S rows in two launches: img [S, H, W] float32, ex_xy
+// [S, K, 2] float32, ex_valid [S, K] bool, quality [S] float32 or null
+// (then `quality_value` for every row); wsf [S, kScratchF C] float32, wsi
+// [S, kScratchI C] int32 and tiles [S, C, detect_tile_floats(H, W, cell)]
+// float32 (null where that is 0) are scratch; resp [S, H, W] float32 (the
+// response), xy [S, C, 2] float32, score [S, C] float32, valid [S, C]
 // bool, new_quality [S] float32, with C = ceil(H / cell) ceil(W / cell).
 extern "C" int detect_grid_launch(const void* img, const void* ex_xy, const void* ex_valid,
                                   const void* quality, float quality_value, int S, int H, int W,
-                                  int K, int cell, int border, void* g, void* resp, void* wsf,
+                                  int K, int cell, int border, void* tiles, void* resp, void* wsf,
                                   void* wsi, void* xy, void* score, void* valid,
                                   void* new_quality, void* stream) {
   if (S < 1 || S > kMaxRows || H < 3 || W < 3 || K < 0 || cell < 1 || cell > 46340)
     return static_cast<int>(cudaErrorInvalidValue);
   const int gh = (H + cell - 1) / cell, gw = (W + cell - 1) / cell;
   const long long C = static_cast<long long>(gh) * gw;
-  if (C > (1 << 24)) return static_cast<int>(cudaErrorInvalidValue);
+  const DetectPlan p = detect_plan(H, W, cell);
+  if (C > (1 << 24) || p.tile_floats > 0x7FFFFFFFLL || (!p.shared_tile && tiles == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-  const long long pixels = static_cast<long long>(S) * H * W;
-  detect_blur_kernel<<<blocks(pixels, kThreads), kThreads, 0, st>>>(
-      static_cast<const float*>(img), H, W, pixels, static_cast<float*>(g));
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = cudaSuccess;
+  const auto cells = p.shared_tile ? detect_cells_kernel<true> : detect_cells_kernel<false>;
+  if (p.smem_bytes > 48 * 1024)
+    e = cudaFuncSetAttribute(cells, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   float* f = static_cast<float*>(wsf);
   int* n = static_cast<int*>(wsi);
-  detect_cells_kernel<<<dim3(static_cast<unsigned>(C), S), kThreads, 0, st>>>(
-      static_cast<const float*>(g), H, W, cell, gw, static_cast<int>(C),
-      static_cast<float*>(resp), f, n);
+  cells<<<dim3(static_cast<unsigned>(C), S), kCellThreads, p.smem_bytes, st>>>(
+      static_cast<const float*>(img), static_cast<const float*>(ex_xy),
+      static_cast<const bool*>(ex_valid), H, W, K, cell, border, gw, static_cast<int>(C), p.chunk,
+      p.shared_tile ? nullptr : static_cast<float*>(tiles), static_cast<float*>(resp), f, n);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  detect_select_kernel<<<S, kSelectThreads, 0, st>>>(
-      static_cast<const float*>(resp), static_cast<const float*>(ex_xy),
-      static_cast<const bool*>(ex_valid), static_cast<const float*>(quality), quality_value, H,
-      W, K, cell, border, gw, static_cast<int>(C), f, n, static_cast<float*>(xy),
-      static_cast<float*>(score), static_cast<bool*>(valid), static_cast<float*>(new_quality));
+  detect_rank_kernel<<<dim3(blocks(2 * C, kRankPer), S), kRankThreads, 0, st>>>(
+      f, n, static_cast<const float*>(quality), quality_value, static_cast<int>(C),
+      static_cast<float*>(xy), static_cast<float*>(score), static_cast<bool*>(valid),
+      static_cast<float*>(new_quality));
   return static_cast<int>(cudaGetLastError());
 }
 

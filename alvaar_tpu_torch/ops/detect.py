@@ -8,7 +8,7 @@ quadratic subpixel fit.
 
 ``detect_grid`` dispatches on the device: CUDA tensors launch K5
 (csrc/image_kernels.cu, ops/image_kernels.py), the whole detection in
-three launches, bit-equal to the plain version, through the custom op
+two launches, bit-equal to the plain version, through the custom op
 ``alvaar_tpu_torch::detect_grid``, whose batching rule makes one call over
 all the rows that ``torch.func.vmap`` stacks (a lone call, outside any
 transform, goes straight to the launcher); CPU tensors run the plain
@@ -206,7 +206,7 @@ def detect_grid(img, existing_xy, existing_valid, *, cell: int, border: int,
     """Response → per-cell peaks → occupancy and quality gates →
     deficit-fill priority selection → subpixel positions → threshold
     adaptation.  ``quality`` may be a 0-d tensor (the adaptive threshold
-    carried in the map state).  K5 in three launches on CUDA tensors, the
+    carried in the map state).  K5 in two launches on CUDA tensors, the
     plain version on CPU tensors."""
     if not _dispatch(img, "detect_grid"):
         return _detect_grid_plain(img, existing_xy, existing_valid, cell=cell, border=border,

@@ -10,11 +10,12 @@ values.  CLAHE counts its per-tile histograms with ``scatter_add_``
 where the JAX package sums a one-hot tensor; the counts are exact
 integers either way.
 
-``rgba_to_gray`` and ``pyr_down`` (so ``build_pyramid``) dispatch on the
+``rgba_to_gray``, ``build_pyramid`` and ``pyr_down`` dispatch on the
 device: CUDA tensors launch K7 (csrc/image_kernels.cu,
-ops/image_kernels.py), one launch per conversion and per pyramid level,
-bit-equal to the plain versions; CPU tensors run the plain versions; any
-other device raises.
+ops/image_kernels.py) straight from the wrapper, one launch per
+conversion, per 3-level pyramid (per two levels below level 0) and per
+``pyr_down``, bit-equal to the plain versions; CPU tensors run the plain
+versions; any other device raises.
 """
 
 from __future__ import annotations
@@ -77,7 +78,7 @@ def _pyr_down_plain(img):
 
 def pyr_down(img):
     """5-tap binomial blur [1, 4, 6, 4, 1] / 16 + 2x decimation of float32
-    [H, W] or [B, H, W]: K7's level kernel in one launch on CUDA tensors,
+    [H, W] or [B, H, W]: K7's pyramid kernel in one launch on CUDA tensors,
     the plain version on CPU tensors.  The result is contiguous."""
     if not _dispatch(img, "pyr_down"):
         return _pyr_down_plain(img)
@@ -88,18 +89,25 @@ def pyr_down(img):
 
 
 def build_pyramid(img, levels: int) -> Tuple[torch.Tensor, ...]:
-    """Image pyramid of [H, W] or a stack [B, H, W], level 0 = full
-    resolution."""
+    """Image pyramid of float32 [H, W] or a stack [B, H, W], level 0 = full
+    resolution: on CUDA tensors K7's pyramid kernel, one launch per two
+    levels below level 0 (levels 1 on contiguous views of one buffer), on
+    CPU tensors ``pyr_down``'s plain version level by level."""
+    if levels > 1 and _dispatch(img, "build_pyramid"):
+        pyr, launches = image_kernels.launch_pyramid(
+            img if img.is_contiguous() else img.contiguous(), levels)
+        count(build_pyramid, "calls", launches=launches)
+        return pyr
     count(build_pyramid, "calls")
     pyr = [img]
     for _ in range(levels - 1):
-        pyr.append(pyr_down(pyr[-1]))
+        pyr.append(_pyr_down_plain(pyr[-1]))
     return tuple(pyr)
 
 
 rgba_to_gray.launches = 0
 pyr_down.launches = 0
-build_pyramid.calls = 0
+build_pyramid.calls = build_pyramid.launches = 0
 
 
 def sobel_gradients(img):

@@ -2,11 +2,13 @@
 argument checks and launches.
 
 ``launch_gray`` converts an RGB(A) frame or a stack of them to float32
-gray and ``launch_pyr_down`` takes one pyramid level down (K7);
-``launch_detect`` runs the whole grid Shi-Tomasi detection in three
-launches (K5); ``launch_describe`` computes the ORB descriptors of every
-keypoint in one launch (K3).  K5 and K3 take S rows, so one call serves
-every row that ``torch.func.vmap`` batches (``ops/detect.py`` and
+gray, ``launch_pyramid`` builds the levels of a pyramid below level 0 in
+one launch per two levels (so a 3-level pyramid in one) and
+``launch_pyr_down`` takes one level down (K7); ``launch_detect`` runs the
+whole grid Shi-Tomasi detection in two launches (K5); ``launch_describe``
+computes the ORB descriptors of every keypoint in one launch (K3).  K5
+and K3 take S rows, so one call serves every row that ``torch.func.vmap``
+batches (``ops/detect.py`` and
 ``ops/orb.py`` register the custom ops and their batching rule).  The
 plain versions and the wrappers that dispatch on the device are in
 ``ops/image.py``, ``ops/detect.py`` and ``ops/orb.py``; this module only
@@ -15,27 +17,31 @@ launches, on CUDA tensors.
 The library is compiled with ``nvcc`` at first use into ``build/`` at the
 repository root (one shared library with plain C entry points, loaded with
 ``ctypes``; utils/build.py), and rebuilt when the source's hash changes.
-The launch runs on its tensors' device and that device's current stream.
+The launch runs on its tensors' device and that device's current stream
+(entering ``torch.cuda.device`` only when that is not the current device).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from pathlib import Path
 
 import torch
 
 from alvaar_tpu_torch.utils.build import build_library, find_tool
+from alvaar_tpu_torch.utils.custom_ops import raw_stream
 
 # csrc/image_kernels.cu's limits (``bind`` checks that the library has these)
 MAX_ROWS = 65535               # S of K5 and K3: their grid.y
 PATCH = 36                     # ORB's patch: K3 needs images of at least PATCH x PATCH
 BITS = 256                     # descriptor bits, one thread each
 ANGLE_BINS = 30
-SCRATCH_F = 8                  # K5's scratch per row: float32s and int32s per grid cell
-SCRATCH_I = 5
-DETECT_LAUNCHES = 3            # K5's kernels per call: blur, cells, selection
+SCRATCH_F = 6                  # K5's scratch per row: float32s and int32s per grid cell
+SCRATCH_I = 3
+DETECT_LAUNCHES = 2            # K5's kernels per call: the cells, the ranks
+LEVELS_PER_LAUNCH = 2          # K7's pyramid levels per launch
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "image_kernels.cu"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -60,8 +66,10 @@ def bind(lib):
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.image_gray_launch.restype = i32
     lib.image_gray_launch.argtypes = [ptr, i32, i32, i64, ptr, ptr]
-    lib.image_pyr_down_launch.restype = i32
-    lib.image_pyr_down_launch.argtypes = [ptr, i32, i32, i32, ptr, ptr]
+    lib.image_pyramid_launch.restype = i32
+    lib.image_pyramid_launch.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr, ptr]
+    lib.detect_tile_floats.restype = i64
+    lib.detect_tile_floats.argtypes = [i32] * 3
     lib.detect_grid_launch.restype = i32
     lib.detect_grid_launch.argtypes = ([ptr] * 4 + [ctypes.c_float] + [i32] * 6 + [ptr] * 9)
     lib.describe_launch.restype = i32
@@ -120,8 +128,11 @@ def _cuda(dev):
 
 
 def _run(fn, args, dev, what: str) -> None:
-    with torch.cuda.device(dev):
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index is None or dev.index == torch._C._cuda_getDevice():   # CUDA is initialised
+        rc = fn(*args, raw_stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, raw_stream(dev))
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: cudaError_t {rc}")
 
@@ -151,26 +162,58 @@ def launch_gray(frame):
     return out
 
 
-def launch_pyr_down(img):
-    """One pyramid level down of float32 [H, W] or [B, H, W] (contiguous):
-    [..., ceil(H / 2), ceil(W / 2)], the binomial blur at the even rows and
-    columns."""
+@functools.lru_cache(maxsize=64)
+def _pyramid_plan(shape, levels: int):
+    """For an image of ``shape`` ([H, W] or [B, H, W]): (the floats of
+    levels 1 on, each level's (shape, strides, offset) in that buffer, each
+    launch's (B, H, W of its source level, source level, levels written))."""
+    h, w = shape[-2:]
+    b = shape[0] if len(shape) == 3 else 1
+    if h < 1 or w < 1 or b >= 2 ** 31 or levels < 1:
+        raise ValueError(f"img has shape {tuple(shape)}, levels {levels}")
+    sizes = [(h, w)]
+    for _ in range(levels - 1):             # each level ceil(half) of the one before
+        sizes.append(((sizes[-1][0] + 1) // 2, (sizes[-1][1] + 1) // 2))
+    views, o = [], 0
+    for y, x in sizes[1:]:
+        views.append((shape[:-2] + (y, x), ((y * x,) if len(shape) == 3 else ()) + (x, 1), o))
+        o += b * y * x
+    launches = tuple((b, *sizes[k], k, min(LEVELS_PER_LAUNCH, levels - 1 - k))
+                     for k in range(0, levels - 1, LEVELS_PER_LAUNCH))
+    return o, tuple(views), launches if o else ()
+
+
+def launch_pyramid(img, levels: int):
+    """The ``levels``-level pyramid of float32 [H, W] or [B, H, W]
+    (contiguous): (img, level 1, ...), the binomial blur at each level's
+    even rows and columns.  Levels 1 on are contiguous views of one buffer,
+    written by ceil((levels - 1) / 2) launches of two levels (the last of
+    one).  Returns (the levels, the launches)."""
     if not isinstance(img, torch.Tensor) or img.dim() not in (2, 3):
         raise ValueError("img must be a [H, W] or [B, H, W] tensor")
-    _check("img", img, torch.float32, tuple(img.shape), img.device)
-    h, w = img.shape[-2:]
-    b = img.shape[0] if img.dim() == 3 else 1
-    if h < 1 or w < 1 or b >= 2 ** 31:
-        raise ValueError(f"img has shape {tuple(img.shape)}")
+    if img.dtype is not torch.float32:
+        raise TypeError(f"img has dtype {img.dtype}, expected torch.float32")
+    if not img.is_contiguous():
+        raise ValueError("img must be contiguous")
     dev = img.device
     _cuda(dev)
+    total, views, launches = _pyramid_plan(img.shape, levels)
     lib = _lib or _load()
-    out = torch.empty(img.shape[:-2] + ((h + 1) // 2, (w + 1) // 2), dtype=torch.float32,
-                      device=dev)
-    if out.numel():
-        _run(lib.image_pyr_down_launch, (img.data_ptr(), b, h, w, out.data_ptr()), dev,
-             "pyr_down")
-    return out
+    buf = torch.empty(total, dtype=torch.float32, device=dev)
+    pyr = (img,) + tuple(buf.as_strided(*v) for v in views)
+    base = buf.data_ptr()
+    for b, h, w, k, n in launches:
+        src = img.data_ptr() if k == 0 else base + 4 * views[k - 1][2]
+        _run(lib.image_pyramid_launch,
+             (src, b, h, w, n, base + 4 * views[k][2],
+              base + 4 * views[k + 1][2] if n == 2 else None), dev, "build_pyramid")
+    return pyr, len(launches)
+
+
+def launch_pyr_down(img):
+    """One pyramid level down of float32 [H, W] or [B, H, W] (contiguous):
+    [..., ceil(H / 2), ceil(W / 2)] in one launch of ``launch_pyramid``."""
+    return launch_pyramid(img, 2)[0][1]
 
 
 def num_cells(h: int, w: int, cell: int) -> int:
@@ -204,8 +247,13 @@ def check_detect_args(img, existing_xy, existing_valid, quality, cell, border):
     return s, h, w, k, c
 
 
+@functools.lru_cache(maxsize=64)
+def _tile_floats(lib, h: int, w: int, cell: int) -> int:
+    return lib.detect_tile_floats(h, w, cell)
+
+
 def launch_detect(img, existing_xy, existing_valid, quality, cell: int, border: int):
-    """``detect_grid`` on S rows in three launches.  Returns (xy [S, C, 2]
+    """``detect_grid`` on S rows in two launches.  Returns (xy [S, C, 2]
     float32, score [S, C] float32, valid [S, C] bool, new_quality [S]
     float32, resp [S, H, W] float32: the Shi-Tomasi response)."""
     s, h, w, k, c = check_detect_args(img, existing_xy, existing_valid, quality, cell, border)
@@ -213,7 +261,8 @@ def launch_detect(img, existing_xy, existing_valid, quality, cell: int, border: 
     _cuda(dev)
     lib = _lib or _load()
     f32 = dict(dtype=torch.float32, device=dev)
-    g = torch.empty((s, h, w), **f32)
+    tf = _tile_floats(lib, h, w, cell)      # the response tiles that shared memory cannot hold
+    tiles = torch.empty((s, c * tf), **f32) if tf else None
     resp = torch.empty((s, h, w), **f32)
     wsf = torch.empty((s, SCRATCH_F * c), **f32)
     wsi = torch.empty((s, SCRATCH_I * c), dtype=torch.int32, device=dev)
@@ -225,7 +274,8 @@ def launch_detect(img, existing_xy, existing_valid, quality, cell: int, border: 
                     else (None, float(quality)))
     _run(lib.detect_grid_launch,
          (img.data_ptr(), existing_xy.data_ptr(), existing_valid.data_ptr(), q_ptr, q_val, s, h,
-          w, k, cell, border, g.data_ptr(), resp.data_ptr(), wsf.data_ptr(), wsi.data_ptr(),
+          w, k, cell, border, tiles.data_ptr() if tiles is not None else None, resp.data_ptr(),
+          wsf.data_ptr(), wsi.data_ptr(),
           xy.data_ptr(), score.data_ptr(), valid.data_ptr(), new_quality.data_ptr()), dev,
          "detect_grid")
     return xy, score, valid, new_quality, resp

@@ -94,6 +94,7 @@ def _counters():
             (hamming_min_crossbag, "launches"), (hamming_matrix, "launches"),
             (match_to_local_map, "calls"), (_distances, "calls"),
             (rgba_to_gray, "launches"), (pyr_down, "launches"), (build_pyramid, "calls"),
+            (build_pyramid, "launches"),
             (detect_grid, "launches"), (detect_grid, "calls"), (describe, "launches"),
             (describe, "calls"), (multistream_step_local, "syncs"),
             (host_bool, "syncs"))

@@ -25,6 +25,7 @@ from pathlib import Path
 import torch
 
 from alvaar_tpu_torch.utils.build import build_library, find_tool
+from alvaar_tpu_torch.utils.custom_ops import raw_stream
 
 BLOCK_THREADS = 128   # threads per block at most, from 128 points a row up (csrc/pnp_kernel.cu)
 REG_POINTS = 32       # a thread's points whose flags the kernel keeps as register bits
@@ -89,14 +90,6 @@ def unpack(buf, s: int, n: int, rows: bool = True):
             f32[7 * s:])
 
 
-def _stream(dev) -> int:
-    """The handle of ``dev``'s current stream (on CUDA without building
-    torch's Stream object)."""
-    if dev.type == "cuda" and hasattr(torch._C, "_cuda_getCurrentRawStream"):
-        return torch._C._cuda_getCurrentRawStream(dev.index)
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def _load():
     """The built library, bound and checked (built and opened once, by the
     first thread that asks)."""
@@ -157,7 +150,7 @@ def launch(q, t, points_w, px_obs, valid, cam, iters: int, huber_delta: float,
     buf = torch.empty(out_bytes(s, n, threads), dtype=torch.bool, device=dev)
     args = (q.data_ptr(), t.data_ptr(), points_w.data_ptr(), px_obs.data_ptr(), valid.data_ptr(),
             s, n, threads, *cam, int(iters), float(huber_delta), float(chi2_thresh),
-            int(bool(refine_l2)), buf.data_ptr(), _stream(dev))
+            int(bool(refine_l2)), buf.data_ptr(), raw_stream(dev))
     if dev.index is None or dev.index == torch.cuda.current_device():
         rc = lib.pnp_refine_launch(*args)
     else:

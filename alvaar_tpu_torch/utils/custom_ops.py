@@ -1,7 +1,8 @@
 """What the port's kernel-backed custom ops share (solvers/ba.py,
-solvers/pnp.py, ops/hamming.py): the device dispatch of their wrappers and
-the batching rule that turns a ``torch.func.vmap`` of an op into one launch
-over all the rows."""
+solvers/pnp.py, ops/hamming.py, ops/detect.py, ops/orb.py): the device
+dispatch of their wrappers, the current stream's handle their launchers
+pass on, and the batching rule that turns a ``torch.func.vmap`` of an op
+into one launch over all the rows."""
 
 from __future__ import annotations
 
@@ -16,6 +17,14 @@ def dispatch(x, name: str) -> bool:
     if x.device.type == "cuda":
         return True
     raise ValueError(f"{name} runs on CPU or CUDA tensors, got {x.device}")
+
+
+def raw_stream(dev) -> int:
+    """The handle of ``dev``'s current stream, for a launcher's C entry (on
+    CUDA without building torch's Stream object)."""
+    if dev.type == "cuda" and hasattr(torch._C, "_cuda_getCurrentRawStream"):
+        return torch._C._cuda_getCurrentRawStream(dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def one(x):

@@ -24,10 +24,13 @@ from typing import Dict
 _COUNT_LOCK = threading.Lock()
 
 
-def count(fn, name: str, n: int = 1) -> None:
-    """``fn.<name> += n`` under the counters' lock."""
+def count(fn, name: str, n: int = 1, **more: int) -> None:
+    """``fn.<name> += n`` (and ``fn.<k> += v`` for each of ``more``) under
+    the counters' lock."""
     with _COUNT_LOCK:
         setattr(fn, name, getattr(fn, name) + n)
+        for k, v in more.items():
+            setattr(fn, k, getattr(fn, k) + v)
 
 
 class StageTimer:

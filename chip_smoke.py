@@ -109,24 +109,30 @@ Phases, each printed on its own lines:
 2e. the image kernels (csrc/image_kernels.cu), built with the others,
    right after phase 2d: K7's gray conversion (u8 RGBA, and float32 RGB)
    and 3-level pyramid on one 640x480 frame, 16 x 640x480 and 64 x
-   1920x1080 stacks (one launch, two); K5 (``detect_grid``, three
-   launches) at the default's cell 40 with 0 and 120 live keypoints,
-   FAST's 50, ACCURATE's 30, ``hd_serving()``'s 96 at 1920x1080, and S = 3
-   and 8 rows under ``torch.func.vmap``; K3 (``describe``, one launch) at
+   1920x1080 stacks (one launch each), and pyramids of odd sizes at 3 and
+   4 levels (``IMAGE_PYRAMID_CASES``: one launch per two levels); K5
+   (``detect_grid``, two launches) at the default's cell 40 with 0 and 120
+   live keypoints, FAST's 50, ACCURATE's 30, ``hd_serving()``'s 96 at
+   1920x1080, and S = 3 and 8 rows under ``torch.func.vmap``, and on its
+   traps (``IMAGE_DETECT_TRAPS``: a one-pixel last column of cells, cell
+   96 in sub-tiles, a response tile in global scratch, NaN and inf pixels;
+   S = 65 535 rows); K3 (``describe``, one launch) at
    K = 192, 130, 352, 240 at 960x540, and S = 3 and 8 rows: K7 and K5
    bit-equal to their plain versions (ops/image.py ``_rgba_to_gray_plain``,
    ``_pyr_down_plain``; ops/detect.py ``_detect_grid_plain`` and the
    response), K3's angles within 2e-5 rad and its words bit-equal at every
    keypoint whose plain angle lies more than 1e-4 rad from a steering
    bin's edge (those inside printed), run to run and row by row.  Times at
-   those shapes by CUDA events and ``torch.profiler`` beside the plain
-   versions', the bound (the bytes at 3.35 TB/s or the function's float32
-   operations at 67 TFLOP/s) and, for a pyramid level, ``F.conv2d`` with
-   stride 2 on a replicate-padded input (TF32 off).  Then ``AlvaAR`` on
-   golden frames 0-29 as u8 RGBA: one gray launch and two pyramid launches
-   a frame.  Every later path checks K5's three launches per
-   ``detect_grid`` call, K3's one per ``describe`` call and at most two
-   pyramid launches per pyramid (``_image_path``);
+   those shapes by CUDA events and ``torch.profiler`` (K5's two kernels
+   each) beside the plain versions', the bound (the bytes at 3.35 TB/s or
+   the function's float32 operations at 67 TFLOP/s) and, for the pyramid,
+   one level by ``F.conv2d`` with stride 2 on a replicate-padded input
+   (TF32 off; its device time too); a lone 640x480 ``build_pyramid``'s host
+   and CUDA-event time.  Then ``AlvaAR`` on golden frames 0-29 as u8 RGBA:
+   one gray launch and one pyramid launch a frame.  Every later path
+   checks K5's two launches per ``detect_grid`` call, K3's one per
+   ``describe`` call and one pyramid launch per (3-level) pyramid
+   (``_image_path``);
 3. the main path under the default config (5-point and homography
    bootstrap): ``AlvaAR.find_camera_pose`` over the 120-frame 640x480
    golden sequence on the card, held to the native reference's bars
@@ -141,7 +147,9 @@ Phases, each printed on its own lines:
    14aa8df's median (``PARENT_TRACKING_KERNELS``, PnP eager there), and at
    least 40 under commit 7178a79's 737 per tracking frame and 350 under its
    3929 per keyframe frame (``IMAGE_PARENT_*_KERNELS``: the image ops eager
-   there);
+   there), and at most commit faa4577's 686 and 3 461
+   (``IMAGE_PR19_*_KERNELS``: K7's two launches a pyramid, K5's three a
+   call there);
    statuses and poses
    bit-equal to this tree's earlier runs (``RUN_DIGESTS``; commit 14aa8df's,
    PnP eager, printed beside); local BA's kernels launched and
@@ -1741,41 +1749,64 @@ IMAGE_STACK_CASES = (("640x480", 640, 480, 1), ("16 x 640x480", 640, 480, 16),
                      ("64 x 1920x1080", 1920, 1080, 64))
 IMAGE_QUICK_STACKS = (("640x480", 640, 480, 1), ("3 x 640x480", 640, 480, 3),
                       ("2 x 1920x1080", 1920, 1080, 2))     # the CPU rehearsal's cut
+# (name, [B,] H, W, levels): K7's pyramid at odd sizes, alone and stacked,
+# at 3 levels (one launch) and 4 (two)
+IMAGE_PYRAMID_CASES = (("641x481", (481, 641), 3), ("641x481, 4 levels", (481, 641), 4),
+                       ("7x5", (5, 7), 3), ("3x3, 4 levels", (3, 3), 4), ("1x1", (1, 1), 3),
+                       ("3 x 1919x1081", (3, 1081, 1919), 3),
+                       ("5 x 83x61, 4 levels", (5, 61, 83), 4))
+# (name, W, H, cell, live keypoints, tests/image_problems.py image_of's
+# kind): K5's traps: a last column of cells one pixel wide and a last row
+# two (the subpixel fit's clamp reaches into the previous cell), cell 96
+# in 2 x 2 sub-tiles, a response tile in global scratch, NaN and inf
+# pixels, more live keypoints than the cell kernel's threads
+IMAGE_DETECT_TRAPS = (("121x98 cell 24, 10 live", 121, 98, 24, 10, "scene"),
+                      ("290x200 cell 96, 12 live", 290, 200, 96, 12, "scene"),
+                      ("300x200 cell 250 (tile in global scratch), 3 live", 300, 200, 250, 3,
+                       "scene"),
+                      ("NaN and inf pixels 121x98 cell 24, 10 live", 121, 98, 24, 10,
+                       "nonfinite"),
+                      ("160x120 cell 24, 600 live", 160, 120, 24, 600, "scene"))
+IMAGE_DETECT_ROWS = 65535  # K5's S at its grid's limit: one launch over that many rows
 IMAGE_RGBA_FRAMES = 30     # 2e's RGBA path: golden frames 0-29 as u8 RGBA through AlvaAR
 # the function's float32 operations per pixel of detect_grid's response,
 # evaluated separably (each stencil's taps once a pixel): the 3x3 blur 10,
 # Sobel's two gradients 8, their three products 3, the three box means 30,
 # the min-eig 10
 DETECT_FLOPS_PER_PIXEL = 61
-IMAGE_PATH_LAUNCHES = {"rgba_to_gray": 0, "pyr_down": 0, "detect_grid": 0, "describe": 0}
+IMAGE_PATH_LAUNCHES = {"rgba_to_gray": 0, "build_pyramid": 0, "detect_grid": 0, "describe": 0}
 _IMAGE_FRAMES = {}
 
 
 def _image_zero() -> None:
     from alvaar_tpu_torch.ops import detect, image, orb
     image.rgba_to_gray.launches = image.pyr_down.launches = image.build_pyramid.calls = 0
+    image.build_pyramid.launches = 0
     detect.detect_grid.launches = detect.detect_grid.calls = 0
     orb.describe.launches = orb.describe.calls = 0
 
 
 def _image_counts() -> dict:
+    """The image kernels' counters; ``pyr``: K7's pyramid launches, by
+    ``build_pyramid`` and by ``pyr_down`` alone."""
     from alvaar_tpu_torch.ops import detect, image, orb
-    return dict(gray=image.rgba_to_gray.launches, pyr=image.pyr_down.launches,
+    return dict(gray=image.rgba_to_gray.launches,
+                pyr=image.build_pyramid.launches + image.pyr_down.launches,
                 pyramids=image.build_pyramid.calls, detect=detect.detect_grid.launches,
                 detect_calls=detect.detect_grid.calls, describe=orb.describe.launches,
                 describe_calls=orb.describe.calls)
 
 
 def _image_path(tag: str, keyframes: bool = True, gray: bool = False) -> None:
-    """After a path driven from zeroed counters: K5 launched three times
-    per ``detect_grid`` call (a batched keyframe pass makes one call for
-    all its rows), K3 once per ``describe`` call, K7 at most twice per
-    pyramid (once a level past the first) and, with ``gray``, at least once
+    """After a path driven from zeroed counters: K5 launched twice per
+    ``detect_grid`` call (a batched keyframe pass makes one call for all
+    its rows), K3 once per ``describe`` call, K7 once per pyramid (every
+    pyramid of the smoke has 3 levels) and, with ``gray``, at least once
     for a gray conversion; with ``keyframes`` at least one detection.  The
     launches go into the kernel line."""
     from alvaar_tpu_torch.ops.image_kernels import DETECT_LAUNCHES
     c = _image_counts()
-    print(f"[{tag}] image kernels on the path: rgba_to_gray {c['gray']} launches, pyr_down "
+    print(f"[{tag}] image kernels on the path: rgba_to_gray {c['gray']} launches, pyramid "
           f"{c['pyr']} launches in {c['pyramids']} pyramids, detect_grid {c['detect']} launches "
           f"in {c['detect_calls']} calls, describe {c['describe']} launches in "
           f"{c['describe_calls']} calls")
@@ -1783,13 +1814,13 @@ def _image_path(tag: str, keyframes: bool = True, gray: bool = False) -> None:
            f"[{tag}] K5's launches differ from {DETECT_LAUNCHES} per call: {c}")
     _check(c["describe"] == c["describe_calls"], f"[{tag}] K3's launches differ from one per "
                                                  f"call: {c}")
-    _check(c["pyr"] <= 2 * c["pyramids"] and (c["pyr"] > 0 or c["pyramids"] == 0),
-           f"[{tag}] K7's pyramid launches {c['pyr']} for {c['pyramids']} pyramids")
+    _check(c["pyr"] == c["pyramids"], f"[{tag}] K7's pyramid launches {c['pyr']} for "
+                                      f"{c['pyramids']} pyramids")
     _check(c["detect_calls"] > 0 and c["describe_calls"] > 0 or not keyframes,
            f"[{tag}] no detection or description on the path")
     _check(c["gray"] > 0 or not gray, f"[{tag}] no gray conversion on the path")
-    for key, name in (("gray", "rgba_to_gray"), ("pyr", "pyr_down"), ("detect", "detect_grid"),
-                      ("describe", "describe")):
+    for key, name in (("gray", "rgba_to_gray"), ("pyr", "build_pyramid"),
+                      ("detect", "detect_grid"), ("describe", "describe")):
         IMAGE_PATH_LAUNCHES[name] += c[key]
 
 
@@ -1828,7 +1859,7 @@ def _rows(f, S: int):
 
 
 def _image_detect_case(name, W, H, cell, n_live, S, dev, border=20) -> None:
-    """K5 on one case: three launches per call (under vmap for S rows),
+    """K5 on one case: two launches per call (under vmap for S rows),
     every output and the response bit-equal to the plain version's (with
     IEEE's square root on the CPU, as on the card), run to run and row by
     row."""
@@ -1877,6 +1908,92 @@ def _image_detect_case(name, W, H, cell, n_live, S, dev, border=20) -> None:
     _check(same and rows_equal, f"[image] detect_grid {name}: differs run to run or by row")
     _check(launched == image_kernels.DETECT_LAUNCHES,
            f"[image] detect_grid {name}: {launched} launches")
+
+
+def _image_detect_trap(name, W, H, cell, n_live, kind, dev) -> None:
+    """K5 on one of its traps (``IMAGE_DETECT_TRAPS``) with a float and a
+    tensor threshold: two launches a call, every output bit-equal to the
+    plain version's, the response too (NaN where the plain one is NaN)."""
+    import torch
+    import image_problems as ip
+    from alvaar_tpu_torch.ops import detect, image_kernels
+    img = torch.as_tensor(ip.image_of(kind, W, H), device=dev)
+    ex, exv = (torch.as_tensor(a, device=dev)
+               for a in ip.existing(np.random.default_rng(W * H + n_live), n_live, W, H))
+    fields = ("xy", "score", "valid", "new_quality")
+    _image_zero()
+    got = [detect.detect_grid(img, ex, exv, cell=cell, border=8, quality=q)
+           for q in (0.001, torch.tensor(0.002, device=dev))]
+    launched = detect.detect_grid.launches
+    *_, resp = image_kernels.launch_detect(img[None], ex[None], exv[None], 0.001, cell, 8)
+    with ip.ieee_sqrt(), np.errstate(invalid="ignore"):
+        plain = [detect._detect_grid_plain(img, ex, exv, cell=cell, border=8, quality=q)
+                 for q in (0.001, torch.tensor(0.002, device=dev))]
+        plain_resp = detect.shi_tomasi_response(img)
+    equal = all(torch.equal(getattr(g, f), getattr(p, f)) for g, p in zip(got, plain)
+                for f in fields)
+    resp_equal = ip.same(resp[0], plain_resp)
+    print(f"[image] detect_grid trap {name}: xy, score, valid and new_quality bit-equal to the "
+          f"plain version {equal} (a float and a tensor threshold), the response {resp_equal} "
+          f"({int(resp.isnan().sum())} NaN); launches {launched} in 2 calls; "
+          f"{int(got[0].valid.sum())} valid")
+    _check(equal and resp_equal, f"[image] detect_grid trap {name}: differs from the plain version")
+    _check(launched == 2 * image_kernels.DETECT_LAUNCHES, f"[image] detect_grid trap {name}: "
+                                                          f"{launched} launches")
+
+
+def _image_detect_rows(dev) -> None:
+    """K5 on S = ``IMAGE_DETECT_ROWS`` rows of one 40 x 24 image (cell 8,
+    no live keypoints) at three thresholds in turn, one launch of each
+    kernel: every row bit-equal to the plain version at its threshold."""
+    import torch
+    import image_problems as ip
+    from alvaar_tpu_torch.ops import detect, image_kernels
+    S = IMAGE_DETECT_ROWS
+    img = torch.as_tensor(ip.frame(40, 24), device=dev)
+    q = torch.tensor([0.004, 0.001, 0.0002], device=dev)
+    ex = torch.zeros((S, 1, 2), device=dev)
+    exv = torch.zeros((S, 1), dtype=torch.bool, device=dev)
+    got = image_kernels.launch_detect(img.expand(S, -1, -1).contiguous(), ex, exv,
+                                      q.repeat(-(-S // 3))[:S].contiguous(), 8, 4)
+    with ip.ieee_sqrt():
+        plain = [detect._detect_grid_plain(img, ex[0], exv[0], cell=8, border=4, quality=q[k])
+                 for k in range(3)]
+    equal = all(torch.equal(o[k::3], getattr(p, f).expand((o[k::3].shape[0],)
+                                                          + getattr(p, f).shape))
+                for k, p in enumerate(plain)
+                for o, f in zip(got, ("xy", "score", "valid", "new_quality")))
+    print(f"[image] detect_grid on S={S} rows of a 40x24 image at three thresholds in turn: "
+          f"every row bit-equal to the plain version at its threshold {equal}")
+    _check(equal, f"[image] detect_grid at S={S}: a row differs from the plain version")
+
+
+def _image_pyramid_case(name, shape, levels, dev) -> None:
+    """K7's pyramid of one seeded image: one launch per two levels below
+    level 0, each level contiguous and bit-equal to the plain version level
+    by level, run to run; ``pyr_down`` alone one launch, bit-equal."""
+    import torch
+    from alvaar_tpu_torch.ops import image
+    x = torch.as_tensor(np.random.default_rng(sum(shape)).uniform(0, 255, shape)
+                        .astype(np.float32), device=dev)
+    _image_zero()
+    pyr = image.build_pyramid(x, levels)
+    launched = image.build_pyramid.launches
+    again = image.build_pyramid(x, levels)
+    plain = [x]
+    for _ in range(levels - 1):
+        plain.append(image._pyr_down_plain(plain[-1]))
+    equal = len(pyr) == levels and all(a.shape == b.shape and a.is_contiguous()
+                                       and torch.equal(a, b) for a, b in zip(pyr, plain))
+    same = all(torch.equal(a, b) for a, b in zip(pyr, again))
+    one = image.pyr_down(x)
+    one_equal = torch.equal(one, plain[1]) and image.pyr_down.launches == 1
+    print(f"[image] K7 pyramid {name}, {levels} levels: bit-equal to the plain version {equal} "
+          f"(levels {[tuple(p.shape) for p in pyr]}), run to run {same}; launches {launched}; "
+          f"pyr_down alone bit-equal in one launch {one_equal}")
+    _check(equal and same and one_equal, f"[image] K7 pyramid {name}: differs from the plain "
+                                         f"version")
+    _check(launched == levels // 2, f"[image] K7 pyramid {name}: {launched} launches")
 
 
 def _image_describe_case(name, W, H, N, S, dev):
@@ -1939,7 +2056,7 @@ def _image_rgba_stack(W, H, B, dev):
 def _image_stack_case(name, W, H, B, dev) -> None:
     """K7 on one stack: the gray conversion of u8 RGBA [B, H, W, 4] (and of
     float32 RGB at B = 1) in one launch and the 3-level pyramid of [B, H,
-    W] in two, bit-equal to the plain versions."""
+    W] in one, bit-equal to the plain versions."""
     import torch
     from alvaar_tpu_torch.ops import image
     x = _image_stack(W, H, B, dev)
@@ -1963,17 +2080,23 @@ def _image_stack_case(name, W, H, B, dev) -> None:
           f"{extra}; the 3-level pyramid {pyr_equal} (levels {[tuple(p.shape) for p in pyr]}); "
           f"launches: gray {c['gray']}, pyramid {c['pyr']}")
     _check(gray_equal and pyr_equal, f"[image] K7 {name}: differs from the plain version")
-    _check(c["gray"] == 1 and c["pyr"] == 2, f"[image] K7 {name}: launches {c}")
+    _check(c["gray"] == 1 and c["pyr"] == 1, f"[image] K7 {name}: launches {c}")
 
 
 def _image_checks(dev, quick: bool = False) -> dict:
     """Phase 2e's bars on ``dev`` (the card, or the CPU rehearsal of the
-    source; ``quick``: its cut stacks).  Returns K3's largest angle
+    source; ``quick``: its cut stacks, and not the 65 535 rows).  Returns K3's largest angle
     difference and the keypoints inside the bin margin per case."""
     for case in (IMAGE_QUICK_STACKS if quick else IMAGE_STACK_CASES):
         _image_stack_case(*case, dev)
+    for case in IMAGE_PYRAMID_CASES:
+        _image_pyramid_case(*case, dev)
     for case in IMAGE_DETECT_CASES:
         _image_detect_case(*case, dev)
+    for case in IMAGE_DETECT_TRAPS:
+        _image_detect_trap(*case, dev)
+    if not quick:
+        _image_detect_rows(dev)
     out = {}
     for case in IMAGE_DESCRIBE_CASES:
         out[case[0]] = _image_describe_case(*case, dev)
@@ -2022,6 +2145,42 @@ def _image_time(name, fn, plain_fn, kernel_name, nbytes, flops, card, library=No
                 library_ms=lib_ms)
 
 
+def _kernel_split(fn, pattern: str, reps: int = 20, attempts: int = 3) -> dict:
+    """{kernel: (device ms per launch, launches per call)} of the device's
+    kernels whose name holds ``pattern`` (every kernel for ""), from one
+    ``torch.profiler`` session of ``reps`` calls (run again, up to
+    ``attempts``, when it recorded none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = {e.key: (e.self_device_time_total / e.count / 1e3, e.count / reps)
+                for e in prof.key_averages()
+                if pattern in e.key and e.count > 0 and e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0}
+        if hits:
+            return hits
+    return {}
+
+
+def _kernel_short(key: str) -> str:
+    """A kernel's name without its namespace and signature."""
+    return key.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0].split("<")[0]
+
+
+def _split_text(split: dict) -> str:
+    total = sum(ms * n for ms, n in split.values())
+    parts = " + ".join(f"{_kernel_short(k)} {ms:.4f} ms x {n:.2f}" for k, (ms, n) in
+                       sorted(split.items()))
+    return f"{total:.4f} ms = {parts}"
+
+
 def _conv_level(x):
     """One pyramid level as one PyTorch call: ``F.conv2d`` with stride 2 of
     the binomial's 5 x 5 outer product on a replicate-padded [B, 1, H + 4,
@@ -2034,12 +2193,77 @@ def _conv_level(x):
     return lambda: F.conv2d(padded, weight, stride=2)
 
 
-def _image_timing(card) -> dict:
-    """Phase 2e's times at the main path's shapes: K7's gray conversion and
-    pyramid levels, K5, K3.  Returns the kernel line's rows."""
+def _pyramid_work(B, H, W):
+    """(bytes, float32 operations) of a 3-level pyramid of [B, H, W]: level
+    0 read once, levels 1 and 2 written once; each level's vertical pass at
+    its rows over the level above's columns and its horizontal pass, 9
+    operations a 5-tap sum."""
+    h1, w1 = (H + 1) // 2, (W + 1) // 2
+    h2, w2 = (h1 + 1) // 2, (w1 + 1) // 2
+    return ((H * W + h1 * w1 + h2 * w2) * B * 4,
+            B * 9 * (h1 * W + h1 * w1 + h2 * w1 + h2 * w2))
+
+
+def _detect_calls(name, W, H, cell, n_live, S, dev):
+    """(kernel call, plain call, bytes, float32 operations) of one case of
+    ``IMAGE_DETECT_CASES``: a lone ``detect_grid`` at S = 1, under
+    ``torch.func.vmap`` above, as the keyframe pass calls it."""
     import torch
     import image_problems as ip
-    from alvaar_tpu_torch.ops import detect, image, orb
+    from alvaar_tpu_torch.ops import detect
+    imgs = _image_frames(W, H, S, dev)
+    rng = np.random.default_rng(W + H + cell + n_live + S)
+    live = [ip.existing(rng, n_live, W, H) for _ in range(S)]
+    ex_xy = torch.as_tensor(np.stack([e[0] for e in live]), device=dev)
+    ex_valid = torch.as_tensor(np.stack([e[1] for e in live]), device=dev)
+    q = torch.full((S,), 0.001, device=dev)
+    K = ex_xy.shape[1]
+    C = -(-H // cell) * -(-W // cell)
+    fields = lambda d: (d.xy, d.score, d.valid, d.new_quality)
+    call = lambda i, x, v, qq: fields(detect.detect_grid(i, x, v, cell=cell, border=20,
+                                                         quality=qq))
+    plain = lambda i, x, v, qq: fields(detect._detect_grid_plain(i, x, v, cell=cell,
+                                                                 border=20, quality=qq))
+    if S == 1:
+        fn = lambda: call(imgs[0], ex_xy[0], ex_valid[0], q[0])
+        pfn = lambda: plain(imgs[0], ex_xy[0], ex_valid[0], q[0])
+    else:
+        fn = lambda: torch.func.vmap(call)(imgs, ex_xy, ex_valid, q)
+        pfn = lambda: torch.func.vmap(plain)(imgs, ex_xy, ex_valid, q)
+    nbytes = S * (H * W * 4 + K * 9 + 4 + C * 13 + 4)
+    flops = S * (H * W * DETECT_FLOPS_PER_PIXEL + 2 * C * (30 + 5 * n_live)
+                 + 2 * C * np.log2(2 * C))
+    return fn, pfn, nbytes, flops
+
+
+def _image_kernel_times(card) -> None:
+    """K5's kernels one by one at every case of ``IMAGE_DETECT_CASES`` and a
+    3-level pyramid's kernels at every case of ``IMAGE_STACK_CASES``, by
+    ``torch.profiler``, the pyramid by CUDA events too: the lines the A/B
+    turns of tools/run_image_phase.py read, for whichever package is
+    imported (its kernels found by name: ``detect_``, ``pyr``)."""
+    import torch
+    from alvaar_tpu_torch.ops import image
+    dev = torch.device("cuda")
+    for name, W, H, cell, n_live, S in IMAGE_DETECT_CASES:
+        fn = _detect_calls(name, W, H, cell, n_live, S, dev)[0]
+        print(f"[image-split] detect_grid {name}: device {_split_text(_kernel_split(fn, 'detect_'))}"
+              f" [{card}]")
+    for name, W, H, B in IMAGE_STACK_CASES:
+        x = _image_stack(W, H, B, dev)
+        x = x if B > 1 else x[0]
+        fn = lambda: image.build_pyramid(x, 3)
+        print(f"[image-split] build_pyramid {name}: device {_split_text(_kernel_split(fn, 'pyr'))},"
+              f" {_time_ms(fn):.4f} ms per call by CUDA events [{card}]")
+
+
+def _image_timing(card) -> dict:
+    """Phase 2e's times at the main path's shapes: K7's gray conversion and
+    3-level pyramid (beside one ``F.conv2d`` level, its device time too), K5
+    (its two kernels one by one), K3.  Returns the kernel line's rows."""
+    import torch
+    import image_problems as ip
+    from alvaar_tpu_torch.ops import image, orb
     dev = torch.device("cuda")
     rows = {k: [] for k in IMAGE_PATH_LAUNCHES}
     for name, W, H, B in IMAGE_STACK_CASES:
@@ -2052,46 +2276,34 @@ def _image_timing(card) -> dict:
             f"rgba_to_gray {name} u8 RGBA", lambda: image.rgba_to_gray(rgba),
             lambda: image._rgba_to_gray_plain(rgba), "gray_kernel", px * 4 + px * 4, px * 5,
             card))
-        ho, wo = (H + 1) // 2, (W + 1) // 2
         allow = torch.backends.cudnn.allow_tf32
         torch.backends.cudnn.allow_tf32 = False
         try:
             conv = _conv_level(x)
-            got = image.pyr_down(x)
-            lib_err = float((conv().reshape(got.shape) - got).abs().max())
-            rows["pyr_down"].append(_image_time(
-                f"pyr_down {name} -> {wo}x{ho}", lambda: image.pyr_down(x),
-                lambda: image._pyr_down_plain(x), "pyr_down_kernel", (px + B * ho * wo) * 4,
-                B * (ho * W + ho * wo) * 9, card, library=conv))
+            got = image.build_pyramid(x, 3)
+            lib_err = float((conv().reshape(got[1].shape) - got[1]).abs().max())
+            nbytes, flops = _pyramid_work(B, H, W)
+            row = _image_time(
+                f"build_pyramid {name} (3 levels)", lambda: image.build_pyramid(x, 3),
+                lambda: image._pyr_down_plain(image._pyr_down_plain(x)), "pyramid_kernel",
+                nbytes, flops, card, library=conv)
+            conv_split = _kernel_split(conv, "")
+            row["library_device_ms"] = sum(ms * n for ms, n in conv_split.values())
         finally:
             torch.backends.cudnn.allow_tf32 = allow
-        print(f"[image] pyr_down {name}: the conv2d level against the kernel's, max |diff| "
-              f"{lib_err:.3e} (another order of summation)")
+        rows["build_pyramid"].append(row)
+        print(f"[image] build_pyramid {name}: one F.conv2d level (the library call), device "
+              f"{_split_text(conv_split)} by torch.profiler, {row['library_ms']:.4f} ms by CUDA "
+              f"events; its level 1 against the kernel's, max |diff| {lib_err:.3e} (another "
+              f"order of summation) [{card}]")
     for name, W, H, cell, n_live, S in IMAGE_DETECT_CASES:
-        imgs = _image_frames(W, H, S, dev)
-        rng = np.random.default_rng(W + H + cell + n_live + S)
-        live = [ip.existing(rng, n_live, W, H) for _ in range(S)]
-        ex_xy = torch.as_tensor(np.stack([e[0] for e in live]), device=dev)
-        ex_valid = torch.as_tensor(np.stack([e[1] for e in live]), device=dev)
-        q = torch.full((S,), 0.001, device=dev)
-        K = ex_xy.shape[1]
-        C = -(-H // cell) * -(-W // cell)
-        fields = lambda d: (d.xy, d.score, d.valid, d.new_quality)
-        call = lambda i, x, v, qq: fields(detect.detect_grid(i, x, v, cell=cell, border=20,
-                                                             quality=qq))
-        plain = lambda i, x, v, qq: fields(detect._detect_grid_plain(i, x, v, cell=cell,
-                                                                     border=20, quality=qq))
-        if S == 1:
-            fn = lambda: call(imgs[0], ex_xy[0], ex_valid[0], q[0])
-            pfn = lambda: plain(imgs[0], ex_xy[0], ex_valid[0], q[0])
-        else:
-            fn = lambda: torch.func.vmap(call)(imgs, ex_xy, ex_valid, q)
-            pfn = lambda: torch.func.vmap(plain)(imgs, ex_xy, ex_valid, q)
-        nbytes = S * (H * W * 4 + K * 9 + 4 + C * 13 + 4)
-        flops = S * (H * W * DETECT_FLOPS_PER_PIXEL + 2 * C * (30 + 5 * n_live)
-                     + 2 * C * np.log2(2 * C))
-        rows["detect_grid"].append(_image_time(f"detect_grid {name}", fn, pfn, "detect_", nbytes,
-                                               flops, card))
+        fn, pfn, nbytes, flops = _detect_calls(name, W, H, cell, n_live, S, dev)
+        row = _image_time(f"detect_grid {name}", fn, pfn, "detect_", nbytes, flops, card)
+        split = _kernel_split(fn, "detect_")
+        row["kernels"] = {_kernel_short(k): ms for k, (ms, _) in split.items()}
+        print(f"[image] detect_grid {name}: its kernels by torch.profiler, {_split_text(split)} "
+              f"[{card}]")
+        rows["detect_grid"].append(row)
     for name, W, H, N, S in IMAGE_DESCRIBE_CASES:
         imgs = _image_frames(W, H, S, dev)
         rng = np.random.default_rng(W + H + N + S)
@@ -2113,7 +2325,7 @@ def _image_timing(card) -> dict:
 def _image_rgba_path(frames, card) -> None:
     """2e's RGBA path: ``AlvaAR.find_camera_pose`` on golden frames 0-29
     as u8 RGBA (tests/image_problems.py's channels): each frame's gray
-    conversion one K7 launch, its pyramid two, detection and description
+    conversion one K7 launch, its pyramid one, detection and description
     through K5 and K3; finite poses."""
     import torch
     import image_problems as ip
@@ -2132,8 +2344,8 @@ def _image_rgba_path(frames, card) -> None:
           f"{''.join(map(str, statuses))}, poses finite {finite} [{card}]")
     _check(finite, "[rgba] a pose is not finite")
     _check(c["gray"] == len(rgba), f"[rgba] {c['gray']} gray launches for {len(rgba)} frames")
-    _check(c["pyr"] == 2 * len(rgba), f"[rgba] {c['pyr']} pyramid launches for {len(rgba)} "
-                                      f"frames")
+    _check(c["pyr"] == len(rgba), f"[rgba] {c['pyr']} pyramid launches for {len(rgba)} "
+                                  f"frames")
     _image_path("rgba", gray=True)
 
 
@@ -2146,6 +2358,12 @@ def phase_image_kernels(frames, card):
     t0 = time.perf_counter()
     margins = _image_checks(dev)
     t1 = time.perf_counter()
+    from alvaar_tpu_torch.ops.image import build_pyramid
+    img = _image_frames(640, 480, 1, dev)[0]
+    host_ms, event_ms = _lone_ms(lambda: build_pyramid(img, 3))
+    print(f"[image] a lone build_pyramid call at 640x480 (3 levels): host {host_ms:.4f} ms "
+          f"(time.perf_counter, median), {event_ms:.4f} ms per call by CUDA events around "
+          f"back-to-back calls [{card}]")
     rows = _image_timing(card)
     t2 = time.perf_counter()
     _image_rgba_path(frames, card)
@@ -2153,7 +2371,7 @@ def phase_image_kernels(frames, card):
           f"{time.perf_counter() - t2:.1f} s")
     out = {}
     for key, main in (("rgba_to_gray", "rgba_to_gray 640x480 u8 RGBA"),
-                      ("pyr_down", "pyr_down 640x480 -> 320x240"),
+                      ("build_pyramid", "build_pyramid 640x480 (3 levels)"),
                       ("detect_grid", "detect_grid 640x480 cell 40, 120 live"),
                       ("describe", "describe 640x480 K=192")):
         r = next(r for r in rows[key] if r["shape"] == main)
@@ -2161,6 +2379,12 @@ def phase_image_kernels(frames, card):
                         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                         library_ms=r["library_ms"], device_ms=r["device_ms"], shape=main,
                         shapes=rows[key])
+    out["build_pyramid"].update(lone_host_ms=host_ms, lone_event_ms=event_ms,
+                                library_what="one level by F.conv2d (no PyTorch call builds "
+                                             "two levels)",
+                                library_device_ms=rows["build_pyramid"][0]["library_device_ms"])
+    out["detect_grid"]["kernels"] = next(r for r in rows["detect_grid"]
+                                         if r["shape"] == out["detect_grid"]["shape"])["kernels"]
     out["describe"].update(max_abs_err=max(e for e, _ in margins.values()),
                            keypoints_in_bin_margin={k: n for k, (_, n) in margins.items()})
     return out
@@ -2390,6 +2614,13 @@ IMAGE_PARENT_TRACKING_KERNELS = 737
 IMAGE_PARENT_KEYFRAME_KERNELS = 3929
 IMAGE_TRACKING_SAVED = 40
 IMAGE_KEYFRAME_SAVED = 350
+# the same medians by commit faa4577 (K7 in two launches a pyramid, K5 in
+# three a call) on an NVIDIA H100 80GB HBM3 at 700 W, in that commit's A/B
+# turns (686 per tracking frame, 3 461 per keyframe frame; 684 / 3 459 in
+# its final smoke): the fused pyramid and K5's two launches stay at or
+# under them
+IMAGE_PR19_TRACKING_KERNELS = 686
+IMAGE_PR19_KEYFRAME_KERNELS = 3461
 # ``_run_digest`` of phases 3 and 11a's golden runs on an NVIDIA H100 80GB
 # HBM3 with K9 (csrc/pnp_kernel.cu: PnP in one launch, each point evaluated
 # and summed in float64): the runs stay bit-equal to them (K9's redesign
@@ -2548,6 +2779,12 @@ def phase_main_path(frames, gt, card):
               f"7178a79's {parent} (eager image ops; bar {saved} fewer) [{card}]")
         _check(med <= parent - saved,
                f"kernels per {kind} frame median {med} > {parent} - {saved}")
+    for kind, got, bar in (("tracking", kernels_tr, IMAGE_PR19_TRACKING_KERNELS),
+                           ("keyframe", kernels_kf, IMAGE_PR19_KEYFRAME_KERNELS)):
+        med = statistics.median(got)
+        print(f"[main] kernels per {kind} frame median {med}, bar {bar} (commit faa4577's: K7 "
+              f"in two launches a pyramid, K5 in three a call) [{card}]")
+        _check(med <= bar, f"kernels per {kind} frame median {med} > {bar}")
     _check(n5 > 0, "the 5-point RANSAC never ran on the card")
     _check(nh > 0, "the homography RANSAC never ran on the card")
 
@@ -4879,14 +5116,14 @@ def main() -> int:
             "replaces": replaces, "replaces_what": f"XLA formulation, not a Pallas kernel: {what}",
             "launches": HAMMING_PATH_LAUNCHES[name], "card": card, **hamming_rows[name]})
     # K7, K5 and K3 replace XLA formulations of the jitted step; library_ms
-    # is F.conv2d's level for pyr_down, and no single PyTorch call computes
-    # the others
+    # is one F.conv2d level for the pyramid (no single PyTorch call builds
+    # two), and no single PyTorch call computes the others
     for name, replaces, what in (
             ("rgba_to_gray", "alvaar_tpu/ops/image.py:23",
              "rgba_to_gray (:23-29), K7's gray conversion (alvaar_tpu/system.py:194)"),
-            ("pyr_down", "alvaar_tpu/ops/image.py:49",
-             "pyr_down and build_pyramid (:49-63), K7's pyramid, traced into the jitted step "
-             "(alvaar_tpu/frontend/step.py:55)"),
+            ("build_pyramid", "alvaar_tpu/ops/image.py:49",
+             "pyr_down and build_pyramid (:49-63), K7's pyramid (two levels a launch), traced "
+             "into the jitted step (alvaar_tpu/frontend/step.py:55)"),
             ("detect_grid", "alvaar_tpu/ops/detect.py:159",
              "detect_grid (:159-252) with shi_tomasi_response, grid_argmax2 and subpix_refine, "
              "K5, traced into the jitted keyframe pipeline (alvaar_tpu/worldmap/keyframe.py:183)"),

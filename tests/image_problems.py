@@ -5,7 +5,8 @@ tests (tests/test_torch_image_kernels.py), the card's tests
 them.
 
 ``frame`` renders the synthetic two-plane scene (tests/render_scene_np.py)
-at any size; ``rgba`` makes u8 RGBA frames of it; ``keypoints`` places
+at any size, ``image_of`` it or another kind of image (a constant, blocks,
+non-finite pixels); ``rgba`` makes u8 RGBA frames of it; ``keypoints`` places
 keypoints inside an image, on its edges and past them; ``existing`` makes
 the live keypoints that detection's occupancy and proximity gates read.
 
@@ -53,6 +54,24 @@ def frame(w: int, h: int, seed: int = 42, index: int = 1) -> np.ndarray:
     return _scene(w, h, seed).render(pose).astype(np.float32)
 
 
+def image_of(kind: str, w: int, h: int) -> np.ndarray:
+    """[h, w] float32 of one kind: the rendered scene, a constant, 8 x 8
+    blocks of 40 and 215, or the scene with 6 pixels each NaN, inf and -inf
+    at seeded places."""
+    if kind == "scene":
+        return frame(w, h)
+    if kind == "constant":
+        return np.full((h, w), 77.0, np.float32)
+    if kind == "nonfinite":
+        img = frame(w, h).copy()
+        rng = np.random.default_rng(w * h)
+        for v in (np.nan, np.inf, -np.inf):
+            img.reshape(-1)[rng.integers(0, h * w, 6)] = v
+        return img
+    y, x = np.mgrid[:h, :w]
+    return np.where((y // 8 + x // 8) % 2 == 0, 40.0, 215.0).astype(np.float32)
+
+
 def rgba(gray: np.ndarray) -> np.ndarray:
     """[..., h, w, 4] u8 RGBA whose channels differ: gray, 0.9 gray, 0.7
     gray + 20, 255."""
@@ -79,6 +98,12 @@ def existing(rng, n: int, w: int, h: int):
     valid = np.arange(len(xy)) < n
     xy[-1] = [w + 50.0, -30.0]
     return xy, valid
+
+
+def same(a, b) -> bool:
+    """Tensors bit-equal but that NaN equals NaN (at the same places)."""
+    zero = lambda x: torch.where(x.isnan(), 0.0, x)
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(zero(a), zero(b))
 
 
 @contextlib.contextmanager

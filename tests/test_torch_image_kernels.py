@@ -8,8 +8,12 @@ tests/test_torch_features.py's and tests/test_torch_geom_image.py's bars:
 (a one-pixel corner cell whose second peak is -inf), 0 and 40 live
 keypoints, a constant image and 8 x 8 blocks (ties), keypoints on and past
 the image's edges, S rows in one launch each equal to its row alone,
-``describe_and_detect`` on a seeded keyframe through the source; the
-shim's ``__ballot_sync`` and bf16 rounding.  Without building: the custom
+``describe_and_detect`` on a seeded keyframe through the source; K7's
+pyramid kernel at 641x481, 7x5, 3x3, 1x1 and a stack of 3, 3 and 4
+levels; K5's traps (a one-pixel last column of cells and a two-pixel last
+row, hd_serving()'s cell 96, a response tile in global scratch, NaN and
++-inf pixels, more live keypoints than threads); the shim's
+``__ballot_sync``, ``__any_sync`` and bf16 rounding.  Without building: the custom
 ops' CPU implementation (the plain version), fake shapes and batching
 rule, the CPU path's independence of the library (the golden run's first
 16 frames, tests/golden/torch_step_320.npz, unchanged), the launchers'
@@ -24,6 +28,7 @@ whose plain angle lies more than 1e-4 rad from a steering bin's edge."""
 
 import ctypes
 import importlib.util
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -74,7 +79,7 @@ DETECT_CASES = [(128, 96, 24, 0, "scene", False), (128, 96, 24, 40, "scene", Fal
 
 @pytest.mark.parametrize("W, H, cell, n_live, kind, against_jax", DETECT_CASES)
 def test_detect_source_matches_plain_and_jax(k357, W, H, cell, n_live, kind, against_jax):
-    """The source's three launches bit-equal to the plain version (xy,
+    """The source's two launches bit-equal to the plain version (xy,
     score, valid, new quality and the response); where marked, the JAX
     package's ``detect_grid`` at tests/test_torch_features.py's bars."""
     mod, lib = k357
@@ -141,7 +146,7 @@ def test_describe_source_matches_plain_and_jax(k357, W, H, blur):
 
 @pytest.mark.parametrize("shape", [(120, 160), (61, 83), (1, 5)])
 def test_pyramid_and_gray_source_match_plain_and_jax(k357, shape):
-    """K7's two pyramid launches and its gray conversion (u8 RGBA, u8 RGB,
+    """K7's one pyramid launch and its gray conversion (u8 RGBA, u8 RGB,
     float32 RGBA) bit-equal to the plain versions, and to the JAX
     package's ``build_pyramid`` and ``rgba_to_gray`` at
     tests/test_torch_geom_image.py's bar (1e-4)."""
@@ -154,7 +159,8 @@ def test_pyramid_and_gray_source_match_plain_and_jax(k357, shape):
         pyr = image.build_pyramid(_t(img), 3)
         grays = [image.rgba_to_gray(x) for x in (_t(rgba), _t(rgba[..., :3]),
                                                   _t(rgba).float() + 0.5)]
-        assert image.pyr_down.launches == 2 and image.rgba_to_gray.launches == 3
+        assert image.build_pyramid.launches == 1 and image.pyr_down.launches == 0
+        assert image.rgba_to_gray.launches == 3
     want = [_t(img)]
     for _ in range(2):
         want.append(image._pyr_down_plain(want[-1]))
@@ -178,7 +184,7 @@ def test_card_cases_through_the_source(k357, name):
 
 
 def test_rows_in_one_launch_equal_rows_alone(k357):
-    """The wrappers under ``torch.func.vmap`` on S = 3 rows: K5's three
+    """The wrappers under ``torch.func.vmap`` on S = 3 rows: K5's two
     launches and K3's one for all the rows (the ops' batching rule), each
     row bit-equal to its call alone, an unbatched argument repeated; and
     K7 on stacks."""
@@ -208,13 +214,13 @@ def test_describe_and_detect_through_the_source(k357):
     with mod.on_cpu(lib):
         card_tests._zero()
         got = [describe_and_detect(m[0], p, cam, cfg) for m, p in zip(maps, pyrs)]
-        assert detect.detect_grid.launches == 2 * image_kernels.DETECT_LAUNCHES
+        assert detect.detect_grid.launches == 2 * 2
         assert orb.describe.launches == 4
         card_tests._zero()
         stack = torch.stack(pyrs[0][0:1] + pyrs[1][0:1])
         rows = map_rows(lambda s, img: describe_and_detect(s, (img,), cam, cfg),
                         stack_states([m[0] for m in maps]), stack)
-        assert detect.detect_grid.launches == image_kernels.DETECT_LAUNCHES
+        assert detect.detect_grid.launches == 2
         assert orb.describe.launches == 2
     for g, p in zip(got, plain):
         for (name, x), (_, y) in zip(g.tensors(), p.tensors()):
@@ -222,6 +228,45 @@ def test_describe_and_detect_through_the_source(k357):
     for i in range(2):
         for (name, x), (_, y) in zip(rows.tensors(), got[i].tensors()):
             assert torch.equal(x[i], y), (i, name)
+
+
+@pytest.mark.parametrize("name, shape, levels", card_tests.PYRAMID_CASES)
+def test_fused_pyramid_source_matches_plain_and_jax(k357, name, shape, levels):
+    """K7's pyramid kernel through the source: one launch per two levels
+    below level 0 (3 levels in one, 4 in two), each level contiguous and
+    bit-equal to ``_pyr_down_plain`` applied level by level and to the JAX
+    package's ``build_pyramid`` row by row (op by op on the CPU, equal to
+    the bit); ``pyr_down`` alone in one launch."""
+    mod, lib = k357
+    with mod.on_cpu(lib):
+        x, pyr = card_tests.check_pyramid(shape, levels, CPU)
+    rows = x[None] if x.dim() == 2 else x
+    for b in range(rows.shape[0]):
+        jp = jimg.build_pyramid(jnp.asarray(rows[b].numpy()), levels)
+        for a, j in zip(pyr, jp):
+            np.testing.assert_array_equal((a if x.dim() == 2 else a[b]).numpy(), np.asarray(j))
+
+
+@pytest.mark.parametrize("name", list(card_tests.TRAP_CASES))
+def test_detect_traps_through_the_source(k357, name):
+    """K5's traps (tests/test_torch_image_kernels_card.py ``TRAP_CASES``)
+    through the source, bit-equal to the plain version with a float and a
+    tensor threshold; the finite ones against the JAX package's
+    ``detect_grid`` at tests/test_torch_features.py's bars where the JAX
+    side compiles quickly (the one-pixel column and cell 96)."""
+    mod, lib = k357
+    with mod.on_cpu(lib):
+        got = card_tests.check_detect_trap(name, CPU)
+    W, H, cell, n_live, kind = card_tests.TRAP_CASES[name]
+    if kind != "scene" or cell > 96:
+        return
+    img, ex, exv, _ = card_tests.detect_case(name, CPU)
+    j = jdet.detect_grid(jnp.asarray(img.numpy()), jnp.asarray(ex.numpy()),
+                         jnp.asarray(exv.numpy()), cell=cell, border=8, quality=0.001)
+    jv = np.asarray(j.valid)
+    np.testing.assert_array_equal(got.valid.numpy(), jv)
+    np.testing.assert_allclose(got.xy.numpy()[jv], np.asarray(j.xy)[jv], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got.score.numpy(), np.asarray(j.score), rtol=1e-4, atol=1e-9)
 
 
 PROBE = r"""
@@ -235,6 +280,11 @@ __global__ void ballot_kernel(const int* pred, unsigned* out) {
   out[threadIdx.x] = v;
 }
 
+// Lane l votes pred[l] in __any_sync; each lane returns right after it.
+__global__ void any_kernel(const int* pred, int* out) {
+  out[threadIdx.x] = __any_sync(0xFFFFFFFFu, pred[threadIdx.x] != 0);
+}
+
 __global__ void bf16_kernel(const float* x, float* y, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     y[i] = __bfloat162float(__float2bfloat16_rn(x[i]));
@@ -243,6 +293,8 @@ __global__ void bf16_kernel(const float* x, float* y, int n) {
 extern "C" void run_ballot(const int* pred, unsigned* out, int lanes) {
   ballot_kernel<<<1, lanes>>>(pred, out);
 }
+
+extern "C" void run_any(const int* pred, int* out, int lanes) { any_kernel<<<1, lanes>>>(pred, out); }
 
 extern "C" void run_bf16(const float* x, float* y, int n) { bf16_kernel<<<1, 64>>>(x, y, n); }
 """
@@ -254,8 +306,9 @@ def probe(k357, tmp_path_factory):
     src = out / "image_probe.cu"
     src.write_text(PROBE)
     lib = ctypes.CDLL(k357[0].cuda_on_cpu.build(str(src), str(out)))
-    lib.run_ballot.restype = lib.run_bf16.restype = None
+    lib.run_ballot.restype = lib.run_bf16.restype = lib.run_any.restype = None
     lib.run_ballot.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    lib.run_any.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
     lib.run_bf16.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
     return lib
 
@@ -275,6 +328,23 @@ def test_shim_ballot(probe, lanes):
         assert (out[w:w + 32] == want).all(), w
 
 
+@pytest.mark.parametrize("lanes", [32, 64, 48])
+def test_shim_any_sync(probe, lanes):
+    """The shim's ``__any_sync``: every lane of a warp gets whether any of
+    its lanes voted true, the last lane's vote included, though lanes
+    return as soon as they have voted (a vote by lane 31 alone, by lane 0
+    alone, by none)."""
+    for which in (31, 0, None):
+        pred = np.zeros(lanes, np.int32)
+        if which is not None:
+            pred[which::32] = 1
+        out = np.full(lanes, -1, np.int32)
+        probe.run_any(pred.ctypes.data, out.ctypes.data, lanes)
+        for w in range(0, lanes, 32):
+            want = int(which is not None and which < min(32, lanes - w))
+            assert (out[w:w + 32] == want).all(), (which, w)
+
+
 def test_shim_bf16_rounding_is_torchs(probe):
     """The shim's ``__float2bfloat16_rn``: torch's bf16 rounding (nearest,
     ties to even) on random floats, exact ties, the largest finite floats,
@@ -292,14 +362,38 @@ def test_shim_bf16_rounding_is_torchs(probe):
     assert np.isnan(y[-1])
 
 
+def test_timeline_patches_every_stage():
+    """tools/image_kernel_timeline.py finds every anchor it stamps in the
+    committed source (the cell kernel's five stages, sub-tiles, two argmaxes
+    and scan; the pyramid's five), so that the card run does not fail on a
+    moved line."""
+    path = Path(__file__).resolve().parents[1] / "tools" / "image_kernel_timeline.py"
+    spec = importlib.util.spec_from_file_location("image_kernel_timeline", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    timed = mod.timed_source(image_kernels._SRC.read_text())
+    stamped = sorted(int(k) for k in re.findall(r"g_stamps\[b_ \* 16 \+ (\d+)\] = t_", timed))
+    assert stamped == sorted([*set(mod.CELL_STAGES) | {0}, *set(mod.PYR_STAGES) | {0, 3}])
+
+
 def test_c_entries_refuse_bad_shapes(k357):
     """The C entries refuse what the kernels do not take before they
     launch; ``bind`` checks the library's limits against the wrapper's."""
     lib = image_kernels.bind(ctypes.CDLL(k357[1]))
     assert lib.image_gray_launch(None, 0, 2, 4, None, None) != 0
     assert lib.image_gray_launch(None, 0, 4, 0, None, None) == 0           # nothing to do
-    assert lib.image_pyr_down_launch(None, 1, 0, 4, None, None) != 0
-    assert lib.image_pyr_down_launch(None, 0, 4, 4, None, None) == 0
+    for B, H, W, levels in ((1, 0, 4, 2), (1, 4, 0, 1), (1, 4, 4, 3), (1, 4, 4, 0), (-1, 4, 4, 1)):
+        assert lib.image_pyramid_launch(None, B, H, W, levels, None, None, None) != 0
+    assert lib.image_pyramid_launch(None, 1, 4, 4, 2, None, None, None) != 0   # no second level
+    assert lib.image_pyramid_launch(None, 0, 4, 4, 1, None, None, None) == 0
+    # the response tiles: in shared memory at the main path's cells, in
+    # global scratch (and then refused without it) where they do not fit
+    for H, W, cell in ((480, 640, 40), (1080, 1920, 96), (480, 640, 30), (200, 300, 160)):
+        assert lib.detect_tile_floats(H, W, cell) == 0, cell
+    assert lib.detect_tile_floats(200, 300, 250) == 204 * 254
+    assert lib.detect_tile_floats(0, 300, 250) == -1
+    assert lib.detect_grid_launch(None, None, None, None, 0.0, 1, 200, 300, 0, 250, 0,
+                                  *[None] * 9) != 0
     bad = [(0, 10, 10, 4), (65536, 10, 10, 4), (1, 2, 10, 4), (1, 10, 10, 0),
            (1, 10, 10, 46341)]
     for S, H, W, cell in bad:

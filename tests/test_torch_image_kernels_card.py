@@ -11,7 +11,8 @@ CUDA source.  K7 and K5 are bit-equal to their plain versions (on the CPU
 with IEEE's square root, tests/image_problems.py ``ieee_sqrt``); K3's
 angles are within 2e-5 rad of the plain ones and its words bit-equal at
 every keypoint whose plain angle lies more than 1e-4 rad from a steering
-bin's edge."""
+bin's edge.  K7 takes one launch per 3-level pyramid (two for 4 levels),
+K5 two per call."""
 
 import numpy as np
 import pytest
@@ -32,6 +33,24 @@ CARD_CASES = {
     "constant 128x96 cell 40": (128, 96, 40, 0, "constant"),
     "blocks 121x97 cell 24, 10 live": (121, 97, 24, 10, "blocks"),
 }
+# K5's traps (name → (W, H, cell, live keypoints, image)): a last column
+# of cells one pixel wide and a last row two (the subpixel fit's clamp to
+# [1, W - 2] reaches into the previous cell's pixels), hd_serving()'s cell
+# 96 (a response tile of 100 x 100, computed in 2 x 2 sub-tiles), a cell
+# whose response tile does not fit in shared memory (global scratch), NaN
+# and +-inf pixels, more live keypoints than the cell kernel's threads
+TRAP_CASES = {
+    "scene 121x98 cell 24 (W = 5 cell + 1, H = 4 cell + 2), 10 live": (121, 98, 24, 10, "scene"),
+    "scene 290x200 cell 96, 12 live": (290, 200, 96, 12, "scene"),
+    "scene 300x200 cell 250 (its tile in global scratch), 3 live": (300, 200, 250, 3, "scene"),
+    "NaN and inf pixels 121x98 cell 24, 10 live": (121, 98, 24, 10, "nonfinite"),
+    "scene 160x120 cell 24, 600 live (more than the cell kernel's threads)":
+        (160, 120, 24, 600, "scene"),
+}
+# K7's pyramids: (name, [B,] H, W shape, levels)
+PYRAMID_CASES = [("641x481", (481, 641), 3), ("641x481", (481, 641), 4), ("7x5", (5, 7), 3),
+                 ("3x3", (3, 3), 4), ("1x1", (1, 1), 3), ("3 x 83x61", (3, 61, 83), 3),
+                 ("3 x 83x61", (3, 61, 83), 4)]
 
 
 @pytest.fixture
@@ -41,27 +60,20 @@ def card():
     return torch.device("cuda")
 
 
-def image_of(kind: str, w: int, h: int) -> np.ndarray:
-    """[h, w] float32 of one kind: the rendered scene, a constant, or 8 x 8
-    blocks of 40 and 215."""
-    if kind == "scene":
-        return ip.frame(w, h)
-    if kind == "constant":
-        return np.full((h, w), 77.0, np.float32)
-    y, x = np.mgrid[:h, :w]
-    return np.where((y // 8 + x // 8) % 2 == 0, 40.0, 215.0).astype(np.float32)
+image_of = ip.image_of
 
 
 def _zero():
     image.rgba_to_gray.launches = image.pyr_down.launches = image.build_pyramid.calls = 0
+    image.build_pyramid.launches = 0
     detect.detect_grid.launches = detect.detect_grid.calls = 0
     orb.describe.launches = orb.describe.calls = 0
 
 
 def detect_case(name, dev):
-    """(img, live xy, live flags, cell) of a case of ``CARD_CASES`` on
-    ``dev``."""
-    W, H, cell, n_live, kind = CARD_CASES[name]
+    """(img, live xy, live flags, cell) of a case of ``CARD_CASES`` or
+    ``TRAP_CASES`` on ``dev``."""
+    W, H, cell, n_live, kind = {**CARD_CASES, **TRAP_CASES}[name]
     rng = np.random.default_rng(W * H + n_live)
     ex, exv = ip.existing(rng, n_live, W, H)
     t = lambda a: torch.as_tensor(a, device=dev)
@@ -71,6 +83,29 @@ def detect_case(name, dev):
 def assert_detection_equal(got, plain):
     for f in ("xy", "score", "valid", "new_quality"):
         assert torch.equal(getattr(got, f), getattr(plain, f)), f
+
+
+def check_detect_trap(name, dev):
+    """K5 on a case of ``TRAP_CASES`` through ``detect_grid`` (two launches)
+    and the launcher: every output bit-equal to the plain version, the
+    response too (NaN where the plain one is NaN), with a float and with a
+    tensor threshold."""
+    img, ex, exv, cell = detect_case(name, dev)
+    args = dict(cell=cell, border=8)
+    q = torch.tensor(0.002, device=dev)
+    _zero()
+    got = detect.detect_grid(img, ex, exv, quality=0.001, **args)
+    got_q = detect.detect_grid(img, ex, exv, quality=q, **args)
+    assert detect.detect_grid.launches == 4
+    *_, resp = image_kernels.launch_detect(img[None], ex[None], exv[None], 0.001, cell, 8)
+    with ip.ieee_sqrt(), np.errstate(invalid="ignore"):
+        plain = detect._detect_grid_plain(img, ex, exv, quality=0.001, **args)
+        plain_q = detect._detect_grid_plain(img, ex, exv, quality=q, **args)
+        plain_resp = detect.shi_tomasi_response(img)
+    assert_detection_equal(got, plain)
+    assert_detection_equal(got_q, plain_q)
+    assert ip.same(resp[0], plain_resp)
+    return got
 
 
 def assert_describe_close(desc, angle, plain_desc, plain_angle):
@@ -85,7 +120,7 @@ def assert_describe_close(desc, angle, plain_desc, plain_angle):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(CARD_CASES))
 def test_detect_and_describe_on_card(card, name):
-    """K5 in three launches bit-equal to the plain version (its response
+    """K5 in two launches bit-equal to the plain version (its response
     too) with a float and a tensor threshold; K3 in one launch at the
     detections and at keypoints on and past the image's edges, at its
     bar, invalid keypoints zero."""
@@ -93,7 +128,7 @@ def test_detect_and_describe_on_card(card, name):
     args = dict(cell=cell, border=8)
     _zero()
     got = detect.detect_grid(img, ex, exv, quality=0.001, **args)
-    assert detect.detect_grid.launches == image_kernels.DETECT_LAUNCHES
+    assert detect.detect_grid.launches == 2
     q = torch.tensor(0.004, device=card)
     got_q = detect.detect_grid(img, ex, exv, quality=q, **args)
     *_, resp = image_kernels.launch_detect(img[None], ex[None], exv[None], 0.001, cell, 8)
@@ -123,7 +158,7 @@ def test_detect_and_describe_on_card(card, name):
 def test_pyramid_and_gray_on_card(card):
     """K7 bit-equal to its plain versions: the gray conversion of u8 RGBA,
     u8 RGB and float32 RGBA (one launch each, a stack of 3 included) and
-    3-level pyramids of odd sizes (two launches), alone and stacked."""
+    3-level pyramids of odd sizes (one launch), alone and stacked."""
     rng = np.random.default_rng(3)
     g = ip.frame(83, 61)
     rgba = torch.as_tensor(ip.rgba(np.stack([g, g[::-1].copy(), 255 - g])), device=card)
@@ -136,7 +171,7 @@ def test_pyramid_and_gray_on_card(card):
     for x in (noise[0], noise, noise[:, :1, :1].contiguous(), noise[:, :2, :37].contiguous()):
         _zero()
         pyr = image.build_pyramid(x, 3)
-        assert image.pyr_down.launches == 2
+        assert image.build_pyramid.launches == 1 and image.pyr_down.launches == 0
         want = [x]
         for _ in range(2):
             want.append(image._pyr_down_plain(want[-1]))
@@ -146,7 +181,7 @@ def test_pyramid_and_gray_on_card(card):
 
 @pytest.mark.cuda
 def test_rows_under_vmap_on_card(card):
-    """S = 3 rows under ``torch.func.vmap``: K5's three launches and K3's
+    """S = 3 rows under ``torch.func.vmap``: K5's two launches and K3's
     one for all of them, each row bit-equal to its call alone (per-row
     thresholds; a live-keypoint table shared by every row)."""
     imgs = torch.as_tensor(np.stack([ip.frame(160, 120, index=i) for i in range(3)]),
@@ -162,7 +197,7 @@ def test_rows_under_vmap_on_card(card):
 
     _zero()
     rows = torch.func.vmap(call, in_dims=(0, None, None, 0))(imgs, ex, exv, q)
-    assert detect.detect_grid.launches == image_kernels.DETECT_LAUNCHES
+    assert detect.detect_grid.launches == 2
     xy, valid = rows[0].contiguous(), rows[2]
     desc, angle = torch.func.vmap(orb.describe)(imgs, xy, valid)
     assert orb.describe.launches == 1
@@ -172,3 +207,59 @@ def test_rows_under_vmap_on_card(card):
             assert torch.equal(rows[k][s], alone[k]), (s, f)
         d, a = orb.describe(imgs[s], xy[s], valid[s])
         assert torch.equal(desc[s], d) and torch.equal(angle[s], a), s
+
+
+def check_pyramid(shape, levels: int, dev):
+    """K7's pyramid of a seeded [B,] H, W image on ``dev``: one launch per
+    two levels below level 0, every level contiguous and bit-equal to
+    ``_pyr_down_plain`` level by level; ``pyr_down`` alone one launch.
+    Returns the image and the pyramid."""
+    x = torch.as_tensor(np.random.default_rng(sum(shape)).uniform(0, 255, shape)
+                        .astype(np.float32), device=dev)
+    _zero()
+    pyr = image.build_pyramid(x, levels)
+    assert image.build_pyramid.launches == levels // 2 and image.pyr_down.launches == 0
+    want = [x]
+    for _ in range(levels - 1):
+        want.append(image._pyr_down_plain(want[-1]))
+    assert len(pyr) == levels
+    for a, b in zip(pyr, want):
+        assert a.shape == b.shape and a.is_contiguous() and torch.equal(a, b)
+    assert torch.equal(image.pyr_down(x), want[1]) and image.pyr_down.launches == 1
+    return x, pyr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, shape, levels", PYRAMID_CASES)
+def test_fused_pyramid_on_card(card, name, shape, levels):
+    """K7's pyramid kernel at odd sizes, alone and stacked, at 3 and 4
+    levels: bit-equal to the plain version, one launch per two levels."""
+    check_pyramid(shape, levels, card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TRAP_CASES))
+def test_detect_traps_on_card(card, name):
+    """K5 on its traps (``TRAP_CASES``), bit-equal to the plain version."""
+    check_detect_trap(name, card)
+
+
+@pytest.mark.cuda
+def test_detect_65535_rows_on_card(card):
+    """K5 on S = 65 535 rows (its grid's limit) of one 40 x 24 image at
+    three thresholds in turn: each row bit-equal to the plain version at
+    its threshold."""
+    img = torch.as_tensor(ip.frame(40, 24), device=card)
+    S = image_kernels.MAX_ROWS
+    q = torch.tensor([0.004, 0.001, 0.0002], device=card)
+    ex = torch.zeros((S, 1, 2), device=card)
+    exv = torch.zeros((S, 1), dtype=torch.bool, device=card)
+    got = image_kernels.launch_detect(img.expand(S, -1, -1).contiguous(), ex, exv,
+                                      q.repeat(S // 3), 8, 4)
+    with ip.ieee_sqrt():
+        plain = [detect._detect_grid_plain(img, ex[0], exv[0], cell=8, border=4, quality=q[k])
+                 for k in range(3)]
+    for k, p in enumerate(plain):
+        for o, f in zip(got, ("xy", "score", "valid", "new_quality")):
+            want = getattr(p, f)
+            assert torch.equal(o[k::3], want.expand((S // 3,) + want.shape)), (k, f)

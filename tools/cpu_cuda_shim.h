@@ -10,7 +10,8 @@
 // `__ballot_sync` a vote of that kind, bf16 rounding torch's (nearest,
 // ties to even),
 // `cp.async` (`__pipeline_memcpy_async`) a plain copy, `clock64` a count of
-// its calls (it times nothing), `__popc` the compiler's popcount.  A
+// its calls (it times nothing), `__popc` the compiler's popcount, dynamic
+// shared memory one static buffer.  A
 // fiber that returns leaves its block's and its warp's barriers.  Float
 // arithmetic is the host's: build with -ffp-contract=off, as nvcc's
 // --fmad=false, and -U_FORTIFY_SOURCE (the checked longjmp refuses to
@@ -60,6 +61,23 @@ inline float4 make_float4(float x, float y, float z, float w) { return float4{x,
 using cudaStream_t = void*;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+
+// A kernel's dynamic shared memory: one buffer of the card's most a block
+// can take, which every block uses in turn (`cpu_cuda::dynamic_shared`,
+// named by a kernel source under `#ifdef CPU_CUDA_SHIM` in place of its
+// `extern __shared__` array); raising a kernel's limit does nothing.
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class F>
+cudaError_t cudaFuncSetAttribute(F*, cudaFuncAttribute, int bytes) {
+  return bytes <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
+}
+namespace cpu_cuda {
+alignas(16) inline unsigned char dynamic_buffer[232448];
+template <class T>
+T* dynamic_shared() {
+  return reinterpret_cast<T*>(dynamic_buffer);
+}
+}  // namespace cpu_cuda
 
 // One device with `cpu_cuda_sm_count` multiprocessors (2 unless a caller
 // sets another through the library's `cpu_cuda_set_sm_count`).
@@ -325,10 +343,11 @@ inline bool __any_sync(unsigned, bool pred) {
   cpu_cuda::Warp& w = cpu_cuda::warp();
   cpu_cuda::Fiber& f = cpu_cuda::g->fibers[cpu_cuda::g->current];
   const unsigned lane = threadIdx.x % 32, k = f.exchanges++ & 1;
+  const int lanes = w.bar.expected;    // before the wait: a lane past it may return
   w.buf[k][lane][0] = pred;
   cpu_cuda::wait(w.bar);
   bool any = false;
-  for (int l = 0; l < w.bar.expected; ++l) any = any || w.buf[k][l][0];
+  for (int l = 0; l < lanes; ++l) any = any || w.buf[k][l][0];
   return any;
 }
 

@@ -1,0 +1,191 @@
+#!/usr/bin/env python3
+"""Where the time goes inside K5's cell kernel and K7's pyramid kernel
+(csrc/image_kernels.cu), on a card.
+
+    python3 tools/image_kernel_timeline.py [--out chiprun_out/x.json]
+
+A copy of the source is written under ``build/image_timeline/`` with
+stamps patched in: thread 0 of each block records ``%globaltimer`` (ns)
+after every barrier of a response sub-tile (the image's loads, the blur,
+Sobel, the box means' vertical pass, the response) and, in the cell
+kernel, after the sub-tiles, each peak's argmax and the keypoint scan; in
+the pyramid kernel after its loads, level 1's vertical pass, level 1,
+level 2's vertical pass and level 2; and the multiprocessor it ran on.  The
+copy is built with ``ops/image_kernels._NVCC_FLAGS`` and launched through
+the port's wrappers at every shape of ``chip_smoke.IMAGE_DETECT_CASES``
+and ``IMAGE_STACK_CASES``; each stage's median and largest time over the
+blocks of one launch are printed, with the blocks' start times (a block
+of a later wave starts late) and the last block's end.  With several
+sub-tiles a block's stamps are its last sub-tile's, so the first stage then
+spans the others.  Needs CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT = os.path.join(ROOT, "build", "image_timeline")
+SLOTS, MAX_BLOCKS = 16, 70000        # stamps a block (the last: its multiprocessor)
+
+STAMP = ("{ const long long b_ = static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x; "
+         f"if (threadIdx.x == 0 && b_ < {MAX_BLOCKS}) {{ unsigned long long t_; "
+         "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t_)); "
+         "g_stamps[b_ * 16 + K_] = t_; if (K_ == 0) { unsigned sm_; "
+         "asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(sm_)); g_stamps[b_ * 16 + 15] = sm_; } } }")
+CELL_STAGES = (5, 6, 7, 8, 9, 1, 2, 3, 4)
+CELL_LABELS = ("image loads", "blur", "Sobel", "box means' vertical pass", "response",
+               "sub-tiles end", "argmax 1", "argmax 2", "subpixel fit and keypoint scan")
+PYR_STAGES = (1, 2, 10, 4, 11)
+PYR_LABELS = ("level-0 loads", "level 1's vertical pass", "level 1", "level 2's vertical pass",
+              "level 2")
+
+
+def _stamp(k: int) -> str:
+    return STAMP.replace("K_", str(k))
+
+
+def _after_barriers(seg: str, first: int) -> str:
+    """``seg`` with a stamp after each of its ``__syncthreads();``, numbered
+    from ``first``."""
+    parts = seg.split("  __syncthreads();")
+    out = parts[0]
+    for i, p in enumerate(parts[1:]):
+        out += "  __syncthreads();\n  " + _stamp(first + i) + p
+    return out
+
+
+def _patch(s: str, anchor: str, k: int, before: bool = False) -> str:
+    if s.count(anchor) < 1:
+        raise ValueError(f"the source has no {anchor!r}: update the timeline's anchors")
+    return s.replace(anchor, ("  " + _stamp(k) + "\n" + anchor) if before else
+                     (anchor + "\n  " + _stamp(k) + "\n"), 1)
+
+
+def timed_source(src: str) -> str:
+    """The source with the stamps, a device array of them and C entries
+    that read and clear it."""
+    s = src.replace("namespace {\n", f"__device__ unsigned long long g_stamps[{SLOTS} * "
+                                     f"{MAX_BLOCKS}];\nnamespace {{\n", 1)
+    a = s.index("    detect_cells_kernel(")
+    body = s.index("{", a) + 1
+    s = s[:body] + "\n  " + _stamp(0) + s[body:]
+    s = _patch(s, "cell, resp + s * H * W, v1, i1);", 1)
+    s = _patch(s, "  block_argmax<kCellWarps>(v1, i1, sv, si);", 2)
+    s = _patch(s, "  block_argmax<kCellWarps>(v2, i2, sv, si);", 3)
+    s = _patch(s, "  unsigned any = 0;", 4, before=True)
+    a, b = s.index("__device__ void response_chunk("), s.index("// Block (cell, s): the response")
+    s = s[:a] + _after_barriers(s[a:b], 5) + s[b:]
+    a, b = s.index("    pyramid_kernel("), s.index("// K5: grid Shi-Tomasi detection")
+    seg = _after_barriers(s[a:b], 1)
+    body = seg.index("{") + 1
+    seg = seg[:body] + "\n  " + _stamp(0) + seg[body:]
+    seg = seg.replace("  if (out2 == nullptr) return;",
+                      "  " + _stamp(10) + "\n  if (out2 == nullptr) return;")
+    end = seg.rstrip().rfind("}")
+    seg = seg[:end] + "  " + _stamp(11) + "\n" + seg[end:]
+    s = s[:a] + seg + s[b:]
+    return s + (
+        '\nextern "C" int timeline_read(void* host, long long n) {\n'
+        "  return static_cast<int>(cudaMemcpyFromSymbol(host, g_stamps, n * 8));\n}\n"
+        'extern "C" int timeline_clear() {\n'
+        f"  static unsigned long long zero[{SLOTS} * {MAX_BLOCKS}];\n"
+        "  return static_cast<int>(cudaMemcpyToSymbol(g_stamps, zero, sizeof(zero)));\n}\n")
+
+
+def _stages(name, t, stamps, labels, card) -> dict:
+    """Print and return one launch's per-stage times (ns) over its blocks."""
+    import numpy as np
+    t0 = t[:, 0].min()
+    starts = t[:, 0] - t0
+    row = dict(kernel=name, blocks=len(t), sms=len(set(t[:, 15].tolist())),
+               block_starts_ns=np.percentile(starts, [0, 50, 90, 100]).round().tolist(),
+               last_end_ns=int((t[:, stamps[-1]] - t0).max()), stages={})
+    print(f"[timeline] {name}: {row['blocks']} blocks on {row['sms']} multiprocessors; block "
+          f"starts (0/50/90/100%) {row['block_starts_ns']} ns after the first; the last ends "
+          f"{row['last_end_ns']} ns after the first starts [{card}]")
+    prev = 0
+    for k, label in zip(stamps, labels):
+        d = t[:, k] - t[:, prev]
+        row["stages"][label] = dict(median_ns=int(np.median(d)), max_ns=int(d.max()))
+        print(f"[timeline]   {label}: median {int(np.median(d))} ns, largest {int(d.max())} ns")
+        prev = k
+    return row
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="a JSON file for the rows")
+    args = ap.parse_args()
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import numpy as np
+    import torch
+    import chip_smoke
+    from alvaar_tpu_torch.ops import image, image_kernels
+    from alvaar_tpu_torch.utils.build import find_tool
+    if not torch.cuda.is_available():
+        print("image_kernel_timeline: CUDA is not available", file=sys.stderr)
+        return 1
+    card = chip_smoke.phase_env()
+    os.makedirs(OUT, exist_ok=True)
+    src = os.path.join(OUT, "image_kernels_timed.cu")
+    with open(image_kernels._SRC) as f, open(src, "w") as g:
+        g.write(timed_source(f.read()))
+    path = os.path.join(OUT, "libimage_kernels_timed.so")
+    nvcc = find_tool("nvcc", "/usr/local/cuda/bin/nvcc", "the CUDA toolkit is needed")
+    res = subprocess.run([nvcc, *image_kernels._NVCC_FLAGS, "-o", path, src],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        print(res.stderr[-3000:], file=sys.stderr)
+        return 1
+    lib = image_kernels.bind(ctypes.CDLL(path))
+    lib.timeline_read.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
+    image_kernels._lib = lib
+
+    def launch(fn, blocks):
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        assert lib.timeline_clear() == 0
+        fn()
+        torch.cuda.synchronize()
+        buf = np.zeros(SLOTS * MAX_BLOCKS, np.uint64)
+        assert lib.timeline_read(buf.ctypes.data, buf.size) == 0
+        return buf.reshape(MAX_BLOCKS, SLOTS)[:min(blocks, MAX_BLOCKS)].astype(np.int64)
+
+    dev = torch.device("cuda")
+    rows = []
+    for case in chip_smoke.IMAGE_DETECT_CASES:
+        name, W, H, cell, _, S = case
+        fn = chip_smoke._detect_calls(*case, dev)[0]
+        blocks = S * -(-H // cell) * -(-W // cell)
+        rows.append(_stages(f"detect_cells_kernel {name}", launch(fn, blocks), CELL_STAGES,
+                            CELL_LABELS, card))
+    for name, W, H, B in chip_smoke.IMAGE_STACK_CASES:
+        x = chip_smoke._image_stack(W, H, B, dev)
+        x = x if B > 1 else x[0]
+        h2, w2 = (H + 3) // 4, (W + 3) // 4
+        tile_y, tile_x = (int(image_kernels._SRC.read_text().split(f"constexpr int {k} = ")[1]
+                              .split(";")[0]) for k in ("kPyrTileY", "kPyrTileX"))
+        blocks = B * -(-h2 // tile_y) * -(-w2 // tile_x)
+        if blocks > MAX_BLOCKS:
+            print(f"[timeline] pyramid_kernel {name}: {blocks} blocks, the first {MAX_BLOCKS} "
+                  f"kept")
+        rows.append(_stages(f"pyramid_kernel {name}",
+                            launch(lambda: image.build_pyramid(x, 3), blocks), PYR_STAGES,
+                            PYR_LABELS, card))
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(dict(card=card, rows=rows), f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

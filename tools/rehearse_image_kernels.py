@@ -13,12 +13,14 @@ around a launch stubbed, the custom ops' CPU kernels are the launchers,
 and ``rgba_to_gray``, ``pyr_down``, ``detect_grid`` and ``describe``
 launch the kernels on CPU tensors.  The checks are phase 2e's own
 function (``chip_smoke._image_checks``): K7 and K5 bit-equal to their
-plain versions, K3's angles within 2e-5 rad and its words bit-equal at
-every keypoint whose plain angle lies more than 1e-4 rad from a steering
-bin's edge, rows under vmap equal to each row alone, one launch per call
-(three for K5).  Without ``--full`` the cases are cut to 320x240 (the
-1080p detection and the B = 64 stack take minutes on the CPU); then the
-card tests' cases (tests/test_torch_image_kernels_card.py).
+plain versions (K7's pyramids at odd sizes and 3 and 4 levels, K5's traps
+too), K3's angles within 2e-5 rad and its words bit-equal at every
+keypoint whose plain angle lies more than 1e-4 rad from a steering bin's
+edge, rows under vmap equal to each row alone, one launch per call (two
+for K5, one per two pyramid levels).  Without ``--full`` the stacks are
+cut (the B = 64 1080p stack takes minutes on the CPU) and K5 at S = 65 535
+rows is left out; then the card tests' cases
+(tests/test_torch_image_kernels_card.py).
 Exits non-zero when a bar fails.
 """
 
@@ -90,6 +92,12 @@ def main() -> int:
             card_tests.test_detect_and_describe_on_card(cpu, name)
         card_tests.test_pyramid_and_gray_on_card(cpu)
         card_tests.test_rows_under_vmap_on_card(cpu)
+        for case in card_tests.PYRAMID_CASES:
+            card_tests.test_fused_pyramid_on_card(cpu, *case)
+        for name in card_tests.TRAP_CASES:
+            card_tests.test_detect_traps_on_card(cpu, name)
+        if args.full:
+            card_tests.test_detect_65535_rows_on_card(cpu)
         print("[rehearsal] card tests: passed", flush=True)
     print(f"[rehearsal] every bar held in {time.time() - t0:.1f} s")
     return 0

@@ -8,9 +8,10 @@ Prints the environment lines of phase 1, builds the image kernels (the
 compiler's register and spill lines printed) and runs
 ``chip_smoke.phase_image_kernels``: K7 and K5 bit-equal to their plain
 versions and K3 at its bar at every case of ``IMAGE_STACK_CASES``,
-``IMAGE_DETECT_CASES`` and ``IMAGE_DESCRIBE_CASES``, their times at those
+``IMAGE_PYRAMID_CASES``, ``IMAGE_DETECT_CASES``, ``IMAGE_DETECT_TRAPS``
+and ``IMAGE_DESCRIBE_CASES`` and at S = 65 535, their times at those
 shapes, and ``AlvaAR`` on golden frames as u8 RGBA; the last lines before
-the turns are the smoke's kernel rows for rgba_to_gray, pyr_down,
+the turns are the smoke's kernel rows for rgba_to_gray, build_pyramid,
 detect_grid and describe.  Exits non-zero when a bar fails.  Needs CUDA.
 
 With ``--ab OTHER_ROOT`` it then runs, in turns (other, this, this, other
@@ -18,10 +19,14 @@ with four turns; other, this with two), a process per turn that imports
 only its own checkout's ``chip_smoke`` and package and runs: a lone
 640x480 ``build_pyramid`` (3 levels), ``detect_grid`` (cell 40, 120 live
 keypoints) and ``describe`` (K = 192) call, each timed by this checkout's
-``chip_smoke._lone_ms`` (host and CUDA events); then, as that checkout's
+``chip_smoke._lone_ms`` (host and CUDA events); phase 2e's times by this
+checkout's ``_image_kernel_times`` (K5's kernels one by one at every
+detection case, the 3-level pyramid's kernels and CUDA-event time at every
+stack); then, as that checkout's
 smoke runs them, phase 3 with this checkout's profiled frames
 (``MAIN_PROFILED``: two keyframe frames among them), whose kernels per
-tracking and keyframe frame it prints; the keyframe pass of phase 6a at
+tracking and keyframe frame it prints (the kernel bars not held); the keyframe
+pass of phase 6a at
 S = 1 and 8 attributed by this checkout's ``_probe_rows`` and
 ``_pass_attribution`` (the 15 longest kernels, the busy share); and phase
 6 (16 streams).  Each phase's failure is printed and the next phase run;
@@ -41,6 +46,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import sys
 import time
@@ -53,6 +59,8 @@ AB_DIR = os.path.join(ROOT, "build", "image_ab")
 LONE = ("build_pyramid", "detect_grid", "describe")
 
 _INTS = lambda g: statistics.median(int(x) for x in g.split(","))
+DETECT_KERNELS = ("detect_blur_kernel", "detect_cells_kernel", "detect_select_kernel",
+                  "detect_rank_kernel")
 # (key, pattern, conversion): what each turn's lines give
 PATTERNS = (
     ("track_ms", r"\[main\] frames 20-119 by kind: \d+ tracking frames median ([\d.]+) ms", float),
@@ -72,6 +80,26 @@ PATTERNS = (
         (f"lone_{name}_host_ms", rf"\[turn\] a lone {name} call .*: host ([\d.]+) ms", float),
         (f"lone_{name}_event_ms", rf"\[turn\] a lone {name} call .*, ([\d.]+) ms by CUDA",
          float)))
+
+
+def _split_patterns():
+    """The keys of ``_image_kernel_times``' lines: K5's device time per call
+    and per kernel at each detection case, the pyramid's device and
+    CUDA-event time at each stack."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    out = []
+    for case in chip_smoke.IMAGE_DETECT_CASES:
+        head = rf"\[image-split\] detect_grid {re.escape(case[0])}: device "
+        out.append((f"k5 {case[0]} device_ms", head + r"([\d.]+) ms", float))
+        out += [(f"k5 {case[0]} {k}_ms", head + rf".*{k} ([\d.]+) ms", float)
+                for k in DETECT_KERNELS]
+    for case in chip_smoke.IMAGE_STACK_CASES:
+        head = rf"\[image-split\] build_pyramid {re.escape(case[0])}: device "
+        out += [(f"pyramid {case[0]} device_ms", head + r"([\d.]+) ms", float),
+                (f"pyramid {case[0]} event_ms", head + r".*, ([\d.]+) ms per call by CUDA",
+                 float)]
+    return tuple(out)
 
 
 def _this_smoke():
@@ -100,6 +128,7 @@ def _turn(root: str) -> int:
         f"[{tag}] digest {cs._run_digest(run)} (printed, not held)")
     cs.PARENT_TRACKING_KERNELS = cs.PARENT_KEYFRAME_KERNELS = 10 ** 9   # not held here
     cs.IMAGE_PARENT_TRACKING_KERNELS = cs.IMAGE_PARENT_KEYFRAME_KERNELS = 10 ** 9
+    cs.IMAGE_PR19_TRACKING_KERNELS = cs.IMAGE_PR19_KEYFRAME_KERNELS = 10 ** 9
     cs.MAIN_PROFILED = this.MAIN_PROFILED
     card = cs.phase_env()
     golden = np.load(os.path.join(root, "tests", "golden", "ref_synthetic_640.npz"))
@@ -159,6 +188,7 @@ def _turn(root: str) -> int:
                   f"{event:.4f} ms by CUDA events around back-to-back calls")
 
     attempt("lone calls", lone)
+    attempt("2e times", lambda: this._image_kernel_times(card))
     attempt("3", main_path)
     attempt("6a attribution", attribution)
     attempt("6", lambda: cs.phase_multistream(frames, gt, card))
@@ -199,8 +229,9 @@ def main() -> int:
         print(json.dumps({"name": name, "card": card, **row}))
     if args.ab:
         return ab_turns.run(__file__, os.path.abspath(args.ab), args.turns,
-                            os.path.abspath(args.out), PATTERNS,
-                            echo=("[turn]", "[time]", "[probe S=", "[main] kernels", "NVIDIA"))
+                            os.path.abspath(args.out), PATTERNS + _split_patterns(),
+                            echo=("[turn]", "[time]", "[probe S=", "[main] kernels",
+                                  "[image-split]", "NVIDIA"))
     return 0
 
 
