@@ -34,11 +34,23 @@
 //   is latency: a cell's block runs its dependent stages one after another
 //   (~10-14 us at 640x480, tools/image_kernel_timeline.py), and one row has
 //   only 130-352 cells to spread over 132 multiprocessors.
-// * K3, alvaar_tpu/ops/orb.py:96-149: `describe`, a block per keypoint:
-//   the 0.2 box blur of the 40 x 40 window the keypoint's 36 x 36 patch
-//   needs, the intensity-centroid angle over the 31-px circle, its
-//   steering bin, and 256 steered compares of bf16-rounded pixels, a
-//   warp's ballot per descriptor word.
+// * K3, alvaar_tpu/ops/orb.py:96-149: `describe`, 1, 2 or 4 warps a
+//   keypoint (the most that keep the launch within ~16 warps a
+//   multiprocessor), each a band of rows, in blocks of 128 threads: the
+//   0.2 box blur of the 35 x 35 window whose 31 x 31 inner pixels the
+//   moments and the taps read (the patch centre is clamped so that the
+//   window lies inside the image: no edge clamps), a column of it a lane,
+//   its loads issued together, the vertical pass in registers and the
+//   horizontal one through shared memory, straight-line code with no branch
+//   per row; the intensity-centroid moments from the lane's column in
+//   registers, in four float64 partial sums, then a warp sum by shuffles
+//   that leaves every lane the angle and its steering bin (no thread
+//   alone; a block barrier only where a keypoint has several warps); 256
+//   steered compares of bf16-rounded pixels, each pair's two 16-bit patch
+//   indices in one word of the [30, 256] table read through the read-only
+//   path, a ballot per descriptor word.  Bound by latency: a keypoint is
+//   ~35 KB of work, so its chain of loads, passes, sums and compares sets
+//   the time at the single stream's widths.
 //
 // Each computes what its plain version (alvaar_tpu_torch/ops/image.py,
 // detect.py, orb.py) computes, operation for operation: the stencils'
@@ -70,8 +82,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;         // the gray kernel's block; K3's (one thread per bit)
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 256;         // the gray kernel's block
 constexpr int kMaxRows = 65535;       // S: grid.y of the cell, rank and describe kernels
 
 // The plain versions' constants, rounded to float32 as torch rounds a
@@ -126,9 +137,28 @@ constexpr int kScratchI = 3;
 constexpr int kPatch = 36;            // _PSZ: the patch covers [-17, +18] around its centre
 constexpr int kPatchLo = 17;          // _PLO
 constexpr int kRadius = 15;           // PATCH_RADIUS: the moments' circle
-constexpr int kWin = kPatch + 4;      // the blur's window: 2 more pixels a side
+constexpr int kSide = 2 * kRadius + 1;   // the patch rows and columns the moments and taps read
+constexpr int kWin = kSide + 4;       // the blur's window: 2 more pixels a side
 constexpr int kBits = 256;
 constexpr int kAngleBins = 30;
+// K3: a keypoint's 31 x 31 pixels are tile rows of kPatch floats, so that
+// the steering table's flat patch index i (row i / 36, column i % 36) is
+// tile entry i - kTileBase
+constexpr int kTileBase = (kPatchLo - kRadius) * (kPatch + 1);
+// K3's blocks: 128 threads, kWarps warps a keypoint (a template
+// parameter: 4 or 1) and so 4 / kWarps keypoints a block; each warp a band
+// of the footprint's rows and kBits / 32 / kWarps descriptor words.  A
+// launch of at most kDescWideKeypoints keypoints (S N) gives each 4 warps,
+// a larger one 1: up to a pass's 704 keypoints (~21 warps a
+// multiprocessor) a keypoint's chain is what takes the time, so four warps
+// share it; at S = 8 rows of 192 the multiprocessors are full, so each
+// keypoint takes one warp and no duplicated window rows
+// (tools/image_tuning.py, PERF.md section 6).  kDescSums: a lane's float64
+// partial sums of a moment, the rows in turn.
+constexpr int kDescThreads = 128;
+constexpr int kDescWideKeypoints = 1024;
+constexpr int kDescSums = 4;
+static_assert(kWin <= 64 && kSide <= 32, "a column of the window a lane, two for a few lanes");
 
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
@@ -725,92 +755,148 @@ __global__ void __launch_bounds__(kRankThreads)
 // K3: ORB describe
 // ---------------------------------------------------------------------------
 
-// Block (n, s): keypoint n of row s.  img [S, H, W], xy [S, N, 2], valid
-// [S, N], taps [30, 256, 2] (flat in-patch indices of each bin's steered
-// pairs) → desc [S, N, 8] (zeros where invalid), angle [S, N].
-__global__ void __launch_bounds__(kThreads)
+// Block (x, s): keypoints kPer x .. kPer x + kPer - 1 of row s (kPer = 4 /
+// kWarps), warps kWarps t .. kWarps t + kWarps - 1 keypoint t's, warp b of
+// them rows kBand b .. of its 31 x 31 footprint (the last band padded past
+// row 30 with rows of the patch that nothing reads: every warp runs the
+// same straight-line code, no branch per row).  img [S, H,
+// W], xy [S, N, 2], valid [S, N], taps [30, 256] (each bin's steered pairs,
+// flat patch indices i0 | i1 << 16) → desc [S, N, 8] (zeros where
+// invalid), angle [S, N].  A keypoint past N computes keypoint N - 1 and
+// stores nothing, so that every warp meets the block's barriers.
+template <int kWarps>
+__global__ void __launch_bounds__(kDescThreads)
     describe_kernel(const float* img, int H, int W, const float* xy, const bool* valid,
-                    const int* taps, int N, int blur, unsigned* desc, float* angle) {
-  __shared__ float win[kWin * kWin];
-  __shared__ float rows[kPatch * kWin];
-  __shared__ float patch[kPatch * kPatch];
-  __shared__ double part[2][kWarps];
-  __shared__ int s_bin;
+                    const unsigned* taps, int N, int blur, unsigned* desc, float* angle) {
+  constexpr int kPer = kDescThreads / 32 / kWarps;        // keypoints a block
+  constexpr int kBand = (kSide + kWarps - 1) / kWarps;    // rows a warp
+  constexpr int kRows = kBand * kWarps;                   // a keypoint's tile rows: 31 or 32
+  constexpr int kWords = kBits / 32 / kWarps;             // descriptor words a warp
+  static_assert(kPer * kWarps * 32 == kDescThreads && kWords * kWarps * 32 == kBits,
+                "whole keypoints a block, whole words a warp");
+  static_assert(kRows + 4 <= kPatch, "a band's window rows lie inside the patch");
+  __shared__ float tiles[kPer][kRows * kPatch];           // the vertical pass, then the patch
+  __shared__ double part[kPer][kWarps][2];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int team = warp / kWarps, band = warp % kWarps;
+  const int k = blockIdx.x * kPer + team;
+  const bool live = k < N;
   const long long s = blockIdx.y;
-  const long long n = s * N + blockIdx.x;
+  const long long n = s * N + (live ? k : N - 1);
   const float* im = img + s * H * W;
   // `_patch_centers`: the rounded keypoint, clamped so the patch stays inside
   const long long px = static_cast<long long>(floorf(xy[2 * n] + 0.5f));
   const long long py = static_cast<long long>(floorf(xy[2 * n + 1] + 0.5f));
   const int cx = static_cast<int>(clampll(px, kPatchLo, W - (kPatch - kPatchLo)));
   const int cy = static_cast<int>(clampll(py, kPatchLo, H - (kPatch - kPatchLo)));
-  for (int i = threadIdx.x; i < kWin * kWin; i += kThreads) {
-    const int y = clampi(cy - kPatchLo - 2 + i / kWin, 0, H - 1);
-    const int x = clampi(cx - kPatchLo - 2 + i % kWin, 0, W - 1);
-    win[i] = im[y * W + x];
-  }
-  __syncthreads();
-  if (blur) {      // `_sep_conv(img, [0.2] * 5)`, clamped at the image's edges
-    for (int i = threadIdx.x; i < kPatch * kWin; i += kThreads) {
-      const float* w = win + i;             // window row i / kWin is patch row i / kWin - 2
-      rows[i] = tap5(w[0], w[kWin], w[2 * kWin], w[3 * kWin], w[4 * kWin], kFifth, kFifth,
-                     kFifth);
+  const bool ok = valid[n];
+  float* const tile = tiles[team];
+  const int r0 = band * kBand;                    // the band's first footprint row
+  // the patch from row 2 - 2 + r0 (the window): footprint pixel (i, j) is
+  // image pixel (cy - 15 + i, cx - 15 + j); every row and column read below
+  // lies in the patch, so inside the image
+  const float* win = im + static_cast<long long>(cy - kRadius - 2 + r0) * W + cx - kRadius - 2;
+  float p[kBand];                                 // footprint column `lane` of the band
+  if (blur) {      // `_sep_conv(img, [0.2] * 5)`: rows first, then columns
+    // window columns lane and, for lanes 0-2, lane + 32 (the others load
+    // column 35 and drop it), every load issued before the first sum
+    const int c2 = imin(lane + 32, kWin);
+    float a[kBand + 4], b[kBand + 4];
+#pragma unroll
+    for (int r = 0; r < kBand + 4; ++r) {
+      a[r] = win[r * W + lane];
+      b[r] = win[r * W + c2];
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < kPatch * kPatch; i += kThreads) {
-      const float* w = rows + (i / kPatch) * kWin + i % kPatch;
-      patch[i] = tap5(w[0], w[1], w[2], w[3], w[4], kFifth, kFifth, kFifth);
+#pragma unroll
+    for (int r = 0; r < kBand; ++r) {
+      float* t = tile + (r0 + r) * kPatch + lane;
+      t[0] = tap5(a[r], a[r + 1], a[r + 2], a[r + 3], a[r + 4], kFifth, kFifth, kFifth);
+      const float v = tap5(b[r], b[r + 1], b[r + 2], b[r + 3], b[r + 4], kFifth, kFifth, kFifth);
+      if (c2 < kWin) t[32] = v;
     }
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < kBand; ++r) {    // lane 31's sums read column 35, never written
+      const float* q = tile + (r0 + r) * kPatch + lane;
+      p[r] = tap5(q[0], q[1], q[2], q[3], q[4], kFifth, kFifth, kFifth);
+    }
+    __syncwarp();  // the band's vertical pass read: its patch rows take its place
   } else {
-    for (int i = threadIdx.x; i < kPatch * kPatch; i += kThreads)
-      patch[i] = win[(i / kPatch + 2) * kWin + i % kPatch + 2];
+#pragma unroll
+    for (int r = 0; r < kBand; ++r) p[r] = win[(r + 2) * W + lane + 2];
   }
-  __syncthreads();
 
-  // `_moment_angle`: each term the plain version's float32 product, summed in float64
-  double m10 = 0.0, m01 = 0.0;
-  constexpr int kSide = 2 * kRadius + 1;
-  for (int i = threadIdx.x; i < kSide * kSide; i += kThreads) {
-    const int oy = i / kSide - kRadius, ox = i % kSide - kRadius;
-    if (ox * ox + oy * oy > kRadius * kRadius) continue;
-    const float v = patch[(oy + kPatchLo) * kPatch + ox + kPatchLo];
-    m10 += static_cast<double>(v * static_cast<float>(ox));
-    m01 += static_cast<double>(v * static_cast<float>(oy));
+  // `_moment_angle`: each term the plain version's float32 product (lane
+  // 31's column and the padding rows lie outside the circle: zero terms),
+  // summed in float64 down the lane's column in kDescSums partial sums, then
+  // over the warp (every lane gets the sum) and the keypoint's warps in order
+  double s10[kDescSums], s01[kDescSums];
+#pragma unroll
+  for (int j = 0; j < kDescSums; ++j) s10[j] = s01[j] = 0.0;
+  const int ox = lane - kRadius;
+#pragma unroll
+  for (int r = 0; r < kBand; ++r) {
+    const int oy = r0 + r - kRadius;
+    tile[(r0 + r) * kPatch + lane] = p[r];
+    const float v = ox * ox + oy * oy <= kRadius * kRadius ? p[r] : 0.0f;
+    s10[r % kDescSums] += static_cast<double>(v * static_cast<float>(ox));
+    s01[r % kDescSums] += static_cast<double>(v * static_cast<float>(oy));
+  }
+  double m10 = s10[0], m01 = s01[0];
+#pragma unroll
+  for (int j = 1; j < kDescSums; ++j) {
+    m10 += s10[j];
+    m01 += s01[j];
   }
 #pragma unroll
   for (int m = 16; m > 0; m >>= 1) {
     m10 += __shfl_xor_sync(0xFFFFFFFFu, m10, m);
     m01 += __shfl_xor_sync(0xFFFFFFFFu, m01, m);
   }
-  if (threadIdx.x % 32 == 0) {
-    part[0][threadIdx.x / 32] = m10;
-    part[1][threadIdx.x / 32] = m01;
+  if (kWarps > 1 && lane == 0) {
+    part[team][band][0] = m10;
+    part[team][band][1] = m01;
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double a = 0.0, b = 0.0;
+  // the patch (and, with several warps, their sums) in shared memory
+  if (kWarps == 1) {
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+  if (kWarps > 1) {
+    m10 = m01 = 0.0;
     for (int w = 0; w < kWarps; ++w) {
-      a += part[0][w];
-      b += part[1][w];
+      m10 += part[team][w][0];
+      m01 += part[team][w][1];
     }
-    const float ang = atan2f(static_cast<float>(b), static_cast<float>(a));
-    // torch.remainder(angle, 2 pi), then the card's division by a Python
-    // float (a product with its float32 reciprocal), the bin rounded
-    float rem = fmodf(ang, kTwoPi);
-    if (rem < 0.0f) rem += kTwoPi;
-    const float f = floorf(rem * (1.0f / kTwoPi) * static_cast<float>(kAngleBins) + 0.5f);
-    const long long bin = static_cast<long long>(f) % kAngleBins;
-    s_bin = static_cast<int>(bin < 0 ? bin + kAngleBins : bin);
-    angle[n] = ang;
   }
-  __syncthreads();
+  const float ang = atan2f(static_cast<float>(m01), static_cast<float>(m10));
+  // torch.remainder(angle, 2 pi), then the card's division by a Python
+  // float (a product with its float32 reciprocal), the bin rounded
+  float rem = fmodf(ang, kTwoPi);
+  if (rem < 0.0f) rem += kTwoPi;
+  const float f = floorf(rem * (1.0f / kTwoPi) * static_cast<float>(kAngleBins) + 0.5f);
+  const long long bl = static_cast<long long>(f) % kAngleBins;
+  const int bin = static_cast<int>(bl < 0 ? bl + kAngleBins : bl);
+  if (live && band == 0 && lane == 0) angle[n] = ang;
 
-  // 256 steered compares of bf16-rounded pixels, bit b of word k from thread 32 k + b
-  const int* tap = taps + (s_bin * kBits + threadIdx.x) * 2;
-  const float v0 = __bfloat162float(__float2bfloat16_rn(patch[tap[0]]));
-  const float v1 = __bfloat162float(__float2bfloat16_rn(patch[tap[1]]));
-  const unsigned word = __ballot_sync(0xFFFFFFFFu, v1 - v0 > 0.0f);
-  if (threadIdx.x % 32 == 0) desc[n * 8 + threadIdx.x / 32] = valid[n] ? word : 0u;
+  // the band's words: bit 32 w + lane of word w from a steered compare of
+  // bf16-rounded pixels, the pairs' loads issued together
+  const unsigned* tb = taps + bin * kBits + band * kWords * 32 + lane;
+  unsigned pairs[kWords];
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) pairs[j] = __ldg(tb + 32 * j);
+  unsigned mine = 0;
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) {
+    const float* t0 = tile + (pairs[j] & 0xFFFFu) - kTileBase;
+    const float* t1 = tile + (pairs[j] >> 16) - kTileBase;
+    const float v0 = __bfloat162float(__float2bfloat16_rn(*t0));
+    const float v1 = __bfloat162float(__float2bfloat16_rn(*t1));
+    const unsigned word = __ballot_sync(0xFFFFFFFFu, v1 - v0 > 0.0f);
+    if (lane == j) mine = word;
+  }
+  if (live && lane < kWords) desc[n * 8 + band * kWords + lane] = ok ? mine : 0u;
 }
 
 
@@ -932,17 +1018,22 @@ extern "C" int detect_grid_launch(const void* img, const void* ex_xy, const void
 }
 
 // `describe` on S rows of N keypoints: img [S, H, W] float32 (H, W >= 36),
-// xy [S, N, 2] float32, valid [S, N] bool, taps [30, 256, 2] int32 → desc
-// [S, N, 8] int32, angle [S, N] float32, on `stream`.
+// xy [S, N, 2] float32, valid [S, N] bool, taps [30, 256] int32 (each pair's
+// flat patch indices i0 | i1 << 16) → desc [S, N, 8] int32, angle [S, N]
+// float32, on `stream`.
 extern "C" int describe_launch(const void* img, const void* xy, const void* valid,
                                const void* taps, int S, int H, int W, int N, int blur,
                                void* desc, void* angle, void* stream) {
   if (S < 1 || S > kMaxRows || H < kPatch || W < kPatch || N < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return 0;
-  describe_kernel<<<dim3(N, S), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const long long keypoints = static_cast<long long>(S) * N;
+  const int warps = keypoints <= kDescWideKeypoints ? 4 : 1;
+  const auto kernel = warps == 4 ? describe_kernel<4> : describe_kernel<1>;
+  kernel<<<dim3(blocks(N, kDescThreads / 32 / warps), S), kDescThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(img), H, W, static_cast<const float*>(xy),
-      static_cast<const bool*>(valid), static_cast<const int*>(taps), N, blur,
+      static_cast<const bool*>(valid), static_cast<const unsigned*>(taps), N, blur,
       static_cast<unsigned*>(desc), static_cast<float*>(angle));
   return static_cast<int>(cudaGetLastError());
 }

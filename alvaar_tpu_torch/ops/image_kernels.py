@@ -36,7 +36,7 @@ from alvaar_tpu_torch.utils.custom_ops import raw_stream
 # csrc/image_kernels.cu's limits (``bind`` checks that the library has these)
 MAX_ROWS = 65535               # S of K5 and K3: their grid.y
 PATCH = 36                     # ORB's patch: K3 needs images of at least PATCH x PATCH
-BITS = 256                     # descriptor bits, one thread each
+BITS = 256                     # descriptor bits
 ANGLE_BINS = 30
 SCRATCH_F = 6                  # K5's scratch per row: float32s and int32s per grid cell
 SCRATCH_I = 3
@@ -284,14 +284,15 @@ def launch_detect(img, existing_xy, existing_valid, quality, cell: int, border: 
 def check_describe_args(img, xy, valid, taps):
     """Raise unless K3 takes these: on one device, float32 img [S, H, W] (H,
     W >= 36), xy [S, N, 2] float32, valid [S, N] bool and the int32
-    steering table taps [30, 256, 2], all contiguous.  Returns (S, H, W,
+    steering table taps [30, 256] (each pair's flat patch indices as i0 |
+    i1 << 16), all contiguous.  Returns (S, H, W,
     N)."""
     s, h, w = _stack("img", img, PATCH)
     dev = img.device
     n = xy.shape[1] if isinstance(xy, torch.Tensor) and xy.dim() == 3 else -1
     _check("xy", xy, torch.float32, (s, n, 2), dev)
     _check("valid", valid, torch.bool, (s, n), dev)
-    _check("taps", taps, torch.int32, (ANGLE_BINS, BITS, 2), dev)
+    _check("taps", taps, torch.int32, (ANGLE_BINS, BITS), dev)
     if n >= 2 ** 31:
         raise ValueError(f"the kernel takes N < 2^31 keypoints, got {n}")
     return s, h, w, n

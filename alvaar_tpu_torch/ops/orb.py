@@ -30,6 +30,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from alvaar_tpu_torch.ops import image_kernels
 from alvaar_tpu_torch.ops.image import _sep_conv, gather_patches
@@ -43,6 +44,7 @@ DESC_WORDS = DESC_BITS // 32
 NUM_ANGLE_BINS = 30
 _PSZ = 36          # extracted patch size
 _PLO = 17          # patch centre offset: the patch covers [-17, +18]
+_ATAN2_BLOCK = 64  # a multiple of two of the widest CPU vectors of float32 (AVX-512: 16)
 
 
 def _make_pattern(seed: int = 12345) -> np.ndarray:
@@ -80,7 +82,8 @@ def _circle_masks():
 
 
 _TAP_LUTS = _make_tap_luts()          # [30, 256, 2] int64
-_TAP_LUTS_I32 = _TAP_LUTS.astype(np.int32)    # K3's copy
+# K3's copy: each pair's two flat patch indices (< 36 * 36) as i0 | i1 << 16
+_TAP_PAIRS = (_TAP_LUTS[..., 0] | (_TAP_LUTS[..., 1] << 16)).astype(np.int32)   # [30, 256]
 _MASK_X, _MASK_Y = _circle_masks()    # [31, 31] float32
 
 
@@ -99,7 +102,13 @@ def _moment_angle(patches):
     my = device_table(_MASK_Y, patches.device)
     m10 = torch.sum(win * mx, dim=(1, 2))
     m01 = torch.sum(win * my, dim=(1, 2))
-    return torch.atan2(m01, m10)
+    # a CPU build's elementwise loop takes two whole vectors at a time with a
+    # vector atan2 and the rest with the scalar one, which can differ in the
+    # last bit: padded to whole pairs of vectors, a keypoint's angle does not
+    # depend on how many keypoints its call has or where it sits among them
+    n = m10.shape[-1]
+    pad = (0, -n % _ATAN2_BLOCK)
+    return torch.atan2(F.pad(m01, pad), F.pad(m10, pad))[..., :n]
 
 
 def ic_angle(img, xy):
@@ -145,7 +154,7 @@ def _describe_rows(img, xy, valid, blur: bool):
 
 def _launch_describe(img, xy, valid, blur: bool):
     desc, angle = image_kernels.launch_describe(
-        img, xy, valid, device_table(_TAP_LUTS_I32, img.device), blur)
+        img, xy, valid, device_table(_TAP_PAIRS, img.device), blur)
     if desc.numel():
         count(describe, "launches")
     return desc, angle

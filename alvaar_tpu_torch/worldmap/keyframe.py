@@ -137,22 +137,26 @@ def _push_descriptor_bags(state: MapState, desc, ok_tracked):
 
 def describe_and_detect(state: MapState, pyr, cam: Camera,
                         cfg: SlamConfig) -> MapState:
-    """Describe the tracked keypoints, then fill empty grid cells with new
-    detections as new 2D landmarks."""
+    """Detect new keypoints in the empty grid cells, describe them and the
+    tracked keypoints, push the tracked ones' descriptors into their
+    landmarks' bags, then add the detections as new 2D landmarks."""
     slot = state.cur_kf_slot
     gray = pyr[0]
     dimg = pyr[cfg.track_base_level]
     dsc = float(2 ** cfg.track_base_level)
 
-    desc, _ = describe(dimg, state.kp_px / dsc, state.kp_valid)
-    ok_tracked = state.kp_valid & state.lm_valid[state.kp_lm]
-    lm_desc_all, lm_bag, lm_cnt = _push_descriptor_bags(state, desc, ok_tracked)
-    state = state.replace(lm_desc_bag=lm_bag, lm_desc_cnt=lm_cnt)
-
     det = detect_grid(gray, state.kp_px, state.kp_valid, cell=cfg.cell_size,
                       border=cfg.image_border, quality=state.detect_quality)
-    state = state.replace(detect_quality=det.new_quality)
-    new_desc, _ = describe(dimg, det.xy / dsc, det.valid)
+    # the tracked keypoints and the new detections in one call (the JAX
+    # package describes them in two); level 0's coordinates need no scaling
+    K = state.kp_px.shape[0]
+    xy = torch.cat([state.kp_px, det.xy])
+    desc_all, _ = describe(dimg, xy / dsc if dsc != 1.0 else xy,
+                           torch.cat([state.kp_valid, det.valid]))
+    desc, new_desc = desc_all[:K], desc_all[K:]
+    ok_tracked = state.kp_valid & state.lm_valid[state.kp_lm]
+    lm_desc_all, lm_bag, lm_cnt = _push_descriptor_bags(state, desc, ok_tracked)
+    state = state.replace(lm_desc_bag=lm_bag, lm_desc_cnt=lm_cnt, detect_quality=det.new_quality)
 
     kp_slot, kp_ok = allocate_slots(state.kp_valid, det.valid)
     lm_slot, lm_ok = allocate_slots(state.lm_valid, det.valid & kp_ok)

@@ -117,7 +117,11 @@ Phases, each printed on its own lines:
    traps (``IMAGE_DETECT_TRAPS``: a one-pixel last column of cells, cell
    96 in sub-tiles, a response tile in global scratch, NaN and inf pixels;
    S = 65 535 rows); K3 (``describe``, one launch) at
-   K = 192, 130, 352, 240 at 960x540, and S = 3 and 8 rows: K7 and K5
+   K = 192, 130, 352, 240 at 960x540, and S = 3 and 8 rows, and at the
+   keyframe pass's one call over its tracked keypoints and its detections
+   (N = 384, FAST's 260, ACCURATE's 704, ``hd_serving()``'s 480 at 960x540,
+   and 8 x 384 under vmap; with build/image_kernels_c08cb84.cu present, the
+   angles and words that differ from that commit's kernel counted): K7 and K5
    bit-equal to their plain versions (ops/image.py ``_rgba_to_gray_plain``,
    ``_pyr_down_plain``; ops/detect.py ``_detect_grid_plain`` and the
    response), K3's angles within 2e-5 rad and its words bit-equal at every
@@ -131,8 +135,9 @@ Phases, each printed on its own lines:
    and CUDA-event time.  Then ``AlvaAR`` on golden frames 0-29 as u8 RGBA:
    one gray launch and one pyramid launch a frame.  Every later path
    checks K5's two launches per ``detect_grid`` call, K3's one per
-   ``describe`` call and one pyramid launch per (3-level) pyramid
-   (``_image_path``);
+   ``describe`` call, one ``describe`` call per ``detect_grid`` call (a
+   keyframe pass or a relocalization) and one pyramid launch per (3-level)
+   pyramid (``_image_path``);
 3. the main path under the default config (5-point and homography
    bootstrap): ``AlvaAR.find_camera_pose`` over the 120-frame 640x480
    golden sequence on the card, held to the native reference's bars
@@ -149,7 +154,9 @@ Phases, each printed on its own lines:
    3929 per keyframe frame (``IMAGE_PARENT_*_KERNELS``: the image ops eager
    there), and at most commit faa4577's 686 and 3 461
    (``IMAGE_PR19_*_KERNELS``: K7's two launches a pyramid, K5's three a
-   call there);
+   call there), and per keyframe frame at least one under commit c08cb84's
+   3 459 (``IMAGE_PR20_KEYFRAME_KERNELS``: two describe calls a keyframe
+   pass there);
    statuses and poses
    bit-equal to this tree's earlier runs (``RUN_DIGESTS``; commit 14aa8df's,
    PnP eager, printed beside); local BA's kernels launched and
@@ -1736,13 +1743,28 @@ IMAGE_DETECT_CASES = (("640x480 cell 40", 640, 480, 40, 0, 1),
                       ("1920x1080 cell 96 (hd_serving), 100 live", 1920, 1080, 96, 100, 1),
                       ("3 x 640x480 cell 40, 120 live", 640, 480, 40, 120, 3),
                       ("8 x 640x480 cell 40, 120 live", 640, 480, 40, 120, 8))
-# (name, W, H, N, S): describe at the default's K = 192, FAST's 130,
-# ACCURATE's 352, hd_serving()'s 240 at level 1 (960x540), S = 3 and 8 rows
-IMAGE_DESCRIBE_CASES = (("640x480 K=192", 640, 480, 192, 1), ("640x480 K=130", 640, 480, 130, 1),
-                        ("640x480 K=352", 640, 480, 352, 1),
-                        ("960x540 K=240 (hd_serving level 1)", 960, 540, 240, 1),
-                        ("3 x 640x480 K=192", 640, 480, 192, 3),
-                        ("8 x 640x480 K=192", 640, 480, 192, 8))
+# (name, W, H, N, S, merged): describe at the default's K = 192, FAST's
+# 130, ACCURATE's 352, hd_serving()'s 240 at level 1 (960x540), S = 3 and 8
+# rows; and (merged) the keyframe pass's one call over its K tracked
+# keypoints and C = K detections, N = K + C, which commit c08cb84 made in
+# two calls of N / 2
+IMAGE_DESCRIBE_CASES = (("640x480 K=192", 640, 480, 192, 1, False),
+                        ("640x480 K=130", 640, 480, 130, 1, False),
+                        ("640x480 K=352", 640, 480, 352, 1, False),
+                        ("960x540 K=240 (hd_serving level 1)", 960, 540, 240, 1, False),
+                        ("3 x 640x480 K=192", 640, 480, 192, 3, False),
+                        ("8 x 640x480 K=192", 640, 480, 192, 8, False),
+                        ("640x480 N=384 (the pass, K + C)", 640, 480, 384, 1, True),
+                        ("640x480 N=260 (FAST's pass)", 640, 480, 260, 1, True),
+                        ("640x480 N=704 (ACCURATE's pass)", 640, 480, 704, 1, True),
+                        ("960x540 N=480 (hd_serving's pass)", 960, 540, 480, 1, True),
+                        ("8 x 640x480 N=384 (the batched pass)", 640, 480, 384, 8, True))
+# commit c08cb84's csrc/image_kernels.cu (K3's first design: a block of 256
+# threads a keypoint), where a run writes it (``git show
+# c08cb84:alvaar_tpu_torch/csrc/image_kernels.cu >
+# build/image_kernels_c08cb84.cu``, never committed): phase 2e then counts,
+# at every describe case, the angles and words that differ from its kernel's
+IMAGE_C08CB84_SOURCE = os.path.join(ROOT, "build", "image_kernels_c08cb84.cu")
 # (name, W, H, B): K7 on one frame, the 16-stream step's stack and the
 # 1080p B = 64 step's
 IMAGE_STACK_CASES = (("640x480", 640, 480, 1), ("16 x 640x480", 640, 480, 16),
@@ -1797,13 +1819,16 @@ def _image_counts() -> dict:
                 describe_calls=orb.describe.calls)
 
 
-def _image_path(tag: str, keyframes: bool = True, gray: bool = False) -> None:
+def _image_path(tag: str, keyframes: bool = True, gray: bool = False,
+                harness_detects: int = 0) -> None:
     """After a path driven from zeroed counters: K5 launched twice per
     ``detect_grid`` call (a batched keyframe pass makes one call for all
-    its rows), K3 once per ``describe`` call, K7 once per pyramid (every
-    pyramid of the smoke has 3 levels) and, with ``gray``, at least once
-    for a gray conversion; with ``keyframes`` at least one detection.  The
-    launches go into the kernel line."""
+    its rows), K3 once per ``describe`` call and (with ``keyframes``) one
+    ``describe`` call per ``detect_grid`` call but the ``harness_detects``
+    the smoke made itself (``_batched_shape``'s), K7 once per pyramid
+    (every pyramid of the smoke has 3 levels) and, with ``gray``, at least
+    once for a gray conversion; with ``keyframes`` at least one detection.
+    The launches go into the kernel line."""
     from alvaar_tpu_torch.ops.image_kernels import DETECT_LAUNCHES
     c = _image_counts()
     print(f"[{tag}] image kernels on the path: rgba_to_gray {c['gray']} launches, pyramid "
@@ -1814,6 +1839,12 @@ def _image_path(tag: str, keyframes: bool = True, gray: bool = False) -> None:
            f"[{tag}] K5's launches differ from {DETECT_LAUNCHES} per call: {c}")
     _check(c["describe"] == c["describe_calls"], f"[{tag}] K3's launches differ from one per "
                                                  f"call: {c}")
+    # a keyframe pass (and a relocalization) detects once and describes
+    # once; only an example of the preprocessing stages detects alone
+    path_detects = c["detect_calls"] - harness_detects
+    _check(c["describe_calls"] == path_detects if keyframes
+           else c["describe_calls"] <= path_detects,
+           f"[{tag}] describe calls differ from one per detection: {c}")
     _check(c["pyr"] == c["pyramids"], f"[{tag}] K7's pyramid launches {c['pyr']} for "
                                       f"{c['pyramids']} pyramids")
     _check(c["detect_calls"] > 0 and c["describe_calls"] > 0 or not keyframes,
@@ -1996,14 +2027,61 @@ def _image_pyramid_case(name, shape, levels, dev) -> None:
     _check(launched == levels // 2, f"[image] K7 pyramid {name}: {launched} launches")
 
 
-def _image_describe_case(name, W, H, N, S, dev):
+def _describe_launcher(lib, taps):
+    """K3 of the bound image-kernel library ``lib`` as ``f(img [S, H, W], xy
+    [S, N, 2], valid [S, N])`` → (desc, angle) on CUDA tensors, with the
+    steering table ``taps`` in that library's layout (for another commit's
+    kernel: the tools and phase 2e's comparison)."""
+    import torch
+    from alvaar_tpu_torch.utils.custom_ops import raw_stream
+
+    def describe(img, xy, valid, blur: bool = True):
+        S, H, W = img.shape
+        N = xy.shape[1]
+        desc = torch.empty((S, N, 8), dtype=torch.int32, device=img.device)
+        angle = torch.empty((S, N), dtype=torch.float32, device=img.device)
+        rc = lib.describe_launch(img.data_ptr(), xy.data_ptr(), valid.data_ptr(),
+                                 taps.data_ptr(), S, H, W, N, int(blur), desc.data_ptr(),
+                                 angle.data_ptr(), raw_stream(img.device))
+        _check(rc == 0, f"describe_launch failed: cudaError_t {rc}")
+        return desc, angle
+    return describe
+
+
+_C08CB84 = {}
+
+
+def _c08cb84_describe(dev):
+    """Commit c08cb84's K3 (``IMAGE_C08CB84_SOURCE`` built with this tree's
+    flags, its [30, 256, 2] steering table) as ``_describe_launcher``'s
+    function on ``dev``, or None where the source is absent or ``dev`` is
+    not a card."""
+    if dev.type != "cuda" or not os.path.exists(IMAGE_C08CB84_SOURCE):
+        return None
+    if "fn" not in _C08CB84:
+        import ctypes
+        from pathlib import Path
+        import torch
+        from alvaar_tpu_torch.ops import image_kernels, orb
+        from alvaar_tpu_torch.utils.build import build_library, find_tool
+        nvcc = find_tool("nvcc", "/usr/local/cuda/bin/nvcc", "to build commit c08cb84's K3")
+        lib = image_kernels.bind(ctypes.CDLL(str(build_library(
+            Path(IMAGE_C08CB84_SOURCE), nvcc, image_kernels._NVCC_FLAGS))))
+        taps = torch.as_tensor(orb._TAP_LUTS.astype(np.int32), device=dev)
+        _C08CB84["fn"] = _describe_launcher(lib, taps)
+    return _C08CB84["fn"]
+
+
+def _image_describe_case(name, W, H, N, S, merged, dev):
     """K3 on one case: one launch per call (under vmap for S rows); angles
     within ``ANGLE_BAR`` of the plain version's and words bit-equal but
     where the plain angle lies within ``BIN_MARGIN`` of a steering bin's
     edge; run to run and row by row equal.  The keypoints: half the
     image's detections at the default cell, half tests/image_problems.py's
-    (edges, past them, half-pixel ties, uniform).  Returns (the largest
-    angle difference, keypoints inside the margin)."""
+    (edges, past them, half-pixel ties, uniform).  Where commit c08cb84's
+    source is present (``IMAGE_C08CB84_SOURCE``), the angles and words that
+    differ from its kernel's are counted.  Returns (the largest angle
+    difference, keypoints inside the margin)."""
     import torch
     import image_problems as ip
     from alvaar_tpu_torch.ops import detect, orb
@@ -2032,13 +2110,24 @@ def _image_describe_case(name, W, H, N, S, dev):
     rows_equal = alone is None or all(torch.equal(desc[s], alone[s][0])
                                       and torch.equal(angle[s], alone[s][1]) for s in range(S))
     same = torch.equal(desc, again[0]) and torch.equal(angle, again[1])
-    print(f"[image] describe {name} (S={S}, N={N}): angles within {err:.3e} rad of the plain "
-          f"version's (bar {ip.ANGLE_BAR}); {inside} keypoints within {ip.BIN_MARGIN} rad of a "
-          f"bin edge, descriptors differing outside that margin {off}, inside it {off_in}; "
-          f"invalid ones zero {bool((desc[~valid] == 0).all())}; run to run {same}, rows to "
-          f"their calls alone {rows_equal}; launches {launched}")
+    old = _c08cb84_describe(dev)
+    if old is None:
+        vs_old = ("commit c08cb84's kernel not compared (that needs the card and "
+                  f"{os.path.relpath(IMAGE_C08CB84_SOURCE, ROOT)})")
+    else:
+        od, oa = old(imgs, xy, valid)
+        vs_old = (f"against commit c08cb84's kernel: {int((oa != angle).sum())} of {S * N} angles "
+                  f"differ (largest {float((oa - angle).abs().max()):.3e} rad), "
+                  f"{int((od != desc).any(-1).sum())} descriptors")
+    print(f"[image] describe {name} (S={S}, N={N}{', the merged pass' if merged else ''}): angles "
+          f"within {err:.3e} rad of the plain version's (bar {ip.ANGLE_BAR}); {inside} keypoints "
+          f"within {ip.BIN_MARGIN} rad of a bin edge, descriptors differing outside that margin "
+          f"{off}, inside it {off_in}; invalid ones zero {bool((desc[~valid] == 0).all())}; run "
+          f"to run {same}, rows to their calls alone {rows_equal}; launches {launched}; {vs_old}")
     _check(err <= ip.ANGLE_BAR, f"[image] describe {name}: angles {err} rad from the plain ones")
     _check(off == 0, f"[image] describe {name}: {off} descriptors differ outside the margin")
+    _check(bool((desc[~valid] == 0).all()), f"[image] describe {name}: an invalid keypoint's "
+                                            f"descriptor is not zero")
     _check(same and rows_equal, f"[image] describe {name}: differs run to run or by row")
     _check(launched == 1, f"[image] describe {name}: {launched} launches")
     return err, inside
@@ -2110,21 +2199,33 @@ def _image_bound(nbytes: float, flops: float):
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
-def _describe_bytes(img, xy) -> float:
-    """The bytes K3's function needs on this run's keypoints: the union of
-    their 40 x 40 blur windows (the image's pixels, clamped at its edges),
-    the keypoints, their flags, the steering tables (all 30 bins' rows) and
-    the outputs."""
+def _describe_work(img, xy, c08cb84: bool = False):
+    """(bytes, operations) of K3's function on this run's keypoints.  The
+    bytes: the union of their blur windows (35 x 35: the 0.2 box's
+    footprint around the 31 x 31 pixels the moments and the taps read,
+    inside the image, since the patch centre is clamped to [17, W - 19]),
+    the keypoints, their flags, the steering table (all 30 bins' 256 pairs,
+    packed as two 16-bit indices in 4 bytes) and the outputs.  The
+    operations: the blur's two passes over the footprint (31 x 35, then 31 x
+    31 pixels of 5 products and 4 sums), the moments' 709 disc terms, the
+    256 compares.  With ``c08cb84``, the count that commit took: 40 x 40
+    windows clamped at the image's edges, the table as 8-byte pairs, the
+    blur over 36 x 40 and 36 x 36 pixels."""
     S, H, W = img.shape
     N = xy.shape[1]
+    side, pair = (40, 8) if c08cb84 else (35, 4)
     c = np.floor(xy.cpu().numpy() + 0.5).astype(np.int64)
-    cx = np.clip(c[..., 0], 17, W - 19)
-    cy = np.clip(c[..., 1], 17, H - 19)
+    lo = side // 2
+    cx = np.clip(c[..., 0], 17, W - 19) - lo
+    cy = np.clip(c[..., 1], 17, H - 19) - lo
     mask = np.zeros((S, H, W), bool)
     for s in range(S):
-        for x0, y0 in zip(cx[s] - 19, cy[s] - 19):
-            mask[s, max(y0, 0):y0 + 40, max(x0, 0):x0 + 40] = True
-    return float(mask.sum()) * 4 + S * N * (8 + 1) + 30 * 256 * 2 * 4 + S * N * (32 + 4)
+        for x0, y0 in zip(cx[s], cy[s]):
+            mask[s, max(y0, 0):y0 + side, max(x0, 0):x0 + side] = True
+    nbytes = float(mask.sum()) * 4 + S * N * (8 + 1) + 30 * 256 * pair + S * N * (32 + 4)
+    blurred = side - 4
+    flops = S * N * (blurred * side * 9 + blurred * blurred * 9 + 709 * 4 + 256 * 3)
+    return nbytes, flops
 
 
 def _image_time(name, fn, plain_fn, kernel_name, nbytes, flops, card, library=None):
@@ -2236,12 +2337,37 @@ def _detect_calls(name, W, H, cell, n_live, S, dev):
     return fn, pfn, nbytes, flops
 
 
+def _describe_calls(W, H, N, S, dev, calls: int = 1):
+    """(imgs, xy, valid, kernel call, plain call) of a describe case for
+    timing: N of tests/image_problems.py's keypoints a row, all valid; one
+    call at S = 1, under ``torch.func.vmap`` above, as the keyframe pass
+    calls it; with ``calls`` 2 the keypoints in two calls of N / 2 (the
+    keyframe pass at commit c08cb84)."""
+    import torch
+    import image_problems as ip
+    from alvaar_tpu_torch.ops import orb
+    imgs = _image_frames(W, H, S, dev)
+    rng = np.random.default_rng(W + H + N + S)
+    xy = torch.as_tensor(np.stack([ip.keypoints(rng, N, W, H) for _ in range(S)]), device=dev)
+    valid = torch.ones((S, N), dtype=torch.bool, device=dev)
+    parts = [(xy[:, k * N // calls:(k + 1) * N // calls].contiguous(),
+              valid[:, k * N // calls:(k + 1) * N // calls].contiguous()) for k in range(calls)]
+
+    def over(f):
+        if S == 1:
+            return lambda: [f(imgs[0], p[0], v[0]) for p, v in parts]
+        return lambda: [torch.func.vmap(f)(imgs, p, v) for p, v in parts]
+    return imgs, xy, valid, over(orb.describe), over(orb._describe_plain)
+
+
 def _image_kernel_times(card) -> None:
-    """K5's kernels one by one at every case of ``IMAGE_DETECT_CASES`` and a
-    3-level pyramid's kernels at every case of ``IMAGE_STACK_CASES``, by
-    ``torch.profiler``, the pyramid by CUDA events too: the lines the A/B
-    turns of tools/run_image_phase.py read, for whichever package is
-    imported (its kernels found by name: ``detect_``, ``pyr``)."""
+    """K5's kernels one by one at every case of ``IMAGE_DETECT_CASES``, a
+    3-level pyramid's kernels at every case of ``IMAGE_STACK_CASES`` and K3
+    at every case of ``IMAGE_DESCRIBE_CASES`` (a merged pass's N also as two
+    calls of N / 2), by ``torch.profiler``, the pyramid and K3 by CUDA
+    events too: the lines the A/B turns of tools/run_image_phase.py read,
+    for whichever package is imported (its kernels found by name:
+    ``detect_``, ``pyr``, ``describe_``)."""
     import torch
     from alvaar_tpu_torch.ops import image
     dev = torch.device("cuda")
@@ -2255,6 +2381,13 @@ def _image_kernel_times(card) -> None:
         fn = lambda: image.build_pyramid(x, 3)
         print(f"[image-split] build_pyramid {name}: device {_split_text(_kernel_split(fn, 'pyr'))},"
               f" {_time_ms(fn):.4f} ms per call by CUDA events [{card}]")
+    for name, W, H, N, S, merged in IMAGE_DESCRIBE_CASES:
+        for calls in (1, 2) if merged else (1,):
+            fn = _describe_calls(W, H, N, S, dev, calls)[3]
+            what = f"describe {name}" + (" as two calls of N / 2" if calls == 2 else "")
+            print(f"[image-split] {what}: device "
+                  f"{_split_text(_kernel_split(fn, 'describe_'))}, {_time_ms(fn):.4f} ms per "
+                  f"call by CUDA events [{card}]")
 
 
 def _image_timing(card) -> dict:
@@ -2304,21 +2437,18 @@ def _image_timing(card) -> dict:
         print(f"[image] detect_grid {name}: its kernels by torch.profiler, {_split_text(split)} "
               f"[{card}]")
         rows["detect_grid"].append(row)
-    for name, W, H, N, S in IMAGE_DESCRIBE_CASES:
-        imgs = _image_frames(W, H, S, dev)
-        rng = np.random.default_rng(W + H + N + S)
-        xy = torch.as_tensor(np.stack([ip.keypoints(rng, N, W, H) for _ in range(S)]),
-                             device=dev)
-        valid = torch.ones((S, N), dtype=torch.bool, device=dev)
-        if S == 1:
-            fn = lambda: orb.describe(imgs[0], xy[0], valid[0])
-            pfn = lambda: orb._describe_plain(imgs[0], xy[0], valid[0])
-        else:
-            fn = lambda: torch.func.vmap(orb.describe)(imgs, xy, valid)
-            pfn = lambda: torch.func.vmap(orb._describe_plain)(imgs, xy, valid)
-        flops = S * N * (36 * 40 * 9 + 36 * 36 * 9 + 709 * 4 + 256 * 3)
-        rows["describe"].append(_image_time(f"describe {name}", fn, pfn, "describe_kernel",
-                                            _describe_bytes(imgs, xy), flops, card))
+    for name, W, H, N, S, _ in IMAGE_DESCRIBE_CASES:
+        imgs, xy, valid, fn, pfn = _describe_calls(W, H, N, S, dev)
+        nbytes, flops = _describe_work(imgs, xy)
+        row = _image_time(f"describe {name}", fn, pfn, "describe_kernel", nbytes, flops, card)
+        old_bytes, old_flops = _describe_work(imgs, xy, c08cb84=True)
+        row["c08cb84_bound_ms"] = _image_bound(old_bytes, old_flops)[0]
+        print(f"[image] describe {name}: the bound's work over 35 x 35 windows and the packed "
+              f"table {nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} MFLOP; as counted at commit "
+              f"c08cb84 (40 x 40 windows, 8-byte pairs) {old_bytes / 1e6:.3f} MB, "
+              f"{old_flops / 1e6:.2f} MFLOP, a bound of {row['c08cb84_bound_ms'] * 1e3:.3f} us, "
+              f"{row['c08cb84_bound_ms'] / row['device_ms']:.2%} of the device time [{card}]")
+        rows["describe"].append(row)
     return rows
 
 
@@ -2415,6 +2545,8 @@ def _batched_shape(f_prev, f_cur, cfg, card, bit_equal_bar=False):
     levels = max(1, cfg.pyramid_levels - base)
     args = dict(win=cfg.klt_window, iters=cfg.klt_iters, eps=cfg.klt_eps,
                 err_max=cfg.klt_err_max, fb_dist=cfg.klt_fb_dist)
+    # this shape's points: B detect_grid calls with no description, which
+    # the row's ``streams`` tells ``_image_path`` to allow for
     dets = [detect_grid(f, torch.zeros((0, 2), device=dev),
                         torch.zeros(0, dtype=torch.bool, device=dev),
                         cell=cfg.cell_size, border=cfg.image_border) for f in f_prev]
@@ -2476,7 +2608,7 @@ def _batched_shape(f_prev, f_cur, cfg, card, bit_equal_bar=False):
     # the plain composition runs stream by stream (seconds per call at
     # 9216 points): one call gives its time
     plain_ms = _time_ms(lambda: run(lk.lk_level_plain), reps=1, rounds=1, warmup=0)
-    row = dict(shape=name, n=len(pts), bytes=nbytes, flops=flops, bound_ms=bound_ms,
+    row = dict(shape=name, n=len(pts), streams=B, bytes=nbytes, flops=flops, bound_ms=bound_ms,
                bound_by=bound_by, ms=ms, plain_ms=plain_ms, launches_per_call=n_a,
                device_ms=statistics.median([dev_a, dev_b]), singles_device_ms=dev_1,
                singles_ms=ms_singles, bit_equal=bit_equal, max_abs_err=max(dxy, derr))
@@ -2621,6 +2753,12 @@ IMAGE_KEYFRAME_SAVED = 350
 # under them
 IMAGE_PR19_TRACKING_KERNELS = 686
 IMAGE_PR19_KEYFRAME_KERNELS = 3461
+# the keyframe-frame median by commit c08cb84 (the keyframe pass's two
+# describe calls) on an NVIDIA H100 80GB HBM3 at 700 W, in that commit's
+# A/B turns (3 459; 3 457 in its final smoke): one describe call a pass takes
+# at least DESCRIBE_KERNELS_SAVED of them away
+IMAGE_PR20_KEYFRAME_KERNELS = 3459
+DESCRIBE_KERNELS_SAVED = 1
 # ``_run_digest`` of phases 3 and 11a's golden runs on an NVIDIA H100 80GB
 # HBM3 with K9 (csrc/pnp_kernel.cu: PnP in one launch, each point evaluated
 # and summed in float64): the runs stay bit-equal to them (K9's redesign
@@ -2785,6 +2923,12 @@ def phase_main_path(frames, gt, card):
         print(f"[main] kernels per {kind} frame median {med}, bar {bar} (commit faa4577's: K7 "
               f"in two launches a pyramid, K5 in three a call) [{card}]")
         _check(med <= bar, f"kernels per {kind} frame median {med} > {bar}")
+    bar = IMAGE_PR20_KEYFRAME_KERNELS - DESCRIBE_KERNELS_SAVED
+    med = statistics.median(kernels_kf)
+    print(f"[main] kernels per keyframe frame median {med}, bar {bar} (commit c08cb84's "
+          f"{IMAGE_PR20_KEYFRAME_KERNELS}, two describe calls a pass, less "
+          f"{DESCRIBE_KERNELS_SAVED}) [{card}]")
+    _check(med <= bar, f"kernels per keyframe frame median {med} > {bar}")
     _check(n5 > 0, "the 5-point RANSAC never ran on the card")
     _check(nh > 0, "the homography RANSAC never ran on the card")
 
@@ -5041,7 +5185,7 @@ def main() -> int:
     _ba_path("hd")
     _pnp_path("hd")
     _hamming_path("hd")
-    _image_path("hd")
+    _image_path("hd", harness_detects=sum(row["streams"] for row in hd_shapes))
     lap("phase 8")
     shapes += hd_shapes
     max_err = max([max_err] + [row["max_abs_err"] for row in hd_shapes])

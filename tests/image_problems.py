@@ -138,3 +138,33 @@ def words_outside_margin(desc, plain_desc, plain_angle):
     inside = bin_margin(plain_angle.detach().cpu().numpy().reshape(-1)) <= BIN_MARGIN
     diff = (desc != plain_desc).reshape(len(inside), -1).any(-1).cpu().numpy()
     return int(inside.sum()), int((diff & ~inside).sum()), int((diff & inside).sum())
+
+
+def float64_angles(img, xy, blur: bool = True) -> np.ndarray:
+    """The intensity-centroid angles of ``describe``'s definition, computed
+    here in numpy alone: the image blurred by the 5-tap 0.2 box with edge
+    padding (rows first, float32), each keypoint rounded to a pixel and
+    clamped so its 36 x 36 patch (centre offset 17) stays inside, the
+    float32 terms of the radius-15 disc's moments summed in float64, each
+    sum rounded once to float32, then a float32 atan2.  K3 computes these by
+    design; where the moments nearly cancel, a float32 sum (the plain
+    version's, the JAX package's) lies farther from them than K3's bar."""
+    img = np.asarray(img, np.float32)
+    h, w = img.shape
+    if blur:
+        fifth = np.float32(0.2)
+        p = np.pad(img, ((2, 2), (0, 0)), mode="edge")
+        img = sum(fifth * p[i:i + h] for i in range(5))
+        p = np.pad(img, ((0, 0), (2, 2)), mode="edge")
+        img = sum(fifth * p[:, i:i + w] for i in range(5))
+    c = np.floor(np.asarray(xy, np.float32) + np.float32(0.5)).astype(np.int64)
+    cx = np.clip(c[:, 0], 17, w - 19)
+    cy = np.clip(c[:, 1], 17, h - 19)
+    d = np.arange(-15, 16)
+    patches = img[(cy[:, None] + d)[:, :, None], (cx[:, None] + d)[:, None, :]]  # [N, 31, 31]
+    disc = d[:, None] ** 2 + d[None, :] ** 2 <= 15 * 15
+    mx = np.where(disc, d[None, :], 0).astype(np.float32)
+    my = np.where(disc, d[:, None], 0).astype(np.float32)
+    m10 = (patches * mx).astype(np.float64).sum(axis=(1, 2)).astype(np.float32)
+    m01 = (patches * my).astype(np.float64).sum(axis=(1, 2)).astype(np.float32)
+    return np.arctan2(m01, m10)

@@ -12,8 +12,11 @@ the image's edges, S rows in one launch each equal to its row alone,
 pyramid kernel at 641x481, 7x5, 3x3, 1x1 and a stack of 3, 3 and 4
 levels; K5's traps (a one-pixel last column of cells and a two-pixel last
 row, hd_serving()'s cell 96, a response tile in global scratch, NaN and
-+-inf pixels, more live keypoints than threads); the shim's
-``__ballot_sync``, ``__any_sync`` and bf16 rounding.  Without building: the custom
++-inf pixels, more live keypoints than threads); K3 at both of its widths
+(4 or 1 warps a keypoint) with a last block part full and all-invalid
+rows, and the keyframe pass's one ``describe`` call equal to its two; the
+shim's ``__ballot_sync``, ``__any_sync``, bf16 rounding and the warp
+primitives K3 uses.  Without building: the custom
 ops' CPU implementation (the plain version), fake shapes and batching
 rule, the CPU path's independence of the library (the golden run's first
 16 frames, tests/golden/torch_step_320.npz, unchanged), the launchers'
@@ -130,7 +133,7 @@ def test_describe_source_matches_plain_and_jax(k357, W, H, blur):
     with mod.on_cpu(lib):
         desc, angle = image_kernels.launch_describe(
             _t(img)[None], _t(xy)[None], _t(valid)[None],
-            _t(orb._TAP_LUTS_I32), blur)
+            _t(orb._TAP_PAIRS), blur)
     pd, pa = orb._describe_plain(_t(img), _t(xy), _t(valid), blur=blur)
     assert float((angle[0] - pa).abs().max()) <= ip.ANGLE_BAR
     inside, off, _ = ip.words_outside_margin(desc[0], pd, pa)
@@ -142,6 +145,104 @@ def test_describe_source_matches_plain_and_jax(k357, W, H, blur):
     assert (np.abs(angle[0].numpy() - ja) <= bar).all()
     far = ip.bin_margin(pa.numpy()) > ip.BIN_MARGIN
     np.testing.assert_array_equal(_u32(desc[0])[far], np.asarray(jd)[far])
+
+
+# (N, blur) of test_describe_keypoint_counts_through_the_source → the
+# keypoints whose float32 moment sums lie farther from the float64 angle
+# than a bar (the moments summed in float64 beside): at N = 513 with blur,
+# keypoint 273 at (119.75, 50.24), moments (154.72, -50.25), which nearly
+# cancel: the plain version's angle lies 2.4e-5 rad from the float64 one,
+# the JAX package's 1.5e-3; and keypoint 402 at (75.34, 64.13), moments
+# (-919.75, -1193.43), where the JAX package's lies 1.1e-4 rad off (the
+# plain version's 2.8e-6).  K3 lies within 5e-7 rad of the float64 angles
+# at both.
+PLAIN_ANGLE_OFF = {(513, True): [273]}
+JAX_ANGLE_OFF = {(513, True): [273, 402]}
+
+
+@pytest.mark.parametrize("N", [0, 1, 33, 385, 513])
+def test_describe_keypoint_counts_through_the_source(k357, N):
+    """The source at keypoint counts that leave a last block part full, in
+    one launch over two rows of a 121x97 frame, so at both of K3's widths
+    (2 N keypoints: 4 warps a keypoint up to 1024, one keypoint a block,
+    N = 1, 33, 385; 1 warp past it, four a block, N = 513 with one keypoint
+    in its last block): row 0 with 90% valid keypoints (the image's
+    corners, edge midpoints, points past the edges and at half-pixel ties
+    among them), row 1 the same keypoints all invalid; blur on and off.
+    The angles within ``ANGLE_BAR`` of the float64 angles computed in numpy
+    from the image (``image_problems.float64_angles``, what K3 computes by
+    design) at every keypoint, within ``ANGLE_BAR`` of the plain version's
+    and within 1e-4 of the JAX package's (the bar of
+    ``test_describe_source_matches_plain_and_jax``) but at the keypoints
+    ``PLAIN_ANGLE_OFF`` and ``JAX_ANGLE_OFF`` name; the words bit-equal to
+    the plain version's outside the bin margin and to the JAX package's
+    there too; row 1's words all zero and its angles bit-equal to row 0's
+    (validity only zeroes words)."""
+    mod, lib = k357
+    W, H = 121, 97
+    img = ip.frame(W, H, seed=3)
+    rng = np.random.default_rng(N)
+    xy = ip.keypoints(rng, N, W, H)
+    valid = np.stack([rng.random(N) < 0.9, np.zeros(N, bool)])
+    for blur in (True, False):
+        with mod.on_cpu(lib):
+            desc, angle = image_kernels.launch_describe(
+                _t(np.stack([img, img])), _t(np.stack([xy, xy])), _t(valid),
+                _t(orb._TAP_PAIRS), blur)
+        assert desc.shape == (2, N, 8) and angle.shape == (2, N)
+        if N == 0:
+            continue
+        pd, pa = orb._describe_plain(_t(img), _t(xy), _t(valid[0]), blur=blur)
+        got, pa = angle[0].numpy(), pa.numpy()
+        assert (np.abs(got - ip.float64_angles(img, xy, blur)) <= ip.ANGLE_BAR).all()
+        held = np.ones(N, bool)
+        held[PLAIN_ANGLE_OFF.get((N, blur), [])] = False
+        assert (np.abs(got - pa)[held] <= ip.ANGLE_BAR).all()
+        inside, off, _ = ip.words_outside_margin(desc[0], pd, _t(pa))
+        assert off == 0
+        assert bool((desc[0][~_t(valid[0])] == 0).all()) and bool((desc[1] == 0).all())
+        assert torch.equal(angle[1], angle[0])
+        jd, ja = jorb.describe(jnp.asarray(img), jnp.asarray(xy), jnp.asarray(valid[0]),
+                               blur=blur)
+        held = np.ones(N, bool)
+        held[JAX_ANGLE_OFF.get((N, blur), [])] = False
+        assert (np.abs(got - np.asarray(ja))[held] <= 1e-4).all()
+        far = ip.bin_margin(pa) > ip.BIN_MARGIN
+        np.testing.assert_array_equal(_u32(desc[0])[far], np.asarray(jd)[far])
+
+
+@pytest.mark.parametrize("path", ["source", "plain"])
+@pytest.mark.parametrize("blur", [True, False])
+def test_describe_one_call_equals_two(k357, path, blur):
+    """The keyframe pass's one call over the tracked keypoints and the new
+    detections equals its two calls (the JAX package's) bit for bit, words
+    and angles: through the source (one launch against two) and through
+    ``_describe_plain`` (one blur of the image, each keypoint's moments
+    summed in an order that does not depend on N), at 320x240 with 40
+    tracked keypoints (edges among them) and a cell-24 detection's 130."""
+    mod, lib = k357
+    W, H = 320, 240
+    img = _t(ip.frame(W, H, index=2))
+    d = detect._detect_grid_plain(img, torch.zeros(0, 2), torch.zeros(0, dtype=torch.bool),
+                                  cell=24, border=8)
+    rng = np.random.default_rng(11)
+    tracked = _t(ip.keypoints(rng, 40, W, H))
+    tracked_valid = _t(rng.random(40) < 0.8)
+    xy = torch.cat([tracked, d.xy])
+    valid = torch.cat([tracked_valid, d.valid])
+    if path == "source":
+        with mod.on_cpu(lib):
+            card_tests._zero()
+            one = orb.describe(img, xy, valid, blur=blur)
+            two = [orb.describe(img, tracked, tracked_valid, blur=blur),
+                   orb.describe(img, d.xy, d.valid, blur=blur)]
+            assert orb.describe.launches == 3
+    else:
+        one = orb._describe_plain(img, xy, valid, blur=blur)
+        two = [orb._describe_plain(img, tracked, tracked_valid, blur=blur),
+               orb._describe_plain(img, d.xy, d.valid, blur=blur)]
+    for k in range(2):
+        assert torch.equal(one[k], torch.cat([two[0][k], two[1][k]])), k
 
 
 @pytest.mark.parametrize("shape", [(120, 160), (61, 83), (1, 5)])
@@ -195,12 +296,13 @@ def test_rows_in_one_launch_equal_rows_alone(k357):
 
 
 def test_describe_and_detect_through_the_source(k357):
-    """``describe_and_detect`` (the keyframe pass's detection and both
-    descriptions) on a seeded keyframe (tests/hamming_problems.py's map
-    over a rendered 320x240 frame's pyramid) with the sources launched:
-    every field of the state bit-equal to the plain path's; two maps under
-    ``map_rows`` (the batched keyframe pass's vmap) in one launch of each
-    kernel, each row equal to its call alone."""
+    """``describe_and_detect`` (the keyframe pass's detection and its one
+    description of the tracked and the new keypoints) on a seeded keyframe
+    (tests/hamming_problems.py's map over a rendered 320x240 frame's
+    pyramid) with the sources launched: one K3 launch a pass, every field
+    of the state bit-equal to the plain path's; two maps under ``map_rows``
+    (the batched keyframe pass's vmap) in one launch of each kernel, each
+    row equal to its call alone."""
     import hamming_problems as hp
     from alvaar_tpu_torch.worldmap.keyframe import describe_and_detect
     from alvaar_tpu_torch.worldmap.state import map_rows, stack_states
@@ -215,13 +317,13 @@ def test_describe_and_detect_through_the_source(k357):
         card_tests._zero()
         got = [describe_and_detect(m[0], p, cam, cfg) for m, p in zip(maps, pyrs)]
         assert detect.detect_grid.launches == 2 * 2
-        assert orb.describe.launches == 4
+        assert orb.describe.launches == 2
         card_tests._zero()
         stack = torch.stack(pyrs[0][0:1] + pyrs[1][0:1])
         rows = map_rows(lambda s, img: describe_and_detect(s, (img,), cam, cfg),
                         stack_states([m[0] for m in maps]), stack)
         assert detect.detect_grid.launches == 2
-        assert orb.describe.launches == 2
+        assert orb.describe.launches == 1
     for g, p in zip(got, plain):
         for (name, x), (_, y) in zip(g.tensors(), p.tensors()):
             assert torch.equal(x, y), name
@@ -297,6 +399,31 @@ extern "C" void run_ballot(const int* pred, unsigned* out, int lanes) {
 extern "C" void run_any(const int* pred, int* out, int lanes) { any_kernel<<<1, lanes>>>(pred, out); }
 
 extern "C" void run_bf16(const float* x, float* y, int n) { bf16_kernel<<<1, 64>>>(x, y, n); }
+
+// kind 0: a float64 xor butterfly of x[lane] (every lane its warp's sum);
+// 1: __shfl_sync broadcast of lane 5's x; 2: lanes write shared memory,
+// __syncwarp, then read their neighbour's; 3: __ldg of x[lane].
+__global__ void warp_kernel(int kind, const double* x, double* out) {
+  __shared__ double s[64];
+  const int lane = threadIdx.x % 32;
+  double v = x[threadIdx.x];
+  if (kind == 0) {
+    for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, m);
+  } else if (kind == 1) {
+    v = __shfl_sync(0xFFFFFFFFu, v, 5);
+  } else if (kind == 2) {
+    s[threadIdx.x] = v * 2.0;
+    __syncwarp();
+    v = s[threadIdx.x - lane + (lane + 1) % 32];
+  } else {
+    v = __ldg(x + threadIdx.x);
+  }
+  out[threadIdx.x] = v;
+}
+
+extern "C" void run_warp(int kind, const double* x, double* out, int lanes) {
+  warp_kernel<<<1, lanes>>>(kind, x, out);
+}
 """
 
 
@@ -310,6 +437,8 @@ def probe(k357, tmp_path_factory):
     lib.run_ballot.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
     lib.run_any.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
     lib.run_bf16.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    lib.run_warp.restype = None
+    lib.run_warp.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
     return lib
 
 
@@ -345,6 +474,36 @@ def test_shim_any_sync(probe, lanes):
             assert (out[w:w + 32] == want).all(), (which, w)
 
 
+@pytest.mark.parametrize("kind", ["float64 xor butterfly", "shfl broadcast", "syncwarp",
+                                  "ldg"])
+def test_shim_warp_primitives(probe, kind):
+    """The shim's warp primitives that K3 relies on, against CUDA's
+    semantics, over two warps: a float64 ``__shfl_xor_sync`` butterfly
+    leaves every lane its warp's sum, bit-equal across the lanes (the
+    angle and bin each lane computes); ``__shfl_sync`` broadcasts lane 5;
+    ``__syncwarp`` orders the lanes' shared-memory writes before their
+    reads; ``__ldg`` loads."""
+    k = ["float64 xor butterfly", "shfl broadcast", "syncwarp", "ldg"].index(kind)
+    x = np.random.default_rng(k).normal(0, 1e3, 64)
+    out = np.zeros(64)
+    probe.run_warp(k, x.ctypes.data, out.ctypes.data, 64)
+    for w in (0, 32):
+        xs = x[w:w + 32]
+        if k == 0:
+            vals = xs.copy()
+            for m in (16, 8, 4, 2, 1):
+                vals = vals + vals[np.arange(32) ^ m]
+            want = vals
+            assert len(set(out[w:w + 32].tolist())) == 1
+        elif k == 1:
+            want = np.full(32, xs[5])
+        elif k == 2:
+            want = 2.0 * xs[(np.arange(32) + 1) % 32]
+        else:
+            want = xs
+        np.testing.assert_array_equal(out[w:w + 32], want)
+
+
 def test_shim_bf16_rounding_is_torchs(probe):
     """The shim's ``__float2bfloat16_rn``: torch's bf16 rounding (nearest,
     ties to even) on random floats, exact ties, the largest finite floats,
@@ -365,15 +524,20 @@ def test_shim_bf16_rounding_is_torchs(probe):
 def test_timeline_patches_every_stage():
     """tools/image_kernel_timeline.py finds every anchor it stamps in the
     committed source (the cell kernel's five stages, sub-tiles, two argmaxes
-    and scan; the pyramid's five), so that the card run does not fail on a
-    moved line."""
+    and scan; the pyramid's five; K3's barriers, its angle's store and its
+    end: at least the two warp barriers of its blur, its patch's barrier
+    and the store), so that the card run does not fail on a moved line."""
     path = Path(__file__).resolve().parents[1] / "tools" / "image_kernel_timeline.py"
     spec = importlib.util.spec_from_file_location("image_kernel_timeline", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    timed = mod.timed_source(image_kernels._SRC.read_text())
+    src = image_kernels._SRC.read_text()
+    timed = mod.timed_source(src)
     stamped = sorted(int(k) for k in re.findall(r"g_stamps\[b_ \* 16 \+ (\d+)\] = t_", timed))
-    assert stamped == sorted([*set(mod.CELL_STAGES) | {0}, *set(mod.PYR_STAGES) | {0, 3}])
+    labels = mod.describe_labels(src)
+    assert len(labels) >= 5 and mod.DESC_FIRST + len(labels) <= 15    # slot 15: the SM
+    desc = [0, *range(mod.DESC_FIRST, mod.DESC_FIRST + len(labels))]
+    assert stamped == sorted([*set(mod.CELL_STAGES) | {0}, *set(mod.PYR_STAGES) | {0, 3}, *desc])
 
 
 def test_c_entries_refuse_bad_shapes(k357):
@@ -516,7 +680,7 @@ def test_launchers_refuse_cpu_tensors_and_bad_arguments():
     img = torch.zeros(1, 48, 64)
     ex, exv, q = torch.zeros(1, 3, 2), torch.zeros(1, 3, dtype=torch.bool), torch.zeros(1)
     xy, valid = torch.zeros(1, 5, 2), torch.zeros(1, 5, dtype=torch.bool)
-    taps = _t(orb._TAP_LUTS_I32)
+    taps = _t(orb._TAP_PAIRS)
     with pytest.raises(ValueError, match="CUDA"):
         image_kernels.launch_gray(torch.zeros(4, 4, 4, dtype=torch.uint8))
     with pytest.raises(ValueError, match="CUDA"):

@@ -303,6 +303,12 @@ T __shfl_down_sync(unsigned, T v, unsigned delta, int width = 32) {
 
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 
+// A load through the read-only data cache: a plain load here.
+template <class T>
+T __ldg(const T* p) {
+  return *p;
+}
+
 // A stand-in for the SM's cycle counter: the calls so far, over every fiber.
 inline long long clock64() {
   static long long ticks = 0;

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time goes inside K5's cell kernel and K7's pyramid kernel
-(csrc/image_kernels.cu), on a card.
+"""Where the time goes inside K5's cell kernel, K7's pyramid kernel and K3
+(csrc/image_kernels.cu, or another commit's copy of it), on a card.
 
-    python3 tools/image_kernel_timeline.py [--out chiprun_out/x.json]
+    python3 tools/image_kernel_timeline.py [--source build/image_kernels_COMMIT.cu]
+                                           [--only describe] [--out OUT.json]
 
 A copy of the source is written under ``build/image_timeline/`` with
 stamps patched in: thread 0 of each block records ``%globaltimer`` (ns)
@@ -10,14 +11,19 @@ after every barrier of a response sub-tile (the image's loads, the blur,
 Sobel, the box means' vertical pass, the response) and, in the cell
 kernel, after the sub-tiles, each peak's argmax and the keypoint scan; in
 the pyramid kernel after its loads, level 1's vertical pass, level 1,
-level 2's vertical pass and level 2; and the multiprocessor it ran on.  The
-copy is built with ``ops/image_kernels._NVCC_FLAGS`` and launched through
-the port's wrappers at every shape of ``chip_smoke.IMAGE_DETECT_CASES``
-and ``IMAGE_STACK_CASES``; each stage's median and largest time over the
-blocks of one launch are printed, with the blocks' start times (a block
-of a later wave starts late) and the last block's end.  With several
-sub-tiles a block's stamps are its last sub-tile's, so the first stage then
-spans the others.  Needs CUDA.
+level 2's vertical pass and level 2; in K3's ``describe_kernel`` after
+each of its barriers (``__syncthreads`` or ``__syncwarp``: thread 0 is
+its block's first keypoint's first lane), after the angle's store and at
+its end; and the multiprocessor it ran on.  The copy is built with
+``ops/image_kernels._NVCC_FLAGS`` and launched through the port's wrappers
+(K3 through ``chip_smoke._describe_launcher`` with the source's own
+steering table) at every shape of ``chip_smoke.IMAGE_DETECT_CASES``,
+``IMAGE_STACK_CASES`` and ``IMAGE_DESCRIBE_CASES``; each stage's median
+and largest time over the blocks of one launch are printed (a stamp that
+no thread 0 reached, in a branch not taken, is left out), with the
+blocks' start times (a block of a later wave starts late) and the last
+block's end.  With several sub-tiles a block's stamps are its last
+sub-tile's, so the first stage then spans the others.  Needs CUDA.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -44,6 +51,34 @@ CELL_LABELS = ("image loads", "blur", "Sobel", "box means' vertical pass", "resp
 PYR_STAGES = (1, 2, 10, 4, 11)
 PYR_LABELS = ("level-0 loads", "level 1's vertical pass", "level 1", "level 2's vertical pass",
               "level 2")
+
+
+# K3's stamps: 0 at the start, then DESC_FIRST, DESC_FIRST + 1, ... after
+# each of these in the kernel's text, and one at its end
+DESC_ANCHORS = ("__syncthreads();", "__syncwarp();", "angle[n] = ang;")
+DESC_FIRST = 1
+
+
+def _describe_anchors(body: str) -> list:
+    """(position, anchor) of every K3 anchor in the kernel's body."""
+    return [(m.start(), m.group(0)) for m in
+            re.finditer("|".join(re.escape(a) for a in DESC_ANCHORS), body)]
+
+
+def describe_labels(src: str) -> list:
+    """The stage labels of K3's stamps in ``src``: each anchor with the
+    source line it ends, then the end."""
+    a = src.index("    describe_kernel(")
+    body = src.index("{", a) + 1
+    seg = src[body:src.index("\n}\n", body)]
+    labels = []
+    for pos, anchor in _describe_anchors(seg):
+        lines = seg[:pos].split("\n")
+        prev = next((x.strip() for x in reversed(lines[:-1])
+                     if re.search(r"\w{3}", x) and not x.strip().startswith(("#", "} else"))
+                     and not re.fullmatch(r"if \(.*\) \{", x.strip())), "")
+        labels.append(f"to `{anchor}` at line {len(lines)} of the kernel (after `{prev[:40]}`)")
+    return labels + ["to the end"]
 
 
 def _stamp(k: int) -> str:
@@ -90,6 +125,17 @@ def timed_source(src: str) -> str:
     end = seg.rstrip().rfind("}")
     seg = seg[:end] + "  " + _stamp(11) + "\n" + seg[end:]
     s = s[:a] + seg + s[b:]
+    a = s.index("    describe_kernel(")
+    body = s.index("{", a) + 1
+    end = s.index("\n}\n", body)
+    seg = s[body:end]
+    anchors = sorted(_describe_anchors(seg))
+    out, last = "", 0
+    for k, (pos, anchor) in enumerate(anchors):
+        out += seg[last:pos + len(anchor)] + " " + _stamp(DESC_FIRST + k)
+        last = pos + len(anchor)
+    out += seg[last:] + "  " + _stamp(DESC_FIRST + len(anchors)) + "\n"
+    s = s[:body] + "\n  " + _stamp(0) + out + s[end:]
     return s + (
         '\nextern "C" int timeline_read(void* host, long long n) {\n'
         "  return static_cast<int>(cudaMemcpyFromSymbol(host, g_stamps, n * 8));\n}\n"
@@ -111,6 +157,8 @@ def _stages(name, t, stamps, labels, card) -> dict:
           f"{row['last_end_ns']} ns after the first starts [{card}]")
     prev = 0
     for k, label in zip(stamps, labels):
+        if not t[:, k].any():               # in a branch no thread 0 took
+            continue
         d = t[:, k] - t[:, prev]
         row["stages"][label] = dict(median_ns=int(np.median(d)), max_ns=int(d.max()))
         print(f"[timeline]   {label}: median {int(np.median(d))} ns, largest {int(d.max())} ns")
@@ -118,8 +166,15 @@ def _stages(name, t, stamps, labels, card) -> dict:
     return row
 
 
+def _constant(src: str, name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--source", help="a copy of csrc/image_kernels.cu to time instead")
+    ap.add_argument("--only", choices=("detect", "pyramid", "describe"), action="append",
+                    help="time only these kernels (every one by default)")
     ap.add_argument("--out", help="a JSON file for the rows")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
@@ -127,16 +182,19 @@ def main() -> int:
     import numpy as np
     import torch
     import chip_smoke
-    from alvaar_tpu_torch.ops import image, image_kernels
+    from alvaar_tpu_torch.ops import image, image_kernels, orb
     from alvaar_tpu_torch.utils.build import find_tool
     if not torch.cuda.is_available():
         print("image_kernel_timeline: CUDA is not available", file=sys.stderr)
         return 1
     card = chip_smoke.phase_env()
+    only = set(args.only or ("detect", "pyramid", "describe"))
     os.makedirs(OUT, exist_ok=True)
+    with open(args.source or image_kernels._SRC) as f:
+        text = f.read()
     src = os.path.join(OUT, "image_kernels_timed.cu")
-    with open(image_kernels._SRC) as f, open(src, "w") as g:
-        g.write(timed_source(f.read()))
+    with open(src, "w") as g:
+        g.write(timed_source(text))
     path = os.path.join(OUT, "libimage_kernels_timed.so")
     nvcc = find_tool("nvcc", "/usr/local/cuda/bin/nvcc", "the CUDA toolkit is needed")
     res = subprocess.run([nvcc, *image_kernels._NVCC_FLAGS, "-o", path, src],
@@ -147,6 +205,7 @@ def main() -> int:
     lib = image_kernels.bind(ctypes.CDLL(path))
     lib.timeline_read.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
     image_kernels._lib = lib
+    print(f"[timeline] {args.source or 'the committed source'}", flush=True)
 
     def launch(fn, blocks):
         for _ in range(5):
@@ -157,33 +216,46 @@ def main() -> int:
         torch.cuda.synchronize()
         buf = np.zeros(SLOTS * MAX_BLOCKS, np.uint64)
         assert lib.timeline_read(buf.ctypes.data, buf.size) == 0
-        return buf.reshape(MAX_BLOCKS, SLOTS)[:min(blocks, MAX_BLOCKS)].astype(np.int64)
+        t = buf.reshape(MAX_BLOCKS, SLOTS)[:min(blocks, MAX_BLOCKS)].astype(np.int64)
+        return t[t[:, 0] != 0]              # ``blocks`` may be an upper bound
 
     dev = torch.device("cuda")
     rows = []
-    for case in chip_smoke.IMAGE_DETECT_CASES:
+    for case in chip_smoke.IMAGE_DETECT_CASES if "detect" in only else ():
         name, W, H, cell, _, S = case
         fn = chip_smoke._detect_calls(*case, dev)[0]
         blocks = S * -(-H // cell) * -(-W // cell)
         rows.append(_stages(f"detect_cells_kernel {name}", launch(fn, blocks), CELL_STAGES,
                             CELL_LABELS, card))
-    for name, W, H, B in chip_smoke.IMAGE_STACK_CASES:
+    for name, W, H, B in chip_smoke.IMAGE_STACK_CASES if "pyramid" in only else ():
         x = chip_smoke._image_stack(W, H, B, dev)
         x = x if B > 1 else x[0]
         h2, w2 = (H + 3) // 4, (W + 3) // 4
-        tile_y, tile_x = (int(image_kernels._SRC.read_text().split(f"constexpr int {k} = ")[1]
-                              .split(";")[0]) for k in ("kPyrTileY", "kPyrTileX"))
-        blocks = B * -(-h2 // tile_y) * -(-w2 // tile_x)
+        blocks = B * -(-h2 // _constant(text, "kPyrTileY")) * \
+            -(-w2 // _constant(text, "kPyrTileX"))
         if blocks > MAX_BLOCKS:
             print(f"[timeline] pyramid_kernel {name}: {blocks} blocks, the first {MAX_BLOCKS} "
                   f"kept")
         rows.append(_stages(f"pyramid_kernel {name}",
                             launch(lambda: image.build_pyramid(x, 3), blocks), PYR_STAGES,
                             PYR_LABELS, card))
+    # K3 with the source's own steering table: [30, 256, 2] int32 up to
+    # commit c08cb84, each pair packed in one int32 since
+    packed = "taps [30, 256, 2]" not in text
+    taps = torch.as_tensor(orb._TAP_PAIRS if packed else orb._TAP_LUTS.astype(np.int32),
+                           device=dev)
+    describe = chip_smoke._describe_launcher(lib, taps)
+    labels = describe_labels(text)
+    stamps = tuple(range(DESC_FIRST, DESC_FIRST + len(labels)))
+    for name, W, H, N, S, _ in chip_smoke.IMAGE_DESCRIBE_CASES if "describe" in only else ():
+        imgs, xy, valid, _, _ = chip_smoke._describe_calls(W, H, N, S, dev)
+        rows.append(_stages(f"describe_kernel {name}",     # at most a block a keypoint
+                            launch(lambda: describe(imgs, xy, valid), S * N), stamps, labels,
+                            card))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump(dict(card=card, rows=rows), f, indent=1)
+            json.dump(dict(card=card, source=args.source, rows=rows), f, indent=1)
     return 0
 
 

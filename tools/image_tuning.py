@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
-"""Time variants of the image kernels K7 and K5 (csrc/image_kernels.cu) in
-one process on a card.
+"""Time variants of the image kernels K7, K5 and K3
+(csrc/image_kernels.cu) in one process on a card.
 
     python3 tools/image_tuning.py [--variant NAME=V[,NAME=V...]]... [--rounds 4]
-                                  [--out chiprun_out/x.json]
+                                  [--only describe] [--out OUT.json]
 
 A variant sets ``constexpr int NAME = V;`` lines of the source (e.g.
-``kCellThreads=1024``, ``kPyrTileX=32``); the source as it stands is always
-the first.  The variants are written under ``build/image_tuning/`` and
-built at once with ``ops/image_kernels._NVCC_FLAGS`` (each kernel's
-registers and spills printed; one that does not build is left out).  At
-every shape of ``chip_smoke.IMAGE_DETECT_CASES`` K5 must be bit-equal to
-the plain version and at every shape of ``IMAGE_STACK_CASES`` the 3-level
-pyramid; then each one's device time per call (``chip_smoke._kernel_split``,
-torch.profiler: K5's kernels one by one) is taken in ``--rounds`` rounds,
-the variants in turns (forward, then backward), and printed as the median
-with the spread.  Needs CUDA.
+``kCellThreads=1024``, ``kPyrTileX=32``, ``kDescWideKeypoints=0``: one warp a keypoint);
+the source as it stands is always the first.  The variants are written
+under ``build/image_tuning/`` and built at once with
+``ops/image_kernels._NVCC_FLAGS`` (each kernel's registers, spills and
+shared memory printed; one that does not build is left out).  At every
+shape of ``chip_smoke.IMAGE_DETECT_CASES`` K5 must be bit-equal to the
+plain version, at every shape of ``IMAGE_STACK_CASES`` the 3-level
+pyramid, and at every shape of ``IMAGE_DESCRIBE_CASES`` K3 within its bar
+(angles within 2e-5 rad of the plain version's, words bit-equal outside
+1e-4 rad of a bin edge); then each one's device time per call
+(``chip_smoke._kernel_split``, torch.profiler: K5's kernels one by one)
+is taken in ``--rounds`` rounds, the variants in turns (forward, then
+backward), and printed as the median with the spread.  ``--only`` keeps
+the shapes of some kernels (``detect``, ``pyramid``, ``describe``).
+Needs CUDA.
 """
 
 from __future__ import annotations
@@ -44,16 +49,18 @@ def variant_source(src: str, sets: dict) -> str:
 
 
 def _ptxas(log: str) -> dict:
-    """{kernel: (registers, spill store bytes)} of K7's and K5's kernels from
-    nvcc's -Xptxas -v lines."""
+    """{kernel: (registers, spill store bytes, shared memory bytes)} of K7's,
+    K5's and K3's kernels from nvcc's -Xptxas -v lines."""
     out = {}
     for chunk in log.split("Compiling entry function")[1:]:
-        name = next((k for k in ("pyramid_kernel", "detect_cells_kernel", "detect_rank_kernel")
-                     if k in chunk.splitlines()[0]), None)
+        name = next((k for k in ("pyramid_kernel", "detect_cells_kernel", "detect_rank_kernel",
+                                 "describe_kernel") if k in chunk.splitlines()[0]), None)
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores", chunk)
+        smem = re.search(r"(\d+) bytes smem", chunk)
         if name and regs and spill:
-            out[name] = (int(regs.group(1)), int(spill.group(1)))
+            out[name] = (int(regs.group(1)), int(spill.group(1)),
+                         int(smem.group(1)) if smem else 0)
     return out
 
 
@@ -62,13 +69,16 @@ def main() -> int:
     ap.add_argument("--variant", action="append", default=[],
                     help="NAME=V[,NAME=V...]: constants of csrc/image_kernels.cu to set")
     ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--only", choices=("detect", "pyramid", "describe"), action="append",
+                    help="time only these kernels' shapes (every one by default)")
     ap.add_argument("--out", help="a JSON file for the rows")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import torch
     import chip_smoke
-    from alvaar_tpu_torch.ops import image, image_kernels
+    import image_problems as ip
+    from alvaar_tpu_torch.ops import image, image_kernels, orb
     from alvaar_tpu_torch.utils.build import find_tool
     if not torch.cuda.is_available():
         print("image_tuning: CUDA is not available", file=sys.stderr)
@@ -98,15 +108,29 @@ def main() -> int:
             print(f"[variant {i}] {variants[i][0]}: does not build, left out: {log[-300:]}")
             continue
         print(f"[variant {i}] {variants[i][0]}: built ({time.time() - t0:.1f} s since the "
-              f"first); registers, spill bytes {_ptxas(log)}", flush=True)
+              f"first); registers, spill bytes, shared bytes {_ptxas(log)}", flush=True)
         libs.append((i, image_kernels.bind(ctypes.CDLL(lib))))
 
     dev = torch.device("cuda")
+    only = set(args.only or ("detect", "pyramid", "describe"))
     cases = []
-    for case in chip_smoke.IMAGE_DETECT_CASES:
+    for case in chip_smoke.IMAGE_DETECT_CASES if "detect" in only else ():
         fn, pfn, _, _ = chip_smoke._detect_calls(*case, dev)
         cases.append((f"detect_grid {case[0]}", fn, pfn, "detect_"))
-    for name, W, H, B in chip_smoke.IMAGE_STACK_CASES:
+    for name, W, H, N, S, _ in chip_smoke.IMAGE_DESCRIBE_CASES if "describe" in only else ():
+        imgs, xy, valid, fn, _ = chip_smoke._describe_calls(W, H, N, S, dev)
+        plain = [orb._describe_plain(imgs[s], xy[s], valid[s]) for s in range(S)]
+        want = (torch.stack([p[0] for p in plain]), torch.stack([p[1] for p in plain]))
+
+        def held(fn=fn, S=S, want=want):        # K3's bar, not bit-equality
+            desc, angle = fn()[0]
+            desc, angle = (desc, angle) if S > 1 else (desc[None], angle[None])
+            _, off, _ = ip.words_outside_margin(desc, *want)
+            err = float((angle - want[1]).abs().max())
+            if err > ip.ANGLE_BAR or off:
+                raise AssertionError(f"angles {err} rad from the plain ones, {off} words off")
+        cases.append((f"describe {name}", fn, held, "describe_"))
+    for name, W, H, B in chip_smoke.IMAGE_STACK_CASES if "pyramid" in only else ():
         x = chip_smoke._image_stack(W, H, B, dev)
         x = x if B > 1 else x[0]
         cases.append((f"build_pyramid {name}", lambda x=x: image.build_pyramid(x, 3),
@@ -114,14 +138,16 @@ def main() -> int:
                                    image._pyr_down_plain(image._pyr_down_plain(x))), "pyr"))
     rows = []
     for case, fn, pfn, pattern in cases:
-        want = pfn()
+        want = pfn if pattern == "describe_" else pfn()
         times = {i: [] for i, _ in libs}
         split = {}
         for r in range(args.rounds):
             for i, lib in list(libs if r % 2 == 0 else libs[::-1]):
                 image_kernels._lib = lib
                 try:
-                    if r == 0 and not all(torch.equal(a, b) for a, b in zip(fn(), want)):
+                    if r == 0 and pattern == "describe_":
+                        want()                          # raises unless within the bar
+                    elif r == 0 and not all(torch.equal(a, b) for a, b in zip(fn(), want)):
                         raise AssertionError("differs from the plain version")
                     split[i] = chip_smoke._kernel_split(fn, pattern)
                 except (AssertionError, RuntimeError) as e:     # the variant is left out

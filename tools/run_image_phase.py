@@ -22,7 +22,9 @@ keypoints) and ``describe`` (K = 192) call, each timed by this checkout's
 ``chip_smoke._lone_ms`` (host and CUDA events); phase 2e's times by this
 checkout's ``_image_kernel_times`` (K5's kernels one by one at every
 detection case, the 3-level pyramid's kernels and CUDA-event time at every
-stack); then, as that checkout's
+stack, K3's device and CUDA-event time at every describe case, a merged
+pass's N also as two calls of N / 2, as the keyframe pass made them before
+commit c08cb84); then, as that checkout's
 smoke runs them, phase 3 with this checkout's profiled frames
 (``MAIN_PROFILED``: two keyframe frames among them), whose kernels per
 tracking and keyframe frame it prints (the kernel bars not held); the keyframe
@@ -99,6 +101,13 @@ def _split_patterns():
         out += [(f"pyramid {case[0]} device_ms", head + r"([\d.]+) ms", float),
                 (f"pyramid {case[0]} event_ms", head + r".*, ([\d.]+) ms per call by CUDA",
                  float)]
+    for name, *_, merged in chip_smoke.IMAGE_DESCRIBE_CASES:
+        for two in (False, True) if merged else (False,):
+            what = name + (" as two calls of N / 2" if two else "")
+            head = rf"\[image-split\] describe {re.escape(what)}: device "
+            key = f"k3 {name}" + (" two calls" if two else "")
+            out += [(f"{key} device_ms", head + r"([\d.]+) ms", float),
+                    (f"{key} event_ms", head + r".*, ([\d.]+) ms per call by CUDA", float)]
     return tuple(out)
 
 
@@ -129,6 +138,7 @@ def _turn(root: str) -> int:
     cs.PARENT_TRACKING_KERNELS = cs.PARENT_KEYFRAME_KERNELS = 10 ** 9   # not held here
     cs.IMAGE_PARENT_TRACKING_KERNELS = cs.IMAGE_PARENT_KEYFRAME_KERNELS = 10 ** 9
     cs.IMAGE_PR19_TRACKING_KERNELS = cs.IMAGE_PR19_KEYFRAME_KERNELS = 10 ** 9
+    cs.IMAGE_PR20_KEYFRAME_KERNELS = 10 ** 9
     cs.MAIN_PROFILED = this.MAIN_PROFILED
     card = cs.phase_env()
     golden = np.load(os.path.join(root, "tests", "golden", "ref_synthetic_640.npz"))
