@@ -3,8 +3,13 @@
 // Pallas kernel; the JAX package compiles them into its jitted step):
 //
 // * K7, alvaar_tpu/ops/image.py:23-63: `rgba_to_gray` (BT.601 luma of an
-//   RGB(A) frame, u8 or float32) as `gray_kernel`, and `build_pyramid` /
-//   `pyr_down` (the 5-tap binomial blur and 2x decimation) as
+//   RGB(A) frame, u8 or float32) as `gray_kernel`: four pixels a thread
+//   from whole words (u8 RGBA one 16-byte load, u8 RGB three 4-byte words,
+//   float32 three or four 16-byte loads) and one float4 store, a grid of at
+//   most 8 blocks a multiprocessor striding over the frame, an unaligned
+//   frame and the last pixels % 4 by loads of one channel each; bound by
+//   bytes (each pixel's channels read once, 4 bytes written).  And
+//   `build_pyramid` / `pyr_down` (the 5-tap binomial blur and 2x decimation) as
 //   `pyramid_kernel`, over a stack of B images in one launch.  One launch
 //   writes two levels (so every preset's 3-level pyramid is one launch; 4
 //   levels take two, the second writing one level) or one (`pyr_down`).
@@ -82,7 +87,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;         // the gray kernel's block
+constexpr int kGrayThreads = 256;     // the gray kernel's block
+constexpr int kGrayBlocksPerSm = 8;   // its grid's most: a grid-stride loop past it
 constexpr int kMaxRows = 65535;       // S: grid.y of the cell, rank and describe kernels
 
 // The plain versions' constants, rounded to float32 as torch rounds a
@@ -197,16 +203,85 @@ __device__ __forceinline__ float* dynamic_smem() {
 // K7: gray conversion and the pyramid
 // ---------------------------------------------------------------------------
 
-// rgba [pixels, channels] (channels 3 or 4) → out [pixels]: the plain
-// version's ((r 0.299 + g 0.587) + b 0.114) on float32 values.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    gray_kernel(const T* rgba, int channels, long long pixels, float* out) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= pixels) return;
-  const T* p = rgba + i * channels;
-  out[i] = static_cast<float>(p[0]) * kGrayR + static_cast<float>(p[1]) * kGrayG +
-           static_cast<float>(p[2]) * kGrayB;
+// The r, g, b of four neighbouring pixels (`p` at the first) from whole
+// words: u8 RGBA one 16-byte load, u8 RGB three 4-byte words, float32 four
+// or three 16-byte loads.  `p` is aligned as GrayVec<T, C>::kAlign says.
+template <typename T, int C>
+struct GrayVec {
+  static constexpr int kAlign = sizeof(T) == 1 && C == 3 ? 4 : 16;
+};
+
+template <typename T, int C>
+__device__ __forceinline__ void load_quad(const T* p, float (&c)[4][3]) {
+  if constexpr (sizeof(T) == 1) {
+    unsigned w[4];
+    if constexpr (C == 4) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p);
+      w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+    } else {
+      const unsigned* q = reinterpret_cast<const unsigned*>(p);
+      w[0] = q[0], w[1] = q[1], w[2] = q[2];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        const int k = C * i + ch;       // the byte: little-endian within its word
+        c[i][ch] = static_cast<float>((w[k / 4] >> (8 * (k % 4))) & 0xFFu);
+      }
+  } else {
+    float v[4 * C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const float4 f = reinterpret_cast<const float4*>(p)[j];
+      v[4 * j] = f.x, v[4 * j + 1] = f.y, v[4 * j + 2] = f.z, v[4 * j + 3] = f.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) c[i][ch] = v[C * i + ch];
+  }
+}
+
+// rgba [pixels, C] (C 3 or 4) → out [pixels]: the plain version's ((r
+// 0.299 + g 0.587) + b 0.114) on float32 values, four pixels a thread at a
+// time over a grid sized to the card.  `wide_in`: rgba is aligned for
+// load_quad (else each channel is a load of its own); `wide_out`: out is
+// 16-byte aligned (a float4 store); the pixels past the last group of four
+// by the first threads of block 0.
+template <typename T, int C>
+__global__ void __launch_bounds__(kGrayThreads)
+    gray_kernel(const T* rgba, long long pixels, int wide_in, int wide_out, float* out) {
+  const long long quads = pixels / 4;
+  const long long stride = static_cast<long long>(gridDim.x) * kGrayThreads;
+  for (long long q = static_cast<long long>(blockIdx.x) * kGrayThreads + threadIdx.x;
+       q < quads; q += stride) {
+    float c[4][3];
+    const T* p = rgba + q * 4 * C;
+    if (wide_in) {
+      load_quad<T, C>(p, c);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) c[i][ch] = static_cast<float>(p[C * i + ch]);
+    }
+    float g[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) g[i] = c[i][0] * kGrayR + c[i][1] * kGrayG + c[i][2] * kGrayB;
+    if (wide_out) {
+      reinterpret_cast<float4*>(out)[q] = make_float4(g[0], g[1], g[2], g[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) out[4 * q + i] = g[i];
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x < pixels % 4) {
+    const long long i = quads * 4 + threadIdx.x;
+    const T* p = rgba + i * C;
+    out[i] = static_cast<float>(p[0]) * kGrayR + static_cast<float>(p[1]) * kGrayG +
+             static_cast<float>(p[2]) * kGrayB;
+  }
 }
 
 // img [B, H, W] → out1 [B, H1, W1] (H1 = ceil(H / 2)) and, unless out2 is
@@ -934,16 +1009,40 @@ extern "C" int image_gray_launch(const void* rgba, int is_float, int channels, l
   if (channels < 3 || channels > 4 || pixels < 0 || pixels > (1LL << 40))
     return static_cast<int>(cudaErrorInvalidValue);
   if (pixels == 0) return 0;
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long quads = pixels / 4;
+  long long grid = (quads + kGrayThreads - 1) / kGrayThreads;
+  grid = grid > static_cast<long long>(kGrayBlocksPerSm) * sms ? kGrayBlocksPerSm * sms : grid;
+  const unsigned g = static_cast<unsigned>(grid < 1 ? 1 : grid);
   const auto st = static_cast<cudaStream_t>(stream);
+  const auto at = [&](int align) {
+    return static_cast<int>(reinterpret_cast<unsigned long long>(rgba) % align == 0);
+  };
+  const int wide_out = reinterpret_cast<unsigned long long>(out) % 16 == 0;
+  float* o = static_cast<float*>(out);
   if (is_float) {
-    const auto kernel = gray_kernel<float>;
-    kernel<<<blocks(pixels, kThreads), kThreads, 0, st>>>(static_cast<const float*>(rgba),
-                                                           channels, pixels,
-                                                           static_cast<float*>(out));
+    const auto p = static_cast<const float*>(rgba);
+    if (channels == 4) {
+      const auto kernel = gray_kernel<float, 4>;
+      kernel<<<g, kGrayThreads, 0, st>>>(p, pixels, at(GrayVec<float, 4>::kAlign), wide_out, o);
+    } else {
+      const auto kernel = gray_kernel<float, 3>;
+      kernel<<<g, kGrayThreads, 0, st>>>(p, pixels, at(GrayVec<float, 3>::kAlign), wide_out, o);
+    }
   } else {
-    const auto kernel = gray_kernel<unsigned char>;
-    kernel<<<blocks(pixels, kThreads), kThreads, 0, st>>>(
-        static_cast<const unsigned char*>(rgba), channels, pixels, static_cast<float*>(out));
+    const auto p = static_cast<const unsigned char*>(rgba);
+    if (channels == 4) {
+      const auto kernel = gray_kernel<unsigned char, 4>;
+      kernel<<<g, kGrayThreads, 0, st>>>(p, pixels, at(GrayVec<unsigned char, 4>::kAlign),
+                                         wide_out, o);
+    } else {
+      const auto kernel = gray_kernel<unsigned char, 3>;
+      kernel<<<g, kGrayThreads, 0, st>>>(p, pixels, at(GrayVec<unsigned char, 3>::kAlign),
+                                         wide_out, o);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,12 +10,15 @@ match, and an id-distance delay gate.  Relocalization matches a query to
 stored 3D landmarks and solves P3P-LMedS.
 
 The JAX package keeps a ±1 int8 unpack of the database resident for its
-MXU contraction; the port keeps the packed words only and counts bits
-(``ops/hamming.hamming_matrix_chunked``: one launch of K4 on CUDA tensors,
-also under ``torch.func.vmap``).  Every query's Hamming pass goes through
-``_distances``, whose ``calls`` count them.  The coarse per-entry signature
-``sig`` (mean of the ±1 bits of the entry's valid descriptors) is computed
-from the packed words with shifts.
+MXU contraction and reduces the [Kq, M] distance matrix to each query's
+best two; the port keeps the packed words only, and each query's Hamming
+pass is ``ops/hamming.hamming_best_two``: on CUDA tensors K4 computes the
+masked best two without writing the matrix (one launch, two with its
+merge, also under ``torch.func.vmap``), on CPU tensors the same
+composition as the JAX package's.  ``hamming_best_two.calls`` counts the
+passes.  The coarse per-entry signature ``sig`` (mean of the ±1 bits of
+the entry's valid descriptors) is computed from the packed words with
+shifts.
 """
 
 from __future__ import annotations
@@ -27,11 +30,10 @@ import numpy as np
 import torch
 
 from alvaar_tpu_torch.geom.lie import SE3
-from alvaar_tpu_torch.ops.hamming import DESC_BITS, hamming_matrix_chunked
+from alvaar_tpu_torch.ops.hamming import DESC_BITS, hamming_best_two
 from alvaar_tpu_torch.ops.topk import top_k
 from alvaar_tpu_torch.solvers.absolute import AbsolutePoseResult, p3p_lmeds
 from alvaar_tpu_torch.solvers.pnp import pnp_refine
-from alvaar_tpu_torch.utils.stats import count
 
 _INT = torch.int64
 
@@ -113,26 +115,7 @@ def db_add(db: LoopDB, desc, lm_pos, lm_is3d, kp_valid, kf_id, pose: SE3) -> Loo
         ptr=db.ptr + 1)
 
 
-def _top2_min(dist):
-    """Row-wise (best, second, best_idx) over a wide [N, M] distance
-    matrix; ties resolve to the first index."""
-    bi = torch.argmin(dist, dim=1)
-    best = torch.gather(dist, 1, bi[:, None])[:, 0]
-    cols = torch.arange(dist.shape[1], device=dist.device)
-    second = torch.min(torch.where(cols[None, :] == bi[:, None], torch.inf, dist), dim=1).values
-    return best, second, bi
-
-
 _BIG = 1e9
-
-
-def _distances(desc_q, db_desc):
-    """A query's Hamming pass: [Kq, 8] x [M, 8] → [Kq, M] float32."""
-    count(_distances, "calls")
-    return hamming_matrix_chunked(desc_q, db_desc).to(torch.float32)
-
-
-_distances.calls = 0
 
 
 def detect_loop(db: LoopDB, desc_q, valid_q, query_kf_id, *, nndr: float = 0.8,
@@ -151,21 +134,19 @@ def detect_loop(db: LoopDB, desc_q, valid_q, query_kf_id, *, nndr: float = 0.8,
         qsig = _signature(desc_q, valid_q, db.sig.dtype)
         coarse = torch.where(entry_ok, db.sig @ qsig, -torch.inf)
         _, top_e = top_k(coarse, prefilter)               # [E]
-        dist = _distances(desc_q, db.desc[top_e].reshape(-1, 8))
         sub_ok = db.kp_valid[top_e].reshape(-1) & entry_ok[top_e].repeat_interleave(K)
-        dist = torch.where(sub_ok[None, :] & valid_q[:, None], dist, _BIG)
-        best, second, bi = _top2_min(dist)
+        best, second, bi = hamming_best_two(desc_q, db.desc[top_e].reshape(-1, 8), valid_q,
+                                            sub_ok, _BIG)
         match_img = top_e[bi // K]
     else:
-        dist = _distances(desc_q, db.desc.reshape(-1, 8))
         db_ok = db.kp_valid.reshape(-1) & entry_ok.repeat_interleave(K)
-        dist = torch.where(db_ok[None, :] & valid_q[:, None], dist, _BIG)
-        best, second, bi = _top2_min(dist)
+        best, second, bi = hamming_best_two(desc_q, db.desc.reshape(-1, 8), valid_q, db_ok,
+                                            _BIG)
         match_img = bi // K
 
     # kNN + NNDR, then one vote per surviving match
     match_ok = (best <= second * nndr) & (best < float(DESC_BITS))
-    votes = torch.zeros(D, dtype=torch.float32, device=dist.device).index_add(
+    votes = torch.zeros(D, dtype=torch.float32, device=best.device).index_add(
         0, match_img, match_ok.to(torch.float32))
 
     # min-max normalisation and cutoff
@@ -198,12 +179,9 @@ def _match_entry(db: LoopDB, entry, desc_q, valid_q, nndr: float):
     """NNDR matches of the query to one entry's stored 3D landmarks.
     Returns (matched world points [Kq, 3], match mask [Kq])."""
     ok_db = db.kp_valid[entry] & db.lm_is3d[entry]
-    dist = _distances(desc_q, db.desc[entry])
-    dist = torch.where(ok_db[None, :] & valid_q[:, None], dist, _BIG)
-    neg2, idx2 = top_k(-dist, 2)
-    best, second = -neg2[:, 0], -neg2[:, 1]
+    best, second, bi = hamming_best_two(desc_q, db.desc[entry], valid_q, ok_db, _BIG)
     m_ok = (best <= second * nndr) & (best < 64.0)
-    return db.lm_pos[entry][idx2[:, 0]], m_ok
+    return db.lm_pos[entry][bi], m_ok
 
 
 def verify_loop(db: LoopDB, entry, desc_q, px_q, valid_q, cam, pose0: SE3, *,
@@ -240,12 +218,10 @@ def relocalize_topk(db: LoopDB, desc_q, bearings_q, valid_q, gen, *, focal,
     P3P-LMedS, and the solve with the most inliers wins.  ``samples``: a
     list of ``topk`` draws, one per entry, replacing the generator's."""
     D, K, _ = db.desc.shape
-    dist = _distances(desc_q, db.desc.reshape(-1, 8))
     db_ok = (db.kp_valid & db.lm_is3d & (db.kf_id >= 0)[:, None]).reshape(-1)
-    dist = torch.where(db_ok[None, :] & valid_q[:, None], dist, _BIG)
-    best, second, bi = _top2_min(dist)
+    best, second, bi = hamming_best_two(desc_q, db.desc.reshape(-1, 8), valid_q, db_ok, _BIG)
     m_ok = (best <= second * nndr) & (best < 64.0)
-    votes = torch.zeros(D, dtype=torch.float32, device=dist.device).index_add_(
+    votes = torch.zeros(D, dtype=torch.float32, device=best.device).index_add_(
         0, bi // K, m_ok.to(torch.float32))
     _, entries = top_k(votes, topk)
 

@@ -4,20 +4,24 @@ Port of alvaar_tpu/ops/hamming.py (``hamming_matrix_popcount``,
 ``hamming_rowwise``, ``hamming_min_crossbag``, ``best_two``).  Descriptor
 words are int32 tensors holding uint32 bits.
 
-``hamming_min_crossbag`` (local-map matching) and ``hamming_matrix`` /
-``hamming_matrix_chunked`` (the loop queries) dispatch on the device: CUDA
-tensors launch K4 (csrc/hamming.cu, ops/hamming_kernel.py), the whole
-[N, M] result in one launch, through the custom ops
-``alvaar_tpu_torch::hamming_min_crossbag`` and ``::hamming_matrix``, whose
-batching rule makes one launch over all the rows that ``torch.func.vmap``
-stacks (a lone ``hamming_min_crossbag`` call, outside any transform, goes
-straight to the launcher); CPU tensors run the plain versions; any other
-device raises.  The
+``hamming_min_crossbag`` (local-map matching), ``hamming_best_two`` (the
+loop queries: each query row's least and second least masked distance and
+the first column of the least, which the JAX package reduces from its
+[N, M] matrix) and ``hamming_matrix`` / ``hamming_matrix_chunked`` (the
+dense matrix) dispatch on the device: CUDA tensors launch K4
+(csrc/hamming.cu, ops/hamming_kernel.py) through the custom ops
+``alvaar_tpu_torch::hamming_min_crossbag``, ``::hamming_best_two`` and
+``::hamming_matrix``, whose batching rule makes one launch over all the
+rows that ``torch.func.vmap`` stacks (a lone ``hamming_min_crossbag`` or
+``hamming_best_two`` call, outside any transform, goes straight to the
+launcher; the best two's merge across column chunks, where the card needs
+several, is a second launch); CPU tensors run the plain versions; any
+other device raises.  The
 plain versions count the XOR words by SWAR arithmetic in int32 on their
 two 16-bit halves: no byte view of the words (which ``torch.func.vmap``
 cannot batch) and no int64 widening.  On the CPU ``hamming_matrix_chunked``
-takes the database axis a chunk at a time, so its temporaries stay a few
-tens of MB.
+and ``hamming_best_two`` take the database axis a chunk at a time, so their
+temporaries stay a few tens of MB.
 """
 
 from __future__ import annotations
@@ -49,14 +53,40 @@ def _hamming_matrix_plain(a, b):
     return popcount_words(a[:, None, :] ^ b[None, :, :])
 
 
+def _hamming_matrix_chunks(a, b, chunk: int = 2048):
+    """``_hamming_matrix_plain`` with the M axis taken ``chunk`` rows at a
+    time."""
+    return torch.cat([popcount_words(a[:, None, :] ^ b[None, lo:lo + chunk, :])
+                      for lo in range(0, b.shape[0], chunk)], dim=1)
+
+
 def hamming_matrix_chunked(a, b, chunk: int = 2048):
     """[N, 8] x [M, 8] → [N, M] int32, equal to ``hamming_matrix``: one K4
     launch on CUDA tensors; on CPU tensors the M axis is taken ``chunk``
     rows at a time."""
     if _dispatch(a, "hamming_matrix"):
         return hamming_matrix(a, b)
-    return torch.cat([popcount_words(a[:, None, :] ^ b[None, lo:lo + chunk, :])
-                      for lo in range(0, b.shape[0], chunk)], dim=1)
+    return _hamming_matrix_chunks(a, b, chunk)
+
+
+def _top2_min(dist):
+    """Row-wise (best, second, best_idx) over a wide [N, M] distance
+    matrix; ties resolve to the first index."""
+    bi = torch.argmin(dist, dim=1)
+    best = torch.gather(dist, 1, bi[:, None])[:, 0]
+    cols = torch.arange(dist.shape[1], device=dist.device)
+    second = torch.min(torch.where(cols[None, :] == bi[:, None], torch.inf, dist), dim=1).values
+    return best, second, bi
+
+
+def _hamming_best_two_plain(a, b, row_ok, col_ok, big: float):
+    """The loop queries' composition: [N, 8] x [M, 8] distances (the M axis
+    a chunk at a time) as float32, ``big`` where ``row_ok`` [N] or
+    ``col_ok`` [M] is off, then each row's (best, second, best_idx) by
+    ``_top2_min``."""
+    dist = _hamming_matrix_chunks(a, b).to(torch.float32)
+    dist = torch.where(col_ok[None, :] & row_ok[:, None], dist, big)
+    return _top2_min(dist)
 
 
 def hamming_rowwise(a, b):
@@ -103,6 +133,19 @@ def _matrix_rows(a, b):
     return torch.stack([_hamming_matrix_plain(a[i], b[i]) for i in range(a.shape[0])])
 
 
+def _best_two_rows(a, b, row_ok, col_ok, big):
+    out = [_hamming_best_two_plain(a[i], b[i], row_ok[i], col_ok[i], big)
+           for i in range(a.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*out))
+
+
+def _launch_best_two(a, b, row_ok, col_ok, big):
+    out = hamming_kernel.launch_best_two(a, b, row_ok, col_ok, big)
+    count(hamming_best_two, "launches",
+          hamming_kernel.best_two_kernels(a.shape[0], a.shape[1], b.shape[1], a.device))
+    return out
+
+
 def _launch_matrix(a, b):
     out = hamming_kernel.launch_matrix(a, b)
     if hamming_kernel.launched(out):
@@ -119,6 +162,17 @@ _MIN_CROSSBAG_OP.register_fake(
     lambda bag_a, filled_a, bag_b, filled_b:
     bag_a.new_empty((bag_a.shape[0], bag_a.shape[1], bag_b.shape[1]), dtype=torch.float32))
 _MIN_CROSSBAG_OP.register_vmap(rows_rule(_MIN_CROSSBAG_OP))
+
+_BEST_TWO_OP = torch.library.custom_op(
+    "alvaar_tpu_torch::hamming_best_two", _best_two_rows, mutates_args=(), device_types="cpu",
+    schema="(Tensor a, Tensor b, Tensor row_ok, Tensor col_ok, float big) "
+           "-> (Tensor, Tensor, Tensor)")
+_BEST_TWO_OP.register_kernel("cuda")(_launch_best_two)
+_BEST_TWO_OP.register_fake(
+    lambda a, b, row_ok, col_ok, big: (a.new_empty(a.shape[:2], dtype=torch.float32),
+                                       a.new_empty(a.shape[:2], dtype=torch.float32),
+                                       a.new_empty(a.shape[:2], dtype=torch.int64)))
+_BEST_TWO_OP.register_vmap(rows_rule(_BEST_TWO_OP))
 
 _MATRIX_OP = torch.library.custom_op(
     "alvaar_tpu_torch::hamming_matrix", _matrix_rows, mutates_args=(), device_types="cpu",
@@ -149,8 +203,33 @@ def hamming_min_crossbag(bag_a, filled_a, bag_b, filled_b):
     return _launch_min_crossbag(*x)[0]
 
 
+def hamming_best_two(a, b, row_ok, col_ok, big: float):
+    """The loop queries' best two: for query descriptors a [N, 8] and
+    database descriptors b [M, 8] (M >= 1), each row's least and second
+    least distance as float32 where ``row_ok`` [N] and ``col_ok`` [M] (``big``
+    elsewhere) and the first column of the least: (best [N], second [N],
+    idx [N] int64), exactly ``_top2_min`` of the masked float32 matrix (a
+    masked row (big, big, 0), a lone column's second inf).  K4 on CUDA
+    tensors (one launch, a second for the merge across column chunks; under
+    vmap one over all the rows), the plain version on CPU tensors.
+    ``calls`` counts the query passes, ``launches`` the kernels they start
+    (two where the merge runs)."""
+    count(hamming_best_two, "calls")
+    if b.shape[0] < 1:
+        raise ValueError("hamming_best_two needs at least one database descriptor")
+    if not _dispatch(a, "hamming_best_two"):
+        return _hamming_best_two_plain(a, b, row_ok, col_ok, big)
+    x = tuple(map(one, (a, b, row_ok, col_ok)))
+    if any(map(wrapped, x)):      # under vmap: one launch over the rows, by the op's rule
+        out = _BEST_TWO_OP(*x, float(big))
+    else:
+        out = _launch_best_two(*x, float(big))
+    return tuple(o[0] for o in out)
+
+
 hamming_matrix.launches = 0
 hamming_min_crossbag.launches = 0
+hamming_best_two.launches = hamming_best_two.calls = 0
 
 
 def best_two(dists, valid_cols=None):

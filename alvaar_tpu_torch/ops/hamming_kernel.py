@@ -2,8 +2,10 @@
 checks and launches.
 
 ``launch_min_crossbag`` computes local-map matching's minimum cross-bag
-distance and ``launch_matrix`` the loop queries' dense distance matrix,
-each for S rows in one launch: one call serves every row that
+distance, ``launch_best_two`` the loop queries' masked best two per query
+row (one launch, or two where the column chunks need a merge) and
+``launch_matrix`` the dense distance matrix (the same kernel with a store
+epilogue), each for S rows: one call serves every row that
 ``torch.func.vmap`` batches (``ops/hamming.py`` registers the custom ops
 and their batching rule).  The plain versions and the wrappers that
 dispatch on the device are in ``ops/hamming.py``; this module only
@@ -27,9 +29,9 @@ from alvaar_tpu_torch.utils.build import build_library, find_tool
 
 # csrc/hamming.cu's limits (``bind`` checks that the library has these)
 MAX_BAG = 8                    # descriptors a bag at most
-MAX_ROWS = 65535               # S: the dense kernel's grid.z
+MAX_ROWS = 65535               # S: the dense pass's grid.z
 MAX_N_CROSSBAG = 0x7FFFFFF0    # rows of A of the min cross-bag pass: its row walk's ints
-MAX_N_MATRIX = 65535 * 32      # rows of A of the dense matrix: 32 a block along grid.y
+MAX_N_MATRIX = 65535 * 32      # rows of A of the dense pass: its row blocks along grid.y
 WORDS = 8                      # 32-bit words of a 256-bit descriptor
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "hamming.cu"
@@ -57,6 +59,11 @@ def bind(lib):
     lib.hamming_min_crossbag_launch.argtypes = [ptr] * 4 + [i32] * 4 + [ptr] * 2
     lib.hamming_matrix_launch.restype = i32
     lib.hamming_matrix_launch.argtypes = [ptr] * 2 + [i32] * 3 + [ptr] * 2
+    lib.hamming_best_two_launch.restype = i32
+    lib.hamming_best_two_launch.argtypes = ([ptr] * 4 + [i32] * 3 + [ctypes.c_float]
+                                            + [ptr] * 5 + [i32, ptr])
+    lib.hamming_best_two_chunks.restype = i32
+    lib.hamming_best_two_chunks.argtypes = [i32] * 3 + [ctypes.POINTER(i32)]
     lim = lib.hamming_kernel_limits
     lim.restype = i32
     lim.argtypes = [ctypes.POINTER(i32)] * 4
@@ -123,15 +130,31 @@ def check_min_crossbag_args(bag_a, filled_a, bag_b, filled_b):
 
 
 def check_matrix_args(a, b):
-    """Raise unless K4's dense matrix takes these: on one device, int32
-    words a [S, N, 8] and b [S, M, 8], contiguous.  Returns (S, N, M)."""
+    """Raise unless K4's dense pass takes these: on one device, int32 words
+    a [S, N, 8] and b [S, M, 8], contiguous and 8-byte aligned (a lane reads
+    two words at once).  Returns (S, N, M)."""
     if not isinstance(a, torch.Tensor) or a.dim() != 3:
         raise ValueError("a must be a [S, N, 8] tensor")
     s, n, _ = a.shape
     m = b.shape[1] if isinstance(b, torch.Tensor) and b.dim() == 3 else -1
     _check("a", a, torch.int32, (s, n, WORDS), a.device)
     _check("b", b, torch.int32, (s, m, WORDS), a.device)
+    for name, x in (("a", a), ("b", b)):
+        if x.data_ptr() % 8:
+            raise ValueError(f"{name} must start on an 8-byte boundary")
     _rows(s, n, m, MAX_N_MATRIX)
+    return s, n, m
+
+
+def check_best_two_args(a, b, row_ok, col_ok):
+    """Raise unless K4's best two takes these: ``check_matrix_args``' a and
+    b with M >= 1, and bool row_ok [S, N] and col_ok [S, M], contiguous, on
+    the same device.  Returns (S, N, M)."""
+    s, n, m = check_matrix_args(a, b)
+    if m < 1:
+        raise ValueError("the best two needs at least one column (M >= 1)")
+    _check("row_ok", row_ok, torch.bool, (s, n), a.device)
+    _check("col_ok", col_ok, torch.bool, (s, m), a.device)
     return s, n, m
 
 
@@ -168,9 +191,63 @@ def launch_min_crossbag(bag_a, filled_a, bag_b, filled_b):
     return out
 
 
+_CHUNKS = {}
+
+
+def _chunks(lib, s: int, n: int, m: int, dev) -> int:
+    """The column chunks of the best two's grid (from the card's
+    multiprocessors; asked once per shape and device): past one, the
+    merge's scratch is needed."""
+    key = (s, n, m, dev.index)
+    if key not in _CHUNKS:
+        c = ctypes.c_int()
+        with torch.cuda.device(dev):
+            rc = lib.hamming_best_two_chunks(s, n, m, ctypes.byref(c))
+        if rc != 0:
+            raise RuntimeError(f"hamming_best_two_chunks failed: cudaError_t {rc}")
+        _CHUNKS[key] = c.value
+    return _CHUNKS[key]
+
+
+def best_two_kernels(s: int, n: int, m: int, dev) -> int:
+    """The kernels that ``launch_best_two`` starts for S rows of N x M: none
+    where N is 0, two where its column chunks need the merge, else one."""
+    if s * n == 0:
+        return 0
+    return 1 + (_chunks(_lib or _load(), s, n, m, dev) > 1)
+
+
+def launch_best_two(a, b, row_ok, col_ok, big: float):
+    """(best [S, N] float32, second [S, N] float32, idx [S, N] int64): per
+    row s and query n, the least and second least over m of the distance
+    a[s, n] to b[s, m] where row_ok[s, n] and col_ok[s, m] (``big``
+    elsewhere; the second inf where M is 1), and the first m of the
+    least."""
+    s, n, m = check_best_two_args(a, b, row_ok, col_ok)
+    dev = a.device
+    _cuda(dev)
+    lib = _lib or _load()
+    best = torch.empty((s, n), dtype=torch.float32, device=dev)
+    second = torch.empty((s, n), dtype=torch.float32, device=dev)
+    idx = torch.empty((s, n), dtype=torch.int64, device=dev)
+    if launched(best):
+        chunks = _chunks(lib, s, n, m, dev)
+        key = sec = None
+        if chunks > 1:
+            key = torch.empty((s, n, chunks), dtype=torch.int64, device=dev)
+            sec = torch.empty((s, n, chunks), dtype=torch.int32, device=dev)
+        _run(lib.hamming_best_two_launch,
+             (a.data_ptr(), b.data_ptr(), row_ok.data_ptr(), col_ok.data_ptr(), s, n, m,
+              float(big), best.data_ptr(), second.data_ptr(), idx.data_ptr(),
+              None if key is None else key.data_ptr(), None if sec is None else sec.data_ptr(),
+              chunks),
+             dev, "hamming_best_two")
+    return best, second, idx
+
+
 def launch_matrix(a, b):
     """[S, N, M] int32: per row, the Hamming distance of every A descriptor
-    to every B descriptor."""
+    to every B descriptor (the dense pass's store epilogue)."""
     s, n, m = check_matrix_args(a, b)
     dev = a.device
     _cuda(dev)

@@ -90,12 +90,16 @@ Phases, each printed on its own lines:
    (configuration 4), and S = 3 and 8 rows under ``torch.func.vmap``, every
    kind of input at the first (bags filled in order with empty ones,
    scattered masks, an all-empty side, all-ones and all-zero words); and
-   ``hamming_matrix_chunked`` (the loop queries' dense matrix) at 192 query
-   descriptors against 192, 3072 and 49 152 (one entry, ``detect_loop``
-   past its prefilter, ``relocalize_topk`` over 256 keyframes) and 4 x
-   192 x 3072 under vmap: bit-equal to the plain versions
-   (ops/hamming.py ``_min_crossbag_plain``, ``_hamming_matrix_plain``),
-   run to run and row by row, one launch per call.  Times at those shapes
+   the dense pass at 192 query descriptors against 192, 3072 and 49 152
+   (one entry, ``detect_loop`` past its prefilter, ``relocalize_topk`` over
+   256 keyframes) and 4 x 192 x 3072 under vmap, both as
+   ``hamming_matrix_chunked`` (the dense int32 matrix) and as
+   ``hamming_best_two`` (the loop queries' masked best two, on every kind
+   of tests/hamming_problems.py's ``BEST_TWO_KINDS``: ties at the best and
+   the second, masked rows and columns): bit-equal to the plain versions
+   (ops/hamming.py ``_min_crossbag_plain``, ``_hamming_matrix_plain``,
+   ``_hamming_best_two_plain``), run to run and row by row, one call per
+   pass (the best two one launch, two with its merge).  Times at those shapes
    by CUDA events and ``torch.profiler``, beside the bound (every bit
    pair's AND and popcount at the tensor cores' binary rate, or the bytes;
    the same count at the int8 rate, PR 17's bound, printed beside), the
@@ -104,8 +108,11 @@ Phases, each printed on its own lines:
    the min cross-bag pass, ``torch._int_mm`` of 0/1 x ±1 int8 operands
    (the int8 products alone; the minimum over filled pairs of popc(b) plus
    them is checked against the kernel's, printed) and commit c513ebb's
-   kernel's device times (``HAMMING_C513EBB_DEVICE_MS``); a lone
-   ``hamming_min_crossbag`` call's host and CUDA-event times;
+   kernel's device times (``HAMMING_C513EBB_DEVICE_MS``), for the dense
+   pass commit a042951's ``__popc`` kernel's (``HAMMING_A042951_DENSE_MS``)
+   and, for the best two, the eager tail that commit ran over its matrix
+   (``_top2_min`` and ``top_k(-dist, 2)``: kernels, device and event
+   time); a lone ``hamming_min_crossbag`` call's host and CUDA-event times;
 2e. the image kernels (csrc/image_kernels.cu), built with the others,
    right after phase 2d: K7's gray conversion (u8 RGBA, and float32 RGB)
    and 3-level pyramid on one 640x480 frame, 16 x 640x480 and 64 x
@@ -191,7 +198,9 @@ Phases, each printed on its own lines:
    the identity);
 5. loop closure: (a) a full 256-keyframe x 192-descriptor database,
    ``detect_loop`` finding the revisited entry, ``relocalize_topk``, their
-   times and peak device memory; (b) the 89-frame 320x240 out-and-back of
+   times and peak device memory; each of ``detect_loop``, ``verify_loop``
+   and ``relocalize_topk`` once under ``torch.profiler`` (kernels, device
+   time, K4's kernels: at most two per query pass); (b) the 89-frame 320x240 out-and-back of
    tests/test_loop_e2e.py with loop closure on: a loop detected in the
    return half, a correction applied, more than 40 frames tracked, K9
    launched once in each ``verify_loop`` call;
@@ -459,6 +468,23 @@ def _device_ms(fn, kernel_name: str, launches_per_call: int = 1, reps: int = 20,
         if us > 0 and count > 0:
             return us / 1e3 * launches_per_call, count / reps
     return float("nan"), 0.0
+
+
+L2_EVICT_BYTES = 128 << 20     # over twice the H100's 50 MB L2
+
+
+def _cold_device_ms(fn, kernel_name: str, reps: int = 20):
+    """``_device_ms`` of ``fn`` with its inputs out of the card's L2: a
+    read of ``L2_EVICT_BYTES`` (a reduction kernel of its own, not among
+    ``kernel_name``'s) before each call, so that each call reads from DRAM
+    as it would on the main path, where other kernels run between frames."""
+    import torch
+    evict = torch.ones(L2_EVICT_BYTES // 4, device="cuda")
+
+    def call():
+        evict.sum()
+        fn()
+    return _device_ms(call, kernel_name, reps=reps)
 
 
 def phase_env():
@@ -1468,7 +1494,15 @@ HAMMING_CASES = (("L=4096 K=192", 1, 4096, 192, 6), ("L=4096 K=130", 1, 4096, 13
 # (the keyframe sub-batch's loop closure)
 HAMMING_LOOP_CASES = (("192 x 192", 1, 192, 192), ("192 x 3072", 1, 192, 3072),
                       ("192 x 49152", 1, 192, 49152), ("4 x 192 x 3072", 4, 192, 3072))
-HAMMING_PATH_LAUNCHES = {"hamming_min_crossbag": 0, "hamming_matrix": 0}   # summed over the paths
+# summed over the paths (the dense int32 form has no caller on them: the
+# loop queries take the best two)
+HAMMING_PATH_LAUNCHES = {"hamming_min_crossbag": 0, "hamming_best_two": 0, "hamming_matrix": 0}
+# commit a042951's loop queries (a __popc dense kernel, its int32 matrix
+# reduced by eager torch), device ms per call of that dense kernel by
+# torch.profiler at HAMMING_LOOP_CASES (PERF.md §6: tools/run_hamming_phase.py
+# --ab on an NVIDIA H100 80GB HBM3 at 700 W), printed beside this tree's
+HAMMING_A042951_DENSE_MS = {"192 x 192": 0.0021, "192 x 3072": 0.0036, "192 x 49152": 0.0228,
+                            "4 x 192 x 3072": 0.0074}
 # commit c513ebb's min cross-bag kernel (PR 17's popcount design): device ms
 # per call by torch.profiler, the median of its two turns of
 # tools/run_hamming_phase.py --ab in one call on an NVIDIA H100 80GB HBM3 at
@@ -1482,37 +1516,41 @@ HAMMING_C513EBB_LONE_MS = "0.081-0.098"
 
 
 def _hamming_zero() -> None:
-    from alvaar_tpu_torch.loopclosure import detector
     from alvaar_tpu_torch.ops import hamming
     from alvaar_tpu_torch.worldmap import matching
     hamming.hamming_min_crossbag.launches = hamming.hamming_matrix.launches = 0
-    matching.match_to_local_map.calls = detector._distances.calls = 0
+    hamming.hamming_best_two.launches = hamming.hamming_best_two.calls = 0
+    matching.match_to_local_map.calls = 0
 
 
 def _hamming_counts() -> dict:
-    from alvaar_tpu_torch.loopclosure import detector
     from alvaar_tpu_torch.ops import hamming
     from alvaar_tpu_torch.worldmap import matching
     return dict(crossbag=hamming.hamming_min_crossbag.launches,
                 matching=matching.match_to_local_map.calls,
-                matrix=hamming.hamming_matrix.launches, queries=detector._distances.calls)
+                best_two=hamming.hamming_best_two.launches,
+                queries=hamming.hamming_best_two.calls, matrix=hamming.hamming_matrix.launches)
 
 
 def _hamming_path(tag: str, matching: bool = True, loop: bool = False) -> None:
     """After a path driven from zeroed counters: K4 launched once per
     ``match_to_local_map`` call (a batched keyframe phase makes one call for
-    all its rows) and once per loop query's Hamming pass; with ``matching``
-    (``loop``) at least one such call.  The launches go into the kernel
-    line."""
+    all its rows) and once or twice per loop query's best two (one op call;
+    its merge, where it has one, is the second kernel of the call), the
+    dense int32 form never; with ``matching`` (``loop``) at least one such call.
+    The launches go into the kernel line."""
     c = _hamming_counts()
     print(f"[{tag}] descriptor Hamming on the path: hamming_min_crossbag {c['crossbag']} launches "
-          f"in {c['matching']} match_to_local_map calls, hamming_matrix {c['matrix']} launches "
-          f"in {c['queries']} loop-query passes")
-    _check(c["crossbag"] == c["matching"] and c["matrix"] == c["queries"],
-           f"[{tag}] K4's launches differ from one per call: {c}")
+          f"in {c['matching']} match_to_local_map calls, hamming_best_two {c['best_two']} "
+          f"launches in {c['queries']} loop-query passes, hamming_matrix {c['matrix']}")
+    _check(c["crossbag"] == c["matching"], f"[{tag}] K4's launches differ from one per call: {c}")
+    _check(c["queries"] <= c["best_two"] <= 2 * c["queries"],
+           f"[{tag}] the best two's launches are not one or two per call: {c}")
+    _check(c["matrix"] == 0, f"[{tag}] the dense int32 form ran on the path: {c}")
     _check(c["matching"] > 0 or not matching, f"[{tag}] local-map matching never ran on the path")
     _check(c["queries"] > 0 or not loop, f"[{tag}] no loop query on the path")
     HAMMING_PATH_LAUNCHES["hamming_min_crossbag"] += c["crossbag"]
+    HAMMING_PATH_LAUNCHES["hamming_best_two"] += c["best_two"]
     HAMMING_PATH_LAUNCHES["hamming_matrix"] += c["matrix"]
 
 
@@ -1560,16 +1598,56 @@ def _hamming_loop_case(name, S, N, M, dev) -> None:
     _check(launched == 1, f"[hamming] {name}: {launched} launches")
 
 
+def _best_two_case(name, S, N, M, kind, dev) -> None:
+    """K4's best two (the loop queries' reduction in the kernel) on one
+    case: one op call (under ``torch.func.vmap`` for S rows; one launch, two
+    with the merge), best, second and idx bit-equal to the plain
+    composition row by row, to each row's call alone and run to run."""
+    import torch
+    from hamming_problems import best_two_problem
+    from alvaar_tpu_torch.loopclosure.detector import _BIG
+    from alvaar_tpu_torch.ops import hamming, hamming_kernel
+    x = best_two_problem(np.random.default_rng(N + M + S), S, N, M, kind, dev)
+    def call():
+        if S == 1:
+            return tuple(o[None] for o in hamming.hamming_best_two(*(c[0] for c in x), _BIG))
+        return torch.func.vmap(hamming.hamming_best_two, in_dims=(0, 0, 0, 0, None))(*x, _BIG)
+    _hamming_zero()
+    got = call()
+    launched, calls = hamming.hamming_best_two.launches, hamming.hamming_best_two.calls
+    again = call()
+    plain = [hamming._hamming_best_two_plain(*(c[i] for c in x), _BIG) for i in range(S)]
+    alone = [hamming.hamming_best_two(*(c[i] for c in x), _BIG) for i in range(S)]
+    same = lambda rows: all(torch.equal(g[i], r[k]) and g.dtype == r[k].dtype
+                            for i, r in enumerate(rows) for k, g in enumerate(got))
+    run_to_run = all(torch.equal(g, h) for g, h in zip(got, again))
+    ties = int(sum(int((p[0] == p[1]).sum()) for p in plain))
+    print(f"[hamming] best two {name} ({kind}; S={S}, N={N}, M={M}): best, second, idx "
+          f"bit-equal to the plain composition {same(plain)}, run to run {run_to_run}, rows to "
+          f"their calls alone {same(alone)}; {launched} kernel launches in {calls} call "
+          f"({ties} rows tied at the best)")
+    _check(same(plain), f"[hamming] best two {name} ({kind}): differs from the plain version")
+    _check(run_to_run, f"[hamming] best two {name} ({kind}): differs run to run")
+    _check(same(alone), f"[hamming] best two {name} ({kind}): a row differs from its call alone")
+    kernels = hamming_kernel.best_two_kernels(S, N, M, x[0].device)
+    _check(calls == 1 and launched == kernels,
+           f"[hamming] best two {name}: {launched} launches ({kernels} expected), {calls} calls")
+
+
 def _hamming_checks(dev, cases=HAMMING_CASES, loop_cases=HAMMING_LOOP_CASES) -> float:
     """Phase 2d's bars on ``dev`` (the card, or the CPU rehearsal of the
     source): every case, and every kind of input of tests/hamming_problems.py
-    at the first.  Returns the largest |kernel - plain| (0: bit-equal)."""
-    from hamming_problems import KINDS
+    at the first; the loop cases through the dense int32 form and the best
+    two (every kind of ``BEST_TWO_KINDS``).  Returns the largest |kernel -
+    plain| (0: bit-equal)."""
+    from hamming_problems import BEST_TWO_KINDS, KINDS
     for i, case in enumerate(cases):
         for kind in (KINDS if i == 0 else KINDS[:1]):
             _hamming_case(*case, kind, dev)
     for case in loop_cases:
         _hamming_loop_case(*case, dev)
+        for kind in BEST_TWO_KINDS:
+            _best_two_case(*case, kind, dev)
     return 0.0
 
 
@@ -1585,6 +1663,75 @@ def _hamming_bound(S, N, M, G, masked: bool):
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_B1_OP_PER_S
     return (nbytes, ops, 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             1e3 * max(t_bytes, ops / H100_INT8_OP_PER_S))
+
+
+def _best_two_bound(S, N, M):
+    """(bytes, operations, bound_ms, bound_by) of one best-two call: both
+    descriptor sets and both masks read once, 16 bytes a query row written
+    (best, second, idx); 2 N M 256 binary operations a row at the tensor
+    cores' binary rate."""
+    ops = 2.0 * S * N * M * 256
+    nbytes = S * ((N + M) * 32 + (N + M) + N * 16)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_B1_OP_PER_S
+    return nbytes, ops, 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _best_two_time(name, S, N, M, card) -> dict:
+    """K4's best two at one loop shape (a lone call at S = 1, under vmap
+    above, as the loop queries call it) beside its bound, the plain
+    composition, commit a042951's dense kernel (``HAMMING_A042951_DENSE_MS``)
+    and the eager tail it replaced over that kernel's matrix (``_top2_min``,
+    and ``top_k(-dist, 2)`` as ``_match_entry`` took it: kernels and device
+    ms by torch.profiler, and CUDA events), and the bf16 ±1 torch.matmul of
+    the same pairs."""
+    import torch
+    from hamming_problems import best_two_problem
+    from alvaar_tpu_torch.loopclosure.detector import _BIG
+    from alvaar_tpu_torch.ops import hamming
+    from alvaar_tpu_torch.ops.topk import top_k
+    dev = torch.device("cuda")
+    x = best_two_problem(np.random.default_rng(N + M + S), S, N, M, "random", dev)
+    if S == 1:
+        args = tuple(c[0] for c in x)
+        fn = lambda: hamming.hamming_best_two(*args, _BIG)
+        plain = lambda: hamming._hamming_best_two_plain(*args, _BIG)
+    else:
+        vm = lambda f: torch.func.vmap(f, in_dims=(0, 0, 0, 0, None))
+        fn = lambda: vm(hamming.hamming_best_two)(*x, _BIG)
+        plain = lambda: vm(hamming._hamming_best_two_plain)(*x, _BIG)
+    ms = _time_ms(fn)
+    dev_ms, n_launch = _device_ms(fn, "hamming_bmma")
+    nbytes, ops, bound_ms, bound_by = _best_two_bound(S, N, M)
+    plain_ms = _time_ms(plain, reps=2, rounds=3, warmup=1)
+    a, b, row_ok, col_ok = x
+    dense = hamming.hamming_matrix_chunked
+    mat = torch.stack([dense(a[i], b[i]) for i in range(S)])
+    ok = col_ok[:, None, :] & row_ok[:, :, None]
+    tails = {"_top2_min": lambda: [hamming._top2_min(torch.where(ok[i], mat[i].float(), _BIG))
+                                   for i in range(S)],
+             "top_k": lambda: [top_k(-torch.where(ok[i], mat[i].float(), _BIG), 2)
+                               for i in range(S)]}
+    tail = {}
+    for k, f in tails.items():
+        f()
+        kernels, device, _, _ = _profile_counts(f)
+        tail[k] = dict(kernels=kernels, device_ms=device, ms=_time_ms(f, reps=5))
+    lib_a, lib_b = _pm1_bf16(a), _pm1_bf16(b)
+    lib_ms = _time_ms(lambda: torch.matmul(lib_a, lib_b.transpose(-1, -2)))
+    before = HAMMING_A042951_DENSE_MS[name]
+    print(f"[hamming] best two {name}: {ms:.4f} ms per call (CUDA events), device {dev_ms:.4f} ms "
+          f"in {n_launch:g} launches (torch.profiler), {bound_ms / dev_ms:.2%} of the bound "
+          f"{bound_ms * 1e3:.3f} us by {bound_by} ({nbytes / 1e6:.3f} MB, {ops / 1e9:.2f} G "
+          f"binary operations); commit a042951's dense kernel {before:.4f} ms plus its eager tail "
+          f"over the matrix: _top2_min {tail['_top2_min']['kernels']} kernels "
+          f"{tail['_top2_min']['device_ms']:.4f} ms device ({tail['_top2_min']['ms']:.4f} ms by "
+          f"events), top_k(-dist, 2) {tail['top_k']['kernels']} kernels "
+          f"{tail['top_k']['device_ms']:.4f} ms device ({tail['top_k']['ms']:.4f} ms by events); "
+          f"the bf16 ±1 torch.matmul {lib_ms:.4f} ms; plain composition {plain_ms:.3f} ms "
+          f"[{card}]")
+    return dict(shape=name, S=S, N=N, M=M, ms=ms, device_ms=dev_ms, launches_per_call=n_launch,
+                bytes=nbytes, ops=ops, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                plain_ms=plain_ms, a042951_tail=tail)
 
 
 def _bits(words):
@@ -1679,7 +1826,7 @@ def phase_hamming_kernel(card):
     from alvaar_tpu_torch.ops import hamming
     dev = torch.device("cuda")
     max_abs = _hamming_checks(dev)
-    rows = {"hamming_min_crossbag": [], "hamming_matrix": []}
+    rows = {"hamming_min_crossbag": [], "hamming_best_two": [], "hamming_matrix": []}
     # one call as local-map matching makes it: alone at S = 1, under vmap
     # for the batched keyframe phase's rows
     batched = lambda f, S: f if S == 1 else torch.func.vmap(f)
@@ -1714,10 +1861,15 @@ def phase_hamming_kernel(card):
         same = torch.equal(((256 - dots) / 2).to(torch.int32), fn())
         print(f"[hamming] {name}: the bf16 ±1 product's (256 - dot) / 2 equal to the kernel's "
               f"{same}")
-        rows["hamming_matrix"].append(_hamming_time(
-            name, S, N, M, 1, fn, plain, "hamming_matrix_kernel", lib_a, lib_b, card))
+        row = _hamming_time(name, S, N, M, 1, fn, plain, "hamming_bmma", lib_a, lib_b, card)
+        before = HAMMING_A042951_DENSE_MS[name]
+        print(f"[hamming] {name} dense int32 form: commit a042951's __popc kernel {before:.4f} ms, "
+              f"this {row['device_ms']:.4f} ms [{card}]")
+        rows["hamming_matrix"].append(row)
+        rows["hamming_best_two"].append(_best_two_time(name, S, N, M, card))
     out = {}
-    for key, main in (("hamming_min_crossbag", "L=4096 K=192"), ("hamming_matrix", "192 x 3072")):
+    for key, main in (("hamming_min_crossbag", "L=4096 K=192"), ("hamming_best_two", "192 x 3072"),
+                      ("hamming_matrix", "192 x 3072")):
         r = next(r for r in rows[key] if r["shape"] == main)
         out[key] = dict(max_abs_err=max_abs, ms=r["ms"], plain_ms=r["plain_ms"],
                         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -2228,22 +2380,28 @@ def _describe_work(img, xy, c08cb84: bool = False):
     return nbytes, flops
 
 
-def _image_time(name, fn, plain_fn, kernel_name, nbytes, flops, card, library=None):
+def _image_time(name, fn, plain_fn, kernel_name, nbytes, flops, card, library=None,
+                cold=False):
     """One kernel's times at one shape beside the bound, the plain version
-    and (``library``) one PyTorch call of the same function."""
+    and (``library``) one PyTorch call of the same function; with ``cold``
+    its device time with the L2 emptied before each call too
+    (``_cold_device_ms``)."""
     ms = _time_ms(fn)
     dev_ms, n_launch = _device_ms(fn, kernel_name)
     bound_ms, bound_by = _image_bound(nbytes, flops)
     plain_ms = _time_ms(plain_fn, reps=3, rounds=3, warmup=1)
     lib_ms = _time_ms(library) if library is not None else None
     lib = f"; the library call {lib_ms:.4f} ms" if lib_ms is not None else ""
+    cold_ms = _cold_device_ms(fn, kernel_name)[0] if cold else None
+    cold_text = (f"; L2 emptied before each call: device {cold_ms:.4f} ms, "
+                 f"{bound_ms / cold_ms:.2%} of the bound" if cold else "")
     print(f"[image] {name}: {ms:.4f} ms per call (CUDA events), device {dev_ms:.4f} ms in "
           f"{n_launch:g} launches (torch.profiler), {bound_ms / dev_ms:.2%} of the bound "
           f"{bound_ms * 1e3:.3f} us by {bound_by} ({nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} "
-          f"MFLOP){lib}; plain version {plain_ms:.3f} ms [{card}]")
+          f"MFLOP){cold_text}{lib}; plain version {plain_ms:.3f} ms [{card}]")
     return dict(shape=name, ms=ms, device_ms=dev_ms, launches_per_call=n_launch, bytes=nbytes,
                 flops=flops, bound_ms=bound_ms, bound_by=bound_by, plain_ms=plain_ms,
-                library_ms=lib_ms)
+                library_ms=lib_ms, cold_l2_device_ms=cold_ms)
 
 
 def _kernel_split(fn, pattern: str, reps: int = 20, attempts: int = 3) -> dict:
@@ -2362,12 +2520,13 @@ def _describe_calls(W, H, N, S, dev, calls: int = 1):
 
 def _image_kernel_times(card) -> None:
     """K5's kernels one by one at every case of ``IMAGE_DETECT_CASES``, a
-    3-level pyramid's kernels at every case of ``IMAGE_STACK_CASES`` and K3
-    at every case of ``IMAGE_DESCRIBE_CASES`` (a merged pass's N also as two
-    calls of N / 2), by ``torch.profiler``, the pyramid and K3 by CUDA
-    events too: the lines the A/B turns of tools/run_image_phase.py read,
-    for whichever package is imported (its kernels found by name:
-    ``detect_``, ``pyr``, ``describe_``)."""
+    3-level pyramid's kernels and the gray conversion (u8 RGBA, float32
+    RGB) at every case of ``IMAGE_STACK_CASES`` and K3 at every case of
+    ``IMAGE_DESCRIBE_CASES`` (a merged pass's N also as two calls of N /
+    2), by ``torch.profiler``, the pyramid, the gray conversion and K3 by
+    CUDA events too: the lines the A/B turns of tools/run_image_phase.py
+    read, for whichever package is imported (its kernels found by name:
+    ``detect_``, ``pyr``, ``gray_kernel``, ``describe_``)."""
     import torch
     from alvaar_tpu_torch.ops import image
     dev = torch.device("cuda")
@@ -2381,6 +2540,14 @@ def _image_kernel_times(card) -> None:
         fn = lambda: image.build_pyramid(x, 3)
         print(f"[image-split] build_pyramid {name}: device {_split_text(_kernel_split(fn, 'pyr'))},"
               f" {_time_ms(fn):.4f} ms per call by CUDA events [{card}]")
+        rgba = _image_rgba_stack(W, H, B, dev)
+        rgba = rgba if B > 1 else rgba[0]
+        for what, frame in (("u8 RGBA", rgba), ("float32 RGB", rgba[..., :3].float().contiguous())):
+            fn = lambda: image.rgba_to_gray(frame)
+            print(f"[image-split] rgba_to_gray {name} {what}: device "
+                  f"{_split_text(_kernel_split(fn, 'gray_kernel'))}, {_time_ms(fn):.4f} ms per "
+                  f"call by CUDA events, device {_cold_device_ms(fn, 'gray_kernel')[0]:.4f} ms "
+                  f"with the L2 emptied before each call [{card}]")
     for name, W, H, N, S, merged in IMAGE_DESCRIBE_CASES:
         for calls in (1, 2) if merged else (1,):
             fn = _describe_calls(W, H, N, S, dev, calls)[3]
@@ -2408,7 +2575,20 @@ def _image_timing(card) -> dict:
         rows["rgba_to_gray"].append(_image_time(
             f"rgba_to_gray {name} u8 RGBA", lambda: image.rgba_to_gray(rgba),
             lambda: image._rgba_to_gray_plain(rgba), "gray_kernel", px * 4 + px * 4, px * 5,
-            card))
+            card, cold=True))
+        # the float32 RGB path, beside the one PyTorch call that computes it
+        # up to rounding: the three channels by the three weights
+        rgb = rgba[..., :3].float().contiguous()
+        weights = torch.tensor([0.299, 0.587, 0.114], device=dev)
+        lib_err = float((torch.matmul(rgb, weights) - image.rgba_to_gray(rgb)).abs().max())
+        row = _image_time(
+            f"rgba_to_gray {name} float32 RGB", lambda: image.rgba_to_gray(rgb),
+            lambda: image._rgba_to_gray_plain(rgb), "gray_kernel", px * 12 + px * 4, px * 5,
+            card, library=lambda: torch.matmul(rgb, weights), cold=True)
+        print(f"[image] rgba_to_gray {name} float32 RGB: torch.matmul [.., 3] x [3] within "
+              f"{lib_err:.3g} of the kernel")
+        rows["rgba_to_gray"].append(dict(row, library_what="torch.matmul of the channels by the "
+                                         "weights", library_max_abs_diff=lib_err))
         allow = torch.backends.cudnn.allow_tf32
         torch.backends.cudnn.allow_tf32 = False
         try:
@@ -3162,6 +3342,81 @@ def phase_facade(slam, more_frames, card, tmp, scene, gt, main_run):
     return launches
 
 
+def _loop_db_256(dev):
+    """Phase 5a's database: bench.py's shape, 256 keyframes x 192
+    descriptors (seed 3), and its query (entry 10's descriptors).  Returns
+    (db, query, valid, query kf id, landmark positions, identity pose)."""
+    import torch
+    from alvaar_tpu_torch.geom.lie import SE3
+    from alvaar_tpu_torch.loopclosure import detector as det
+    cap, kps = 256, 192
+    rng = np.random.default_rng(3)
+    descs = torch.as_tensor(rng.integers(0, 2 ** 32, (cap, kps, 8), dtype=np.uint32).view(np.int32),
+                            device=dev)
+    pts = torch.as_tensor(rng.normal(0, 2, (cap, kps, 3)).astype(np.float32), device=dev)
+    ones = torch.ones(kps, dtype=torch.bool, device=dev)
+    ident = SE3.identity(device=dev)
+    db = det.db_init(cap, kps, dev)
+    for i in range(cap):
+        db = det.db_add(db, descs[i], pts[i], ones, ones, i, ident)
+    return db, descs[10], ones, cap + 100, pts, ident
+
+
+def _loop_query_profile(card, hold: bool = False) -> dict:
+    """Each loop query's call on phase 5a's database once under
+    ``torch.profiler`` (``_profile_counts``) and timed by CUDA events:
+    ``detect_loop`` (its prefilter's 16 entries, 3 072 columns),
+    ``verify_loop`` on entry 10 (192) and ``relocalize_topk`` (the whole
+    49 152, then 8 entries): kernels, device ms, host waits and wall ms
+    per call, and how many of the kernels are K4's (names holding
+    ``hamming_``).  With ``hold``: at most two K4 kernels per query pass
+    (``hamming_best_two.calls``), none of them the dense int32 form's.
+    Uses only the loop-closure API, so tools/run_hamming_phase.py runs it
+    on another checkout's package too."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from alvaar_tpu_torch.geom.camera import Camera
+    from alvaar_tpu_torch.loopclosure import detector as det
+    from alvaar_tpu_torch.ops import hamming
+    dev = torch.device("cuda")
+    db, q, ones, qid, pts, ident = _loop_db_256(dev)
+    cam = Camera.create(500.0, 500.0, 320.0, 240.0)
+    bearings = torch.nn.functional.normalize(pts[10], dim=-1)
+    px = cam.project(bearings + torch.tensor([0.0, 0.0, 2.0], device=dev))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    entry = torch.tensor(10, device=dev)
+    calls = {"detect_loop": lambda: det.detect_loop(db, q, ones, qid),
+             "verify_loop": lambda: det.verify_loop(db, entry, q, px, ones, cam, ident),
+             "relocalize_topk": lambda: det.relocalize_topk(db, q, bearings, ones, gen,
+                                                            focal=500.0)}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        kernels, device_ms, waits, wall = _profile_counts(fn)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            passes0 = getattr(getattr(hamming, "hamming_best_two", None), "calls", 0)
+            fn()
+            torch.cuda.synchronize()
+            passes = getattr(getattr(hamming, "hamming_best_two", None), "calls", 0) - passes0
+        k4 = {e.key: e.count for e in prof.key_averages()
+              if "hamming_" in e.key and e.device_type == torch.autograd.DeviceType.CUDA}
+        ms = _time_ms(fn, reps=5, rounds=3)
+        out[name] = dict(kernels=kernels, device_ms=device_ms, host_waits=waits, wall_ms=wall,
+                         ms=ms, k4_kernels=sum(k4.values()), k4=k4, passes=passes)
+        print(f"[loop] {name} on the 256x192 database: {kernels} kernels, {device_ms:.4f} ms "
+              f"device (torch.profiler), {waits} host waits, {ms:.3f} ms per call (CUDA events); "
+              f"K4's kernels {sum(k4.values())} "
+              f"({', '.join(f'{_kernel_short(k)} {n}' for k, n in sorted(k4.items()))}) in "
+              f"{passes} best-two passes [{card}]")
+        if hold:
+            _check(passes > 0 and sum(k4.values()) <= 2 * passes,
+                   f"[loop] {name}: {sum(k4.values())} K4 kernels for {passes} query passes")
+            _check(not any("true" in k for k in k4),
+                   f"[loop] {name}: the dense int32 form ran: {k4}")
+    return out
+
+
 def phase_loop_closure(card):
     """Phase 5: loop closure at full database size, then end to end."""
     import torch
@@ -3174,17 +3429,8 @@ def phase_loop_closure(card):
 
     # (a) bench.py's shape: 256 keyframes x 192 descriptors, seed 3
     dev = torch.device("cuda")
-    cap, kps = 256, 192
-    rng = np.random.default_rng(3)
-    descs = torch.as_tensor(rng.integers(0, 2 ** 32, (cap, kps, 8), dtype=np.uint32).view(np.int32),
-                            device=dev)
-    pts = torch.as_tensor(rng.normal(0, 2, (cap, kps, 3)).astype(np.float32), device=dev)
-    ones = torch.ones(kps, dtype=torch.bool, device=dev)
-    ident = SE3.identity(device=dev)
-    db = det.db_init(cap, kps, dev)
-    for i in range(cap):
-        db = det.db_add(db, descs[i], pts[i], ones, ones, i, ident)
-    q, qid = descs[10], cap + 100
+    db, q, ones, qid, pts, ident = _loop_db_256(dev)
+    cap, kps = db.desc.shape[:2]
     _, res = det.detect_loop(db, q, ones, qid)
     print(f"[loop] detect_loop on a {cap}x{kps} database (descriptors of entry 10): found "
           f"{bool(res.found)}, entry {int(res.entry)}, kf {int(res.match_kf_id)}, "
@@ -3212,6 +3458,7 @@ def phase_loop_closure(card):
           f"{peak_query:.1f} MiB above the database; relocalize_topk (top 8, 100 iterations) "
           f"{ms_reloc:.3f} ms, success {bool(reloc.success)}, peak {peak_reloc:.1f} MiB; "
           f"CUDA events around back-to-back calls [{card}]")
+    _loop_query_profile(card, hold=True)
 
     # (b) the out-and-back of tests/test_loop_e2e.py
     cfg = SlamConfig(width=320, height=240, cell_size=24, window_size=10, max_landmarks=512,
@@ -5252,13 +5499,19 @@ def main() -> int:
             ("hamming_min_crossbag", "alvaar_tpu/ops/hamming.py:81",
              "hamming_min_crossbag (:81-107), traced into the jitted keyframe pipeline "
              "(alvaar_tpu/worldmap/matching.py:78)"),
+            ("hamming_best_two", "alvaar_tpu/ops/hamming.py:60",
+             "hamming_matrix_matmul (:60-66) and hamming_vs_pm1 (:45-51) with the loop queries' "
+             "reduction of the matrix to each row's best two (alvaar_tpu/loopclosure/"
+             "detector.py:75-85, 246-249, 273-276, 299-303)"),
             ("hamming_matrix", "alvaar_tpu/ops/hamming.py:60",
-             "hamming_matrix_matmul (:60-66) and hamming_vs_pm1 (:45-51), the loop queries "
-             "(alvaar_tpu/loopclosure/detector.py:246, 273, 299)")):
+             "hamming_matrix_matmul (:60-66) and hamming_vs_pm1 (:45-51), the dense matrix: the "
+             "best two's kernel with a store epilogue, no longer on the main path (the loop "
+             "queries take the best two), held in phase 2d")):
         kernels.append({
             "name": name, "route": "cuda", "source": "alvaar_tpu_torch/csrc/hamming.cu",
             "replaces": replaces, "replaces_what": f"XLA formulation, not a Pallas kernel: {what}",
-            "launches": HAMMING_PATH_LAUNCHES[name], "card": card, **hamming_rows[name]})
+            "launches": HAMMING_PATH_LAUNCHES[name], "on_main_path": name != "hamming_matrix",
+            "card": card, **hamming_rows[name]})
     # K7, K5 and K3 replace XLA formulations of the jitted step; library_ms
     # is one F.conv2d level for the pyramid (no single PyTorch call builds
     # two), and no single PyTorch call computes the others

@@ -11,7 +11,8 @@ occur, or filled at random, with an all-empty side, or with all-ones and
 all-zero words (distances 256 and 0).  ``seeded_map`` and
 ``seeded_loop_db`` make a map state and loop databases on which
 ``match_to_local_map``, ``detect_loop`` and ``relocalize_topk`` do real
-work (merges, found loops); ``slice_outputs`` runs them and ``digest``
+work (merges, found loops); ``best_two_problem`` the loop queries' best
+two with ties and masks; ``slice_outputs`` runs them and ``digest``
 hashes what they return.
 """
 
@@ -86,6 +87,50 @@ def dense_problem(rng, S: int, N: int, M: int, device="cpu"):
     a[:, 0], b[:, 0], b[:, -1] = -1, 0, -1
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
     return t(a), t(b)
+
+
+BEST_TWO_KINDS = ("random", "ties", "masked")
+
+
+def best_two_problem(rng, S: int, N: int, M: int, kind: str = "random", device="cpu"):
+    """(a [S, N, 8], b [S, M, 8] int32 words, row_ok [S, N], col_ok [S, M]
+    bool) for the loop queries' best two: ``dense_problem``'s words with
+    about 10% of the rows and 20% of the columns masked; "ties" plants,
+    for every third row, two equal columns near it (a tie at the best) and,
+    for the rows after those, an exact copy and two equal one-bit flips (a
+    tie at the second), all unmasked; "masked" masks row 0 of every s, every
+    column of s = 0 and every other column of the last s."""
+    a = words(rng, S, N, 8)
+    b = words(rng, S, M, 8)
+    for s in range(S):
+        take = rng.random(M) < 0.5
+        b[s, take] = flip_bits(rng, a[s, rng.integers(0, N, size=int(take.sum()))], 10)
+    row_ok = rng.random((S, N)) < 0.9
+    col_ok = rng.random((S, M)) < 0.8
+    if kind == "ties" and M >= 3:
+        for s in range(S):
+            for r in range(0, N, 3):
+                c = rng.choice(M, size=3, replace=False)
+                near = flip_bits(rng, a[s, r:r + 1], 3)[0]
+                b[s, c[0]], b[s, c[1]] = near, near
+                col_ok[s, c[:2]] = True
+                if r + 1 < N:
+                    one = flip_bits(rng, a[s, r + 1:r + 2], 1)[0]
+                    b[s, c[2]] = a[s, r + 1]
+                    d = rng.choice(np.setdiff1d(np.arange(M), c), size=2, replace=False) \
+                        if M >= 5 else c[:2]
+                    b[s, d[0]], b[s, d[1]] = one, one
+                    col_ok[s, c[2]] = col_ok[s, d] = True
+                    row_ok[s, r + 1] = True
+            row_ok[s, ::3] = True
+    elif kind == "masked":
+        row_ok[:, 0] = False
+        col_ok[0] = False
+        col_ok[-1, ::2] = False
+    elif kind not in ("random", "ties"):
+        raise ValueError(kind)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    return t(a), t(b), t(row_ok), t(col_ok)
 
 
 # ---------------------------------------------------------------------------

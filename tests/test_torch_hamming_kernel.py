@@ -7,10 +7,14 @@ the plain versions (ops/hamming.py) and to the JAX package's
 all-ones and all-zero words, S rows in one launch each equal to its row
 alone, the persistent blocks' schedules at several multiprocessor counts;
 local-map matching and the loop queries through the source, equal to the
-plain path.  The min cross-bag pass's tensor-core arithmetic: the
-kernel's words as ``mma.sync m16n8k256 .b1 .and.popc`` fragments, laid
-out by the PTX ISA, give the Hamming distance (in numpy), and the shim's
-emulation of that ``mma`` equals an int64 product of the bits.  Without building: the
+plain path.  The loop queries' best two (the dense pass's reduction) on N
+and M off the tiles, M = 1, ties at the best and the second, rows and
+columns all masked, S rows in one launch, and its merge across column
+chunks at 1, 3 and 200 multiprocessors, bit-equal to
+``_hamming_best_two_plain``.  The tensor cores' arithmetic: both kernels'
+words as ``mma.sync m16n8k256 .b1 .and.popc`` fragments, laid out by the
+PTX ISA, give the Hamming distance (in numpy), and the shim's emulation of
+that ``mma`` equals an int64 product of the bits.  Without building: the
 custom ops' CPU implementation (the plain version), fake shapes and
 batching rule, the CPU path's independence of the library, the launchers'
 argument checks, and the slice's outputs on the CPU unchanged from commit
@@ -19,7 +23,8 @@ tests/test_torch_hamming_kernel_card.py holds the kernel to its plain
 versions on a card.
 
 Every bar is bit-equality: a distance is an exact integer (a minimum of
-popcounts, or 257 where no pair of the two bags is filled)."""
+popcounts, or 257 where no pair of the two bags is filled; the best two's
+float32 values are such integers or the callers' 1e9)."""
 
 import ctypes
 import importlib.util
@@ -56,7 +61,8 @@ def k4(tmp_path_factory):
 
 def _zero():
     hamming.hamming_min_crossbag.launches = hamming.hamming_matrix.launches = 0
-    matching.match_to_local_map.calls = detector._distances.calls = 0
+    hamming.hamming_best_two.launches = hamming.hamming_best_two.calls = 0
+    matching.match_to_local_map.calls = 0
 
 
 def _u32(x):
@@ -131,6 +137,90 @@ def test_dense_matrix_source_matches_plain_and_jax(k4, S, N, M):
         assert int(got[:, 0, 0].max()) == 256    # an all-ones row against an all-zero one
 
 
+def _best_two_equal(got, a, b, row_ok, col_ok, i):
+    want = hamming._hamming_best_two_plain(a[i], b[i], row_ok[i], col_ok[i], detector._BIG)
+    for name, g, w in zip(("best", "second", "idx"), got, want):
+        assert g[i].dtype == w.dtype and torch.equal(g[i], w), (i, name)
+    return want
+
+
+@pytest.mark.parametrize("S, N, M, kind", [(1, 37, 301, "random"), (3, 19, 70, "random"),
+                                           (1, 192, 2100, "ties"), (1, 17, 9, "ties"),
+                                           (2, 33, 1, "random"), (1, 50, 40, "masked"),
+                                           (3, 23, 130, "masked"), (1, 1, 1, "masked")])
+def test_best_two_source_matches_plain(k4, S, N, M, kind):
+    """The source's best two (the dense pass's reduction) on S rows in one
+    call, bit-equal to ``_hamming_best_two_plain`` row by row: N off the
+    16-row tile, M off the 8-column tile, M = 1 (a lone column's second is
+    inf), ties at the best and at the second (the first column of the best
+    wins), a row and all columns masked (1e9, index 0)."""
+    mod, lib = k4
+    x = hp.best_two_problem(np.random.default_rng(N * M + S), S, N, M, kind)
+    with mod.on_cpu(lib):
+        got = hamming_kernel.launch_best_two(*x, detector._BIG)
+    assert [g.shape for g in got] == [(S, N)] * 3
+    wants = [_best_two_equal(got, *x, i) for i in range(S)]
+    if kind == "ties":
+        assert any(bool((w[0] == w[1]).any()) for w in wants)
+    if kind == "masked":
+        assert bool((got[0][:, 0] == detector._BIG).all()) and bool((got[2][0] == 0).all())
+    if M == 1:
+        assert bool(torch.isinf(got[1]).all())
+
+
+@pytest.mark.parametrize("sms", [1, 3, 200])
+def test_best_two_merge_across_chunks(k4, sms):
+    """The best two's column chunks and their merge (the second launch) at
+    1, 3 and 200 multiprocessors: S = 3 rows of 53 x 1100 with ties and
+    masks (2, 4 and 8 chunks with the committed tiling), and one of 5 x 20
+    in one chunk, bit-equal to the plain version and to each row's call
+    alone."""
+    mod, lib = k4
+    set_sms = ctypes.CDLL(lib).cpu_cuda_set_sm_count
+    set_sms(sms)
+    hamming_kernel._CHUNKS.clear()
+    try:
+        with mod.on_cpu(lib):
+            for S, N, M, kind in ((3, 53, 1100, "ties"), (1, 5, 20, "masked")):
+                x = hp.best_two_problem(np.random.default_rng(sms + M), S, N, M, kind)
+                got = hamming_kernel.launch_best_two(*x, detector._BIG)
+                chunks = hamming_kernel._CHUNKS[(S, N, M, None)]
+                assert chunks > 1 if S == 3 and sms > 1 else chunks >= 1, chunks
+                assert chunks == 1 or S == 3, chunks
+                for i in range(S):
+                    _best_two_equal(got, *x, i)
+                    alone = hamming_kernel.launch_best_two(*(c[i:i + 1] for c in x),
+                                                           detector._BIG)
+                    assert all(torch.equal(g[i], o[0]) for g, o in zip(got, alone)), i
+    finally:
+        set_sms(2)
+        hamming_kernel._CHUNKS.clear()
+
+
+def test_best_two_rows_under_vmap(k4):
+    """``hamming_best_two`` under ``torch.func.vmap`` on S = 3 rows: one
+    launch (the op's batching rule; ``calls`` one), each row bit-equal to its
+    call alone and to the plain version; a shared database (an unbatched
+    argument) repeated for every row."""
+    mod, lib = k4
+    a, b, row_ok, col_ok = hp.best_two_problem(np.random.default_rng(12), 3, 40, 700, "ties")
+    with mod.on_cpu(lib):
+        _zero()
+        got = torch.func.vmap(hamming.hamming_best_two, in_dims=(0, 0, 0, 0, None))(
+            a, b, row_ok, col_ok, detector._BIG)
+        shared = torch.func.vmap(hamming.hamming_best_two, in_dims=(0, None, 0, None, None))(
+            a, b[0], row_ok, col_ok[0], detector._BIG)
+        # each call is the main kernel and the merge across its column chunks
+        assert hamming_kernel.best_two_kernels(3, 40, 700, a.device) == 2
+        assert hamming.hamming_best_two.launches == 4 and hamming.hamming_best_two.calls == 2
+        for i in range(3):
+            _best_two_equal(got, a, b, row_ok, col_ok, i)
+            alone = hamming.hamming_best_two(a[i], b[i], row_ok[i], col_ok[i], detector._BIG)
+            assert all(torch.equal(g[i], o) for g, o in zip(got, alone)), i
+            one = hamming.hamming_best_two(a[i], b[0], row_ok[i], col_ok[0], detector._BIG)
+            assert all(torch.equal(g[i], o) for g, o in zip(shared, one)), i
+
+
 def test_rows_in_one_launch_equal_rows_alone(k4):
     """The wrappers under ``torch.func.vmap`` on S = 3 rows: one launch each
     (the op's batching rule), each row bit-equal to its launch alone, an
@@ -157,7 +247,7 @@ def test_slice_through_the_source_equals_the_plain_path(k4):
     """Local-map matching and the loop queries (tests/hamming_problems.py's
     seeded states) with K4's source launched on CPU tensors: every output
     bit-equal to the plain path's, one launch per matching call and per
-    loop query's Hamming pass; two maps under ``map_rows`` (the batched
+    loop query's best two; two maps under ``map_rows`` (the batched
     keyframe phase's vmap) in one launch, each row equal to its call
     alone."""
     mod, lib = k4
@@ -166,7 +256,9 @@ def test_slice_through_the_source_equals_the_plain_path(k4):
         _zero()
         got = hp.slice_outputs()
         assert hamming.hamming_min_crossbag.launches == matching.match_to_local_map.calls == 2
-        assert hamming.hamming_matrix.launches == detector._distances.calls > 0
+        calls = hamming.hamming_best_two.calls
+        assert 0 < calls <= hamming.hamming_best_two.launches <= 2 * calls
+        assert hamming.hamming_matrix.launches == 0
         maps = [hp.seeded_map(seed) for seed in (0, 1)]
         cam, cfg = maps[0][1], maps[0][2]
         _zero()
@@ -181,10 +273,68 @@ def test_slice_through_the_source_equals_the_plain_path(k4):
             assert torch.equal(x[i], plain[f"match {i} {name}"]), (i, name)
 
 
+def test_knockouts_find_their_text(k4, tmp_path):
+    """tools/hamming_knockouts.py finds each text it knocks out in the
+    committed source exactly once, and every knocked-out copy still builds
+    through the CPU shim, so that the card run does not fail on a moved
+    line."""
+    path = Path(__file__).resolve().parents[1] / "tools" / "hamming_knockouts.py"
+    spec = importlib.util.spec_from_file_location("hamming_knockouts", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    src = hamming_kernel._SRC.read_text()
+    assert [name for name, _ in mod.KNOCKOUTS] == ["as committed", "no mma", "one op a key",
+                                                  "neither"]
+    copy = tmp_path / "neither.cu"
+    copy.write_text(mod.knocked_out(src, mod.KNOCKOUTS[-1][1]))
+    k4[0].cuda_on_cpu.build(str(copy), str(tmp_path))
+    with pytest.raises(ValueError, match="once"):
+        mod.knocked_out(src, ((mod.MMA + mod.MMA, ""),))
+
+
+def test_dense_variants_through_the_source(k4, tmp_path):
+    """tools/hamming_dense_variants.py's two designs of the dense pass (B
+    staged by cp.async; the merge in the last block to arrive), together in
+    one copy of the source through the CPU shim: the best two over several
+    column chunks and stages (S = 3 rows of 53 x 1100 at 3 multiprocessors,
+    2 of 19 x 3001 at one) and the dense int32 form bit-equal to the plain
+    versions, so that the card's timing of them does not fail on a moved
+    marker; a missing marker raises."""
+    path = Path(__file__).resolve().parents[1] / "tools" / "hamming_dense_variants.py"
+    spec = importlib.util.spec_from_file_location("hamming_dense_variants", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    src = hamming_kernel._SRC.read_text()
+    assert sorted(mod.VARIANTS) == ["staged b", "ticket"]
+    copy = tmp_path / "variants.cu"
+    copy.write_text(mod.edited(src, ["staged b", "ticket"]))
+    lib = k4[0].cuda_on_cpu.build(str(copy), str(tmp_path))
+    set_sms = ctypes.CDLL(lib).cpu_cuda_set_sm_count
+    try:
+        with k4[0].on_cpu(lib):
+            for sms, (S, N, M) in ((3, (3, 53, 1100)), (1, (2, 19, 3001))):
+                set_sms(sms)
+                hamming_kernel._CHUNKS.clear()
+                x = hp.best_two_problem(np.random.default_rng(sms + M), S, N, M, "ties")
+                got = hamming_kernel.launch_best_two(*x, detector._BIG)
+                assert hamming_kernel._CHUNKS[(S, N, M, None)] > 1
+                dense = hamming_kernel.launch_matrix(x[0], x[1])
+                for i in range(S):
+                    _best_two_equal(got, *x, i)
+                    assert torch.equal(dense[i], hamming._hamming_matrix_plain(x[0][i], x[1][i]))
+    finally:
+        set_sms(2)
+        hamming_kernel._CHUNKS.clear()
+    with pytest.raises(ValueError, match="once"):
+        mod.edited(src.replace(mod.LOOP_END, ""), ["staged b"])
+
+
 def test_c_entries_refuse_bad_shapes(k4):
     """The C entries take 1 to 8 descriptors a bag, 1 to 65535 rows and
-    16-byte aligned bags, and refuse anything else before they launch;
-    ``bind`` checks the library's limits against the wrapper's."""
+    16-byte aligned bags (the dense pass: 8-byte aligned words, the best
+    two M >= 1 and the scratch its chunks need), and refuse anything else
+    before they launch; ``bind`` checks the library's limits against the
+    wrapper's."""
     lib = hamming_kernel.bind(ctypes.CDLL(k4[1]))
     for S, G in ((1, 0), (1, 9), (0, 6), (65536, 6)):
         assert lib.hamming_min_crossbag_launch(None, None, None, None, S, 4, 4, G, None,
@@ -200,6 +350,16 @@ def test_c_entries_refuse_bad_shapes(k4):
     assert lib.hamming_matrix_launch(None, None, 1, 0, 4, None, None) == 0      # nothing to do
     assert lib.hamming_matrix_launch(None, None, 1, hamming_kernel.MAX_N_MATRIX + 1, 4, None,
                                      None) != 0
+    assert lib.hamming_matrix_launch(p + 4, p, 1, 1, 1, p, None) != 0          # 4-byte aligned
+    bt = lambda a, b, S, N, M, key=None, chunks=0: lib.hamming_best_two_launch(
+        a, b, None, None, S, N, M, 1e9, None, None, None, key, key, chunks, None)
+    assert bt(None, None, 1, 4, 0) != 0                                        # M = 0
+    assert bt(None, None, 0, 4, 4) != 0 and bt(None, None, 1, 0, 4) == 0
+    assert bt(p + 4, p, 1, 1, 1) != 0 and bt(p, p + 12, 1, 1, 1) != 0
+    c = ctypes.c_int()
+    assert lib.hamming_best_two_chunks(1, 192, 49152, ctypes.byref(c)) == 0 and c.value > 1
+    assert bt(p, p, 1, 192, 49152) != 0                     # several chunks and no scratch
+    assert bt(p, p, 1, 192, 49152, p, c.value - 1) != 0     # too little scratch
 
 
 def test_bind_refuses_other_limits(k4, monkeypatch):
@@ -242,19 +402,22 @@ def _lane_d(D):
     return np.stack([D[g, 2 * t], D[g, 2 * t + 1], D[g + 8, 2 * t], D[g + 8, 2 * t + 1]], 1)
 
 
-def _kernel_frags(a, b):
+def _kernel_frags(a, b, pass_="min cross-bag"):
     """The fragments csrc/hamming.cu gives each lane for rows a [16, 8] and
-    columns b [8, 8] (uint32 words): words t and t + 4 of rows groupID and
-    groupID + 8, and of column groupID, as they are."""
+    columns b [8, 8] (uint32 words), as they are: the min cross-bag pass's
+    words t and t + 4 of rows groupID and groupID + 8 and of column groupID;
+    the dense pass's words 2t and 2t + 1 (one 8-byte load a lane)."""
     frags = np.zeros((32, 6), np.uint32)
     for lane in range(32):
         g, t = divmod(lane, 4)
-        frags[lane] = [a[g, t], a[g + 8, t], a[g, t + 4], a[g + 8, t + 4], b[g, t], b[g, t + 4]]
+        w0, w1 = (t, t + 4) if pass_ == "min cross-bag" else (2 * t, 2 * t + 1)
+        frags[lane] = [a[g, w0], a[g + 8, w0], a[g, w1], a[g + 8, w1], b[g, w0], b[g, w1]]
     return frags
 
 
-def test_fragment_layout_gives_the_hamming_distance():
-    """The kernel's fragments of random words, laid out by the PTX ISA's
+@pytest.mark.parametrize("pass_", ["min cross-bag", "dense"])
+def test_fragment_layout_gives_the_hamming_distance(pass_):
+    """Each kernel's fragments of random words, laid out by the PTX ISA's
     m16n8k256 .b1 layout: A B counts popc(a & b) of every row and column,
     and popc(a) + popc(b) - 2 A B equals popc(a ^ b) and the JAX package's
     ``hamming_matrix_matmul``."""
@@ -264,7 +427,7 @@ def test_fragment_layout_gives_the_hamming_distance():
     a[3] = 0xFFFFFFFF
     b[5] = a[7]
     popc = lambda w: np.unpackbits(w.view(np.uint8), axis=-1).sum(-1).astype(np.int64)
-    A, B = _tiles(_kernel_frags(a, b))
+    A, B = _tiles(_kernel_frags(a, b, pass_))
     dot = A @ B
     np.testing.assert_array_equal(dot, popc(a[:, None, :] & b[None, :, :]))
     got = popc(a)[:, None] + popc(b)[None, :] - 2 * dot
@@ -354,7 +517,8 @@ def test_slice_on_the_cpu_is_unchanged():
     assert hamming_kernel._lib is lib is None
     assert hp.digest(out) == SLICE_DIGEST_9A69178
     assert hamming.hamming_min_crossbag.launches == hamming.hamming_matrix.launches == 0
-    assert matching.match_to_local_map.calls == 2 and detector._distances.calls > 0
+    assert hamming.hamming_best_two.launches == 0
+    assert matching.match_to_local_map.calls == 2 and hamming.hamming_best_two.calls > 0
 
 
 def test_op_cpu_implementation_is_the_plain_version():
@@ -371,6 +535,35 @@ def test_op_cpu_implementation_is_the_plain_version():
         assert torch.equal(dense[i], hamming._hamming_matrix_plain(a[i], b[i]))
         assert torch.equal(dense[i], hamming.hamming_matrix(a[i], b[i]))
         assert torch.equal(dense[i], hamming.hamming_matrix_chunked(a[i], b[i], 16))
+
+
+def test_best_two_op_cpu_fake_shapes_and_vmap_rule():
+    """The best-two op on CPU tensors equals the plain version row by row
+    (and the wrapper on CPU tensors is the plain version), its fake outputs
+    have the real ones' shapes and dtypes, and under ``torch.func.vmap`` it
+    runs once over the rows, equal to single calls bit for bit."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    x = hp.best_two_problem(np.random.default_rng(13), 3, 21, 37, "ties")
+    big = detector._BIG
+    op = hamming._BEST_TWO_OP(*x, big)
+    for i in range(3):
+        row = [c[i] for c in x]
+        want = hamming._hamming_best_two_plain(*row, big)
+        for got in ([o[i] for o in op], hamming.hamming_best_two(*row, big)):
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), i
+    mode = FakeTensorMode()
+    with mode:
+        fake = hamming._BEST_TWO_OP(*(mode.from_tensor(t) for t in x), big)
+    assert [(tuple(f.shape), f.dtype) for f in fake] == [(tuple(o.shape), o.dtype) for o in op]
+
+    def one_row(a, b, row_ok, col_ok):
+        return tuple(o[0] for o in hamming._BEST_TWO_OP(a[None], b[None], row_ok[None],
+                                                        col_ok[None], big))
+
+    got = torch.func.vmap(one_row, in_dims=(0, None, 0, None))(x[0], x[1][0], x[2], x[3][0])
+    for i in range(3):
+        alone = one_row(x[0][i], x[1][0], x[2][i], x[3][0])
+        assert all(torch.equal(g[i], o) for g, o in zip(got, alone)), i
 
 
 def test_op_fake_shapes():
@@ -440,6 +633,18 @@ def test_launchers_refuse_cpu_tensors_and_bad_arguments():
                       ((one(a[:, 0]), one(b[:, 0, :4].contiguous())), ValueError)):
         with pytest.raises(err):
             hamming_kernel.launch_matrix(*args)
+    qa, qb, ro, co = (one(t[0]) for t in hp.best_two_problem(np.random.default_rng(9), 1, 8, 6))
+    with pytest.raises(ValueError, match="CUDA"):
+        hamming_kernel.launch_best_two(qa, qb, ro, co, 1e9)
+    for args, err in (((qa, qb, ro.int(), co), TypeError),                     # int mask
+                      ((qa, qb, ro, co[:, :5]), ValueError),                   # col_ok short
+                      ((qa, qb[:, :0], ro, co[:, :0]), ValueError),            # M = 0
+                      ((qa, qb.new_zeros(qb.numel() + 1)[1:].view(qb.shape), ro, co),
+                       ValueError)):                                           # 4-byte aligned
+        with pytest.raises(err):
+            hamming_kernel.launch_best_two(*args, 1e9)
+    with pytest.raises(ValueError, match="at least one"):
+        hamming.hamming_best_two(qa[0], qb[0, :0], ro[0], co[0, :0], 1e9)
     assert hamming_kernel._lib is None
 
 
@@ -450,3 +655,5 @@ def test_dispatch_raises_on_other_devices():
         hamming.hamming_min_crossbag(a, fa, b, fb)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         hamming.hamming_matrix_chunked(a[:, 0], b[:, 0])
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        hamming.hamming_best_two(a[:, 0], b[:, 0], fa[:, 0], fb[:, 0], 1e9)

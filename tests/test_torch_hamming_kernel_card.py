@@ -14,9 +14,10 @@ import pytest
 import torch
 
 from alvaar_tpu_torch.loopclosure import detector
-from alvaar_tpu_torch.ops import hamming
+from alvaar_tpu_torch.ops import hamming, hamming_kernel
 from alvaar_tpu_torch.worldmap import matching
-from hamming_problems import bag_problem, dense_problem, slice_outputs
+from hamming_problems import (BEST_TWO_KINDS, bag_problem, best_two_problem,
+                              dense_problem, slice_outputs)
 
 
 @pytest.fixture
@@ -28,7 +29,8 @@ def card():
 
 def _zero():
     hamming.hamming_min_crossbag.launches = hamming.hamming_matrix.launches = 0
-    matching.match_to_local_map.calls = detector._distances.calls = 0
+    hamming.hamming_best_two.launches = hamming.hamming_best_two.calls = 0
+    matching.match_to_local_map.calls = 0
 
 
 @pytest.mark.cuda
@@ -126,16 +128,42 @@ def test_loop_queries_on_card(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", BEST_TWO_KINDS)
+@pytest.mark.parametrize("S, N, M", [(1, 192, 192), (1, 192, 3072), (1, 192, 49152),
+                                     (4, 192, 3072), (1, 37, 1), (3, 352, 1037)])
+def test_best_two_on_card(card, kind, S, N, M):
+    """The loop queries' best two at their shapes (one entry, 16, 256
+    keyframes; four rows under vmap), a lone column, ACCURATE's 352 query
+    rows (two row blocks) against a ragged M: one call (one launch, two
+    with the merge), bit-equal to the plain composition row by row and run
+    to run."""
+    x = best_two_problem(np.random.default_rng(N + M + S), S, N, M, kind, card)
+    big = detector._BIG
+    _zero()
+    call = lambda: torch.func.vmap(hamming.hamming_best_two, in_dims=(0, 0, 0, 0, None))(
+        *x, big)
+    got = call()
+    assert hamming.hamming_best_two.calls == 1
+    assert hamming.hamming_best_two.launches == hamming_kernel.best_two_kernels(S, N, M, card)
+    for i in range(S):
+        want = hamming._hamming_best_two_plain(*(c[i] for c in x), big)
+        for g, w in zip(got, want):
+            assert g[i].dtype == w.dtype and torch.equal(g[i], w), i
+    assert all(torch.equal(g, h) for g, h in zip(got, call()))
+
+
+@pytest.mark.cuda
 def test_slice_on_card(card):
     """``match_to_local_map``, ``detect_loop``, ``verify_loop`` and
     ``relocalize_topk`` on seeded states (tests/hamming_problems.py): the
     same outputs bit for bit with the kernel as with the plain versions, one
-    launch per matching call and per loop query's Hamming pass."""
+    launch per matching call and per loop query's best two."""
     _zero()
     got = slice_outputs(card)
     c = (hamming.hamming_min_crossbag.launches, matching.match_to_local_map.calls,
-         hamming.hamming_matrix.launches, detector._distances.calls)
-    assert c[0] == c[1] == 2 and c[2] == c[3] > 0, c
+         hamming.hamming_best_two.launches, hamming.hamming_best_two.calls,
+         hamming.hamming_matrix.launches)
+    assert c[0] == c[1] == 2 and 0 < c[3] <= c[2] <= 2 * c[3] and c[4] == 0, c
     dispatch = hamming._dispatch
     hamming._dispatch = lambda x, name: False          # the plain versions on the card
     try:

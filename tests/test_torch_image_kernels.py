@@ -274,6 +274,35 @@ def test_pyramid_and_gray_source_match_plain_and_jax(k357, shape):
                                atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("offset", [0, 4])
+@pytest.mark.parametrize("dtype, channels", [(torch.uint8, 4), (torch.uint8, 3),
+                                             (torch.float32, 3), (torch.float32, 4)])
+def test_gray_wide_loads_and_tails_through_the_source(k357, dtype, channels, offset):
+    """K7's gray conversion, four pixels a thread from whole words, at pixel
+    counts off the four (1, 3, 5, 1023: the last pixels % 4 by the kernel's
+    own scalar path), a stack of 3 frames, and 128 x 161 (more groups of
+    four than the shim's grid of 16 blocks covers in one stride), with the
+    frame's first byte at a 16-byte boundary or 4 bytes past one (the
+    frame's loads then a channel at a time, but u8 RGB's 4-byte words):
+    bit-equal to ``_rgba_to_gray_plain``."""
+    mod, lib = k357
+    rng = np.random.default_rng(channels + offset)
+    size = torch.tensor([], dtype=dtype).element_size()
+    with mod.on_cpu(lib):
+        for shape in ((1, 1), (1, 3), (1, 5), (31, 33), (3, 29, 37), (128, 161)):
+            n = int(np.prod(shape)) * channels
+            vals = (rng.integers(0, 256, n) if dtype == torch.uint8
+                    else rng.uniform(-10.0, 300.0, n)).astype(np.float32)
+            buf = torch.zeros(n + offset // size, dtype=dtype)
+            x = buf[offset // size:].view(shape + (channels,))
+            x.copy_(torch.from_numpy(vals).view(shape + (channels,)).to(dtype))
+            assert x.data_ptr() % 16 == offset
+            card_tests._zero()
+            got = image.rgba_to_gray(x)
+            assert image.rgba_to_gray.launches == 1
+            assert torch.equal(got, image._rgba_to_gray_plain(x)), shape
+
+
 @pytest.mark.parametrize("name", list(card_tests.CARD_CASES))
 def test_card_cases_through_the_source(k357, name):
     """The card tests' cases with the source launched on CPU tensors:

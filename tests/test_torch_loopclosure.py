@@ -17,7 +17,9 @@ from alvaar_tpu_torch import AlvaAR, SlamConfig
 from alvaar_tpu_torch.geom.camera import Camera as TCamera
 from alvaar_tpu_torch.geom.lie import SE3
 from alvaar_tpu_torch.loopclosure import detector as tdet
-from alvaar_tpu_torch.ops.hamming import hamming_matrix, hamming_matrix_chunked
+from alvaar_tpu_torch.ops import hamming as thamming
+from alvaar_tpu_torch.ops.hamming import (hamming_best_two, hamming_matrix,
+                                          hamming_matrix_chunked)
 from tests.render_scene_np import TwoPlaneScene
 from tests.synthetic_scene import observe, random_pose, scene_points
 from tests.test_loop_e2e import out_and_back
@@ -52,6 +54,33 @@ def test_swar_hamming_equals_table(rng):
     for chunk in (64, 2048):
         np.testing.assert_array_equal(hamming_matrix_chunked(_t(a), _t(b), chunk).numpy(),
                                       ref.numpy())
+
+
+@pytest.mark.parametrize("N, M", [(40, 96), (33, 1100), (5, 2)])
+def test_plain_best_two_equals_top_k_and_top2_min(N, M):
+    """The loop queries' best two (``hamming_best_two`` on the CPU: the
+    plain composition) on masked matrices with ties at the best and the
+    second and a masked row, equal bit for bit to ``top_k(-dist, 2)`` (what
+    ``_match_entry`` took before) and ``_top2_min`` on the masked float32
+    matrix, and to the JAX package's ``_top2_min`` and
+    ``jax.lax.top_k(-dist, 2)`` on the same matrix."""
+    from alvaar_tpu_torch.ops.topk import top_k
+    from hamming_problems import best_two_problem
+    a, b, row_ok, col_ok = (x[0] for x in best_two_problem(np.random.default_rng(N + M), 1,
+                                                            N, M, "ties"))
+    row_ok[1] = False
+    got = hamming_best_two(a, b, row_ok, col_ok, tdet._BIG)
+    dist = torch.where(col_ok[None] & row_ok[:, None], hamming_matrix(a, b).float(), tdet._BIG)
+    neg2, idx2 = top_k(-dist, 2)
+    jdist = jnp.asarray(dist.numpy())
+    jneg2, jidx2 = jax.lax.top_k(-jdist, 2)
+    for want in (thamming._top2_min(dist), (-neg2[:, 0], -neg2[:, 1], idx2[:, 0]),
+                 tuple(torch.from_numpy(np.asarray(x)) for x in jdet._top2_min(jdist)),
+                 tuple(torch.from_numpy(np.asarray(x)) for x in (-jneg2[:, 0], -jneg2[:, 1],
+                                                                 jidx2[:, 0]))):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(got[2], want[2].long())
+    assert bool((got[0] == got[1]).any()) and float(got[0][1]) == tdet._BIG
 
 
 def _build(rng, capacity, n_entries, with_geometry=False):
@@ -139,10 +168,8 @@ def test_relocalize_topk_with_injected_samples(rng):
     # the result), so the draws are reproduced from them
     tq, tb, tv = _desc_t(q), _t(bearings), _t(valid)
     D = tdb.desc.shape[0]
-    dist = hamming_matrix_chunked(tq, tdb.desc.reshape(-1, 8)).float()
     ok = (tdb.kp_valid & tdb.lm_is3d & (tdb.kf_id >= 0)[:, None]).reshape(-1)
-    dist = torch.where(ok[None, :] & tv[:, None], dist, 1e9)
-    best, second, bi = tdet._top2_min(dist)
+    best, second, bi = hamming_best_two(tq, tdb.desc.reshape(-1, 8), tv, ok, tdet._BIG)
     m_ok = (best <= second * 0.8) & (best < 64.0)
     votes = torch.zeros(D).index_add_(0, bi // K, m_ok.float())
     entries = torch.sort(votes, descending=True, stable=True).indices[:8]

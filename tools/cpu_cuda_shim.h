@@ -56,7 +56,20 @@ struct float4 {
 struct alignas(16) uint4 {
   unsigned x, y, z, w;
 };
+struct alignas(8) uint2 {
+  unsigned x, y;
+};
+struct alignas(8) int2 {
+  int x, y;
+};
 inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
+inline uint2 make_uint2(unsigned x, unsigned y) { return uint2{x, y}; }
+inline int2 make_int2(int x, int y) { return int2{x, y}; }
+inline float __int_as_float(int x) {
+  float f;
+  std::memcpy(&f, &x, 4);
+  return f;
+}
 
 using cudaStream_t = void*;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -308,6 +321,22 @@ template <class T>
 T __ldg(const T* p) {
   return *p;
 }
+
+// A load past the L1 (cached in L2 only): a plain load here.
+template <class T>
+T __ldcg(const T* p) {
+  return *p;
+}
+
+// The blocks run one after another and a fiber yields only at a barrier or a
+// warp exchange: a read-modify-write is atomic as it stands, and a fence
+// has nothing to order.
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  const unsigned old = *p;
+  *p = old + v;
+  return old;
+}
+inline void __threadfence() {}
 
 // A stand-in for the SM's cycle counter: the calls so far, over every fiber.
 inline long long clock64() {

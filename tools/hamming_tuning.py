@@ -1,19 +1,28 @@
 #!/usr/bin/env python3
-"""Time variants of K4's min cross-bag kernel (csrc/hamming.cu) in one
-process on a card, and the rates that forms of ``mma.sync`` reach there.
+"""Time variants of K4's kernels (csrc/hamming.cu) in one process on a
+card, and the rates that forms of ``mma.sync`` reach there.
 
     python3 tools/hamming_tuning.py [--variant NAME=V[,NAME=V...]]... [--rate]
-                                    [--rounds 4] [--out chiprun_out/x.json]
+                                    [--dense] [--swap NAME[,NAME]]... [--rounds 4]
+                                    [--out build/x.json]
 
 A variant sets ``constexpr int NAME = V;`` lines of the source (the
-tiling's constants, e.g. ``kStageTiles=2``); the source as it stands is
-always the first.  Each variant is written under ``build/hamming_tuning/``
-and built with ``ops/hamming_kernel._NVCC_FLAGS`` (its registers and
-spills printed; one that does not build is left out);
-at every shape of ``chip_smoke.HAMMING_CASES`` it must be bit-equal to the
-plain version, and its device time per launch (``chip_smoke._device_ms``,
-torch.profiler) is taken in ``--rounds`` rounds, the variants in turns
-(forward, then backward), and printed as the median with the spread.
+tiling's constants, e.g. ``kStageTiles=2``, or the dense pass's
+``kDenseWarpTiles``, ``kDenseFewTiles``, ``kDenseAhead``, ``kStoreAhead``,
+``kSmallTiles``, ``kSmallMaxTiles``, ``kStoreMaxTiles``,
+``kDenseBlocksPerSm``); a ``--swap`` variant is the source with the edits
+of tools/hamming_dense_variants.py's named designs (``staged b``: B staged
+by cp.async, double-buffered; ``ticket``: the merge in the last block to
+arrive; both, comma-separated).  The source as it stands is always the first.  Each
+variant is written under ``build/hamming_tuning/`` and built with
+``ops/hamming_kernel._NVCC_FLAGS`` (its registers and spills printed; one
+that does not build is left out); at every shape of
+``chip_smoke.HAMMING_CASES`` (with ``--dense``: of ``HAMMING_LOOP_CASES``,
+the best two and the dense int32 form, the best two's two kernels timed
+together) it must be bit-equal to the plain version, and its device time
+per call (``chip_smoke._device_ms``, torch.profiler) is taken in
+``--rounds`` rounds, the variants in turns (forward, then backward), and
+printed as the median with the spread.
 
 ``--rate`` first times a probe kernel that only issues one form of ``mma``
 (``RATE_FORMS``: the int8 m16n8k32 form with u8 A and s8 B, and the
@@ -161,11 +170,59 @@ def variant_source(src: str, sets: dict) -> str:
     return src
 
 
+def _dense_rows(libs, variants, rounds: int, card: str) -> list:
+    """The dense pass's variants at ``chip_smoke.HAMMING_LOOP_CASES``: the
+    best two (tests/hamming_problems.py's "ties" problem; both kernels of a
+    call) and the dense int32 form, each bit-equal to its plain version
+    first; device time per call in ``rounds`` rounds, the variants in
+    turns."""
+    import numpy as np
+    import torch
+    import chip_smoke
+    from hamming_problems import best_two_problem
+    from alvaar_tpu_torch.loopclosure.detector import _BIG
+    from alvaar_tpu_torch.ops import hamming, hamming_kernel
+    rows = []
+    for case, S, N, M in chip_smoke.HAMMING_LOOP_CASES:
+        x = best_two_problem(np.random.default_rng(N + M + S), S, N, M, "ties", "cuda")
+        want = [hamming._hamming_best_two_plain(*(c[i] for c in x), _BIG) for i in range(S)]
+        want = [torch.stack([w[k] for w in want]) for k in range(3)]
+        dense_want = torch.stack([hamming._hamming_matrix_plain(x[0][i], x[1][i])
+                                  for i in range(S)])
+        forms = (("best two", lambda: hamming_kernel.launch_best_two(*x, _BIG), want),
+                 ("dense int32", lambda: (hamming_kernel.launch_matrix(x[0], x[1]),),
+                  (dense_want,)))
+        for form, fn, expect in forms:
+            times, kernels = {i: [] for i, _ in libs}, {}
+            for r in range(rounds):
+                for i, lib in (libs if r % 2 == 0 else libs[::-1]):
+                    hamming_kernel._lib = lib
+                    hamming_kernel._CHUNKS.clear()
+                    if r == 0 and not all(torch.equal(g, w) for g, w in zip(fn(), expect)):
+                        raise AssertionError(f"variant {i} differs from the plain version at "
+                                             f"{case} ({form})")
+                    ms, n = chip_smoke._device_ms(fn, "hamming_bmma")
+                    times[i].append(ms)
+                    kernels[i] = n
+            for i, t in times.items():
+                rows.append(dict(shape=case, form=form, variant=variants[i][0],
+                                 device_ms=statistics.median(t), min_ms=min(t), max_ms=max(t),
+                                 kernels_per_call=kernels[i]))
+                print(f"[variant {i}] {case} {form}: device {statistics.median(t) * 1e3:.2f} us "
+                      f"({min(t) * 1e3:.2f}-{max(t) * 1e3:.2f}) in {kernels[i]:g} kernels a call "
+                      f"[{variants[i][0]}; {card}]", flush=True)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variant", action="append", default=[],
                     help="NAME=V[,NAME=V...]: constants of csrc/hamming.cu to set")
     ap.add_argument("--rate", action="store_true")
+    ap.add_argument("--dense", action="store_true",
+                    help="time the dense pass (the loop queries' shapes), not the min cross-bag")
+    ap.add_argument("--swap", action="append", default=[],
+                    help="NAME[,NAME]: tools/hamming_dense_variants.py's designs to build")
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--out", help="a JSON file for the rows")
     args = ap.parse_args()
@@ -186,32 +243,48 @@ def main() -> int:
 
     with open(hamming_kernel._SRC) as f:
         base = f.read()
-    variants = [("as committed", {})]
+    import hamming_dense_variants
+    variants = [("as committed", {}, ())]
     for spec in args.variant:
-        variants.append((spec, dict(kv.split("=", 1) for kv in spec.split(","))))
-    libs = []
-    for i, (name, sets) in enumerate(variants):
+        variants.append((spec, dict(kv.split("=", 1) for kv in spec.split(",")), ()))
+    for spec in args.swap:
+        variants.append((spec, {}, tuple(spec.split(","))))
+    from alvaar_tpu_torch.utils.build import find_tool
+    nvcc = find_tool("nvcc", "/usr/local/cuda/bin/nvcc", "the CUDA toolkit is needed")
+    t0 = time.time()
+    procs = []
+    for i, (name, sets, swaps) in enumerate(variants):       # built at once, a process each
         d = os.path.join(OUT, f"v{i}")
         os.makedirs(d, exist_ok=True)
         src = os.path.join(d, "hamming.cu")
         with open(src, "w") as f:
-            f.write(variant_source(base, sets))
-        t0 = time.time()
-        try:
-            log = _nvcc(src, os.path.join(d, "libhamming.so"), hamming_kernel._NVCC_FLAGS)
-        except RuntimeError as e:
-            print(f"[variant {i}] {name}: does not build, left out: {str(e)[-300:]}")
+            f.write(hamming_dense_variants.edited(variant_source(base, sets), swaps))
+        lib = os.path.join(d, "libhamming.so")
+        procs.append((i, name, lib, subprocess.Popen(
+            [nvcc, *hamming_kernel._NVCC_FLAGS, "-o", lib, src], stderr=subprocess.PIPE,
+            text=True)))
+    libs = []
+    for i, name, lib, proc in procs:
+        log = proc.communicate()[1]
+        if proc.returncode != 0:
+            print(f"[variant {i}] {name}: does not build, left out: {log[-300:]}")
             continue
         regs = re.findall(r"hamming_min_crossbag_kernelILi(\d)E.*?Used (\d+) registers", log,
                           re.S)
+        dense = re.findall(r"hamming_bmma_kernelILi(\d+)ELb(\d)E.*?Used (\d+) registers", log,
+                           re.S)
         spills = sorted(set(re.findall(r"(\d+) bytes spill stores", log)))
-        print(f"[variant {i}] {name}: built in {time.time() - t0:.1f} s; registers by G "
-              f"{dict((int(g), int(r)) for g, r in regs)}; spill stores {spills}", flush=True)
-        libs.append((i, hamming_kernel.bind(ctypes.CDLL(os.path.join(d, "libhamming.so")))))
+        print(f"[variant {i}] {name}: built ({time.time() - t0:.1f} s since the first); "
+              f"registers by G {dict((int(g), int(r)) for g, r in regs)}; the dense pass's by "
+              f"(R, store) {dict(((int(r), int(k)), int(n)) for r, k, n in dense)}; spill stores "
+              f"{spills}", flush=True)
+        libs.append((i, hamming_kernel.bind(ctypes.CDLL(lib))))
 
     dev = torch.device("cuda")
     rows = []
-    for case, S, N, M, G in chip_smoke.HAMMING_CASES:
+    if args.dense:
+        rows = _dense_rows(libs, variants, args.rounds, card)
+    for case, S, N, M, G in () if args.dense else chip_smoke.HAMMING_CASES:
         x = bag_problem(np.random.default_rng(N + M + G + S), S, N, M, G, "matching", dev)
         plain = torch.stack([hamming._min_crossbag_plain(*(c[i] for c in x)) for i in range(S)])
         times = {i: [] for i, _ in libs}

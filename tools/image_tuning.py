@@ -6,20 +6,22 @@
                                   [--only describe] [--out OUT.json]
 
 A variant sets ``constexpr int NAME = V;`` lines of the source (e.g.
-``kCellThreads=1024``, ``kPyrTileX=32``, ``kDescWideKeypoints=0``: one warp a keypoint);
+``kCellThreads=1024``, ``kPyrTileX=32``, ``kDescWideKeypoints=0``: one warp a keypoint,
+``kGrayBlocksPerSm=16``: the gray conversion's grid);
 the source as it stands is always the first.  The variants are written
 under ``build/image_tuning/`` and built at once with
 ``ops/image_kernels._NVCC_FLAGS`` (each kernel's registers, spills and
 shared memory printed; one that does not build is left out).  At every
 shape of ``chip_smoke.IMAGE_DETECT_CASES`` K5 must be bit-equal to the
 plain version, at every shape of ``IMAGE_STACK_CASES`` the 3-level
-pyramid, and at every shape of ``IMAGE_DESCRIBE_CASES`` K3 within its bar
+pyramid and the gray conversion (u8 RGBA and float32 RGB), and at every
+shape of ``IMAGE_DESCRIBE_CASES`` K3 within its bar
 (angles within 2e-5 rad of the plain version's, words bit-equal outside
 1e-4 rad of a bin edge); then each one's device time per call
 (``chip_smoke._kernel_split``, torch.profiler: K5's kernels one by one)
 is taken in ``--rounds`` rounds, the variants in turns (forward, then
 backward), and printed as the median with the spread.  ``--only`` keeps
-the shapes of some kernels (``detect``, ``pyramid``, ``describe``).
+the shapes of some kernels (``detect``, ``pyramid``, ``describe``, ``gray``).
 Needs CUDA.
 """
 
@@ -54,7 +56,8 @@ def _ptxas(log: str) -> dict:
     out = {}
     for chunk in log.split("Compiling entry function")[1:]:
         name = next((k for k in ("pyramid_kernel", "detect_cells_kernel", "detect_rank_kernel",
-                                 "describe_kernel") if k in chunk.splitlines()[0]), None)
+                                 "describe_kernel", "gray_kernel") if k in chunk.splitlines()[0]),
+                    None)
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores", chunk)
         smem = re.search(r"(\d+) bytes smem", chunk)
@@ -69,7 +72,7 @@ def main() -> int:
     ap.add_argument("--variant", action="append", default=[],
                     help="NAME=V[,NAME=V...]: constants of csrc/image_kernels.cu to set")
     ap.add_argument("--rounds", type=int, default=4)
-    ap.add_argument("--only", choices=("detect", "pyramid", "describe"), action="append",
+    ap.add_argument("--only", choices=("detect", "pyramid", "describe", "gray"), action="append",
                     help="time only these kernels' shapes (every one by default)")
     ap.add_argument("--out", help="a JSON file for the rows")
     args = ap.parse_args()
@@ -112,7 +115,7 @@ def main() -> int:
         libs.append((i, image_kernels.bind(ctypes.CDLL(lib))))
 
     dev = torch.device("cuda")
-    only = set(args.only or ("detect", "pyramid", "describe"))
+    only = set(args.only or ("detect", "pyramid", "describe", "gray"))
     cases = []
     for case in chip_smoke.IMAGE_DETECT_CASES if "detect" in only else ():
         fn, pfn, _, _ = chip_smoke._detect_calls(*case, dev)
@@ -136,6 +139,11 @@ def main() -> int:
         cases.append((f"build_pyramid {name}", lambda x=x: image.build_pyramid(x, 3),
                       lambda x=x: (x, image._pyr_down_plain(x),
                                    image._pyr_down_plain(image._pyr_down_plain(x))), "pyr"))
+    for name, W, H, B in chip_smoke.IMAGE_STACK_CASES if "gray" in only else ():
+        rgba = chip_smoke._image_rgba_stack(W, H, B, dev)
+        for what, x in (("u8 RGBA", rgba), ("float32 RGB", rgba[..., :3].float().contiguous())):
+            cases.append((f"rgba_to_gray {name} {what}", lambda x=x: (image.rgba_to_gray(x),),
+                          lambda x=x: (image._rgba_to_gray_plain(x),), "gray_kernel"))
     rows = []
     for case, fn, pfn, pattern in cases:
         want = pfn if pattern == "describe_" else pfn()

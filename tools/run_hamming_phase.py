@@ -9,7 +9,7 @@ register and spill lines printed), and runs
 ``chip_smoke.phase_hamming_kernel``: K4 bit-equal to its plain versions at
 every case of ``HAMMING_CASES`` and ``HAMMING_LOOP_CASES``, then its times
 at those shapes; the last lines before the turns are the smoke's kernel
-rows for hamming_min_crossbag and hamming_matrix.  Exits non-zero when a
+rows for hamming_min_crossbag, hamming_best_two and hamming_matrix.  Exits non-zero when a
 bar fails.  Needs CUDA.
 
 With ``--ab OTHER_ROOT`` it then runs, in turns (other, this, this, other
@@ -18,7 +18,10 @@ only its own checkout's ``chip_smoke`` and package and runs: a lone
 ``hamming_min_crossbag`` call at L = 4096 x K = 192 timed by this
 checkout's ``chip_smoke._lone_ms`` (host and CUDA events); then, as that
 checkout's smoke runs them, phase 2d (K4's checks and its device time
-per shape); phase 3 with this checkout's profiled frames
+per shape); each loop query's call (``detect_loop``, ``verify_loop``,
+``relocalize_topk`` on phase 5a's database) under the profiler by this
+checkout's ``_loop_query_profile`` (kernels, device and event time, K4's
+kernels per call); phase 3 with this checkout's profiled frames
 (``MAIN_PROFILED``: two keyframe frames among them), whose kernels per
 keyframe frame it prints; the keyframe pass of phase 6a at S = 1 and 8
 attributed by this checkout's ``_probe_rows`` and ``_pass_attribution``
@@ -80,6 +83,17 @@ PATTERNS = (
     ("lone_host_ms", r"\[turn\] a lone hamming_min_crossbag call .*: host ([\d.]+) ms", float),
     ("lone_event_ms", r"\[turn\] a lone hamming_min_crossbag call .*, ([\d.]+) ms by CUDA",
      float),
+) + tuple(  # each loop query's call under the profiler (this checkout's _loop_query_profile)
+    (f"{call} {key}", rf"\[loop\] {call} on the 256x192 database: " + pat, conv)
+    for call in ("detect_loop", "verify_loop", "relocalize_topk")
+    for key, pat, conv in (("kernels", r"(\d+) kernels", int),
+                           ("device_ms", r"\d+ kernels, ([\d.]+) ms device", float),
+                           ("event_ms", r".*, ([\d.]+) ms per call \(CUDA events\)", float),
+                           ("k4_kernels", r".*K4's kernels (\d+)", int))
+) + tuple(  # this checkout's best two per loop shape (the other checkout has none)
+    (f"best_two_device_ms {name}", re.escape(f"[hamming] best two {name}: ")
+     + r"[\d.]+ ms per call \(CUDA events\), device ([\d.]+) ms", float)
+    for name in ("192 x 192", "192 x 3072", "192 x 49152", "4 x 192 x 3072")
 ) + tuple(  # phase 2d's device time per shape, as both checkouts' smokes print it
     (f"device_ms {name}", re.escape(f"[hamming] {name}: ")
      + r"[\d.]+ ms per call \(CUDA events\), device ([\d.]+) ms", float)
@@ -161,6 +175,7 @@ def _turn(root: str) -> int:
 
     attempt("lone call", lone)
     attempt("2d", lambda: cs.phase_hamming_kernel(card))
+    attempt("5a profile", lambda: this._loop_query_profile(card))
     attempt("3", main_path)
     attempt("6a attribution", attribution)
     attempt("5", lambda: cs.phase_loop_closure(card))

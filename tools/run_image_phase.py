@@ -2,7 +2,7 @@
 """Run chip_smoke.py phase 2e (the image kernels K7, K5 and K3) alone, and
 the phases they serve for two checkouts in turns.
 
-    python3 tools/run_image_phase.py [--ab OTHER_ROOT] [--turns 4]
+    python3 tools/run_image_phase.py [--ab OTHER_ROOT] [--turns 4] [--times-only]
 
 Prints the environment lines of phase 1, builds the image kernels (the
 compiler's register and spill lines printed) and runs
@@ -21,8 +21,9 @@ only its own checkout's ``chip_smoke`` and package and runs: a lone
 keypoints) and ``describe`` (K = 192) call, each timed by this checkout's
 ``chip_smoke._lone_ms`` (host and CUDA events); phase 2e's times by this
 checkout's ``_image_kernel_times`` (K5's kernels one by one at every
-detection case, the 3-level pyramid's kernels and CUDA-event time at every
-stack, K3's device and CUDA-event time at every describe case, a merged
+detection case, the 3-level pyramid's and the gray conversion's (u8 RGBA,
+float32 RGB) kernels and CUDA-event time at every stack, its device time
+also with the L2 emptied before each call, K3's device and CUDA-event time at every describe case, a merged
 pass's N also as two calls of N / 2, as the keyframe pass made them before
 commit c08cb84); then, as that checkout's
 smoke runs them, phase 3 with this checkout's profiled frames
@@ -37,7 +38,8 @@ are not held.  From each turn's lines: phase 3's frame medians and
 kernels, the attribution's numbers, the aggregate frames/s, the digests
 and the lone calls' times; printed per turn and as medians per checkout
 (tools/ab_turns.py), and written, with each turn's log, to ``--out``
-(default ``build/image_ab/``).  Place the other checkout under the
+(default ``build/image_ab/``).  With ``--times-only`` the turns run the
+lone calls and phase 2e's times, not phases 3, 6a and 6.  Place the other checkout under the
 git-ignored ``build/`` before the call, e.g. ``mkdir -p build/parent &&
 git archive COMMIT | tar -x -C build/parent``: the checkout the chip runs
 is not a git repository.
@@ -58,6 +60,7 @@ import ab_turns  # noqa: E402  (tools/, beside this file)
 
 ROOT = ab_turns.ROOT
 AB_DIR = os.path.join(ROOT, "build", "image_ab")
+TIMES_ONLY = "RUN_IMAGE_PHASE_TIMES_ONLY"
 LONE = ("build_pyramid", "detect_grid", "describe")
 
 _INTS = lambda g: statistics.median(int(x) for x in g.split(","))
@@ -87,7 +90,8 @@ PATTERNS = (
 def _split_patterns():
     """The keys of ``_image_kernel_times``' lines: K5's device time per call
     and per kernel at each detection case, the pyramid's device and
-    CUDA-event time at each stack."""
+    CUDA-event time at each stack, the gray conversion's also with the L2
+    emptied before each call."""
     sys.path.insert(0, ROOT)
     import chip_smoke
     out = []
@@ -101,6 +105,13 @@ def _split_patterns():
         out += [(f"pyramid {case[0]} device_ms", head + r"([\d.]+) ms", float),
                 (f"pyramid {case[0]} event_ms", head + r".*, ([\d.]+) ms per call by CUDA",
                  float)]
+        for what in ("u8 RGBA", "float32 RGB"):
+            head = rf"\[image-split\] rgba_to_gray {re.escape(case[0])} {what}: device "
+            out += [(f"gray {case[0]} {what} device_ms", head + r"([\d.]+) ms", float),
+                    (f"gray {case[0]} {what} event_ms",
+                     head + r".*, ([\d.]+) ms per call by CUDA", float),
+                    (f"gray {case[0]} {what} cold_l2_device_ms",
+                     head + r".*, device ([\d.]+) ms with the L2 emptied", float)]
     for name, *_, merged in chip_smoke.IMAGE_DESCRIBE_CASES:
         for two in (False, True) if merged else (False,):
             what = name + (" as two calls of N / 2" if two else "")
@@ -199,9 +210,10 @@ def _turn(root: str) -> int:
 
     attempt("lone calls", lone)
     attempt("2e times", lambda: this._image_kernel_times(card))
-    attempt("3", main_path)
-    attempt("6a attribution", attribution)
-    attempt("6", lambda: cs.phase_multistream(frames, gt, card))
+    if not os.environ.get(TIMES_ONLY):
+        attempt("3", main_path)
+        attempt("6a attribution", attribution)
+        attempt("6", lambda: cs.phase_multistream(frames, gt, card))
     return 1 if failed else 0
 
 
@@ -210,8 +222,12 @@ def main() -> int:
     ap.add_argument("--ab", metavar="OTHER_ROOT")
     ap.add_argument("--turns", type=int, default=4, choices=(2, 4))
     ap.add_argument("--out", default=AB_DIR, help="where the turns' logs and ab.json go")
+    ap.add_argument("--times-only", action="store_true",
+                    help="the turns run the lone calls and phase 2e's times only")
     ap.add_argument("--turn", metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.times_only:
+        os.environ[TIMES_ONLY] = "1"          # the turns' processes inherit it
     if args.turn:
         return _turn(os.path.abspath(args.turn))
     sys.path.insert(0, ROOT)
