@@ -1,5 +1,5 @@
 // The image kernels of the frame and of the keyframe pass, the port's
-// counterparts of three XLA formulations of the JAX package (none of them a
+// counterparts of four XLA formulations of the JAX package (none of them a
 // Pallas kernel; the JAX package compiles them into its jitted step):
 //
 // * K7, alvaar_tpu/ops/image.py:23-63: `rgba_to_gray` (BT.601 luma of an
@@ -56,6 +56,14 @@
 //   path, a ballot per descriptor word.  Bound by latency: a keypoint is
 //   ~35 KB of work, so its chain of loads, passes, sums and compares sets
 //   the time at the single stream's widths.
+// * K8, alvaar_tpu/ops/image.py:83-130: `clahe` over a stack of B images
+//   in two launches whatever B.  `clahe_lut_kernel`, a block of 256 per
+//   (tile, image), thread k on bin k: the tile's histogram by integer
+//   atomics in shared memory, the clip's excess by a fixed tree, the CDF's
+//   prefix in float64 (exact), the normalised table.  `clahe_apply_kernel`,
+//   a thread a pixel: its four nearest tiles' tables at its rounded value,
+//   blended bilinearly.  Bound by bytes: the image read twice, the tables
+//   written and read, the output written.
 //
 // Each computes what its plain version (alvaar_tpu_torch/ops/image.py,
 // detect.py, orb.py) computes, operation for operation: the stencils'
@@ -76,8 +84,9 @@
 // to the first index, cells past the image's edge padded with -inf (an
 // all -inf cell gives index 0).  The selection is ops/topk.py's stable
 // descending sort of the 2C priorities: a candidate's rank is the count of
-// greater priorities plus equal ones at lower indices.  No atomics: every
-// output has one owner in its launch.
+// greater priorities plus equal ones at lower indices.  No float atomics:
+// every output has one owner in its launch (K8's histogram counts are
+// integers, added in shared memory).
 //
 // Every kernel takes a leading S (or B) rows, so one launch serves a
 // stack of frames or the rows of a torch.func.vmap.
@@ -165,6 +174,12 @@ constexpr int kDescThreads = 128;
 constexpr int kDescWideKeypoints = 1024;
 constexpr int kDescSums = 4;
 static_assert(kWin <= 64 && kSide <= 32, "a column of the window a lane, two for a few lanes");
+
+// K8: a table's bins (a thread each in the table kernel's block, whose
+// size the apply kernel shares) and the tiles a side at most
+constexpr int kClaheBins = 256;
+constexpr int kClaheThreads = kClaheBins;
+constexpr int kMaxTiles = 256;
 
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
@@ -975,6 +990,99 @@ __global__ void __launch_bounds__(kDescThreads)
 }
 
 
+// ---------------------------------------------------------------------------
+// K8: CLAHE
+// ---------------------------------------------------------------------------
+
+// torch.clamp(torch.round(x), 0, 255) as an int: rintf rounds half to even,
+// as torch.round does
+__device__ __forceinline__ int clahe_bin(float x) {
+  return static_cast<int>(fminf(fmaxf(rintf(x), 0.0f), static_cast<float>(kClaheBins - 1)));
+}
+
+// One table of img [B, H, W] → lut [B, tiles * tiles, kClaheBins]: block
+// (tile t = ty * tiles + tx, image b), thread k on bin k.  The tile's
+// rounded pixels counted in shared memory (integer atomics: the counts do
+// not depend on their order); the clip's excess, sum of max(h - c, 0),
+// by a fixed tree; min(h, c) + excess / 256 a bin; its prefix in float64
+// (exact in any order: at these tiles' sizes the partial sums need ~40 of
+// float64's 53 bits), each entry rounded once to float32; then (cdf -
+// cdf0) / max(cdfN - cdf0, 1) * 255 in float32, the plain version's order.
+__global__ void __launch_bounds__(kClaheThreads)
+    clahe_lut_kernel(const float* img, int H, int W, int tiles, float clip_limit, float* lut) {
+  __shared__ unsigned hist[kClaheBins];
+  __shared__ float excess[kClaheBins];
+  __shared__ double prefix[2][kClaheBins];
+  const int k = threadIdx.x, t = blockIdx.x, b = blockIdx.y;
+  const int th = H / tiles, tw = W / tiles, ty = t / tiles, tx = t - ty * tiles;
+  hist[k] = 0u;
+  __syncthreads();
+  const float* tile = img + (static_cast<long long>(b) * H + static_cast<long long>(ty) * th) * W +
+                      static_cast<long long>(tx) * tw;
+  for (int p = k; p < th * tw; p += kClaheThreads) {
+    const int r = p / tw;
+    atomicAdd(&hist[clahe_bin(__ldg(tile + static_cast<long long>(r) * W + (p - r * tw)))], 1u);
+  }
+  __syncthreads();
+  const float h = static_cast<float>(hist[k]);
+  excess[k] = fmaxf(h - clip_limit, 0.0f);
+  __syncthreads();
+  for (int half = kClaheBins / 2; half > 0; half >>= 1) {
+    if (k < half) excess[k] += excess[k + half];
+    __syncthreads();
+  }
+  double sum = static_cast<double>(fminf(h, clip_limit) + excess[0] / 256.0f);
+  int cur = 0;
+  prefix[cur][k] = sum;
+  __syncthreads();
+  for (int d = 1; d < kClaheBins; d <<= 1) {      // Hillis-Steele, two buffers in turn
+    if (k >= d) sum += prefix[cur][k - d];
+    cur ^= 1;
+    prefix[cur][k] = sum;
+    __syncthreads();
+  }
+  const float cdf = static_cast<float>(sum);
+  const float cdf0 = static_cast<float>(prefix[cur][0]);
+  const float cdfn = static_cast<float>(prefix[cur][kClaheBins - 1]);
+  lut[(static_cast<long long>(b) * tiles * tiles + t) * kClaheBins + k] =
+      (cdf - cdf0) / fmaxf(cdfn - cdf0, 1.0f) * 255.0f;
+}
+
+// A row's (or column's) two tiles and the weight of the second, as the
+// plain version computes them: (i + 0.5) / side - 0.5 in float32 (IEEE
+// division), its floor clamped to [0, tiles - 1], the next tile clamped
+// too, the fraction clamped to [0, 1].
+__device__ __forceinline__ float clahe_weight(int i, int side, int tiles, int& t0, int& t1) {
+  const float u = (static_cast<float>(i) + 0.5f) / static_cast<float>(side) - 0.5f;
+  t0 = static_cast<int>(fminf(fmaxf(floorf(u), 0.0f), static_cast<float>(tiles - 1)));
+  t1 = imin(t0 + 1, tiles - 1);
+  return fminf(fmaxf(u - static_cast<float>(t0), 0.0f), 1.0f);
+}
+
+// img [B, H, W] → out [B, H, W]: a thread a pixel (block (pixels, image
+// b)), its four nearest tiles' tables read at its rounded value and
+// blended as v00 (1 - fy) (1 - fx) + v01 (1 - fy) fx + v10 fy (1 - fx) +
+// v11 fy fx, left to right.
+__global__ void __launch_bounds__(kClaheThreads)
+    clahe_apply_kernel(const float* img, const float* lut, int H, int W, int tiles, float* out) {
+  const int p = blockIdx.x * kClaheThreads + threadIdx.x;
+  if (p >= H * W) return;
+  const int y = p / W, x = p - y * W;
+  int y0, y1, x0, x1;
+  const float fy = clahe_weight(y, H / tiles, tiles, y0, y1);
+  const float fx = clahe_weight(x, W / tiles, tiles, x0, x1);
+  const long long at = static_cast<long long>(blockIdx.y) * H * W + p;
+  const float* t = lut + static_cast<long long>(blockIdx.y) * tiles * tiles * kClaheBins +
+                   clahe_bin(__ldg(img + at));
+  const float v00 = __ldg(t + (y0 * tiles + x0) * kClaheBins);
+  const float v01 = __ldg(t + (y0 * tiles + x1) * kClaheBins);
+  const float v10 = __ldg(t + (y1 * tiles + x0) * kClaheBins);
+  const float v11 = __ldg(t + (y1 * tiles + x1) * kClaheBins);
+  const float gy = 1.0f - fy, gx = 1.0f - fx;
+  out[at] = v00 * gy * gx + v01 * gy * fx + v10 * fy * gx + v11 * fy * fx;
+}
+
+
 unsigned blocks(long long n, int threads) {
   return static_cast<unsigned>((n + threads - 1) / threads);
 }
@@ -1137,15 +1245,37 @@ extern "C" int describe_launch(const void* img, const void* xy, const void* vali
   return static_cast<int>(cudaGetLastError());
 }
 
+// CLAHE of img [B, H, W] float32 (H and W multiples of `tiles`) in two
+// launches on `stream`: lut [B, tiles * tiles, 256] float32, then out [B,
+// H, W] float32.  `clip_limit` is max(clip th tw / 256, 1) rounded to
+// float32.
+extern "C" int image_clahe_launch(const void* img, int B, int H, int W, int tiles,
+                                  float clip_limit, void* lut, void* out, void* stream) {
+  if (B < 1 || B > kMaxRows || tiles < 1 || tiles > kMaxTiles || H < tiles || W < tiles ||
+      H % tiles != 0 || W % tiles != 0 || static_cast<long long>(H) * W >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto in = static_cast<const float*>(img);
+  float* table = static_cast<float*>(lut);
+  clahe_lut_kernel<<<dim3(tiles * tiles, B), kClaheThreads, 0, st>>>(in, H, W, tiles, clip_limit,
+                                                                    table);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  clahe_apply_kernel<<<dim3(blocks(static_cast<long long>(H) * W, kClaheThreads), B),
+                       kClaheThreads, 0, st>>>(in, table, H, W, tiles, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The limits the wrappers check before a launch, and K5's scratch per row
 // in units of C that they allocate (ops/image_kernels.py).
 extern "C" int image_kernel_limits(int* max_rows, int* patch, int* bits, int* angle_bins,
-                                   int* scratch_f, int* scratch_i) {
+                                   int* scratch_f, int* scratch_i, int* max_tiles) {
   *max_rows = kMaxRows;
   *patch = kPatch;
   *bits = kBits;
   *angle_bins = kAngleBins;
   *scratch_f = kScratchF;
   *scratch_i = kScratchI;
+  *max_tiles = kMaxTiles;
   return 0;
 }

@@ -82,12 +82,11 @@ class TrackFlags:
 
 
 def preprocess(gray, cfg: SlamConfig):
-    """Optional CLAHE, then the float32 pyramid of the gray frame ([H, W],
-    or a stack [B, H, W] of B streams' frames)."""
+    """Optional CLAHE (one call on a stack), then the float32 pyramid of the
+    gray frame ([H, W], or a stack [B, H, W] of B streams' frames)."""
     img = gray.to(torch.float32)
     if cfg.use_clahe:
-        img = (clahe(img, clip=cfg.clahe_clip) if img.dim() == 2
-               else torch.stack([clahe(x, clip=cfg.clahe_clip) for x in img]))
+        img = clahe(img, clip=cfg.clahe_clip)
     return build_pyramid(img, cfg.pyramid_levels)
 
 

@@ -8,14 +8,17 @@ TF32 on the card by default).  Patch extraction is a direct gather: the
 JAX package's one-hot matmul is exact, so the gather returns the same
 values.  CLAHE counts its per-tile histograms with ``scatter_add_``
 where the JAX package sums a one-hot tensor; the counts are exact
-integers either way.
+integers either way, and its CDF takes the prefix in float64 (as a CPU
+torch's float32 ``cumsum`` does inside), so that the card's plain version
+rounds as the kernel does.
 
-``rgba_to_gray``, ``build_pyramid`` and ``pyr_down`` dispatch on the
-device: CUDA tensors launch K7 (csrc/image_kernels.cu,
+``rgba_to_gray``, ``build_pyramid``, ``pyr_down`` and ``clahe`` dispatch
+on the device: CUDA tensors launch K7 and K8 (csrc/image_kernels.cu,
 ops/image_kernels.py) straight from the wrapper, one launch per
 conversion, per 3-level pyramid (per two levels below level 0) and per
-``pyr_down``, bit-equal to the plain versions; CPU tensors run the plain
-versions; any other device raises.
+``pyr_down``, two per ``clahe`` call on one image or a stack, bit-equal
+to the plain versions; CPU tensors run the plain versions; any other
+device raises.
 """
 
 from __future__ import annotations
@@ -126,28 +129,54 @@ def sobel_gradients(img):
     return dx, dy
 
 
-def clahe(img, clip: float = 3.0, tiles: int = 8):
-    """Contrast-limited adaptive histogram equalization of [H, W] float32
-    0..255: per-tile 256-bin histograms, clip and redistribute, per-tile
-    CDF lookup tables, then bilinear interpolation between the four
-    nearest tiles' tables.  H and W must be divisible by ``tiles``."""
-    h, w = img.shape
+def _check_clahe_shape(shape, tiles: int):
+    """Raise unless CLAHE takes an image of ``shape`` ([H, W] or [B, H,
+    W]) with ``tiles`` x ``tiles`` tiles: H and W positive multiples of
+    ``tiles``.  Nothing is padded."""
+    if not isinstance(tiles, int) or isinstance(tiles, bool) or tiles < 1:
+        raise ValueError(f"tiles must be a positive int, got {tiles!r}")
+    if len(shape) not in (2, 3):
+        raise ValueError(f"clahe takes [H, W] or [B, H, W], got shape {tuple(shape)}")
+    h, w = shape[-2:]
+    if h < tiles or w < tiles or h % tiles or w % tiles:
+        raise ValueError(f"clahe needs H and W divisible by tiles = {tiles}, got {h} x {w}")
+
+
+def _clahe_luts_plain(img, clip: float = 3.0, tiles: int = 8):
+    """The per-tile lookup tables of float32 [..., H, W]: [..., tiles *
+    tiles, 256] float32, tile ty * tiles + tx.  Each tile's 256-bin
+    histogram of its rounded pixels, clipped at max(clip th tw / 256, 1)
+    with the excess spread over every bin, its CDF (the prefix in float64,
+    rounded once) normalised to 0..255."""
+    lead = img.shape[:-2]
+    h, w = img.shape[-2:]
     th, tw = h // tiles, w // tiles
-    dev = img.device
-    x = img.reshape(tiles, th, tiles, tw).permute(0, 2, 1, 3).reshape(tiles * tiles, th * tw)
-    q = torch.clamp(torch.round(x), 0, 255).to(torch.int64)          # [T, P]
-    hist = torch.zeros(tiles * tiles, 256, dtype=torch.float32, device=dev)
-    hist.scatter_add_(1, q, torch.ones_like(x, dtype=torch.float32))
+    x = img.reshape(*lead, tiles, th, tiles, tw).transpose(-3, -2)
+    x = x.reshape(*lead, tiles * tiles, th * tw)
+    q = torch.clamp(torch.round(x), 0, 255).to(torch.int64)          # [..., T, P]
+    hist = torch.zeros(*lead, tiles * tiles, 256, dtype=torch.float32, device=img.device)
+    hist.scatter_add_(-1, q, torch.ones_like(x, dtype=torch.float32))
 
     clip_limit = max(clip * (th * tw) / 256.0, 1.0)
     excess = torch.clamp_min(hist - clip_limit, 0.0).sum(dim=-1, keepdim=True)
     hist = torch.clamp_max(hist, clip_limit) + excess / 256.0
-    cdf = torch.cumsum(hist, dim=-1)
-    cdf = (cdf - cdf[..., :1]) / (cdf[..., -1:] - cdf[..., :1]).clamp_min(1.0) * 255.0
-    lut = cdf.reshape(tiles, tiles, 256)
+    cdf = torch.cumsum(hist.double(), dim=-1).float()
+    return (cdf - cdf[..., :1]) / (cdf[..., -1:] - cdf[..., :1]).clamp_min(1.0) * 255.0
 
-    yy = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / th - 0.5
-    xx = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / tw - 0.5
+
+def _clahe_apply_plain(img, lut, tiles: int = 8):
+    """Each pixel of float32 [..., H, W] through the four nearest tiles'
+    tables ``lut`` [..., tiles * tiles, 256] at its rounded value, blended
+    bilinearly between the tiles' centres."""
+    h, w = img.shape[-2:]
+    th, tw = h // tiles, w // tiles
+    dev = img.device
+    # the tile sides as tensors on the device: on CUDA torch divides by a
+    # Python number as a product with its float32 reciprocal, which rounds
+    # otherwise than the division the CPU (and the kernel) takes
+    side = torch.tensor([float(th), float(tw)], device=dev)
+    yy = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / side[0] - 0.5
+    xx = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / side[1] - 0.5
     y0 = torch.clamp(torch.floor(yy), 0, tiles - 1).to(torch.int64)
     x0 = torch.clamp(torch.floor(xx), 0, tiles - 1).to(torch.int64)
     y1 = torch.clamp(y0 + 1, 0, tiles - 1)
@@ -155,12 +184,39 @@ def clahe(img, clip: float = 3.0, tiles: int = 8):
     fy = torch.clamp(yy - y0, 0.0, 1.0)[:, None]
     fx = torch.clamp(xx - x0, 0.0, 1.0)[None, :]
     qimg = torch.clamp(torch.round(img), 0, 255).to(torch.int64)
+    flat = lut.reshape(*lut.shape[:-2], -1)                          # [..., T 256]
 
     def sample(ty, tx):
-        return lut[ty[:, None], tx[None, :], qimg]
+        idx = (ty[:, None] * tiles + tx[None, :]) * 256 + qimg
+        return flat.gather(-1, idx.reshape(*idx.shape[:-2], -1)).reshape(idx.shape)
 
     return (sample(y0, x0) * (1 - fy) * (1 - fx) + sample(y0, x1) * (1 - fy) * fx
             + sample(y1, x0) * fy * (1 - fx) + sample(y1, x1) * fy * fx)
+
+
+def _clahe_plain(img, clip: float = 3.0, tiles: int = 8):
+    """CLAHE of float32 [H, W] or [B, H, W] as eager torch."""
+    _check_clahe_shape(img.shape, tiles)
+    return _clahe_apply_plain(img, _clahe_luts_plain(img, clip, tiles), tiles)
+
+
+def clahe(img, clip: float = 3.0, tiles: int = 8):
+    """Contrast-limited adaptive histogram equalization of float32 [H, W]
+    or a stack [B, H, W], 0..255: per-tile 256-bin histograms, clip and
+    redistribute, per-tile CDF lookup tables, then bilinear interpolation
+    between the four nearest tiles' tables.  H and W must be multiples of
+    ``tiles`` (ValueError otherwise).  On CUDA tensors K8 in two launches
+    whatever B (the tables, then every pixel), bit-equal to the plain
+    version; on CPU tensors the plain version."""
+    if not _dispatch(img, "clahe"):
+        return _clahe_plain(img, clip, tiles)
+    out, _ = image_kernels.launch_clahe(img.contiguous(), clip, tiles)
+    if out.numel():
+        count(clahe, "launches", image_kernels.CLAHE_LAUNCHES)
+    return out
+
+
+clahe.launches = 0
 
 
 def gather_patches(img, base_xy, size: int, lo: int):

@@ -1,12 +1,14 @@
-"""The image kernels K7, K5 and K3 (csrc/image_kernels.cu): their build,
-argument checks and launches.
+"""The image kernels K7, K5, K3 and K8 (csrc/image_kernels.cu): their
+build, argument checks and launches.
 
 ``launch_gray`` converts an RGB(A) frame or a stack of them to float32
 gray, ``launch_pyramid`` builds the levels of a pyramid below level 0 in
 one launch per two levels (so a 3-level pyramid in one) and
 ``launch_pyr_down`` takes one level down (K7); ``launch_detect`` runs the
 whole grid Shi-Tomasi detection in two launches (K5); ``launch_describe``
-computes the ORB descriptors of every keypoint in one launch (K3).  K5
+computes the ORB descriptors of every keypoint in one launch (K3);
+``launch_clahe`` equalizes an image or a stack of them in two launches
+(K8: the tiles' lookup tables, then every pixel).  K5
 and K3 take S rows, so one call serves every row that ``torch.func.vmap``
 batches (``ops/detect.py`` and
 ``ops/orb.py`` register the custom ops and their batching rule).  The
@@ -41,6 +43,8 @@ ANGLE_BINS = 30
 SCRATCH_F = 6                  # K5's scratch per row: float32s and int32s per grid cell
 SCRATCH_I = 3
 DETECT_LAUNCHES = 2            # K5's kernels per call: the cells, the ranks
+CLAHE_LAUNCHES = 2             # K8's kernels per call: the tables, the pixels
+MAX_TILES = 256                # K8's tiles a side at most
 LEVELS_PER_LAUNCH = 2          # K7's pyramid levels per launch
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "image_kernels.cu"
@@ -74,11 +78,13 @@ def bind(lib):
     lib.detect_grid_launch.argtypes = ([ptr] * 4 + [ctypes.c_float] + [i32] * 6 + [ptr] * 9)
     lib.describe_launch.restype = i32
     lib.describe_launch.argtypes = [ptr] * 4 + [i32] * 5 + [ptr] * 3
+    lib.image_clahe_launch.restype = i32
+    lib.image_clahe_launch.argtypes = [ptr] + [i32] * 4 + [ctypes.c_float] + [ptr] * 3
     lim = lib.image_kernel_limits
     lim.restype = i32
-    lim.argtypes = [ctypes.POINTER(i32)] * 6
+    lim.argtypes = [ctypes.POINTER(i32)] * 7
     want = dict(max_rows=MAX_ROWS, patch=PATCH, bits=BITS, angle_bins=ANGLE_BINS,
-                scratch_f=SCRATCH_F, scratch_i=SCRATCH_I)
+                scratch_f=SCRATCH_F, scratch_i=SCRATCH_I, max_tiles=MAX_TILES)
     got = {k: i32() for k in want}
     lim(*map(ctypes.byref, got.values()))
     for k, v in want.items():
@@ -312,3 +318,45 @@ def launch_describe(img, xy, valid, taps, blur: bool = True):
              (img.data_ptr(), xy.data_ptr(), valid.data_ptr(), taps.data_ptr(), s, h, w, n,
               int(bool(blur)), desc.data_ptr(), angle.data_ptr()), dev, "describe")
     return desc, angle
+
+
+def check_clahe_args(img, clip, tiles):
+    """Raise unless K8 takes these: float32 [H, W] or [B, H, W] (1 <= B <=
+    65535), contiguous, H and W positive multiples of ``tiles``, 1 <=
+    tiles <= MAX_TILES, a finite ``clip``.  Returns (B, H, W)."""
+    if not isinstance(img, torch.Tensor) or img.dim() not in (2, 3):
+        raise ValueError("img must be a [H, W] or [B, H, W] tensor")
+    if not isinstance(tiles, int) or isinstance(tiles, bool) or not 1 <= tiles <= MAX_TILES:
+        raise ValueError(f"the kernel takes an int 1 <= tiles <= {MAX_TILES}, got {tiles!r}")
+    _check("img", img, torch.float32, tuple(img.shape), img.device)
+    b = img.shape[0] if img.dim() == 3 else 1
+    h, w = img.shape[-2:]
+    if not 1 <= b <= MAX_ROWS:
+        raise ValueError(f"the kernel takes 1 <= B <= {MAX_ROWS} images, got {b}")
+    if h < tiles or w < tiles or h % tiles or w % tiles or h * w >= 2 ** 31:
+        raise ValueError(f"the kernel needs H and W divisible by tiles = {tiles} (H W < 2^31), "
+                         f"got {h} x {w}")
+    if not isinstance(clip, (int, float)) or isinstance(clip, bool) or clip != clip \
+            or abs(clip) == float("inf"):
+        raise ValueError(f"clip must be a finite number, got {clip!r}")
+    return b, h, w
+
+
+def launch_clahe(img, clip: float = 3.0, tiles: int = 8):
+    """CLAHE of float32 [H, W] or [B, H, W] (contiguous) in two launches,
+    whatever B: the tables [B, tiles * tiles, 256] float32 (a block per
+    tile and image), then every pixel from its four nearest tiles' tables.
+    Returns (the equalized images, the tables)."""
+    b, h, w = check_clahe_args(img, clip, tiles)
+    dev = img.device
+    _cuda(dev)
+    lib = _lib or _load()
+    out = torch.empty_like(img)
+    lut = torch.empty((b, tiles * tiles, 256), dtype=torch.float32, device=dev)
+    # the histogram's clip in float64 as the plain version computes it; the
+    # kernel takes it rounded to float32, as the plain version's float32
+    # ``hist - clip_limit`` does
+    clip_limit = max(clip * ((h // tiles) * (w // tiles)) / 256.0, 1.0)
+    _run(lib.image_clahe_launch, (img.data_ptr(), b, h, w, tiles, clip_limit, lut.data_ptr(),
+                                  out.data_ptr()), dev, "clahe")
+    return out, lut

@@ -1,4 +1,4 @@
-"""Seeded inputs and bars for the image kernels K7, K5 and K3
+"""Seeded inputs and bars for the image kernels K7, K5, K3 and K8
 (csrc/image_kernels.cu), in numpy and the port only (no JAX): the CPU
 tests (tests/test_torch_image_kernels.py), the card's tests
 (tests/test_torch_image_kernels_card.py) and chip_smoke.py phase 2e use
@@ -8,7 +8,8 @@ them.
 at any size, ``image_of`` it or another kind of image (a constant, blocks,
 non-finite pixels); ``rgba`` makes u8 RGBA frames of it; ``keypoints`` places
 keypoints inside an image, on its edges and past them; ``existing`` makes
-the live keypoints that detection's occupancy and proximity gates read.
+the live keypoints that detection's occupancy and proximity gates read;
+``clahe_image`` makes CLAHE's inputs and ``CLAHE_CASES`` lists them.
 
 ``ieee_sqrt`` is the plain versions' reference on the CPU.  A CPU build of
 torch with MKL takes ``torch.sqrt`` of float32 through MKL's vector math,
@@ -36,6 +37,19 @@ import numpy as np
 import torch
 
 ANGLE_BAR = 2e-5
+# K8's clips: the default's (3.0), whose clip limits th tw 3 / 256 are
+# dyadic (every excess term and partial sum exact in float32: K8
+# bit-equal to its plain version), and one whose limits are not (2.7: the
+# excess summed in another order, within CLAHE_ATOL of 0..255)
+CLAHE_CLIP = 3.0
+CLAHE_ODD_CLIP = 2.7
+CLAHE_ATOL = 1e-3
+# (W, H, tiles, kind) of ``clahe_image``: both tile counts at two sizes, a
+# constant image, and zeros in tiles of 1 and 2 pixels (a table whose
+# cdfN - cdf0 is 0, and 255 / 256: the clamp to 1 applies)
+CLAHE_CASES = [(128, 96, 8, "band"), (128, 96, 4, "band"), (160, 120, 8, "band"),
+               (160, 120, 4, "band"), (128, 96, 8, "constant"), (8, 8, 8, "zeros"),
+               (16, 8, 8, "zeros")]
 BIN_MARGIN = 1e-4
 ANGLE_BINS = 30
 
@@ -70,6 +84,22 @@ def image_of(kind: str, w: int, h: int) -> np.ndarray:
         return img
     y, x = np.mgrid[:h, :w]
     return np.where((y // 8 + x // 8) % 2 == 0, 40.0, 215.0).astype(np.float32)
+
+
+def clahe_image(kind: str, w: int, h: int) -> np.ndarray:
+    """[h, w] float32 for CLAHE: "band", the scene with its left 40%
+    darkened to 0.3 (clipping engages) and its first row's first pixels at
+    0, 255, the ties 0.5, 1.5, 2.5 and 254.5 (rounded half to even) and
+    -3 and 300 (clamped); "constant", 77; "zeros", 0."""
+    if kind == "constant":
+        return np.full((h, w), 77.0, np.float32)
+    if kind == "zeros":
+        return np.zeros((h, w), np.float32)
+    img = frame(w, h).copy()
+    img[:, :int(0.4 * w)] *= np.float32(0.3)
+    ties = np.array([0, 255, 0.5, 1.5, 2.5, 254.5, -3, 300], np.float32)
+    img[0, :min(w, len(ties))] = ties[:w]
+    return img
 
 
 def rgba(gray: np.ndarray) -> np.ndarray:

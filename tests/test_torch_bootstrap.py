@@ -262,6 +262,52 @@ def test_clahe_640x480(rng):
     np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=CLAHE_ATOL, rtol=0)
 
 
+def test_clahe_prefix_in_float64_equals_float32_cumsum(rng):
+    """The plain version's CDF prefix, float64 rounded once to float32,
+    equals the float32 ``torch.cumsum`` it replaced bit for bit on the CPU
+    (whose float32 cumsum accumulates in float64), tables and output, on
+    test_clahe_640x480's image."""
+    img = np.clip(rng.normal(128, 40, (480, 640)), 0, 255).astype(np.float32)
+    img[:, :200] *= 0.3
+    x = _t(img)
+    th, tw = 480 // 8, 640 // 8
+    tiles = x.reshape(8, th, 8, tw).permute(0, 2, 1, 3).reshape(64, th * tw)
+    q = torch.clamp(torch.round(tiles), 0, 255).to(torch.int64)
+    hist = torch.zeros(64, 256).scatter_add_(1, q, torch.ones(q.shape))
+    c = max(3.0 * th * tw / 256.0, 1.0)
+    hist = torch.clamp_max(hist, c) + torch.clamp_min(hist - c, 0.0).sum(-1, keepdim=True) / 256.0
+    cdf = torch.cumsum(hist, dim=-1)                    # float32, as before
+    want = (cdf - cdf[:, :1]) / (cdf[:, -1:] - cdf[:, :1]).clamp_min(1.0) * 255.0
+    assert torch.equal(timg._clahe_luts_plain(x), want)
+    assert torch.equal(timg.clahe(x), timg._clahe_apply_plain(x, want))
+
+
+def test_clahe_refuses_sizes_not_divisible_by_tiles():
+    for shape, tiles in (((100, 128), 8), ((96, 130), 8), ((3, 96, 126), 4), ((4, 4), 8),
+                         ((96, 128), 0), ((2, 2, 8, 8), 8)):
+        with pytest.raises(ValueError):
+            timg.clahe(torch.zeros(shape), tiles=tiles)
+
+
+def test_preprocess_stack_with_clahe_matches_jax_vmap(rng):
+    """``preprocess`` on a [3, 96, 128] stack (one ``clahe`` call) against
+    ``jax.vmap`` of the JAX package's, and each row equal to the row's own
+    call (the per-stream loop it replaced)."""
+    imgs = np.stack([np.clip(rng.normal(90 + 30 * b, 30, (96, 128)), 0, 255)
+                     for b in range(3)]).astype(np.float32)
+    imgs[1, :, :50] *= 0.3
+    jcfg = JSlamConfig(width=128, height=96, use_clahe=True)
+    cfg = SlamConfig(width=128, height=96, use_clahe=True)
+    got = tstep.preprocess(_t(imgs), cfg)
+    want = jax.vmap(lambda g: jstep.preprocess(g, jcfg))(jnp.asarray(imgs))
+    assert len(got) == len(want) == cfg.pyramid_levels
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=CLAHE_ATOL, rtol=0)
+    for b in range(3):
+        for a, row in zip(got, tstep.preprocess(_t(imgs[b]), cfg)):
+            assert torch.equal(a[b], row), b
+
+
 def test_preprocess_with_clahe(rng):
     img = np.clip(rng.normal(100, 30, (96, 128)), 0, 255).astype(np.float32)
     jcfg = JSlamConfig(width=128, height=96, use_clahe=True)

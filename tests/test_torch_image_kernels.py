@@ -1,5 +1,5 @@
 """The image kernels K7 (gray conversion, pyramid), K5 (grid Shi-Tomasi
-detection) and K3 (ORB describe) of csrc/image_kernels.cu
+detection), K3 (ORB describe) and K8 (CLAHE) of csrc/image_kernels.cu
 (ops/image_kernels.py): the CUDA source run on the CPU through
 tools/cpu_cuda_shim.h, held to the plain versions (ops/image.py,
 ops/detect.py, ops/orb.py) and to the JAX package's functions at
@@ -14,7 +14,11 @@ levels; K5's traps (a one-pixel last column of cells and a two-pixel last
 row, hd_serving()'s cell 96, a response tile in global scratch, NaN and
 +-inf pixels, more live keypoints than threads); K3 at both of its widths
 (4 or 1 warps a keypoint) with a last block part full and all-invalid
-rows, and the keyframe pass's one ``describe`` call equal to its two; the
+rows, and the keyframe pass's one ``describe`` call equal to its two; K8
+at ``ip.CLAHE_CASES`` (96x128 and 120x160, 8 and 4 tiles, a dark band with
+pixels at 0, 255 and half-integer ties, a constant image, zeros in tiles of
+1 and 2 pixels) at clips 3.0 and 2.7, a stack of 3 equal row by row to its
+lone calls, both versions against the JAX package's ``clahe``; the
 shim's ``__ballot_sync``, ``__any_sync``, bf16 rounding and the warp
 primitives K3 uses.  Without building: the custom
 ops' CPU implementation (the plain version), fake shapes and batching
@@ -27,7 +31,9 @@ The bars: K7 and K5 bit-equal to their plain versions, K5's response too
 (on the CPU with IEEE's square root, tests/image_problems.py ``ieee_sqrt``:
 a CPU torch with MKL rounds ``torch.sqrt`` otherwise, the card does not);
 K3's angles within 2e-5 rad and its words bit-equal at every keypoint
-whose plain angle lies more than 1e-4 rad from a steering bin's edge."""
+whose plain angle lies more than 1e-4 rad from a steering bin's edge; K8's
+tables and output bit-equal at clip 3.0, within ``ip.CLAHE_ATOL`` at 2.7,
+and both within it of the JAX package's ``clahe``."""
 
 import ctypes
 import importlib.util
@@ -569,6 +575,45 @@ def test_timeline_patches_every_stage():
     assert stamped == sorted([*set(mod.CELL_STAGES) | {0}, *set(mod.PYR_STAGES) | {0, 3}, *desc])
 
 
+@pytest.mark.parametrize("clip", [ip.CLAHE_CLIP, ip.CLAHE_ODD_CLIP])
+@pytest.mark.parametrize("W, H, tiles, kind", ip.CLAHE_CASES)
+def test_clahe_source_matches_plain(k357, W, H, tiles, kind, clip):
+    """K8's two launches through ``clahe``: tables and output bit-equal to
+    the plain version at clip 3.0, within CLAHE_ATOL at 2.7."""
+    mod, lib = k357
+    with mod.on_cpu(lib):
+        card_tests.check_clahe(W, H, tiles, kind, clip, CPU)
+
+
+def test_clahe_stack_through_the_source(k357):
+    mod, lib = k357
+    with mod.on_cpu(lib):
+        card_tests.check_clahe_stack(CPU)
+
+
+@pytest.mark.parametrize("clip", [ip.CLAHE_CLIP, ip.CLAHE_ODD_CLIP])
+@pytest.mark.parametrize("W, H, tiles", [(128, 96, 8), (160, 120, 4)])
+def test_clahe_source_and_plain_against_jax(k357, W, H, tiles, clip):
+    """K8 and the plain version within CLAHE_ATOL of the JAX package's
+    ``clahe`` (tests/test_torch_bootstrap.py's bar)."""
+    mod, lib = k357
+    img = ip.clahe_image("band", W, H)
+    want = np.asarray(jimg.clahe(jnp.asarray(img), clip=clip, tiles=tiles))
+    with mod.on_cpu(lib):
+        got = image.clahe(_t(img), clip=clip, tiles=tiles)
+    plain = image._clahe_plain(_t(img), clip=clip, tiles=tiles)
+    for x in (got, plain):
+        np.testing.assert_allclose(x.numpy(), want, atol=ip.CLAHE_ATOL, rtol=0)
+
+
+def test_clahe_c_entry_refuses_bad_shapes(k357):
+    lib = image_kernels.bind(ctypes.CDLL(k357[1]))
+    for B, H, W, tiles in ((0, 8, 8, 8), (65536, 8, 8, 8), (1, 12, 16, 8), (1, 16, 12, 8),
+                           (1, 8, 8, 0), (1, 4, 8, 8), (1, 514, 514, 257)):
+        assert lib.image_clahe_launch(None, B, H, W, tiles, 1.0, None, None, None) != 0, \
+            (B, H, W, tiles)
+
+
 def test_c_entries_refuse_bad_shapes(k357):
     """The C entries refuse what the kernels do not take before they
     launch; ``bind`` checks the library's limits against the wrapper's."""
@@ -599,7 +644,8 @@ def test_c_entries_refuse_bad_shapes(k357):
 
 
 def test_bind_refuses_other_limits(k357, monkeypatch):
-    for name in ("MAX_ROWS", "PATCH", "BITS", "ANGLE_BINS", "SCRATCH_F", "SCRATCH_I"):
+    for name in ("MAX_ROWS", "PATCH", "BITS", "ANGLE_BINS", "SCRATCH_F", "SCRATCH_I",
+                 "MAX_TILES"):
         with monkeypatch.context() as m:
             m.setattr(image_kernels, name, getattr(image_kernels, name) - 1)
             with pytest.raises(RuntimeError, match="limit"):
@@ -758,6 +804,35 @@ def test_launchers_refuse_cpu_tensors_and_bad_arguments():
         with pytest.raises(err):
             image_kernels.launch_describe(*args)
     assert image_kernels._lib is None
+
+
+def test_clahe_launcher_and_wrapper_refuse_bad_arguments():
+    """K8's launcher runs on CUDA tensors only and checks its arguments
+    before anything is built; ``clahe`` refuses sizes that are not
+    multiples of the tiles, and devices other than the CPU and CUDA."""
+    card_tests._zero()
+    img = torch.zeros(48, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        image_kernels.launch_clahe(img)
+    with pytest.raises(ValueError, match="CUDA"):
+        image_kernels.launch_clahe(img.to("meta"))
+    bad = [((torch.zeros(50, 64),), ValueError),                       # H % 8
+           ((torch.zeros(48, 60),), ValueError),                       # W % 8
+           ((torch.zeros(48, 64, dtype=torch.float64),), TypeError),
+           ((torch.zeros(64, 48).t(),), ValueError),                   # not contiguous
+           ((torch.zeros(2, 2, 48, 64),), ValueError),
+           ((torch.zeros(0, 48, 64),), ValueError),                    # B = 0
+           ((img, 3.0, 0), ValueError), ((img, 3.0, 257), ValueError),
+           ((img, 3.0, 8.0), ValueError), ((img, float("nan")), ValueError),
+           ((img.numpy(),), ValueError)]
+    for args, err in bad:
+        with pytest.raises(err):
+            image_kernels.launch_clahe(*args)
+    with pytest.raises(ValueError, match="divisible"):
+        image.clahe(torch.zeros(50, 64))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        image.clahe(torch.zeros(48, 64, device="meta"))
+    assert image_kernels._lib is None and image.clahe.launches == 0
 
 
 def test_dispatch_raises_on_other_devices():

@@ -1,4 +1,4 @@
-"""The image kernels K7, K5 and K3 on a card against their plain versions
+"""The image kernels K7, K5, K3 and K8 on a card against their plain versions
 (skipped without one: a CUDA kernel has no CPU mode).  This file imports
 neither JAX nor the JAX package, so that it runs where the card is:
 
@@ -12,7 +12,10 @@ with IEEE's square root, tests/image_problems.py ``ieee_sqrt``); K3's
 angles are within 2e-5 rad of the plain ones and its words bit-equal at
 every keypoint whose plain angle lies more than 1e-4 rad from a steering
 bin's edge.  K7 takes one launch per 3-level pyramid (two for 4 levels),
-K5 two per call."""
+K5 two per call.  K8 (CLAHE) takes two launches per call on one image or a
+stack, its tables and output bit-equal to the plain version at the
+default clip, within ``CLAHE_ATOL`` at clip 2.7, and each row of a stack
+equal to its lone call."""
 
 import numpy as np
 import pytest
@@ -65,6 +68,7 @@ image_of = ip.image_of
 
 def _zero():
     image.rgba_to_gray.launches = image.pyr_down.launches = image.build_pyramid.calls = 0
+    image.clahe.launches = 0
     image.build_pyramid.launches = 0
     detect.detect_grid.launches = detect.detect_grid.calls = 0
     orb.describe.launches = orb.describe.calls = 0
@@ -263,3 +267,53 @@ def test_detect_65535_rows_on_card(card):
         for o, f in zip(got, ("xy", "score", "valid", "new_quality")):
             want = getattr(p, f)
             assert torch.equal(o[k::3], want.expand((S // 3,) + want.shape)), (k, f)
+
+
+def check_clahe(W, H, tiles, kind, clip, dev):
+    """K8 on one case of ``ip.CLAHE_CASES`` at ``clip`` on ``dev``: two
+    launches through ``clahe``; the tables and the output bit-equal to the
+    plain version at ``ip.CLAHE_CLIP``, within ``ip.CLAHE_ATOL`` at any
+    other clip.  Returns the output's largest distance."""
+    x = torch.as_tensor(ip.clahe_image(kind, W, H), device=dev)
+    _zero()
+    got = image.clahe(x, clip=clip, tiles=tiles)
+    assert image.clahe.launches == image_kernels.CLAHE_LAUNCHES
+    out, lut = image_kernels.launch_clahe(x, clip, tiles)
+    plain_lut = image._clahe_luts_plain(x, clip, tiles)
+    plain = image._clahe_apply_plain(x, plain_lut, tiles)
+    assert got.shape == x.shape and lut.shape == (1, tiles * tiles, 256)
+    assert torch.equal(got, out)
+    err = float((out - plain).abs().max())
+    if clip == ip.CLAHE_CLIP:
+        assert torch.equal(lut[0], plain_lut) and torch.equal(out, plain)
+    else:
+        assert float((lut[0] - plain_lut).abs().max()) <= ip.CLAHE_ATOL
+        assert err <= ip.CLAHE_ATOL
+    return err
+
+
+def check_clahe_stack(dev):
+    """K8 on a stack of 3 (the dark band, the band at half its contrast
+    rolled, a constant) in two launches: each row equal to its lone call,
+    the stack to the plain version."""
+    band = ip.clahe_image("band", 128, 96)
+    x = torch.as_tensor(np.stack([band, np.roll(0.5 * band, (7, 11), (0, 1)),
+                                  ip.clahe_image("constant", 128, 96)]), device=dev)
+    _zero()
+    got = image.clahe(x)
+    assert image.clahe.launches == image_kernels.CLAHE_LAUNCHES
+    for b in range(3):
+        assert torch.equal(got[b], image.clahe(x[b])), b
+    assert torch.equal(got, image._clahe_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [ip.CLAHE_CLIP, ip.CLAHE_ODD_CLIP])
+@pytest.mark.parametrize("W, H, tiles, kind", ip.CLAHE_CASES)
+def test_clahe_on_card(card, W, H, tiles, kind, clip):
+    check_clahe(W, H, tiles, kind, clip, card)
+
+
+@pytest.mark.cuda
+def test_clahe_stack_on_card(card):
+    check_clahe_stack(card)

@@ -26,8 +26,9 @@ presets from state.hpp) on the port against the JAX package, on the CPU.
 Run as a script, the module prints the bars chip_smoke.py holds the card's
 golden runs to: the JAX package's ``AlvaAR`` on the CPU under a preset over
 the 120 golden frames (``JAX_PLATFORMS=cpu python -m
-tests.test_torch_presets FAST ACCURATE``); with ``--port``, the port's
-``AlvaAR`` on the CPU over the same frames.
+tests.test_torch_presets FAST ACCURATE``; ``CLAHE``: the default config
+with ``use_clahe=True``, ``CLAHE:1`` the same with seed 1); with
+``--port``, the port's ``AlvaAR`` on the CPU over the same frames.
 """
 
 import dataclasses
@@ -281,17 +282,28 @@ def golden_bars(statuses, poses, gt):
                 ate_cm=100.0 * ate_rmse(est, gt[tracked][:, :3, 3]))
 
 
+def preset_config(mod, preset):
+    """The config module ``mod``'s preset ``preset``; ``CLAHE`` names the
+    default config with ``use_clahe=True``, ``CLAHE:<seed>`` the same with
+    that RANSAC seed."""
+    name, _, seed = preset.partition(":")
+    if name == "CLAHE":
+        return mod.SlamConfig(use_clahe=True, seed=int(seed or 0))
+    return getattr(mod, preset)
+
+
 def golden_run_bars(preset, port=False):
     """The JAX package's AlvaAR (or with ``port`` the port's) on the CPU
-    under ``preset`` over the 120 golden frames."""
+    under ``preset`` (a name of config.py's, or ``CLAHE``) over the 120
+    golden frames."""
     import time
     from alvaar_tpu import AlvaAR as JAlvaAR
     jax.config.update("jax_platforms", "cpu")
     frames, gt = golden_frames()
     if port:
-        slam = AlvaAR(640, 480, fov=60.0, config=getattr(tcfg, preset), device="cpu")
+        slam = AlvaAR(640, 480, fov=60.0, config=preset_config(tcfg, preset), device="cpu")
     else:
-        slam = JAlvaAR(640, 480, fov=60.0, config=getattr(jcfg, preset))
+        slam = JAlvaAR(640, 480, fov=60.0, config=preset_config(jcfg, preset))
     statuses, poses = [], []
     t0 = time.time()
     for f in frames:

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the image kernels' CUDA source (csrc/image_kernels.cu: K7, K5, K3)
-on the CPU and hold it to chip_smoke.py phase 2e's bars: the rehearsal
+"""Run the image kernels' CUDA source (csrc/image_kernels.cu: K7, K5, K3,
+K8) on the CPU and hold it to chip_smoke.py phase 2e's bars: the rehearsal
 before a chip call, where no card and no nvcc exist.
 
     python3 tools/rehearse_image_kernels.py [--full]
@@ -10,14 +10,15 @@ tools/cuda_on_cpu.py (the CUDA includes replaced by tools/cpu_cuda_shim.h,
 every CUDA thread a fiber on one host thread).  Then
 ``ops/image_kernels`` is pointed at that library with the CUDA calls
 around a launch stubbed, the custom ops' CPU kernels are the launchers,
-and ``rgba_to_gray``, ``pyr_down``, ``detect_grid`` and ``describe``
-launch the kernels on CPU tensors.  The checks are phase 2e's own
+and ``rgba_to_gray``, ``pyr_down``, ``clahe``, ``detect_grid`` and
+``describe`` launch the kernels on CPU tensors.  The checks are phase 2e's own
 function (``chip_smoke._image_checks``): K7 and K5 bit-equal to their
 plain versions (K7's pyramids at odd sizes and 3 and 4 levels, K5's traps
 too), K3's angles within 2e-5 rad and its words bit-equal at every
 keypoint whose plain angle lies more than 1e-4 rad from a steering bin's
-edge, rows under vmap equal to each row alone, one launch per call (two
-for K5, one per two pyramid levels).  Without ``--full`` the stacks are
+edge, K8's tables and output bit-equal at clip 3.0 and within 1e-3 at
+2.7, rows under vmap (and of a stack) equal to each row alone, one launch
+per call (two for K5 and K8, one per two pyramid levels).  Without ``--full`` the stacks are
 cut (the B = 64 1080p stack takes minutes on the CPU) and K5 at S = 65 535
 rows is left out; then the card tests' cases
 (tests/test_torch_image_kernels_card.py).

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Run chip_smoke.py phase 2e (the image kernels K7, K5 and K3) alone, and
-the phases they serve for two checkouts in turns.
+"""Run chip_smoke.py phase 2e (the image kernels K7, K5, K3 and K8) alone,
+and the phases they serve for two checkouts in turns.
 
-    python3 tools/run_image_phase.py [--ab OTHER_ROOT] [--turns 4] [--times-only]
+    python3 tools/run_image_phase.py [--clahe-paths] [--ab OTHER_ROOT] [--turns 4] [--times-only]
 
 Prints the environment lines of phase 1, builds the image kernels (the
 compiler's register and spill lines printed) and runs
@@ -12,7 +12,15 @@ versions and K3 at its bar at every case of ``IMAGE_STACK_CASES``,
 and ``IMAGE_DESCRIBE_CASES`` and at S = 65 535, their times at those
 shapes, and ``AlvaAR`` on golden frames as u8 RGBA; the last lines before
 the turns are the smoke's kernel rows for rgba_to_gray, build_pyramid,
-detect_grid and describe.  Exits non-zero when a bar fails.  Needs CUDA.
+detect_grid, describe and clahe.  Exits non-zero when a bar fails.  Needs
+CUDA.
+
+With ``--clahe-paths`` it then runs the paths under ``use_clahe=True`` as
+the smoke does: phase 3 (the default config, whose kernels per frame the
+CLAHE run prints beside its own), phase 11a's CLAHE golden runs at
+``CLAHE_SEEDS`` (``chip_smoke.preset_run``, their median ATE held by
+``check_clahe_ates``) and phase 6f (16 streams), with the CLAHE runs'
+digests printed, not held (the smoke holds them).
 
 With ``--ab OTHER_ROOT`` it then runs, in turns (other, this, this, other
 with four turns; other, this with two), a process per turn that imports
@@ -224,6 +232,8 @@ def main() -> int:
     ap.add_argument("--out", default=AB_DIR, help="where the turns' logs and ab.json go")
     ap.add_argument("--times-only", action="store_true",
                     help="the turns run the lone calls and phase 2e's times only")
+    ap.add_argument("--clahe-paths", action="store_true",
+                    help="then phase 3, phase 11a's CLAHE run and phase 6f")
     ap.add_argument("--turn", metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.times_only:
@@ -247,12 +257,36 @@ def main() -> int:
     golden = np.load(os.path.join(ROOT, "tests", "golden", "ref_synthetic_640.npz"))
     scene = TwoPlaneScene(np.random.default_rng(int(golden["seed"])), width=640, height=480,
                           fov=60.0, tex_scale=120.0)
-    frames = [scene.render(golden["gt"][i]).astype(np.float32)
-              for i in range(chip_smoke.IMAGE_RGBA_FRAMES)]
+    n = int(golden["n_frames"]) if args.clahe_paths else chip_smoke.IMAGE_RGBA_FRAMES
+    frames = [scene.render(golden["gt"][i]).astype(np.float32) for i in range(n)]
     rows = chip_smoke.phase_image_kernels(frames, card)
     print(f"[time] phase 2e: {time.time() - t0:.1f} s")
     for name, row in rows.items():
         print(json.dumps({"name": name, "card": card, **row}))
+    if args.clahe_paths:
+        from alvaar_tpu_torch import SlamConfig
+        gt = golden["gt"]
+        held = chip_smoke._check_run_digest
+        ates = {}
+
+        def clahe_runs():
+            for seed in chip_smoke.CLAHE_SEEDS:
+                ates[seed] = chip_smoke.preset_run(seed, frames, gt, card)[2]
+            chip_smoke.check_clahe_ates(ates, card)
+
+        for name, fn in (
+                ("3", lambda: chip_smoke.phase_main_path(frames, gt, card)),
+                ("11a CLAHE", clahe_runs),
+                ("6f", lambda: chip_smoke.phase_multistream(
+                    frames, gt, card, cfg=SlamConfig(use_clahe=True),
+                    n=chip_smoke.CLAHE_MS_FRAMES, tag="multi clahe"))):
+            t1 = time.time()
+            chip_smoke._check_run_digest = held if name == "3" else (
+                lambda run, tag: print(f"[{tag}] digest {chip_smoke._run_digest(run)} "
+                                       f"(printed, not held)"))
+            chip_smoke._image_zero()
+            fn()
+            print(f"[time] phase {name}: {time.time() - t1:.1f} s", flush=True)
     if args.ab:
         return ab_turns.run(__file__, os.path.abspath(args.ab), args.turns,
                             os.path.abspath(args.out), PATTERNS + _split_patterns(),
