@@ -57,13 +57,21 @@
 //   ~35 KB of work, so its chain of loads, passes, sums and compares sets
 //   the time at the single stream's widths.
 // * K8, alvaar_tpu/ops/image.py:83-130: `clahe` over a stack of B images
-//   in two launches whatever B.  `clahe_lut_kernel`, a block of 256 per
-//   (tile, image), thread k on bin k: the tile's histogram by integer
-//   atomics in shared memory, the clip's excess by a fixed tree, the CDF's
-//   prefix in float64 (exact), the normalised table.  `clahe_apply_kernel`,
-//   a thread a pixel: its four nearest tiles' tables at its rounded value,
-//   blended bilinearly.  Bound by bytes: the image read twice, the tables
-//   written and read, the output written.
+//   in two launches whatever B.  `clahe_lut_kernel`, a block per (tile,
+//   image): the tile's pixels by 16-byte loads into eight warp-private
+//   histograms (integer atomics in shared memory), summed a bin a thread;
+//   then thread k on bin k: the clip's excess by warp shuffles, the CDF's
+//   prefix in float64 (exact) by a shuffle scan a warp and the totals of
+//   the warps before, the normalised table.
+//   `clahe_apply_kernel`, blocks striding over the stack's bands of tile
+//   rows (as many blocks as stay resident): a block stages the 3 x 3
+//   tiles' tables around its tile and its rows' weights in shared memory,
+//   a thread four pixels a 16-byte load and store, its columns' weights in
+//   registers, each pixel's four tables at its rounded value blended
+//   bilinearly; a scalar path in both kernels for an unaligned image or a
+//   tile side that is not a multiple of 4.  Bound by bytes: the image read
+//   twice, the tables written and read, the output written; at one 640x480
+//   frame by the two launches' chains of dependent steps.
 //
 // Each computes what its plain version (alvaar_tpu_torch/ops/image.py,
 // detect.py, orb.py) computes, operation for operation: the stencils'
@@ -176,10 +184,23 @@ constexpr int kDescSums = 4;
 static_assert(kWin <= 64 && kSide <= 32, "a column of the window a lane, two for a few lanes");
 
 // K8: a table's bins (a thread each in the table kernel's block, whose
-// size the apply kernel shares) and the tiles a side at most
+// size the pixel kernel shares) and the tiles a side at most.  The pixel
+// kernel's rows a band at most, and its bands a tile: more where the
+// frames' tiles would give the multiprocessors fewer than kClaheBandFill
+// blocks each.  The loads a thread issues together: the table kernel's
+// kClaheCountUnroll (2: 32 registers, 8 blocks a multiprocessor), the
+// pixel kernel's kClaheUnroll rows; the pixel kernel's blocks a
+// multiprocessor (3: 80 registers), its grid kClaheApplyBlocks a
+// multiprocessor at most.
 constexpr int kClaheBins = 256;
 constexpr int kClaheThreads = kClaheBins;
+constexpr int kClaheWarps = kClaheThreads / 32;
 constexpr int kMaxTiles = 256;
+constexpr int kClaheBandRows = 64;
+constexpr int kClaheBandFill = 2;
+constexpr int kClaheCountUnroll = 2;
+constexpr int kClaheUnroll = 4;
+constexpr int kClaheApplyBlocks = 3;
 
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
@@ -1000,52 +1021,131 @@ __device__ __forceinline__ int clahe_bin(float x) {
   return static_cast<int>(fminf(fmaxf(rintf(x), 0.0f), static_cast<float>(kClaheBins - 1)));
 }
 
-// One table of img [B, H, W] → lut [B, tiles * tiles, kClaheBins]: block
-// (tile t = ty * tiles + tx, image b), thread k on bin k.  The tile's
-// rounded pixels counted in shared memory (integer atomics: the counts do
-// not depend on their order); the clip's excess, sum of max(h - c, 0),
-// by a fixed tree; min(h, c) + excess / 256 a bin; its prefix in float64
-// (exact in any order: at these tiles' sizes the partial sums need ~40 of
-// float64's 53 bits), each entry rounded once to float32; then (cdf -
-// cdf0) / max(cdfN - cdf0, 1) * 255 in float32, the plain version's order.
+// V consecutive floats at p (V = 4: one 16-byte load or store, p 16-byte
+// aligned; V = 1: one float)
+template <int V>
+__device__ __forceinline__ void clahe_load(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+template <int V>
+__device__ __forceinline__ void clahe_store(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+// A band's first row and its rows: `n` rows split into `parts` bands, the
+// first n % parts of them a row longer
+__device__ __forceinline__ int clahe_band(int n, int parts, int band, int& rows) {
+  const int base = n / parts, extra = n - base * parts;
+  rows = base + (band < extra ? 1 : 0);
+  return band * base + imin(band, extra);
+}
+
+// Count the rounded pixels of `rows` rows of `cols` at p (row pitch W
+// floats) into `hist`, V pixels a load (V = 4: cols a multiple of 4, p
+// 16-byte aligned): thread k takes loads k, k + kClaheThreads, ...,
+// kClaheCountUnroll of them issued together before their counts, each load's
+// row and column stepped from the last without a division.
+template <int V>
+__device__ __forceinline__ void clahe_count(const float* p, int rows, int cols, int W,
+                                            unsigned* hist) {
+  const int q = cols / V, dr = kClaheThreads / q, dc = kClaheThreads - dr * q;
+  const long long n = static_cast<long long>(rows) * q;
+  int r = threadIdx.x / q, c = threadIdx.x - r * q;
+  for (long long i = threadIdx.x; i < n; i += kClaheCountUnroll * kClaheThreads) {
+    float v[kClaheCountUnroll][V];
+#pragma unroll
+    for (int u = 0; u < kClaheCountUnroll; ++u) {
+      if (i + u * kClaheThreads < n) clahe_load<V>(p + static_cast<long long>(r) * W + c * V, v[u]);
+      c += dc;
+      r += dr;
+      if (c >= q) {
+        c -= q;
+        ++r;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kClaheCountUnroll; ++u)
+      if (i + u * kClaheThreads < n)
+#pragma unroll
+        for (int j = 0; j < V; ++j) atomicAdd(&hist[clahe_bin(v[u][j])], 1u);
+  }
+}
+
+// One table of img [B, H, W] → lut [B, tiles * tiles, kClaheBins]: a
+// block per (tile t = ty * tiles + tx, image b), its pixels counted into
+// its warps' histograms (integer atomics: the counts do not depend on
+// their order), their sum a bin in thread k.  Then thread k on bin k: the
+// clip's excess, sum of max(h - c, 0), by a shuffle sum a warp and the
+// warps' sums in order; min(h, c) + excess / 256; its prefix in float64
+// by a shuffle scan a warp and the totals of the warps before (exact in
+// any order: at these tiles' sizes the partial sums need ~40 of float64's
+// 53 bits), each entry rounded once to float32; then (cdf - cdf0) /
+// max(cdfN - cdf0, 1) * 255 in float32, the plain version's order.
+// `wide`: 16-byte loads (the tile side a multiple of 4, img 16-byte
+// aligned).
 __global__ void __launch_bounds__(kClaheThreads)
-    clahe_lut_kernel(const float* img, int H, int W, int tiles, float clip_limit, float* lut) {
-  __shared__ unsigned hist[kClaheBins];
-  __shared__ float excess[kClaheBins];
-  __shared__ double prefix[2][kClaheBins];
-  const int k = threadIdx.x, t = blockIdx.x, b = blockIdx.y;
-  const int th = H / tiles, tw = W / tiles, ty = t / tiles, tx = t - ty * tiles;
-  hist[k] = 0u;
+    clahe_lut_kernel(const float* img, int H, int W, int tiles, int wide, float clip_limit,
+                     float* lut) {
+  __shared__ unsigned warp_hist[kClaheWarps][kClaheBins];   // each warp's own histogram
+  __shared__ double scan[kClaheWarps];                      // each warp's prefix total
+  __shared__ float excess_of[kClaheWarps];                  // each warp's excess sum
+  __shared__ float first;                                   // bin 0's entry: the CDF's first value
+  const int k = threadIdx.x, warp = k / 32, lane = k % 32;
+  const int t = blockIdx.x, b = blockIdx.y;
+  unsigned* hists = &warp_hist[0][0];
+  for (int i = k; i < kClaheWarps * kClaheBins; i += kClaheThreads) hists[i] = 0u;
   __syncthreads();
+  const int th = H / tiles, tw = W / tiles, ty = t / tiles, tx = t - ty * tiles;
   const float* tile = img + (static_cast<long long>(b) * H + static_cast<long long>(ty) * th) * W +
                       static_cast<long long>(tx) * tw;
-  for (int p = k; p < th * tw; p += kClaheThreads) {
-    const int r = p / tw;
-    atomicAdd(&hist[clahe_bin(__ldg(tile + static_cast<long long>(r) * W + (p - r * tw)))], 1u);
-  }
+  if (wide)
+    clahe_count<4>(tile, th, tw, W, warp_hist[warp]);
+  else
+    clahe_count<1>(tile, th, tw, W, warp_hist[warp]);
   __syncthreads();
-  const float h = static_cast<float>(hist[k]);
-  excess[k] = fmaxf(h - clip_limit, 0.0f);
+  unsigned n = 0;
+#pragma unroll
+  for (int w = 0; w < kClaheWarps; ++w) n += warp_hist[w][k];
+  const float h = static_cast<float>(n);
+  float e = fmaxf(h - clip_limit, 0.0f);
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) e += __shfl_xor_sync(0xFFFFFFFFu, e, m);
+  if (lane == 0) excess_of[warp] = e;
   __syncthreads();
-  for (int half = kClaheBins / 2; half > 0; half >>= 1) {
-    if (k < half) excess[k] += excess[k + half];
-    __syncthreads();
+  float excess = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kClaheWarps; ++w) excess += excess_of[w];
+  const float v = fminf(h, clip_limit) + excess / 256.0f;
+  double sum = static_cast<double>(v);
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const double x = __shfl_up_sync(0xFFFFFFFFu, sum, d);
+    if (lane >= d) sum += x;
   }
-  double sum = static_cast<double>(fminf(h, clip_limit) + excess[0] / 256.0f);
-  int cur = 0;
-  prefix[cur][k] = sum;
+  if (lane == 31) scan[warp] = sum;
+  if (k == 0) first = v;
   __syncthreads();
-  for (int d = 1; d < kClaheBins; d <<= 1) {      // Hillis-Steele, two buffers in turn
-    if (k >= d) sum += prefix[cur][k - d];
-    cur ^= 1;
-    prefix[cur][k] = sum;
-    __syncthreads();
+  double before = 0.0, total = 0.0;
+#pragma unroll
+  for (int w = 0; w < kClaheWarps; ++w) {
+    if (w < warp) before += scan[w];
+    total += scan[w];
   }
-  const float cdf = static_cast<float>(sum);
-  const float cdf0 = static_cast<float>(prefix[cur][0]);
-  const float cdfn = static_cast<float>(prefix[cur][kClaheBins - 1]);
+  const float cdf = static_cast<float>(before + sum), cdf0 = first;
   lut[(static_cast<long long>(b) * tiles * tiles + t) * kClaheBins + k] =
-      (cdf - cdf0) / fmaxf(cdfn - cdf0, 1.0f) * 255.0f;
+      (cdf - cdf0) / fmaxf(static_cast<float>(total) - cdf0, 1.0f) * 255.0f;
 }
 
 // A row's (or column's) two tiles and the weight of the second, as the
@@ -1059,27 +1159,100 @@ __device__ __forceinline__ float clahe_weight(int i, int side, int tiles, int& t
   return fminf(fmaxf(u - static_cast<float>(t0), 0.0f), 1.0f);
 }
 
-// img [B, H, W] → out [B, H, W]: a thread a pixel (block (pixels, image
-// b)), its four nearest tiles' tables read at its rounded value and
-// blended as v00 (1 - fy) (1 - fx) + v01 (1 - fy) fx + v10 fy (1 - fx) +
-// v11 fy fx, left to right.
-__global__ void __launch_bounds__(kClaheThreads)
-    clahe_apply_kernel(const float* img, const float* lut, int H, int W, int tiles, float* out) {
-  const int p = blockIdx.x * kClaheThreads + threadIdx.x;
-  if (p >= H * W) return;
-  const int y = p / W, x = p - y * W;
-  int y0, y1, x0, x1;
-  const float fy = clahe_weight(y, H / tiles, tiles, y0, y1);
-  const float fx = clahe_weight(x, W / tiles, tiles, x0, x1);
-  const long long at = static_cast<long long>(blockIdx.y) * H * W + p;
-  const float* t = lut + static_cast<long long>(blockIdx.y) * tiles * tiles * kClaheBins +
-                   clahe_bin(__ldg(img + at));
-  const float v00 = __ldg(t + (y0 * tiles + x0) * kClaheBins);
-  const float v01 = __ldg(t + (y0 * tiles + x1) * kClaheBins);
-  const float v10 = __ldg(t + (y1 * tiles + x0) * kClaheBins);
-  const float v11 = __ldg(t + (y1 * tiles + x1) * kClaheBins);
-  const float gy = 1.0f - fy, gx = 1.0f - fx;
-  out[at] = v00 * gy * gx + v01 * gy * fx + v10 * fy * gx + v11 * fy * fx;
+// img [B, H, W] → out [B, H, W]: blocks striding over the stack's bands
+// (frame b, tile (ty, tx), one of `bands` bands of its rows, at most
+// kClaheBandRows each; band fastest, then tile, then frame).  A block
+// stages the tables of the 3 x 3 tiles around its tile that exist (slot 3
+// (sy - ty + 1) + (sx - tx + 1)) by 16-byte loads, and its rows' weights
+// and slots, in shared memory; a thread takes V columns (V = 4: the tile
+// side a multiple of 4, img and out 16-byte aligned: one 16-byte load and
+// store), their weights and slots in registers (taken before the tables
+// are staged), and every step-th row of the band, kClaheUnroll rows' loads
+// issued together; each pixel's four tables are read at its rounded value
+// and blended as v00 (1 - fy) (1 - fx) + v01 (1 - fy) fx + v10 fy (1 - fx)
+// + v11 fy fx, left to right.
+template <int V>
+__global__ void __launch_bounds__(kClaheThreads, kClaheApplyBlocks)
+    clahe_apply_kernel(const float* img, const float* lut, int B, int H, int W, int tiles,
+                       int bands, float* out) {
+  constexpr int kQuads = kClaheBins / 4;
+  __shared__ float4 staged[9 * kQuads];
+  __shared__ float row_w[kClaheBandRows];
+  __shared__ int row_slots[kClaheBandRows];
+  const float* table = reinterpret_cast<const float*>(staged);
+  const int k = threadIdx.x;
+  const int th = H / tiles, tw = W / tiles, q = tw / V, per_frame = tiles * tiles * bands;
+  const int lanes = imin(q, kClaheThreads), step = kClaheThreads / lanes;  // a row's threads, rows a pass
+  const int c0 = k % lanes;
+  int b = static_cast<int>(blockIdx.x / per_frame), at = static_cast<int>(blockIdx.x % per_frame);
+  for (; b < B; at += gridDim.x) {
+    while (at >= per_frame) {
+      at -= per_frame;
+      ++b;
+    }
+    if (b >= B) break;
+    const int band = at % bands, t = at / bands, ty = t / tiles, tx = t - ty * tiles;
+    int rows;
+    const int y = ty * th + clahe_band(th, bands, band, rows), x = tx * tw;
+    const long long frame = static_cast<long long>(b) * H;
+    const float* src = img + (frame + y) * W + x;
+    float* dst = out + (frame + y) * W + x;
+    float fx[V];
+    int s0[V], s1[V];
+    const auto columns = [&](int c) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        int a0, a1;
+        fx[j] = clahe_weight(x + c * V + j, tw, tiles, a0, a1);
+        s0[j] = (a0 - tx + 1) * kClaheBins;
+        s1[j] = (a1 - tx + 1) * kClaheBins;
+      }
+    };
+    columns(c0);
+    __syncthreads();      // the previous band's reads are done
+    for (int i = k; i < 9 * kQuads; i += kClaheThreads) {
+      const int j = i / kQuads, sy = ty - 1 + j / 3, sx = tx - 1 + j % 3;
+      if (sy >= 0 && sy < tiles && sx >= 0 && sx < tiles)
+        staged[i] = __ldg(reinterpret_cast<const float4*>(
+                              lut + ((static_cast<long long>(b) * tiles + sy) * tiles + sx) *
+                                        kClaheBins) +
+                          i % kQuads);
+    }
+    for (int r = k; r < rows; r += kClaheThreads) {
+      int a0, a1;
+      row_w[r] = clahe_weight(y + r, th, tiles, a0, a1);
+      row_slots[r] = (3 * (a0 - ty + 1) * kClaheBins) | (3 * (a1 - ty + 1) * kClaheBins) << 12;
+    }
+    __syncthreads();
+    if (k >= step * lanes) continue;
+    for (int c = c0; c < q; c += lanes) {
+      if (c != c0) columns(c);
+      for (int r = k / lanes; r < rows; r += kClaheUnroll * step) {
+        float v[kClaheUnroll][V];
+#pragma unroll
+        for (int u = 0; u < kClaheUnroll; ++u)
+          if (r + u * step < rows)
+            clahe_load<V>(src + static_cast<long long>(r + u * step) * W + c * V, v[u]);
+#pragma unroll
+        for (int u = 0; u < kClaheUnroll; ++u) {
+          const int rr = r + u * step;
+          if (rr >= rows) break;
+          const float fy = row_w[rr], gy = 1.0f - fy;
+          const float* t0 = table + (row_slots[rr] & 0xFFF);
+          const float* t1 = table + (row_slots[rr] >> 12);
+          float o[V];
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            const int bin = clahe_bin(v[u][j]);
+            const float gx = 1.0f - fx[j];
+            o[j] = t0[s0[j] + bin] * gy * gx + t0[s1[j] + bin] * gy * fx[j] +
+                   t1[s0[j] + bin] * fy * gx + t1[s1[j] + bin] * fy * fx[j];
+          }
+          clahe_store<V>(dst + static_cast<long long>(rr) * W + c * V, o);
+        }
+      }
+    }
+  }
 }
 
 
@@ -1246,23 +1419,39 @@ extern "C" int describe_launch(const void* img, const void* xy, const void* vali
 }
 
 // CLAHE of img [B, H, W] float32 (H and W multiples of `tiles`) in two
-// launches on `stream`: lut [B, tiles * tiles, 256] float32, then out [B,
-// H, W] float32.  `clip_limit` is max(clip th tw / 256, 1) rounded to
-// float32.
+// launches on `stream` (the current device's): lut [B, tiles * tiles,
+// 256] float32 (a block a tile), then out [B, H, W] float32 (at most
+// kClaheApplyBlocks blocks a multiprocessor striding over the tiles'
+// bands).  `clip_limit` is max(clip th tw / 256, 1) rounded to float32.
 extern "C" int image_clahe_launch(const void* img, int B, int H, int W, int tiles,
                                   float clip_limit, void* lut, void* out, void* stream) {
   if (B < 1 || B > kMaxRows || tiles < 1 || tiles > kMaxTiles || H < tiles || W < tiles ||
       H % tiles != 0 || W % tiles != 0 || static_cast<long long>(H) * W >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto in = static_cast<const float*>(img);
   float* table = static_cast<float*>(lut);
-  clahe_lut_kernel<<<dim3(tiles * tiles, B), kClaheThreads, 0, st>>>(in, H, W, tiles, clip_limit,
-                                                                    table);
-  const cudaError_t e = cudaGetLastError();
+  const int th = H / tiles, tw = W / tiles;
+  const auto aligned = [](const void* p) { return reinterpret_cast<unsigned long long>(p) % 16 == 0; };
+  const bool wide = tw % 4 == 0 && aligned(img);
+  clahe_lut_kernel<<<dim3(tiles * tiles, B), kClaheThreads, 0, st>>>(
+      in, H, W, tiles, static_cast<int>(wide), clip_limit, table);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  clahe_apply_kernel<<<dim3(blocks(static_cast<long long>(H) * W, kClaheThreads), B),
-                       kClaheThreads, 0, st>>>(in, table, H, W, tiles, static_cast<float*>(out));
+  const long long tile_count = static_cast<long long>(B) * tiles * tiles;
+  int bands = (th + kClaheBandRows - 1) / kClaheBandRows;
+  const long long band_fill = static_cast<long long>(kClaheBandFill) * sms;
+  const long long more = (band_fill + tile_count - 1) / tile_count;
+  if (more > bands) bands = static_cast<int>(more < th ? more : th);
+  const long long items = tile_count * bands, most = static_cast<long long>(kClaheApplyBlocks) * sms;
+  const unsigned grid = static_cast<unsigned>(items > most ? most : items);
+  const auto apply = wide && aligned(out) ? clahe_apply_kernel<4> : clahe_apply_kernel<1>;
+  apply<<<grid, kClaheThreads, 0, st>>>(in, table, B, H, W, tiles, bands,
+                                       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -146,11 +146,15 @@ Phases, each printed on its own lines:
    the left 40% of each frame darkened (clipping engages): its tables and
    output bit-equal to the plain version (ops/image.py ``_clahe_plain``)
    at the default clip 3.0, within 1e-3 at clip 2.7 (the distance
-   printed), each row of a stack equal to its lone call; its device time
-   per call (both kernels apart), the plain version as ``preprocess`` ran
-   it before (a call per stream), the bound (the image read once and the
-   output written once at 3.35 TB/s; the two passes' bytes printed
-   beside), a lone 640x480 call's host and CUDA-event time.  Every later
+   printed), each row of a stack equal to its lone call; the same bars at
+   tests/image_problems.py ``CLAHE_LAYOUT_CASES`` (a tile side that is not
+   a multiple of 4, inputs not 16-byte aligned, a constant 640x480, an
+   8192 x 2 tile); its device time per call (both kernels apart; at
+   640x480 and 16 x 640x480 also with the L2 emptied before each call),
+   the plain version as ``preprocess`` ran it before (a call per stream),
+   the bound (the image read once and the output written once at 3.35
+   TB/s; the two passes' bytes printed beside), a lone 640x480 call's host
+   and CUDA-event time.  Every later
    path checks K5's two launches per ``detect_grid`` call, K3's one per
    ``describe`` call, one ``describe`` call per ``detect_grid`` call (a
    keyframe pass or a relocalization), one pyramid launch per (3-level)
@@ -2410,6 +2414,36 @@ def _image_clahe_case(name, W, H, B, dev) -> float:
     return odd
 
 
+def _image_clahe_layout(W, H, tiles, kind, offset, dev) -> float:
+    """K8 at one case of tests/image_problems.py ``CLAHE_LAYOUT_CASES``
+    (the input ``offset`` floats past a 16-byte boundary): two launches per
+    ``clahe`` call, tables and output bit-equal to the plain version at
+    CLAHE_CLIP, within CLAHE_ODD_BAR at CLAHE_ODD_CLIP.  Returns the
+    distance at CLAHE_ODD_CLIP."""
+    import torch
+    import image_problems as ip
+    from alvaar_tpu_torch.ops import image, image_kernels
+    x = ip.clahe_input(kind, W, H, offset, dev)
+    name = f"{kind} {W}x{H}, {tiles} tiles, offset {offset}"
+    _image_zero()
+    out = image.clahe(x, clip=CLAHE_CLIP, tiles=tiles)
+    launches = image.clahe.launches
+    again, lut = image_kernels.launch_clahe(x, CLAHE_CLIP, tiles)
+    plain_lut = image._clahe_luts_plain(x, CLAHE_CLIP, tiles)
+    equal = (torch.equal(lut[0], plain_lut) and torch.equal(out, again)
+             and torch.equal(out, image._clahe_apply_plain(x, plain_lut, tiles)))
+    odd = float((image.clahe(x, clip=CLAHE_ODD_CLIP, tiles=tiles)
+                 - image._clahe_plain(x, clip=CLAHE_ODD_CLIP, tiles=tiles)).abs().max())
+    print(f"[image] K8 {name}: tables and output bit-equal to the plain version {equal} (clip "
+          f"{CLAHE_CLIP}); clip {CLAHE_ODD_CLIP}: max |diff| {odd:.3e}; launches per call "
+          f"{launches}")
+    _check(equal, f"[image] K8 {name}: differs from the plain version")
+    _check(odd <= CLAHE_ODD_BAR, f"[image] K8 {name}: {odd} from the plain version at clip "
+                                 f"{CLAHE_ODD_CLIP}")
+    _check(launches == image_kernels.CLAHE_LAUNCHES, f"[image] K8 {name}: {launches} launches")
+    return odd
+
+
 def _image_checks(dev, quick: bool = False) -> tuple:
     """Phase 2e's bars on ``dev`` (the card, or the CPU rehearsal of the
     source; ``quick``: its cut stacks, and not the 65 535 rows).  Returns K3's largest angle
@@ -2417,8 +2451,11 @@ def _image_checks(dev, quick: bool = False) -> tuple:
     largest distance at CLAHE_ODD_CLIP."""
     for case in (IMAGE_QUICK_STACKS if quick else IMAGE_STACK_CASES):
         _image_stack_case(*case, dev)
-    clahe_err = max(_image_clahe_case(*case, dev)
-                    for case in (IMAGE_QUICK_CLAHE if quick else IMAGE_CLAHE_CASES))
+    import image_problems as ip
+    clahe_err = max([_image_clahe_case(*case, dev)
+                     for case in (IMAGE_QUICK_CLAHE if quick else IMAGE_CLAHE_CASES)]
+                    + [_image_clahe_layout(*case, dev)
+                       for case in ip.CLAHE_LAYOUT_CASES])
     for case in IMAGE_PYRAMID_CASES:
         _image_pyramid_case(*case, dev)
     for case in IMAGE_DETECT_CASES:
@@ -2610,12 +2647,14 @@ def _describe_calls(W, H, N, S, dev, calls: int = 1):
 def _image_kernel_times(card) -> None:
     """K5's kernels one by one at every case of ``IMAGE_DETECT_CASES``, a
     3-level pyramid's kernels and the gray conversion (u8 RGBA, float32
-    RGB) at every case of ``IMAGE_STACK_CASES`` and K3 at every case of
+    RGB) at every case of ``IMAGE_STACK_CASES``, K8's kernels at every case
+    of ``IMAGE_CLAHE_CASES`` (at 640x480 and 16 x 640x480 also with the L2
+    emptied before each call) and K3 at every case of
     ``IMAGE_DESCRIBE_CASES`` (a merged pass's N also as two calls of N /
-    2), by ``torch.profiler``, the pyramid, the gray conversion and K3 by
-    CUDA events too: the lines the A/B turns of tools/run_image_phase.py
+    2), by ``torch.profiler``, the pyramid, the gray conversion, K8 and K3
+    by CUDA events too: the lines the A/B turns of tools/run_image_phase.py
     read, for whichever package is imported (its kernels found by name:
-    ``detect_``, ``pyr``, ``gray_kernel``, ``describe_``)."""
+    ``detect_``, ``pyr``, ``gray_kernel``, ``clahe_``, ``describe_``)."""
     import torch
     from alvaar_tpu_torch.ops import image
     dev = torch.device("cuda")
@@ -2637,6 +2676,14 @@ def _image_kernel_times(card) -> None:
                   f"{_split_text(_kernel_split(fn, 'gray_kernel'))}, {_time_ms(fn):.4f} ms per "
                   f"call by CUDA events, device {_cold_device_ms(fn, 'gray_kernel')[0]:.4f} ms "
                   f"with the L2 emptied before each call [{card}]")
+    for name, W, H, B in IMAGE_CLAHE_CASES:
+        x = _clahe_input(W, H, B, dev)
+        x = x if B > 1 else x[0]
+        fn = lambda: image.clahe(x)
+        cold = (f", device {_cold_device_ms(fn, 'clahe_')[0]:.4f} ms with the L2 emptied before "
+                f"each call" if (W, H) == (640, 480) else "")
+        print(f"[image-split] clahe {name}: device {_split_text(_kernel_split(fn, 'clahe_'))}, "
+              f"{_time_ms(fn):.4f} ms per call by CUDA events{cold} [{card}]")
     for name, W, H, N, S, merged in IMAGE_DESCRIBE_CASES:
         for calls in (1, 2) if merged else (1,):
             fn = _describe_calls(W, H, N, S, dev, calls)[3]
@@ -2743,7 +2790,8 @@ def _clahe_time(name, W, H, B, card) -> dict:
         pfn = lambda: image._clahe_plain(x)
     px, tables = B * H * W, B * 64 * 256
     row = _image_time(f"clahe {name}", fn, pfn, "clahe_", px * 8,
-                      px * CLAHE_FLOPS_PER_PIXEL + tables * CLAHE_FLOPS_PER_BIN, card)
+                      px * CLAHE_FLOPS_PER_PIXEL + tables * CLAHE_FLOPS_PER_BIN, card,
+                      cold=(W, H) == (640, 480))
     split = _kernel_split(fn, "clahe_")
     row["kernels"] = {_kernel_short(k): ms for k, (ms, _) in split.items()}
     two_pass = px * 12 + tables * 8

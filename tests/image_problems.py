@@ -9,7 +9,9 @@ at any size, ``image_of`` it or another kind of image (a constant, blocks,
 non-finite pixels); ``rgba`` makes u8 RGBA frames of it; ``keypoints`` places
 keypoints inside an image, on its edges and past them; ``existing`` makes
 the live keypoints that detection's occupancy and proximity gates read;
-``clahe_image`` makes CLAHE's inputs and ``CLAHE_CASES`` lists them.
+``clahe_image`` makes CLAHE's inputs, ``CLAHE_CASES`` and
+``CLAHE_LAYOUT_CASES`` list them and ``clahe_input`` places one at an
+offset from a 16-byte boundary.
 
 ``ieee_sqrt`` is the plain versions' reference on the CPU.  A CPU build of
 torch with MKL takes ``torch.sqrt`` of float32 through MKL's vector math,
@@ -50,6 +52,15 @@ CLAHE_ATOL = 1e-3
 CLAHE_CASES = [(128, 96, 8, "band"), (128, 96, 4, "band"), (160, 120, 8, "band"),
                (160, 120, 4, "band"), (128, 96, 8, "constant"), (8, 8, 8, "zeros"),
                (16, 8, 8, "zeros")]
+# K8's layouts (W, H, tiles, kind of ``clahe_image``, offset): a tile side
+# that is not a multiple of 4 (W = 40 with 8 tiles: both kernels' scalar
+# path), inputs starting 1 and 3 floats past a 16-byte boundary (the
+# scalar path at tile sides of 16 and 40), a constant 640x480 at 4 tiles a
+# side (every pixel of a 160 x 120 tile counted into one bin), and one
+# 8192 x 2 tile (the pixel kernel's threads walk 8 column groups of a row)
+CLAHE_LAYOUT_CASES = [(40, 24, 8, "band", 0), (128, 96, 8, "band", 1),
+                      (160, 120, 4, "band", 3), (640, 480, 4, "constant", 0),
+                      (8192, 2, 1, "band", 0)]
 BIN_MARGIN = 1e-4
 ANGLE_BINS = 30
 
@@ -100,6 +111,16 @@ def clahe_image(kind: str, w: int, h: int) -> np.ndarray:
     ties = np.array([0, 255, 0.5, 1.5, 2.5, 254.5, -3, 300], np.float32)
     img[0, :min(w, len(ties))] = ties[:w]
     return img
+
+
+def clahe_input(kind: str, w: int, h: int, offset: int, dev) -> torch.Tensor:
+    """``clahe_image(kind, w, h)`` as a contiguous [h, w] float32 tensor on
+    ``dev`` that starts ``offset`` floats into a fresh allocation (whose
+    start is 16-byte aligned): at an offset that is not a multiple of 4 the
+    image is not 16-byte aligned."""
+    buf = torch.zeros(h * w + offset, device=dev)
+    buf[offset:] = torch.as_tensor(clahe_image(kind, w, h).reshape(-1), device=dev)
+    return buf[offset:].view(h, w)
 
 
 def rgba(gray: np.ndarray) -> np.ndarray:

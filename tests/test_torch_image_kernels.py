@@ -18,9 +18,12 @@ rows, and the keyframe pass's one ``describe`` call equal to its two; K8
 at ``ip.CLAHE_CASES`` (96x128 and 120x160, 8 and 4 tiles, a dark band with
 pixels at 0, 255 and half-integer ties, a constant image, zeros in tiles of
 1 and 2 pixels) at clips 3.0 and 2.7, a stack of 3 equal row by row to its
-lone calls, both versions against the JAX package's ``clahe``; the
-shim's ``__ballot_sync``, ``__any_sync``, bf16 rounding and the warp
-primitives K3 uses.  Without building: the custom
+lone calls, both versions against the JAX package's ``clahe``; K8 at
+``ip.CLAHE_LAYOUT_CASES`` (a tile side that is not a multiple of 4,
+inputs not 16-byte aligned, a constant 640x480, an 8192 x 2 tile), and at
+every case on a device of 132 multiprocessors (more bands of rows a tile
+in the pixel kernel); the shim's ``__ballot_sync``, ``__any_sync``, bf16
+rounding and the warp primitives K3 and K8 use.  Without building: the custom
 ops' CPU implementation (the plain version), fake shapes and batching
 rule, the CPU path's independence of the library (the golden run's first
 16 frames, tests/golden/torch_step_320.npz, unchanged), the launchers'
@@ -437,7 +440,8 @@ extern "C" void run_bf16(const float* x, float* y, int n) { bf16_kernel<<<1, 64>
 
 // kind 0: a float64 xor butterfly of x[lane] (every lane its warp's sum);
 // 1: __shfl_sync broadcast of lane 5's x; 2: lanes write shared memory,
-// __syncwarp, then read their neighbour's; 3: __ldg of x[lane].
+// __syncwarp, then read their neighbour's; 3: __ldg of x[lane]; 4: a
+// float64 inclusive scan by __shfl_up_sync.
 __global__ void warp_kernel(int kind, const double* x, double* out) {
   __shared__ double s[64];
   const int lane = threadIdx.x % 32;
@@ -450,8 +454,13 @@ __global__ void warp_kernel(int kind, const double* x, double* out) {
     s[threadIdx.x] = v * 2.0;
     __syncwarp();
     v = s[threadIdx.x - lane + (lane + 1) % 32];
-  } else {
+  } else if (kind == 3) {
     v = __ldg(x + threadIdx.x);
+  } else {
+    for (int d = 1; d < 32; d <<= 1) {
+      const double y = __shfl_up_sync(0xFFFFFFFFu, v, d);
+      if (lane >= d) v += y;
+    }
   }
   out[threadIdx.x] = v;
 }
@@ -459,6 +468,7 @@ __global__ void warp_kernel(int kind, const double* x, double* out) {
 extern "C" void run_warp(int kind, const double* x, double* out, int lanes) {
   warp_kernel<<<1, lanes>>>(kind, x, out);
 }
+
 """
 
 
@@ -539,6 +549,20 @@ def test_shim_warp_primitives(probe, kind):
         np.testing.assert_array_equal(out[w:w + 32], want)
 
 
+def test_shim_shfl_up_scan(probe):
+    """The shim's ``__shfl_up_sync`` (K8's prefix): a float64 inclusive
+    scan by shuffles up over two warps, each warp's own cumulative sums in
+    the scan's order (a lane below the distance keeps its value)."""
+    x = np.random.default_rng(4).normal(0, 1e3, 64)
+    out = np.zeros(64)
+    probe.run_warp(4, x.ctypes.data, out.ctypes.data, 64)
+    for w in (0, 32):
+        want = x[w:w + 32].copy()
+        for d in (1, 2, 4, 8, 16):
+            want[d:] = want[d:] + want[:-d].copy()
+        np.testing.assert_array_equal(out[w:w + 32], want)
+
+
 def test_shim_bf16_rounding_is_torchs(probe):
     """The shim's ``__float2bfloat16_rn``: torch's bf16 rounding (nearest,
     ties to even) on random floats, exact ties, the largest finite floats,
@@ -561,7 +585,9 @@ def test_timeline_patches_every_stage():
     committed source (the cell kernel's five stages, sub-tiles, two argmaxes
     and scan; the pyramid's five; K3's barriers, its angle's store and its
     end: at least the two warp barriers of its blur, its patch's barrier
-    and the store), so that the card run does not fail on a moved line."""
+    and the store; K8's table kernel's four barriers and end, its pixel
+    kernel's start, two barriers and end), so that the card run does not
+    fail on a moved line."""
     path = Path(__file__).resolve().parents[1] / "tools" / "image_kernel_timeline.py"
     spec = importlib.util.spec_from_file_location("image_kernel_timeline", path)
     mod = importlib.util.module_from_spec(spec)
@@ -572,7 +598,9 @@ def test_timeline_patches_every_stage():
     labels = mod.describe_labels(src)
     assert len(labels) >= 5 and mod.DESC_FIRST + len(labels) <= 15    # slot 15: the SM
     desc = [0, *range(mod.DESC_FIRST, mod.DESC_FIRST + len(labels))]
-    assert stamped == sorted([*set(mod.CELL_STAGES) | {0}, *set(mod.PYR_STAGES) | {0, 3}, *desc])
+    clahe = [*range(6), *range(8, 12)]        # K8's table kernel 0-5, its pixel kernel 8-11
+    assert stamped == sorted([*set(mod.CELL_STAGES) | {0}, *set(mod.PYR_STAGES) | {0, 3}, *desc,
+                              *clahe])
 
 
 @pytest.mark.parametrize("clip", [ip.CLAHE_CLIP, ip.CLAHE_ODD_CLIP])
@@ -612,6 +640,49 @@ def test_clahe_c_entry_refuses_bad_shapes(k357):
                            (1, 8, 8, 0), (1, 4, 8, 8), (1, 514, 514, 257)):
         assert lib.image_clahe_launch(None, B, H, W, tiles, 1.0, None, None, None) != 0, \
             (B, H, W, tiles)
+
+
+@pytest.fixture
+def h100_sms(k357):
+    """The CPU build's device given an H100's 132 multiprocessors for the
+    test (2 again after): K8's pixel kernel then splits a frame's tiles
+    into more bands, over a grid of 396 blocks."""
+    lib = ctypes.CDLL(k357[1])
+    lib.cpu_cuda_set_sm_count(132)
+    yield
+    lib.cpu_cuda_set_sm_count(2)
+
+
+@pytest.mark.parametrize("clip", [ip.CLAHE_CLIP, ip.CLAHE_ODD_CLIP])
+@pytest.mark.parametrize("W, H, tiles, kind, offset", ip.CLAHE_LAYOUT_CASES)
+def test_clahe_layouts_through_the_source(k357, W, H, tiles, kind, offset, clip):
+    """K8 at a tile side that is not a multiple of 4, on inputs that are
+    not 16-byte aligned (both kernels' scalar paths), on a constant
+    640x480 and on one 8192 x 2 tile: ``check_clahe``'s bars."""
+    mod, lib = k357
+    with mod.on_cpu(lib):
+        card_tests.check_clahe(W, H, tiles, kind, clip, CPU, offset)
+
+
+@pytest.mark.parametrize("clip", [ip.CLAHE_CLIP, ip.CLAHE_ODD_CLIP])
+@pytest.mark.parametrize("W, H, tiles, kind, offset",
+                         [(*c, 0) for c in ip.CLAHE_CASES] + ip.CLAHE_LAYOUT_CASES)
+def test_clahe_on_132_multiprocessors_through_the_source(k357, h100_sms, W, H, tiles, kind,
+                                                         offset, clip):
+    """K8 on a device of 132 multiprocessors: the pixels in more bands a
+    tile: ``check_clahe``'s bars."""
+    mod, lib = k357
+    with mod.on_cpu(lib):
+        card_tests.check_clahe(W, H, tiles, kind, clip, CPU, offset)
+
+
+def test_clahe_stack_on_132_multiprocessors_through_the_source(k357, h100_sms):
+    """A stack of 3 on 132 multiprocessors (the pixels in 2 bands a tile,
+    1 band in each lone call): each row equal to its lone call, the stack
+    to the plain version."""
+    mod, lib = k357
+    with mod.on_cpu(lib):
+        card_tests.check_clahe_stack(CPU)
 
 
 def test_c_entries_refuse_bad_shapes(k357):

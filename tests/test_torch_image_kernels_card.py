@@ -15,7 +15,9 @@ bin's edge.  K7 takes one launch per 3-level pyramid (two for 4 levels),
 K5 two per call.  K8 (CLAHE) takes two launches per call on one image or a
 stack, its tables and output bit-equal to the plain version at the
 default clip, within ``CLAHE_ATOL`` at clip 2.7, and each row of a stack
-equal to its lone call."""
+equal to its lone call; also at ``CLAHE_LAYOUT_CASES`` (a tile side that
+is not a multiple of 4, inputs not 16-byte aligned, a constant 640x480, an
+8192 x 2 tile)."""
 
 import numpy as np
 import pytest
@@ -269,12 +271,14 @@ def test_detect_65535_rows_on_card(card):
             assert torch.equal(o[k::3], want.expand((S // 3,) + want.shape)), (k, f)
 
 
-def check_clahe(W, H, tiles, kind, clip, dev):
-    """K8 on one case of ``ip.CLAHE_CASES`` at ``clip`` on ``dev``: two
-    launches through ``clahe``; the tables and the output bit-equal to the
-    plain version at ``ip.CLAHE_CLIP``, within ``ip.CLAHE_ATOL`` at any
-    other clip.  Returns the output's largest distance."""
-    x = torch.as_tensor(ip.clahe_image(kind, W, H), device=dev)
+def check_clahe(W, H, tiles, kind, clip, dev, offset=0):
+    """K8 on one case of ``ip.CLAHE_CASES`` (or, with ``offset``, of
+    ``ip.CLAHE_LAYOUT_CASES``) at ``clip`` on
+    ``dev``: two launches through ``clahe``; the tables and the output
+    bit-equal to the plain version at ``ip.CLAHE_CLIP``, within
+    ``ip.CLAHE_ATOL`` at any other clip.  Returns the output's largest
+    distance."""
+    x = ip.clahe_input(kind, W, H, offset, dev)
     _zero()
     got = image.clahe(x, clip=clip, tiles=tiles)
     assert image.clahe.launches == image_kernels.CLAHE_LAUNCHES
@@ -317,3 +321,11 @@ def test_clahe_on_card(card, W, H, tiles, kind, clip):
 @pytest.mark.cuda
 def test_clahe_stack_on_card(card):
     check_clahe_stack(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [ip.CLAHE_CLIP, ip.CLAHE_ODD_CLIP])
+@pytest.mark.parametrize("W, H, tiles, kind, offset",
+                         ip.CLAHE_LAYOUT_CASES)
+def test_clahe_layouts_on_card(card, W, H, tiles, kind, offset, clip):
+    check_clahe(W, H, tiles, kind, clip, card, offset)

@@ -308,6 +308,11 @@ T __shfl_sync(unsigned, T v, int src_lane, int width = 32) {
 }
 
 template <class T>
+T __shfl_up_sync(unsigned, T v, unsigned delta, int width = 32) {
+  return cpu_cuda::exchange(v, [&](unsigned l) { return l % width >= delta ? l - delta : l; });
+}
+
+template <class T>
 T __shfl_down_sync(unsigned, T v, unsigned delta, int width = 32) {
   return cpu_cuda::exchange(v, [&](unsigned l) {
     return (l % width) + delta < static_cast<unsigned>(width) ? l + delta : l;

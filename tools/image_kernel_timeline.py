@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time goes inside K5's cell kernel, K7's pyramid kernel and K3
-(csrc/image_kernels.cu, or another commit's copy of it), on a card.
+"""Where the time goes inside K5's cell kernel, K7's pyramid kernel, K3 and
+K8 (csrc/image_kernels.cu, or another commit's copy of it), on a card.
 
     python3 tools/image_kernel_timeline.py [--source build/image_kernels_COMMIT.cu]
-                                           [--only describe] [--out OUT.json]
+                                           [--only describe] [--only clahe] [--out OUT.json]
 
 A copy of the source is written under ``build/image_timeline/`` with
 stamps patched in: thread 0 of each block records ``%globaltimer`` (ns)
@@ -14,11 +14,14 @@ the pyramid kernel after its loads, level 1's vertical pass, level 1,
 level 2's vertical pass and level 2; in K3's ``describe_kernel`` after
 each of its barriers (``__syncthreads`` or ``__syncwarp``: thread 0 is
 its block's first keypoint's first lane), after the angle's store and at
-its end; and the multiprocessor it ran on.  The copy is built with
+its end; in K8's table kernel after each barrier and at its end, in its
+pixel kernel at its start, after its last band's two barriers and at its end;
+and the multiprocessor it ran on.  The copy is built with
 ``ops/image_kernels._NVCC_FLAGS`` and launched through the port's wrappers
 (K3 through ``chip_smoke._describe_launcher`` with the source's own
 steering table) at every shape of ``chip_smoke.IMAGE_DETECT_CASES``,
-``IMAGE_STACK_CASES`` and ``IMAGE_DESCRIBE_CASES``; each stage's median
+``IMAGE_STACK_CASES``, ``IMAGE_DESCRIBE_CASES`` and (K8, through ``clahe``:
+both kernels of one call) ``IMAGE_CLAHE_CASES``; each stage's median
 and largest time over the blocks of one launch are printed (a stamp that
 no thread 0 reached, in a branch not taken, is left out), with the
 blocks' start times (a block of a later wave starts late) and the last
@@ -51,6 +54,14 @@ CELL_LABELS = ("image loads", "blur", "Sobel", "box means' vertical pass", "resp
 PYR_STAGES = (1, 2, 10, 4, 11)
 PYR_LABELS = ("level-0 loads", "level 1's vertical pass", "level 1", "level 2's vertical pass",
               "level 2")
+# K8: the table kernel's stamps 0-5 (its start, its four barriers 1-4, its
+# end 5); the pixel kernel's 8-11 (its start, its last band's two
+# barriers, its end)
+CLAHE_LUT_STAGES = (1, 2, 3, 4, 5)
+CLAHE_LUT_LABELS = ("histograms zeroed", "pixels counted", "excess", "prefix", "table stored")
+CLAHE_APPLY_STAGES = (1, 2, 3)
+CLAHE_APPLY_LABELS = ("bands before the last, the band's place and its columns' weights",
+                      "tables and row weights staged", "pixels")
 
 
 # K3's stamps: 0 at the start, then DESC_FIRST, DESC_FIRST + 1, ... after
@@ -136,6 +147,18 @@ def timed_source(src: str) -> str:
         last = pos + len(anchor)
     out += seg[last:] + "  " + _stamp(DESC_FIRST + len(anchors)) + "\n"
     s = s[:body] + "\n  " + _stamp(0) + out + s[end:]
+    a, b = s.index("    clahe_lut_kernel("), s.index("// A row's (or column's) two tiles")
+    seg = _after_barriers(s[a:b], 1)
+    body = seg.index("{") + 1
+    end = seg.rstrip().rfind("}")
+    s = s[:a] + seg[:body] + "\n  " + _stamp(0) + seg[body:end] + "  " + _stamp(5) + "\n" + \
+        seg[end:] + s[b:]
+    a, b = s.index("    clahe_apply_kernel("), s.index("unsigned blocks(long long n")
+    seg = _after_barriers(s[a:b], 9)
+    body = seg.index("{") + 1
+    end = seg.rstrip().rfind("}")
+    s = s[:a] + seg[:body] + "\n  " + _stamp(8) + seg[body:end] + "  " + _stamp(11) + "\n" + \
+        seg[end:] + s[b:]
     return s + (
         '\nextern "C" int timeline_read(void* host, long long n) {\n'
         "  return static_cast<int>(cudaMemcpyFromSymbol(host, g_stamps, n * 8));\n}\n"
@@ -173,7 +196,8 @@ def _constant(src: str, name: str) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--source", help="a copy of csrc/image_kernels.cu to time instead")
-    ap.add_argument("--only", choices=("detect", "pyramid", "describe"), action="append",
+    ap.add_argument("--only", choices=("detect", "pyramid", "describe", "clahe"),
+                    action="append",
                     help="time only these kernels (every one by default)")
     ap.add_argument("--out", help="a JSON file for the rows")
     args = ap.parse_args()
@@ -188,7 +212,7 @@ def main() -> int:
         print("image_kernel_timeline: CUDA is not available", file=sys.stderr)
         return 1
     card = chip_smoke.phase_env()
-    only = set(args.only or ("detect", "pyramid", "describe"))
+    only = set(args.only or ("detect", "pyramid", "describe", "clahe"))
     os.makedirs(OUT, exist_ok=True)
     with open(args.source or image_kernels._SRC) as f:
         text = f.read()
@@ -217,7 +241,7 @@ def main() -> int:
         buf = np.zeros(SLOTS * MAX_BLOCKS, np.uint64)
         assert lib.timeline_read(buf.ctypes.data, buf.size) == 0
         t = buf.reshape(MAX_BLOCKS, SLOTS)[:min(blocks, MAX_BLOCKS)].astype(np.int64)
-        return t[t[:, 0] != 0]              # ``blocks`` may be an upper bound
+        return t[t[:, 0] != 0] if blocks < MAX_BLOCKS else t   # ``blocks`` may be an upper bound
 
     dev = torch.device("cuda")
     rows = []
@@ -252,6 +276,18 @@ def main() -> int:
         rows.append(_stages(f"describe_kernel {name}",     # at most a block a keypoint
                             launch(lambda: describe(imgs, xy, valid), S * N), stamps, labels,
                             card))
+    for name, W, H, B in chip_smoke.IMAGE_CLAHE_CASES if "clahe" in only else ():
+        x = chip_smoke._clahe_input(W, H, B, dev)
+        x = x if B > 1 else x[0]
+        t = launch(lambda: image.clahe(x), MAX_BLOCKS)
+        lut_t = t[t[:, 5] != 0]         # the table kernel's blocks
+        rows.append(_stages(f"clahe_lut_kernel {name}", lut_t, CLAHE_LUT_STAGES,
+                            CLAHE_LUT_LABELS, card))
+        apply_t = np.zeros_like(t[t[:, 8] != 0])       # its stamps as the first columns
+        apply_t[:, :4] = t[t[:, 8] != 0][:, 8:12]
+        apply_t[:, 15] = 1
+        rows.append(_stages(f"clahe_apply_kernel {name}", apply_t, CLAHE_APPLY_STAGES,
+                            CLAHE_APPLY_LABELS, card))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

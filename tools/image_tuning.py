@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time variants of the image kernels K7, K5 and K3
+"""Time variants of the image kernels K7, K5, K3 and K8
 (csrc/image_kernels.cu) in one process on a card.
 
     python3 tools/image_tuning.py [--variant NAME=V[,NAME=V...]]... [--rounds 4]
@@ -7,7 +7,8 @@
 
 A variant sets ``constexpr int NAME = V;`` lines of the source (e.g.
 ``kCellThreads=1024``, ``kPyrTileX=32``, ``kDescWideKeypoints=0``: one warp a keypoint,
-``kGrayBlocksPerSm=16``: the gray conversion's grid);
+``kGrayBlocksPerSm=16``: the gray conversion's grid; ``kClaheBandRows=32``,
+``kClaheUnroll=2``: K8's bands and loads);
 the source as it stands is always the first.  The variants are written
 under ``build/image_tuning/`` and built at once with
 ``ops/image_kernels._NVCC_FLAGS`` (each kernel's registers, spills and
@@ -17,11 +18,13 @@ plain version, at every shape of ``IMAGE_STACK_CASES`` the 3-level
 pyramid and the gray conversion (u8 RGBA and float32 RGB), and at every
 shape of ``IMAGE_DESCRIBE_CASES`` K3 within its bar
 (angles within 2e-5 rad of the plain version's, words bit-equal outside
-1e-4 rad of a bin edge); then each one's device time per call
+1e-4 rad of a bin edge), at every shape of ``IMAGE_CLAHE_CASES`` K8
+bit-equal at the default clip; then each one's device time per call
 (``chip_smoke._kernel_split``, torch.profiler: K5's kernels one by one)
 is taken in ``--rounds`` rounds, the variants in turns (forward, then
 backward), and printed as the median with the spread.  ``--only`` keeps
-the shapes of some kernels (``detect``, ``pyramid``, ``describe``, ``gray``).
+the shapes of some kernels (``detect``, ``pyramid``, ``describe``, ``gray``,
+``clahe``).
 Needs CUDA.
 """
 
@@ -56,7 +59,9 @@ def _ptxas(log: str) -> dict:
     out = {}
     for chunk in log.split("Compiling entry function")[1:]:
         name = next((k for k in ("pyramid_kernel", "detect_cells_kernel", "detect_rank_kernel",
-                                 "describe_kernel", "gray_kernel") if k in chunk.splitlines()[0]),
+                                 "describe_kernel", "gray_kernel", "clahe_lut_kernel",
+                                 "clahe_apply_kernel")
+                     if k in chunk.splitlines()[0]),
                     None)
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores", chunk)
@@ -72,7 +77,8 @@ def main() -> int:
     ap.add_argument("--variant", action="append", default=[],
                     help="NAME=V[,NAME=V...]: constants of csrc/image_kernels.cu to set")
     ap.add_argument("--rounds", type=int, default=4)
-    ap.add_argument("--only", choices=("detect", "pyramid", "describe", "gray"), action="append",
+    ap.add_argument("--only", choices=("detect", "pyramid", "describe", "gray", "clahe"),
+                    action="append",
                     help="time only these kernels' shapes (every one by default)")
     ap.add_argument("--out", help="a JSON file for the rows")
     args = ap.parse_args()
@@ -115,7 +121,7 @@ def main() -> int:
         libs.append((i, image_kernels.bind(ctypes.CDLL(lib))))
 
     dev = torch.device("cuda")
-    only = set(args.only or ("detect", "pyramid", "describe", "gray"))
+    only = set(args.only or ("detect", "pyramid", "describe", "gray", "clahe"))
     cases = []
     for case in chip_smoke.IMAGE_DETECT_CASES if "detect" in only else ():
         fn, pfn, _, _ = chip_smoke._detect_calls(*case, dev)
@@ -144,6 +150,11 @@ def main() -> int:
         for what, x in (("u8 RGBA", rgba), ("float32 RGB", rgba[..., :3].float().contiguous())):
             cases.append((f"rgba_to_gray {name} {what}", lambda x=x: (image.rgba_to_gray(x),),
                           lambda x=x: (image._rgba_to_gray_plain(x),), "gray_kernel"))
+    for name, W, H, B in chip_smoke.IMAGE_CLAHE_CASES if "clahe" in only else ():
+        x = chip_smoke._clahe_input(W, H, B, dev)
+        x = x if B > 1 else x[0]
+        cases.append((f"clahe {name}", lambda x=x: (image.clahe(x),),
+                      lambda x=x: (image._clahe_plain(x),), "clahe_"))
     rows = []
     for case, fn, pfn, pattern in cases:
         want = pfn if pattern == "describe_" else pfn()

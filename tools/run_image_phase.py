@@ -31,7 +31,9 @@ keypoints) and ``describe`` (K = 192) call, each timed by this checkout's
 checkout's ``_image_kernel_times`` (K5's kernels one by one at every
 detection case, the 3-level pyramid's and the gray conversion's (u8 RGBA,
 float32 RGB) kernels and CUDA-event time at every stack, its device time
-also with the L2 emptied before each call, K3's device and CUDA-event time at every describe case, a merged
+also with the L2 emptied before each call, K8's two kernels and CUDA-event
+time at every ``IMAGE_CLAHE_CASES`` shape (at 640x480 and 16 x 640x480 its
+device time also with the L2 emptied), K3's device and CUDA-event time at every describe case, a merged
 pass's N also as two calls of N / 2, as the keyframe pass made them before
 commit c08cb84); then, as that checkout's
 smoke runs them, phase 3 with this checkout's profiled frames
@@ -74,6 +76,7 @@ LONE = ("build_pyramid", "detect_grid", "describe")
 _INTS = lambda g: statistics.median(int(x) for x in g.split(","))
 DETECT_KERNELS = ("detect_blur_kernel", "detect_cells_kernel", "detect_select_kernel",
                   "detect_rank_kernel")
+CLAHE_KERNELS = ("clahe_lut_kernel", "clahe_apply_kernel")
 # (key, pattern, conversion): what each turn's lines give
 PATTERNS = (
     ("track_ms", r"\[main\] frames 20-119 by kind: \d+ tracking frames median ([\d.]+) ms", float),
@@ -99,7 +102,9 @@ def _split_patterns():
     """The keys of ``_image_kernel_times``' lines: K5's device time per call
     and per kernel at each detection case, the pyramid's device and
     CUDA-event time at each stack, the gray conversion's also with the L2
-    emptied before each call."""
+    emptied before each call, K8's per call and per kernel at each CLAHE
+    case (at 640x480 and 16 x 640x480 also with the L2 emptied), K3's at
+    each describe case."""
     sys.path.insert(0, ROOT)
     import chip_smoke
     out = []
@@ -120,6 +125,14 @@ def _split_patterns():
                      head + r".*, ([\d.]+) ms per call by CUDA", float),
                     (f"gray {case[0]} {what} cold_l2_device_ms",
                      head + r".*, device ([\d.]+) ms with the L2 emptied", float)]
+    for case in chip_smoke.IMAGE_CLAHE_CASES:
+        head = rf"\[image-split\] clahe {re.escape(case[0])}: device "
+        out += [(f"k8 {case[0]} device_ms", head + r"([\d.]+) ms", float),
+                (f"k8 {case[0]} event_ms", head + r".*, ([\d.]+) ms per call by CUDA", float),
+                (f"k8 {case[0]} cold_l2_device_ms",
+                 head + r".*, device ([\d.]+) ms with the L2 emptied", float)]
+        out += [(f"k8 {case[0]} {k}_ms", head + rf".*{k} ([\d.]+) ms", float)
+                for k in CLAHE_KERNELS]
     for name, *_, merged in chip_smoke.IMAGE_DESCRIBE_CASES:
         for two in (False, True) if merged else (False,):
             what = name + (" as two calls of N / 2" if two else "")
